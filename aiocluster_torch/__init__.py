@@ -1,0 +1,28 @@
+"""aiocluster_torch: the batched gossip simulator of aiocluster_tpu,
+ported to PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
+
+The reference package (``aiocluster_tpu``, JAX on a TPU) stays as it is;
+this package imports nothing from it, nor JAX. ``Simulator(cfg,
+seed=...)`` follows the reference's trajectory round for round on the
+same ``SimConfig`` and seed. Its entry points run on the CUDA device
+unless the caller passes ``device="cpu"``, where every kernel wrapper
+takes its plain PyTorch version.
+"""
+
+from .sim import (
+    HEADLINE_BUDGET,
+    SimConfig,
+    SimState,
+    Simulator,
+    headline_config,
+    init_state,
+)
+
+__all__ = (
+    "HEADLINE_BUDGET",
+    "SimConfig",
+    "SimState",
+    "Simulator",
+    "headline_config",
+    "init_state",
+)

@@ -1,0 +1,38 @@
+"""Which implementation served each phase of the port's rounds: the
+counterpart of the reference's ``pallas_fallbacks`` ledger.
+
+- ``launches``: kernel launches, keyed ``"pairs_pull[<mode>]"`` (the mode
+  flags set, e.g. ``diag``, ``pull``, ``check+fd``) or ``"fd"``. Each
+  wrapper adds one where it launches its kernel, and nowhere else.
+- ``plain_calls``: phases served by plain PyTorch ops, keyed by phase:
+  ``"pull"`` counts sub-exchanges, ``"fd"`` standalone FD phases (a wrapper
+  given CPU tensors counts here too).
+- ``refusals``: configs refused with ``NotImplementedError``, keyed by the
+  message (which names the ``ROADMAP.md`` item that ports them).
+"""
+
+from __future__ import annotations
+
+import collections
+
+launches: collections.Counter = collections.Counter()
+plain_calls: collections.Counter = collections.Counter()
+refusals: collections.Counter = collections.Counter()
+
+
+def reset() -> None:
+    """Zero every counter."""
+    launches.clear()
+    plain_calls.clear()
+    refusals.clear()
+
+
+def pull_launches() -> int:
+    """Launches of the pair-fused pull kernel, over all its modes."""
+    return sum(v for k, v in launches.items() if k.startswith("pairs_pull["))
+
+
+def refuse(reason: str):
+    """Count a refusal and raise it."""
+    refusals[reason] += 1
+    raise NotImplementedError(reason)

@@ -1,0 +1,213 @@
+"""One pair-fused gossip sub-exchange: the wrapper of the CUDA kernel
+(csrc/pairs_pull.cu, the port of the reference's
+ops/pallas_pull.py::_pairs_kernel) and its plain PyTorch version.
+
+A sub-exchange of a grouped matching: every row ``i`` pulls from its
+partner ``p[i] = 8*gm[g] + (r - c[g]) % 8`` under the per-exchange
+budget (the proportional, hash-dithered advance) and absorbs the
+partner's heartbeat knowledge, both directions computed from the
+pre-exchange rows. Optional modes, as on the TPU: the owner-diagonal
+refresh (``mv``/``hbv``, the round's first sub-exchange), the
+all-converged check (``check``, the last) and the fused failure-detector
+epilogue (``fd``, the last).
+
+Both versions update ``w``/``hb`` (and the FD bookkeeping) IN PLACE and
+write ``fd.live``. CPU tensors take the plain version; CUDA tensors
+launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from . import _build, counters, gossip, prng
+from . import fd as fd_mod
+from .fd import FdParams, expect
+
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
+# Static shared memory of the kernel: block_sum's 32 long long partials
+# (csrc/common.cuh); chip_smoke.py holds it against the compiled kernel.
+STATIC_SMEM = 32 * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FdOperands:
+    """The fused FD epilogue's operands: the round's tick, the FD
+    bookkeeping (updated in place), the live view (written), the
+    round-start heartbeat matrix (None at fanout == 1, where the input hb
+    IS the round-start matrix) and the constants."""
+
+    tick: int
+    lc: torch.Tensor
+    im: torch.Tensor
+    ic: torch.Tensor
+    live: torch.Tensor
+    hb0: torch.Tensor | None
+    params: FdParams
+
+
+def pairs_supported(n: int, w_itemsize: int) -> bool:
+    """Whether the kernel takes this width: both rows of w staged in one
+    block's shared memory (beside its static shared memory), rows in
+    8-element vectors."""
+    return n % 8 == 0 and 2 * n * w_itemsize + STATIC_SMEM <= SMEM_LIMIT
+
+
+def compiled_static_smem() -> int:
+    """The built kernel's static shared memory in bytes, as the CUDA
+    runtime reports it (needs a CUDA device)."""
+    lib = _build.load("pairs_pull")
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.aiocluster_pairs_pull_static_smem(ctypes.byref(out)),
+                 "pairs_pull static shared memory query")
+    return out.value
+
+
+def pairs_pull_plain(
+    w, hb, gm, c, valid, salt, run_salt, budget, *,
+    mv=None, hbv=None, check=None, fd: FdOperands | None = None,
+):
+    """The plain version of ``pairs_pull`` (same operands, same in-place
+    effect, same returned flag)."""
+    n = w.shape[0]
+    dev = w.device
+    p = prng.rows_of_groups(gm.to(torch.int64), c.to(torch.int64))
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    if mv is not None:
+        w0 = torch.where(eye, mv.to(w.dtype)[None, :], w)
+    else:
+        w0 = w
+    owners = torch.arange(n, device=dev)
+    adv = gossip.budgeted_advance(
+        w0, w0[p], budget, valid, salt, owners, run_salt
+    )
+    w_new = w0 + adv
+    flag = None
+    if check is not None:
+        needed, alive, alive_owner = check
+        need = torch.where(alive_owner, needed.to(torch.int32), 0)
+        ok = ((w_new.to(torch.int32) >= need[None, :]) | ~alive[:, None]).all()
+        flag = ok.to(torch.int32).reshape(1)
+    if hb is not None:
+        if mv is not None:
+            hb_in = torch.where(eye, hbv.to(hb.dtype)[None, :], hb)
+        else:
+            hb_in = hb
+        hb_new = torch.maximum(hb_in, torch.where(valid[:, None], hb_in[p], 0))
+        if fd is not None:
+            if fd.hb0 is not None:
+                hb0 = torch.where(
+                    eye, hbv.to(torch.int32)[None, :], fd.hb0.to(torch.int32)
+                )
+            else:
+                hb0 = hb_in.to(torch.int32)
+            out = fd_mod.fd_update(
+                fd.tick, hb_new.to(torch.int32), hb0, fd.lc.to(torch.int32),
+                fd.im.to(torch.float32), fd.ic.to(torch.int32), fd.params,
+            )
+            fd_mod.fd_store(0, *out, fd.lc, fd.im, fd.ic, fd.live)
+        hb.copy_(hb_new)
+    w.copy_(w_new)
+    return flag
+
+
+def pairs_pull(
+    w, hb, gm, c, valid, salt, run_salt, budget, *,
+    mv=None, hbv=None, check=None, fd: FdOperands | None = None,
+):
+    """One pair-fused sub-exchange, in place.
+
+    ``w`` (N, N) int16/int32 and ``hb`` (N, N) int16/int32 or None (the
+    lean profile); ``gm``/``c`` (N/8,) int32 the grouped matching;
+    ``valid`` (N,) bool the alive-pair mask per row; ``salt`` the
+    sub-exchange salt and ``run_salt`` the run's; ``budget`` key-versions
+    per exchange. ``mv``/``hbv`` (N,) int32 refresh the owner diagonal
+    first (``hbv`` also refreshes the FD's hb0 diagonal). ``check`` =
+    (needed, alive, alive_owner) asks for the all-converged flag of the
+    output, returned as a (1,) int32 tensor (None without ``check``).
+    ``fd`` runs the FD phase on the post-exchange heartbeat rows."""
+    if w.device.type == "cpu":
+        counters.plain_calls["pull"] += 1
+        return pairs_pull_plain(
+            w, hb, gm, c, valid, salt, run_salt, budget,
+            mv=mv, hbv=hbv, check=check, fd=fd,
+        )
+    n, dev = w.shape[0], w.device
+    if w.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"w dtype {w.dtype} is not int16/int32")
+    if not pairs_supported(n, w.element_size()):
+        raise ValueError(
+            f"pairs kernel cannot run n={n} with {w.dtype} watermarks "
+            "(needs n % 8 == 0 and both rows in shared memory)"
+        )
+    expect("w", w, w.dtype, (n, n), dev)
+    expect("gm", gm, torch.int32, (n // 8,), dev)
+    expect("c", c, torch.int32, (n // 8,), dev)
+    expect("valid", valid, torch.bool, (n,), dev)
+    h_code = w.element_size()
+    if hb is not None:
+        if hb.dtype not in (torch.int16, torch.int32):
+            raise ValueError(f"hb dtype {hb.dtype} is not int16/int32")
+        expect("hb", hb, hb.dtype, (n, n), dev)
+        h_code = hb.element_size()
+    if mv is not None:
+        expect("mv", mv, torch.int32, (n,), dev)
+        if hb is not None and hbv is None:
+            raise ValueError("hbv required when mv is given and hb is tracked")
+    if hbv is not None:
+        expect("hbv", hbv, torch.int32, (n,), dev)
+    need = alive = flag = None
+    if check is not None:
+        needed, alive, alive_owner = check
+        need = torch.where(alive_owner, needed.to(torch.int32), 0)
+        expect("alive", alive, torch.bool, (n,), dev)
+        flag = torch.ones(1, dtype=torch.int32, device=dev)
+    fd_ptrs = [None] * 5
+    im_code = 104
+    consts = FdParams(0.0, 0, 0.0, 0.0, 0.0)
+    tick = 0
+    if fd is not None:
+        if hb is None or hbv is None:
+            raise ValueError("the fused FD needs hb and hbv")
+        if fd.im.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"imean dtype {fd.im.dtype} is not bfloat16/float32")
+        expect("last_change", fd.lc, hb.dtype, (n, n), dev)
+        expect("imean", fd.im, fd.im.dtype, (n, n), dev)
+        expect("icount", fd.ic, torch.int16, (n, n), dev)
+        expect("live", fd.live, torch.bool, (n, n), dev)
+        if fd.hb0 is not None:
+            expect("hb0", fd.hb0, hb.dtype, (n, n), dev)
+        fd_ptrs = [
+            fd.lc.data_ptr(), fd.im.data_ptr(), fd.ic.data_ptr(),
+            fd.live.data_ptr(),
+            None if fd.hb0 is None else fd.hb0.data_ptr(),
+        ]
+        im_code = 102 if fd.im.dtype == torch.bfloat16 else 104
+        consts = fd.params
+        tick = int(fd.tick)
+    salt_mix = (int(salt) & prng.M32) ^ (int(run_salt) & prng.M32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load("pairs_pull")
+    rc = lib.aiocluster_pairs_pull(
+        w.data_ptr(), ptr(hb), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
+        n, salt_mix, float(budget), ptr(mv), ptr(hbv), ptr(need),
+        ptr(alive), ptr(flag), tick, *fd_ptrs,
+        consts.max_interval, consts.window, consts.prior_weight,
+        consts.prior_wm, consts.phi, w.element_size(), h_code, im_code,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, rc, "pairs_pull kernel launch")
+    counters.launches[counter_key(mv is not None, check is not None, fd is not None)] += 1
+    return flag
+
+
+def counter_key(diag: bool, check: bool, fd: bool) -> str:
+    """The ``counters.launches`` key of a launch in this mode."""
+    flags = [f for f, on in (("diag", diag), ("check", check), ("fd", fd)) if on]
+    return f"pairs_pull[{'+'.join(flags) or 'pull'}]"

@@ -1,0 +1,140 @@
+"""Tensor state for the PyTorch gossip simulator.
+
+The same fields, dtypes and shapes as the reference ``SimState``: what
+replica ``i`` knows about owner ``j`` is one watermark ``w[i, j]`` (a
+version prefix), plus heartbeat knowledge and the phi-accrual failure
+detector's bookkeeping. The state is a frozen dataclass of tensors that
+all live on one device; ``dataclasses.replace`` makes the next one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .config import SimConfig
+
+DTYPES = {
+    "bool": torch.bool,
+    "uint8": torch.uint8,
+    "int8": torch.int8,
+    "int16": torch.int16,
+    "int32": torch.int32,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SimState:
+    """One cluster's complete simulated state."""
+
+    tick: torch.Tensor  # () int32 — gossip round counter
+    max_version: torch.Tensor  # (N,) int32 — owner version counters
+    heartbeat: torch.Tensor  # (N,) int32 — owner heartbeat counters
+    alive: torch.Tensor  # (N,) bool — ground-truth liveness
+    w: torch.Tensor  # (N, N) version_dtype — i's watermark on owner j
+    hb_known: torch.Tensor  # (N, N) heartbeat_dtype — highest hb of j known to i
+    # Failure-detector state ((0, 0) when disabled): the sampling window
+    # as a running (mean, count) pair.
+    last_change: torch.Tensor  # (N, N) heartbeat_dtype — tick of last hb increase
+    imean: torch.Tensor  # (N, N) fd_dtype — mean of sampled intervals (ticks)
+    icount: torch.Tensor  # (N, N) int16 — number of samples (window-capped)
+    live_view: torch.Tensor  # (N, N) bool — i's belief that j is alive
+    # Dead-node lifecycle stamps; (0, 0) unless dead_grace_ticks is set,
+    # which the port does not run yet.
+    dead_since: torch.Tensor  # (N, N) heartbeat_dtype
+
+    def replace(self, **changes) -> "SimState":
+        return dataclasses.replace(self, **changes)
+
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+
+# Largest representable watermark / heartbeat per dtype rung: init_state
+# and the horizon guard (Simulator._check_horizon) enforce these bounds
+# loudly instead of letting a narrow rung wrap.
+VERSION_LIMITS = {"int32": 2**31, "int16": 2**15, "int8": 2**7, "u4r": 16}
+HEARTBEAT_LIMITS = {"int32": 2**31, "int16": 2**15, "int8": 2**7}
+
+
+def state_n_local(state: SimState) -> int:
+    """The owner-column count of the state's matrices (the packed u4
+    rung, whose stored width is halved, is not ported)."""
+    return int(state.w.shape[-1])
+
+
+def expected_dtypes(cfg: SimConfig) -> dict[str, str]:
+    """Storage dtype per SimState field for this config's rung — the
+    layout contract carried-in states are validated against."""
+    vdt = "uint8" if cfg.version_dtype == "u4r" else cfg.version_dtype
+    hdt = cfg.heartbeat_dtype
+    return {
+        "tick": "int32",
+        "max_version": "int32",
+        "heartbeat": "int32",
+        "alive": "bool",
+        "w": vdt,
+        "hb_known": hdt,
+        "last_change": hdt,
+        "imean": cfg.fd_dtype,
+        "icount": cfg.icount_dtype,
+        "live_view": "uint8" if cfg.live_bits else "bool",
+        "dead_since": hdt,
+    }
+
+
+def init_state(
+    cfg: SimConfig,
+    initial_versions=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> SimState:
+    """Fresh cluster: every node owns ``keys_per_node`` versions (or
+    per-node counts via ``initial_versions``), knows only itself, and has
+    heartbeat 1."""
+    device = torch.device(device)
+    n = cfg.n_nodes
+    fd_shape = (n, n) if cfg.track_failure_detector else (0, 0)
+    ds_shape = (
+        (n, n)
+        if cfg.track_failure_detector and cfg.dead_grace_ticks is not None
+        else (0, 0)
+    )
+    if initial_versions is None:
+        initial_versions = torch.full((n,), cfg.keys_per_node, dtype=torch.int32)
+    initial_versions = torch.as_tensor(initial_versions).to(
+        device=device, dtype=torch.int32, copy=True
+    )
+    limit = VERSION_LIMITS[cfg.version_dtype]
+    if int(initial_versions.max()) >= limit:
+        raise ValueError(
+            f"initial versions overflow version_dtype={cfg.version_dtype} "
+            f"(must stay < {limit})"
+        )
+    eye = torch.eye(n, dtype=torch.bool, device=device)
+    vdt = DTYPES[cfg.version_dtype]
+    hdt = DTYPES[cfg.heartbeat_dtype]
+    w = torch.where(eye, initial_versions[None, :], 0).to(vdt)
+    hb_known = (
+        eye.to(hdt) if cfg.track_heartbeats
+        else torch.zeros((0, 0), dtype=hdt, device=device)
+    )
+    live_view = (
+        eye.clone() if cfg.track_failure_detector
+        else torch.zeros(fd_shape, dtype=torch.bool, device=device)
+    )
+    return SimState(
+        tick=torch.zeros((), dtype=torch.int32, device=device),
+        max_version=initial_versions,
+        heartbeat=torch.ones((n,), dtype=torch.int32, device=device),
+        alive=torch.ones((n,), dtype=torch.bool, device=device),
+        w=w,
+        hb_known=hb_known,
+        last_change=torch.zeros(fd_shape, dtype=hdt, device=device),
+        imean=torch.zeros(fd_shape, dtype=DTYPES[cfg.fd_dtype], device=device),
+        icount=torch.zeros(fd_shape, dtype=DTYPES[cfg.icount_dtype], device=device),
+        live_view=live_view,
+        dead_since=torch.zeros(ds_shape, dtype=hdt, device=device),
+    )

@@ -1,0 +1,205 @@
+"""The port's round equals the reference's bit for bit: every state tensor
+at every round up to convergence (the reference's XLA path on the CPU
+against the port's plain path), the same converged round through
+``Simulator.run_until_converged`` over several seeds, a state carried in
+mid-run continuing identically, and the dispatch resolution."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from jax import random
+
+from aiocluster_tpu.ops.gossip import sim_step as ref_step
+from aiocluster_tpu.sim import SimConfig as RefConfig
+from aiocluster_tpu.sim import Simulator as RefSimulator
+from aiocluster_tpu.sim.state import init_state as ref_init
+from aiocluster_torch import Simulator, SimConfig
+from aiocluster_torch.ops import counters, gossip, prng
+from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
+from aiocluster_torch.sim.state import STATE_FIELDS, init_state
+
+# Tiny tensors: one thread each, leaving the cores to the suite's
+# wall-clock tests running in other workers.
+torch.set_num_threads(1)
+
+NARROW = dict(version_dtype="int16", heartbeat_dtype="int16", fd_dtype="bfloat16")
+
+
+def _assert_states_equal(ref, port, where):
+    got = state_to_numpy(port)
+    for f in STATE_FIELDS:
+        a, b = np.asarray(getattr(ref, f)), got[f]
+        if a.dtype.name == "bfloat16":
+            a, b = a.view(np.uint16), b.view(np.uint16)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f"{where}: {f}"
+
+
+@pytest.mark.parametrize(
+    "n, rung, fanout, wpr, over",
+    [
+        (256, "wide", 3, 0, {}),
+        (256, "narrow", 3, 1, {}),
+        (512, "narrow", 1, 0, {}),
+        (512, "wide", 1, 1, {}),
+        # use_pallas=True on CPU tensors: the pairs wrappers' plain
+        # versions with the fused FD epilogue.
+        (256, "narrow", 2, 0, dict(use_pallas=True)),
+        # The A/B seam: plain pull, the standalone FD wrapper.
+        (256, "wide", 3, 1, dict(use_pallas=False, use_pallas_fd=True)),
+        (256, "narrow", 3, 0, dict(track_failure_detector=False, track_heartbeats=False)),
+    ],
+)
+def test_round_by_round_equals_reference(n, rung, fanout, wpr, over):
+    kw = dict(n_nodes=n, keys_per_node=4, fanout=fanout, budget=64,
+              writes_per_round=wpr, **(NARROW if rung == "narrow" else {}), **over)
+    # The reference runs its XLA path (its own tests pin it bit-equal to
+    # its kernels); the port runs whichever path ``over`` selects.
+    rcfg = RefConfig(**dict(kw, use_pallas=False, use_pallas_fd=False))
+    pcfg = SimConfig(**kw)
+    rs, ps = ref_init(rcfg), init_state(pcfg, device="cpu")
+    key, pkey = random.key(n + fanout), prng.key(n + fanout)
+    converged = False
+    for r in range(40):
+        rs, rflag = ref_step(rs, key, rcfg, return_converged=True)
+        ps, pflag = gossip.sim_step(ps, pkey, pcfg, return_converged=True)
+        _assert_states_equal(rs, ps, f"round {r + 1}")
+        assert bool(rflag) == bool(pflag)
+        converged = bool(rflag)
+        if converged and wpr == 0:
+            break
+    assert converged or wpr > 0 or fanout == 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5])
+def test_run_until_converged_same_round(seed):
+    kw = dict(n_nodes=256, keys_per_node=6, fanout=2, budget=48, **NARROW)
+    want = RefSimulator(RefConfig(**kw), seed=seed, chunk=4).run_until_converged(200)
+    sim = Simulator(SimConfig(**kw), seed=seed, chunk=4, device="cpu")
+    got = sim.run_until_converged(200)
+    assert got is not None and got == want
+    m = sim.metrics()
+    assert bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
+
+
+def test_metrics_match_reference():
+    from aiocluster_tpu.ops.gossip import convergence_metrics as ref_metrics
+
+    kw = dict(n_nodes=256, keys_per_node=6, fanout=2, budget=20, **NARROW)
+    rcfg, pcfg = RefConfig(**kw), SimConfig(**kw)
+    rs, ps = ref_init(rcfg), init_state(pcfg, device="cpu")
+    key, pkey = random.key(3), prng.key(3)
+    for _ in range(4):
+        rs, ps = ref_step(rs, key, rcfg), gossip.sim_step(ps, pkey, pcfg)
+    want = {k: np.asarray(v) for k, v in ref_metrics(rs).items()}
+    got = {k: v.numpy() for k, v in gossip.convergence_metrics(ps).items()}
+    assert set(got) == set(want)
+    for k in ("converged_owners", "all_converged", "alive_count", "fd_false_positives"):
+        assert np.array_equal(got[k], want[k]), k
+    # Float sums: the same values summed in another order (rtol is one
+    # float32 rounding per addition over 65k terms at most).
+    for k in ("min_fraction", "mean_fraction", "kv_known", "fd_false_positive_fraction"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+
+
+def test_carried_state_continues_identically():
+    kw = dict(n_nodes=256, keys_per_node=8, fanout=3, budget=24, writes_per_round=1, **NARROW)
+    rcfg, pcfg = RefConfig(**kw), SimConfig(**kw)
+    key = random.key(9)
+    rs = ref_init(rcfg)
+    for _ in range(5):
+        rs = ref_step(rs, key, rcfg)
+    arrays = {f: np.asarray(getattr(rs, f)) for f in STATE_FIELDS}
+    sim = Simulator(pcfg, seed=9, state=state_from_numpy(arrays, pcfg, "cpu"), device="cpu")
+    assert sim.tick == 5
+    for _ in range(6):
+        rs = ref_step(rs, key, rcfg)
+    sim.run(6)
+    _assert_states_equal(rs, sim.state, "after carry")
+
+
+def test_dispatch_resolution():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    head = SimConfig(n_nodes=10_240, keys_per_node=16, fanout=3, budget=2618, **NARROW)
+    assert gossip.pull_phase_engaged(head, cuda) == "pairs"
+    assert gossip.fd_phase_engaged(head, cuda) == "fused"
+    seam = dataclasses.replace(head, use_pallas=False, use_pallas_fd=True)
+    assert gossip.pull_phase_engaged(seam, cuda) == "plain"
+    assert gossip.fd_phase_engaged(seam, cuda) == "kernel"
+    both_off = dataclasses.replace(head, use_pallas=False, use_pallas_fd=False)
+    assert gossip.pull_phase_engaged(both_off, cuda) == "plain"
+    assert gossip.fd_phase_engaged(both_off, cuda) == "plain"
+    fd_pinned = dataclasses.replace(head, use_pallas_fd=False)
+    assert gossip.pull_phase_engaged(fd_pinned, cuda) == "pairs"
+    assert gossip.fd_phase_engaged(fd_pinned, cuda) == "plain"
+    # On the CPU "auto" resolves to the plain round.
+    assert gossip.pull_phase_engaged(head, cpu) == "plain"
+    assert gossip.fd_phase_engaged(head, cpu) == "plain"
+    lean = dataclasses.replace(head, track_failure_detector=False, track_heartbeats=False)
+    assert gossip.fd_phase_engaged(lean, cuda) == "off"
+    # The single-pass m8 kernel is not ported: refused on the card.
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
+        gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="m8"), cuda)
+    assert gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="pairs"), cuda) == "pairs"
+    # A kernel-wanting config the kernel cannot take is refused (and
+    # counted), never run plain.
+    counters.reset()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
+        gossip.fd_phase_engaged(dataclasses.replace(head, fanout=0), cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B1d"):
+        gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B1d"):
+        Simulator(SimConfig(n_nodes=65_536), device=cuda)  # before allocating
+    # The width bound counts the kernel's static shared memory too: two
+    # int16 rows of 58,112 fill the dynamic limit alone, not with it.
+    assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=57_984), cuda) == "pairs"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B1d"):
+        gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=58_112), cuda)
+    assert sum(counters.refusals.values()) == 4
+    # use_pallas=True asks for the kernels on the CPU too: the same refusal.
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
+        gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0, use_pallas=True), cpu)
+    assert gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0), cpu) == "plain"
+
+
+def test_counters_on_the_cpu_path():
+    counters.reset()
+    cfg = SimConfig(n_nodes=128, fanout=2, use_pallas=True, **NARROW)
+    sim = Simulator(cfg, seed=1, device="cpu")
+    sim.run(3)
+    # The pairs wrappers' plain versions (FD fused into the last call).
+    assert counters.plain_calls == {"pull": 6} and not counters.launches
+    counters.reset()
+    Simulator(dataclasses.replace(cfg, use_pallas=False), seed=1, device="cpu").run(2)
+    assert counters.plain_calls == {"pull": 4, "fd": 2}
+    counters.reset()
+    Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=True), seed=1, device="cpu").run(2)
+    assert counters.plain_calls == {"pull": 4, "fd": 2} and counters.pull_launches() == 0
+    counters.reset()
+    assert not counters.plain_calls and not counters.launches and not counters.refusals
+
+
+def test_sim_step_refuses_out_of_slice_configs():
+    cfg = SimConfig(n_nodes=128)
+    object.__setattr__(cfg, "death_rate", 0.1)  # past __post_init__
+    state = init_state(SimConfig(n_nodes=128), device="cpu")
+    counters.reset()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        gossip.sim_step(state, prng.key(0), cfg)
+    with pytest.raises(NotImplementedError, match="A15"):
+        Simulator(SimConfig(n_nodes=128), mesh=object(), device="cpu")
+    assert sum(counters.refusals.values()) == 2
+
+
+def test_horizon_guard():
+    cfg = SimConfig(n_nodes=128, **NARROW)
+    state = init_state(cfg, device="cpu")
+    state = state.replace(tick=torch.tensor(2**15 - 4, dtype=torch.int32))
+    sim = Simulator(cfg, state=state, device="cpu")
+    with pytest.raises(ValueError, match="overflows int16 heartbeats"):
+        sim.run(8)
+    wcfg = SimConfig(n_nodes=128, version_dtype="int16", keys_per_node=30_000, writes_per_round=400)
+    with pytest.raises(ValueError, match="version_dtype='int16'"):
+        Simulator(wcfg, device="cpu").run(8)
