@@ -16,6 +16,7 @@ from .sim import (
     Simulator,
     headline_config,
     init_state,
+    lean_config,
 )
 
 __all__ = (
@@ -25,4 +26,5 @@ __all__ = (
     "Simulator",
     "headline_config",
     "init_state",
+    "lean_config",
 )

@@ -2,11 +2,13 @@
 counterpart of the reference's ``pallas_fallbacks`` ledger.
 
 - ``launches``: kernel launches, keyed ``"pairs_pull[<mode>]"`` (the mode
-  flags set, e.g. ``diag``, ``pull``, ``check+fd``) or ``"fd"``. Each
+  flags set, e.g. ``diag``, ``pull``, ``check+fd``, ``totals+diag``),
+  ``"pairs_totals[diag]"`` / ``"pairs_totals[sum]"`` or ``"fd"``. Each
   wrapper adds one where it launches its kernel, and nowhere else.
 - ``plain_calls``: phases served by plain PyTorch ops, keyed by phase:
-  ``"pull"`` counts sub-exchanges, ``"fd"`` standalone FD phases (a wrapper
-  given CPU tensors counts here too).
+  ``"pull"`` counts sub-exchanges, ``"totals"`` their totals passes,
+  ``"fd"`` standalone FD phases (a wrapper given CPU tensors counts here
+  too).
 - ``refusals``: configs refused with ``NotImplementedError``, keyed by the
   message (which names the ``ROADMAP.md`` item that ports them).
 """
@@ -27,9 +29,10 @@ def reset() -> None:
     refusals.clear()
 
 
-def pull_launches() -> int:
-    """Launches of the pair-fused pull kernel, over all its modes."""
-    return sum(v for k, v in launches.items() if k.startswith("pairs_pull["))
+def kernel_launches(kernel: str) -> int:
+    """Launches of one kernel (``"pairs_pull"``, ``"pairs_totals"``),
+    over all its modes."""
+    return sum(v for k, v in launches.items() if k.startswith(kernel + "["))
 
 
 def refuse(reason: str):

@@ -3,10 +3,12 @@
 // Replaces: aiocluster_tpu/ops/pallas_pull.py::_pairs_kernel (the TPU
 // kernel behind fused_pull_pairs / pairs_pull), in the modes the
 // simulator's main path runs: the w+hb pull, the owner-diagonal refresh
-// (DIAG, first sub-exchange), the all-converged check (CHECK, last) and
-// the fused phi-accrual FD epilogue (FD, last; with the round-start hb0
-// streamed when fanout > 1). The packed u4r, int8-icount, live-bitmap,
-// totals-input and lane modes are not ported.
+// (DIAG, first sub-exchange), the all-converged check (CHECK, last), the
+// fused phi-accrual FD epilogue (FD, last; with the round-start hb0
+// streamed when fanout > 1) and the totals input (TOTALS: the rows'
+// deficit totals come from pairs_totals.cu, the two-pass form for rows
+// too wide to stage). The packed u4r, int8-icount, live-bitmap and lane
+// modes are not ported.
 //
 // What bounds it: bytes. Each sub-exchange must read and write every row
 // of w and hb once (4 bytes per pair per int16 matrix); the FD epilogue
@@ -29,6 +31,15 @@
 // still gets the refresh, the check and the FD epilogue; its exchange is
 // a no-op (d = 0, hb = max(hb, hb)).
 //
+// TOTALS mode: the staging takes 2 * N * sizeof(w) bytes of shared
+// memory, which caps the staged form at N = 57,984 for int16. With the
+// totals given, the kernel skips the staging and the totals pass, takes
+// both scales from the totals and streams both rows of w from global
+// memory in the apply pass (diagonal refreshed on load, pairs.cuh), with
+// no dynamic shared memory: any width that is a multiple of 8 runs. Each
+// thread reads and writes only its own 8-column chunks of the CTA's two
+// rows, so the update stays in place without a barrier.
+//
 // Bit parity with the reference and the plain PyTorch version: built with
 // -fmad=false, the scale and the running mean use the correctly rounded
 // divide, bf16 stores round to nearest even (common.cuh), and the dither
@@ -41,6 +52,7 @@
 #include "common.cuh"
 #include "fd_update.cuh"
 #include "hash.cuh"
+#include "pairs.cuh"
 
 namespace {
 
@@ -55,6 +67,7 @@ struct PairsArgs {
   int32_t n;
   uint32_t salt_mix;        // sub-exchange salt ^ run salt
   float budget;
+  const float* totals;      // TOTALS: (n,) rows' deficit totals
   const int32_t* mv;        // DIAG: (n,) owner max_version
   const int32_t* hbv;       // DIAG / FD: (n,) owner heartbeat
   const int32_t* need;      // CHECK: (n,) target, 0 for dead owners
@@ -118,12 +131,11 @@ __device__ __forceinline__ void fd_chunk(const PairsArgs& a, int row, int j0,
 }
 
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
-          bool FD>
+          bool FD, bool TOTALS>
 __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
   const int n = a.n;
   const int i = blockIdx.x;
-  const int g = i >> 3;
-  const int p = 8 * a.gm[g] + (((i & 7) - a.c[g]) & 7);
+  const int p = partner_row(a.gm, a.c, i);
   if (p < i) return;  // row p leads this pair
   const bool self = p == i;
   const bool vi = a.valid[i] != 0;
@@ -136,32 +148,31 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
   WT* wp = static_cast<WT*>(a.w) + static_cast<size_t>(p) * n;
   const int chunks = n >> 3;
 
-  // Pass 1: stage both rows (diagonal refreshed) and take the deficit
-  // totals of both directions.
-  long long ti = 0, tp = 0;
-  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-    const int j0 = k << 3;
-    Vec8<WT> x8 = ld8(wi + j0);
-    Vec8<WT> y8 = ld8(wp + j0);
-    if (DIAG) {
-      if (i >= j0 && i < j0 + 8) x8.v[i - j0] = static_cast<WT>(a.mv[i]);
-      if (p >= j0 && p < j0 + 8) y8.v[p - j0] = static_cast<WT>(a.mv[p]);
+  // Both directions' deficit totals: given (TOTALS), or pass 1 stages
+  // both rows (diagonal refreshed) and sums them.
+  float tot_i, tot_p;
+  if constexpr (TOTALS) {
+    tot_i = a.totals[i];
+    tot_p = a.totals[p];
+  } else {
+    long long ti = 0, tp = 0;
+    for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
+      const int j0 = k << 3;
+      const Vec8<WT> x8 = ld8_row<WT, DIAG>(wi, i, j0, a.mv);
+      const Vec8<WT> y8 = ld8_row<WT, DIAG>(wp, p, j0, a.mv);
+      st8(si + j0, x8);
+      st8(sp + j0, y8);
+      add_deficits(x8, y8, vi, vp, ti, tp);
     }
-    st8(si + j0, x8);
-    st8(sp + j0, y8);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int32_t x = x8.v[e], y = y8.v[e];
-      if (vi && y > x) ti += y - x;
-      if (vp && x > y) tp += x - y;
-    }
+    ti = block_sum(ti);  // its barriers also publish the staged rows
+    tp = block_sum(tp);
+    tot_i = static_cast<float>(ti);
+    tot_p = static_cast<float>(tp);
   }
-  ti = block_sum(ti);  // its barriers also publish the staged rows
-  tp = block_sum(tp);
-  const float scale_i = fminf(
-      1.0f, __fdiv_rn(a.budget, fmaxf(static_cast<float>(ti), 1.0f)));
-  const float scale_p = fminf(
-      1.0f, __fdiv_rn(a.budget, fmaxf(static_cast<float>(tp), 1.0f)));
+  const float scale_i =
+      fminf(1.0f, __fdiv_rn(a.budget, fmaxf(tot_i, 1.0f)));
+  const float scale_p =
+      fminf(1.0f, __fdiv_rn(a.budget, fmaxf(tot_p, 1.0f)));
 
   // Pass 2: apply both directions' advances, absorb heartbeats, and run
   // the check and the FD epilogue on the fresh values.
@@ -169,8 +180,10 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
   bool ok_i = true, ok_p = true;
   for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
     const int j0 = k << 3;
-    const Vec8<WT> x8 = ld8(si + j0);
-    const Vec8<WT> y8 = ld8(sp + j0);
+    const Vec8<WT> x8 =
+        TOTALS ? ld8_row<WT, DIAG>(wi, i, j0, a.mv) : ld8(si + j0);
+    const Vec8<WT> y8 =
+        TOTALS ? ld8_row<WT, DIAG>(wp, p, j0, a.mv) : ld8(sp + j0);
     Vec8<WT> nx8, ny8;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -230,10 +243,10 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
 }
 
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
-          bool FD>
-cudaError_t launch(const PairsArgs& a, cudaStream_t stream) {
-  auto kernel = pairs_kernel<WT, HT, IMT, DIAG, CHECK, FD>;
-  const size_t smem = 2 * static_cast<size_t>(a.n) * sizeof(WT);
+          bool FD, bool TOTALS>
+cudaError_t launch_one(const PairsArgs& a, cudaStream_t stream) {
+  auto kernel = pairs_kernel<WT, HT, IMT, DIAG, CHECK, FD, TOTALS>;
+  const size_t smem = TOTALS ? 0 : 2 * static_cast<size_t>(a.n) * sizeof(WT);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -242,6 +255,14 @@ cudaError_t launch(const PairsArgs& a, cudaStream_t stream) {
   }
   kernel<<<a.n, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
+          bool FD>
+cudaError_t launch(const PairsArgs& a, cudaStream_t stream) {
+  return a.totals != nullptr
+             ? launch_one<WT, HT, IMT, DIAG, CHECK, FD, true>(a, stream)
+             : launch_one<WT, HT, IMT, DIAG, CHECK, FD, false>(a, stream);
 }
 
 template <typename WT, typename HT, typename IMT>
@@ -276,11 +297,12 @@ cudaError_t launch_im(const PairsArgs& a, int im_code, bool diag, bool check,
 
 extern "C" int aiocluster_pairs_pull(
     void* w, void* hb, const void* gm, const void* c, const void* valid,
-    int n, unsigned int salt_mix, float budget, const void* mv,
-    const void* hbv, const void* need, const void* alive, void* flag,
-    int tick, void* lc, void* im, void* ic, void* live, const void* hb0,
-    float max_interval, int window, float prior_weight, float prior_wm,
-    float phi, int w_code, int h_code, int im_code, void* stream) {
+    int n, unsigned int salt_mix, float budget, const void* totals,
+    const void* mv, const void* hbv, const void* need, const void* alive,
+    void* flag, int tick, void* lc, void* im, void* ic, void* live,
+    const void* hb0, float max_interval, int window, float prior_weight,
+    float prior_wm, float phi, int w_code, int h_code, int im_code,
+    void* stream) {
   PairsArgs a;
   a.w = w;
   a.hb = hb;
@@ -290,6 +312,7 @@ extern "C" int aiocluster_pairs_pull(
   a.n = n;
   a.salt_mix = salt_mix;
   a.budget = budget;
+  a.totals = static_cast<const float*>(totals);
   a.mv = static_cast<const int32_t*>(mv);
   a.hbv = static_cast<const int32_t*>(hbv);
   a.need = static_cast<const int32_t*>(need);
@@ -320,13 +343,14 @@ extern "C" int aiocluster_pairs_pull(
              : launch_im<int32_t, int32_t>(a, im_code, diag, check, fd, s);
 }
 
-// Static shared memory of the kernel (every instantiation has the same:
-// block_sum's partials), which pairs_pull.STATIC_SMEM states for the
-// wrapper's width check. Returns a cudaError_t.
+// Static shared memory of the staged kernel (every staged instantiation
+// has the same: block_sum's partials), which pairs_pull.STATIC_SMEM states
+// for the wrapper's width check. Returns a cudaError_t.
 extern "C" int aiocluster_pairs_pull_static_smem(int* bytes) {
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(
-      &attr, pairs_kernel<int16_t, int16_t, __nv_bfloat16, true, true, true>);
+      &attr,
+      pairs_kernel<int16_t, int16_t, __nv_bfloat16, true, true, true, false>);
   *bytes = static_cast<int>(attr.sharedSizeBytes);
   return err;
 }

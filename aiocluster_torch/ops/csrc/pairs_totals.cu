@@ -1,0 +1,101 @@
+// Deficit row totals of one pair-fused sub-exchange on Hopper: pass A of
+// the two-pass form, which the pull's TOTALS mode (pairs_pull.cu) applies.
+//
+// Replaces: aiocluster_tpu/ops/pallas_pull.py::_pairs_totals_kernel (the
+// TPU kernel behind fused_pull_pairs_totals / pairs_totals) for int16 and
+// int32 watermarks over the full owner width (n_local == N). The packed
+// u4r mode, the lane axis and column shards (owner_offset) are not
+// ported.
+//
+// What bounds it: bytes. It must read every row of w once (N^2 *
+// sizeof(w)) and write N floats, with about three integer operations
+// per element.
+//
+// Design: as in pairs_pull.cu, one CTA per LEADER row i (i <= p[i]) of
+// the matching's row involution p, so each matched pair is visited once
+// and each row read once (the reference's m8 totals pass reads each row
+// twice). The CTA streams both rows in 8-element vector loads, with the
+// owner diagonal refreshed on load exactly as the pull's pass sees it
+// (pairs.cuh), sums both directions' deficits exactly in int64 (one
+// block reduction), and writes totals[i] and totals[p] as float32,
+// rounded once: equal to the reference's float32 tile sums while a row
+// total stays below 2^24 (the lean profile's is at most 16 * N =
+// 1,605,632 at N = 100,352). A self-matched row (p == i) writes its
+// total, 0, once. No shared memory but the reduction's, so any width
+// that is a multiple of 8 runs.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "pairs.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct TotalsArgs {
+  const void* w;         // (n, n) WT
+  const int32_t* gm;     // (n/8,) partner group of each group
+  const int32_t* c;      // (n/8,) within-pair row rotation
+  const uint8_t* valid;  // (n,) alive-pair mask per row
+  const int32_t* mv;     // (n,) owner max_version, or null (no refresh)
+  float* totals;         // (n,) written
+  int32_t n;
+};
+
+template <typename WT, bool DIAG>
+__global__ void __launch_bounds__(kThreads) pairs_totals_kernel(TotalsArgs a) {
+  const int n = a.n;
+  const int i = blockIdx.x;
+  const int p = partner_row(a.gm, a.c, i);
+  if (p < i) return;  // row p leads this pair
+  const bool vi = a.valid[i] != 0;
+  const bool vp = a.valid[p] != 0;
+  const WT* wi = static_cast<const WT*>(a.w) + static_cast<size_t>(i) * n;
+  const WT* wp = static_cast<const WT*>(a.w) + static_cast<size_t>(p) * n;
+  long long ti = 0, tp = 0;
+  for (int k = threadIdx.x; k < (n >> 3); k += blockDim.x) {
+    const int j0 = k << 3;
+    add_deficits(ld8_row<WT, DIAG>(wi, i, j0, a.mv),
+                 ld8_row<WT, DIAG>(wp, p, j0, a.mv), vi, vp, ti, tp);
+  }
+  ti = block_sum(ti);
+  tp = block_sum(tp);
+  if (threadIdx.x == 0) {
+    a.totals[i] = static_cast<float>(ti);
+    if (p != i) a.totals[p] = static_cast<float>(tp);
+  }
+}
+
+template <typename WT>
+cudaError_t launch(const TotalsArgs& a, cudaStream_t stream) {
+  if (a.mv != nullptr) {
+    pairs_totals_kernel<WT, true><<<a.n, kThreads, 0, stream>>>(a);
+  } else {
+    pairs_totals_kernel<WT, false><<<a.n, kThreads, 0, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int aiocluster_pairs_totals(const void* w, const void* gm,
+                                       const void* c, const void* valid,
+                                       const void* mv, void* totals, int n,
+                                       int w_code, void* stream) {
+  TotalsArgs a;
+  a.w = w;
+  a.gm = static_cast<const int32_t*>(gm);
+  a.c = static_cast<const int32_t*>(c);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.mv = static_cast<const int32_t*>(mv);
+  a.totals = static_cast<float*>(totals);
+  a.n = n;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w_code == kInt16 ? launch<int16_t>(a, s) : launch<int32_t>(a, s);
+}
+
+extern "C" const char* aiocluster_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -61,17 +61,18 @@ def fd_update(tick: int, hb, hb0, lc, im32, ic, k: FdParams):
     return lc2, imean, icount, live
 
 
-def fd_store(row0: int, lc2, imean, icount, live, lc, im, ic, live_out):
-    """Finish an FD update in place: the self diagonal stays live (rows
-    ``row0..`` against owner columns ``0..``), death wipes the window,
-    and each result rounds once into its stored dtype."""
-    rows = torch.arange(row0, row0 + live.shape[0], device=live.device)
+def fd_store(rows, lc2, imean, icount, live, lc, im, ic, live_out):
+    """Finish an FD update in place: the update's results are the rows
+    ``rows`` (int64 ids) against owner columns ``0..``; the self
+    diagonal stays live, death wipes the window, and each result rounds
+    once into its stored dtype in those rows of ``lc``/``im``/``ic``/
+    ``live_out``."""
     cols = torch.arange(live.shape[1], device=live.device)
     live = live | (rows[:, None] == cols[None, :])
-    lc.copy_(lc2)
-    im.copy_(torch.where(live, imean, torch.zeros_like(imean)))
-    ic.copy_(torch.where(live, icount, torch.zeros_like(icount)))
-    live_out.copy_(live)
+    lc.index_copy_(0, rows, lc2.to(lc.dtype))
+    im.index_copy_(0, rows, torch.where(live, imean, torch.zeros_like(imean)).to(im.dtype))
+    ic.index_copy_(0, rows, torch.where(live, icount, torch.zeros_like(icount)).to(ic.dtype))
+    live_out.index_copy_(0, rows, live)
 
 
 def fused_fd_plain(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
@@ -85,7 +86,7 @@ def fused_fd_plain(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
         tick, hb.to(torch.int32), hb0, lc.to(torch.int32),
         im.to(torch.float32), ic.to(torch.int32), k,
     )
-    fd_store(0, *out, lc, im, ic, live)
+    fd_store(torch.arange(n, device=hb.device), *out, lc, im, ic, live)
 
 
 def fused_fd(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):

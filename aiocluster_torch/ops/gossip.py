@@ -12,8 +12,11 @@ reference's ``pallas_path_engaged`` / ``pallas_variant_engaged`` /
 - on a CUDA device (``use_pallas="auto"``): every sub-exchange is one
   launch of the pair-fused pull kernel (ops/pairs_pull.py); the first
   also refreshes the owner diagonal, the last also runs the FD phase
-  ("fused") and the convergence check. A config the kernel cannot take
-  is refused, never run plain;
+  ("fused") and the convergence check. Where a row pair does not fit one
+  block's shared memory, each sub-exchange is two launches instead: the
+  deficit totals (ops/pairs_totals.py), then the pull fed those totals
+  ("pairs_two_pass", the reference's sharded two-pass form on one
+  device). A config the kernels cannot take is refused, never run plain;
 - ``use_pallas=False, use_pallas_fd=True`` on a CUDA device: the pull
   runs as plain PyTorch ops and the FD phase as the standalone kernel
   (ops/fd.py, "kernel") — the reference's A/B seam;
@@ -32,7 +35,7 @@ import torch
 
 from ..sim.config import SimConfig, unported_reason
 from ..sim.state import DTYPES, SimState
-from . import counters, pairs_pull, prng
+from . import counters, pairs_pull, pairs_totals, prng
 from . import fd as fd_mod
 from .fd import FdParams
 
@@ -58,35 +61,54 @@ def hash_mix_u32(i: torch.Tensor, j: torch.Tensor, s) -> torch.Tensor:
 
 
 def hash_uniform(
-    salt, n_rows: int, owner_ids: torch.Tensor, run_salt=None
+    salt, n_rows: int, owner_ids: torch.Tensor, run_salt=None, row_ids=None
 ) -> torch.Tensor:
     """Deterministic (row, global owner, salt) -> [0, 1) dither: the top
     24 hash bits through int32 to float32, clipped to
-    [1e-12, 1 - 2^-24] — the reference's ``_hash_uniform(bits=24)``."""
+    [1e-12, 1 - 2^-24] — the reference's ``_hash_uniform(bits=24)``.
+    Rows are ``0 .. n_rows - 1``, or the global ids ``row_ids`` of a
+    block of rows."""
     dev = owner_ids.device
     s = int(salt) & M32
     if run_salt is not None:
         s ^= int(run_salt) & M32
-    i = torch.arange(n_rows, dtype=torch.int64, device=dev)[:, None]
+    if row_ids is None:
+        row_ids = torch.arange(n_rows, device=dev)
+    i = row_ids.to(torch.int64)[:, None]
     j = owner_ids.to(torch.int64)[None, :]
     h = hash_mix_u32(i, j, s)
     u = (h >> 8).to(torch.int32).to(torch.float32) * (1.0 / 16777216.0)
     return torch.clamp(u, min=1e-12, max=1.0 - 2.0**-24)
 
 
+def deficits(w_recv, w_send, valid) -> torch.Tensor:
+    """What each receiver row lacks of its sender row, zero on rows whose
+    pair is not alive."""
+    dt = w_recv.dtype
+    return torch.clamp(w_send - w_recv, min=0) * valid[:, None].to(dt)
+
+
+def deficit_totals(d) -> torch.Tensor:
+    """(N,) float32 row totals of ``deficits``: summed exactly in int64
+    and rounded to float32 once, which equals the reference's float32
+    sum while a row total stays below 2^24."""
+    return d.sum(dim=1, dtype=torch.int64).to(torch.float32)
+
+
 def budgeted_advance(
-    w_recv, w_send, budget: int, valid, salt, owner_ids, run_salt=None
+    w_recv, w_send, budget: int, valid, salt, owner_ids, run_salt=None,
+    totals=None, row_ids=None,
 ) -> torch.Tensor:
     """How far each receiver row advances toward its sender row under the
     per-exchange key-version budget: the reference's
     ``_budgeted_advance`` with the proportional policy. Deficits are
     scaled by min(1, budget/total) and rounded with the hashed dither.
-    Row totals are summed exactly in int64 and rounded to float32 once:
-    the reference's float32 sum equals that while a row total stays
-    below 2^24."""
-    dt = w_recv.dtype
-    d = torch.clamp(w_send - w_recv, min=0) * valid[:, None].to(dt)
-    total = d.sum(dim=1, dtype=torch.int64).to(torch.float32)
+    ``totals`` (float32, one per row), when given, are the row totals to
+    scale by (a first pass took them); else they are summed here.
+    ``row_ids`` are the rows' global ids when they are a block of the
+    matrix's rows (the dither hashes them)."""
+    d = deficits(w_recv, w_send, valid)
+    total = deficit_totals(d) if totals is None else totals
     # A tensor numerator: PyTorch computes ``scalar / tensor`` as a
     # reciprocal times the scalar, which is not the correctly rounded
     # quotient.
@@ -94,11 +116,11 @@ def budgeted_advance(
     scale = torch.clamp(quot, max=1.0)
     x = d.to(torch.float32) * scale[:, None]
     floor = torch.floor(x)
-    bump = hash_uniform(salt, d.shape[0], owner_ids, run_salt) < (x - floor)
+    bump = hash_uniform(salt, d.shape[0], owner_ids, run_salt, row_ids) < (x - floor)
     adv = torch.minimum(
         floor.to(torch.int32) + bump.to(torch.int32), d.to(torch.int32)
     )
-    return adv.to(dt)
+    return adv.to(w_recv.dtype)
 
 
 # -- dispatch -------------------------------------------------------------------
@@ -114,9 +136,11 @@ def kernels_wanted(cfg: SimConfig, device) -> bool:
 
 def pull_phase_engaged(cfg: SimConfig, device) -> str:
     """Which implementation serves the sub-exchanges: "pairs" (the
-    pair-fused pull, one launch per sub-exchange) or "plain". A config
-    that asks for the kernels and that the pull kernel cannot take raises
-    ``NotImplementedError``."""
+    pair-fused pull with both rows staged in shared memory, one launch
+    per sub-exchange), "pairs_two_pass" (rows too wide to stage: the
+    deficit-totals pass, then the pull fed those totals, two launches
+    per sub-exchange) or "plain". A config that asks for the kernels and
+    that they cannot take raises ``NotImplementedError``."""
     if not kernels_wanted(cfg, device):
         return "plain"
     if cfg.pallas_variant == "m8":
@@ -130,26 +154,20 @@ def pull_phase_engaged(cfg: SimConfig, device) -> str:
             "diagonal refresh and the FD epilogue) is not ported yet: "
             "ROADMAP.md B1e"
         )
-    if not pairs_pull.pairs_supported(
-        cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize
-    ):
-        counters.refuse(
-            f"n_nodes={cfg.n_nodes} with {cfg.version_dtype} watermarks "
-            "(two rows beyond one block's shared memory) is not ported "
-            "yet: ROADMAP.md B1d"
-        )
-    return "pairs"
+    if pairs_pull.pairs_supported(cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize):
+        return "pairs"
+    return "pairs_two_pass"
 
 
 def fd_phase_engaged(cfg: SimConfig, device) -> str:
     """Which implementation serves the FD phase: "fused" (the epilogue of
-    the round's last pairs sub-exchange), "kernel" (the standalone
-    pass), "plain", or "off" (no failure detector)."""
+    the round's last pairs sub-exchange, in either pairs form), "kernel"
+    (the standalone pass), "plain", or "off" (no failure detector)."""
     if not cfg.track_failure_detector:
         return "off"
     if cfg.use_pallas_fd is False:
         return "plain"
-    if pull_phase_engaged(cfg, device) == "pairs":
+    if pull_phase_engaged(cfg, device) != "plain":
         return "fused"
     if cfg.use_pallas_fd is True or kernels_wanted(cfg, device):
         return "kernel"
@@ -210,7 +228,7 @@ def sim_step(
 
     flag = None
     w, hb = state.w, state.hb_known
-    if pull == "pairs":
+    if pull != "plain":
         # The FD phase reads the round-start hb after the sub-exchanges
         # unless it fuses into a fanout-1 round's only call: keep a copy
         # (its owner diagonal is refreshed where it is read).
@@ -227,6 +245,11 @@ def sim_step(
                 kw["mv"] = max_version
                 if track_hb:
                     kw["hbv"] = heartbeat
+            if pull == "pairs_two_pass":
+                # Pass A sees the refreshed diagonal exactly as pass B will.
+                kw["totals"] = pairs_totals.pairs_totals(
+                    w, gm_all[c], c_all[c], valid, mv=kw.get("mv")
+                )
             if last and return_converged:
                 kw["check"] = (max_version, alive, alive)
             if last and fd_phase == "fused":
@@ -286,54 +309,129 @@ def sim_step(
     return new_state, all_converged_flag(new_state)
 
 
+# -- row blocks ---------------------------------------------------------------------
+
+
+# Rows per block of the reductions and plain passes over (N, N) matrices:
+# about 2^26 elements, so a block's float32 and bool transients stay near
+# 256 MB at any width (the whole (N, N) float32 fraction matrix is 40 GB
+# at N = 100,352).
+ROW_BLOCK_ELEMS = 1 << 26
+
+
+def _row_blocks(n: int):
+    """(r0, r1) bounds of consecutive blocks of the rows of an (n, n)
+    matrix, about ``ROW_BLOCK_ELEMS`` elements each."""
+    rows = max(1, ROW_BLOCK_ELEMS // n)
+    return ((r0, min(r0 + rows, n)) for r0 in range(0, n, rows))
+
+
+def pair_row_blocks(p: torch.Tensor):
+    """The rows of an involution ``p``'s pairs in blocks of about
+    ``ROW_BLOCK_ELEMS`` elements: each block holds whole pairs (leader
+    rows ``i <= p[i]``, then their partners that are other rows) and each
+    row lies in one block, so a pass that writes a block's rows from
+    their pre-exchange values may update the matrix in place. Yields
+    ``(rows, p[rows])`` as int64 tensors."""
+    n = p.shape[0]
+    ids = torch.arange(n, device=p.device)
+    leaders = ids[ids <= p]
+    per = max(1, ROW_BLOCK_ELEMS // (2 * n))
+    for k in range(0, leaders.numel(), per):
+        lead = leaders[k : k + per]
+        part = p[lead]
+        rows = torch.cat((lead, part[part != lead]))
+        yield rows, p[rows]
+
+
+def refreshed_rows(m: torch.Tensor, rows: torch.Tensor, diag, dtype=None) -> torch.Tensor:
+    """A copy of the rows ``rows`` of an (N, N) matrix ``m`` (in
+    ``dtype`` if given) whose owner diagonal reads ``diag`` ((N,), the
+    round's first sub-exchange refreshes it), or as stored when ``diag``
+    is None."""
+    x = m[rows] if dtype is None else m[rows].to(dtype)
+    if diag is not None:
+        x[torch.arange(rows.numel(), device=m.device), rows] = diag[rows].to(x.dtype)
+    return x
+
+
 # -- convergence ------------------------------------------------------------------
+
+
+def _needed_in_w_dtype(state: SimState) -> torch.Tensor:
+    """max_version in w's dtype (clamped to its largest value: a need
+    beyond it is out of every row's reach, which ``_owners_caught_up``
+    accounts for), so the comparisons never widen w."""
+    top = torch.iinfo(state.w.dtype).max
+    return torch.clamp(state.max_version, max=top).to(state.w.dtype)
+
+
+def _owners_caught_up(state: SimState) -> torch.Tensor:
+    """(N,) bool: every alive row's watermark on owner j has reached j's
+    max_version, or owner j is dead. Reduced over blocks of rows (as in
+    ``convergence_metrics``, which takes it in its own pass)."""
+    w, alive = state.w, state.alive
+    need = _needed_in_w_dtype(state)
+    # A need that w's dtype cannot hold is reached by no row, and an alive
+    # owner's own row is alive.
+    ok = state.max_version <= torch.iinfo(w.dtype).max
+    for r0, r1 in _row_blocks(w.shape[0]):
+        ok &= ((w[r0:r1] >= need) | ~alive[r0:r1, None]).all(dim=0)
+    return ok | ~alive
 
 
 def all_converged_flag(state: SimState) -> torch.Tensor:
     """Bool scalar: every alive node's watermark has reached every alive
     owner's max_version (dead observers and dead owners excused)."""
-    needed = state.max_version[None, :]
-    ok = (
-        (state.w.to(torch.int32) >= needed)
-        | ~state.alive[:, None]
-        | ~state.alive[None, :]
-    )
-    return ok.all()
+    return _owners_caught_up(state).all()
 
 
 def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
     """How replicated the cluster is right now (the reference's
     ``convergence_metrics``): converged owners, the all-converged flag,
     the worst and mean watermark fraction over alive pairs, the alive
-    count, the key-versions known, and the FD's false positives."""
-    wv = state.w.to(torch.int32)
-    needed = state.max_version[None, :]
-    alive = state.alive
-    alive_rows = alive[:, None]
-    caught_up = (wv >= needed) | ~alive_rows
-    owner_ok = caught_up.all(dim=0) | ~alive
-    pair_mask = alive_rows & alive[None, :]
-    frac = torch.where(pair_mask, wv / torch.clamp(needed, min=1), 1.0)
-    frac_sum = torch.where(pair_mask, torch.clamp(frac, max=1.0), 0.0).sum()
-    pair_count = pair_mask.sum()
-    n_converged = owner_ok.sum()
-    kv_known = torch.where(
-        pair_mask, torch.minimum(wv, needed).to(torch.float32), 0.0
-    ).sum()
-    total = alive.shape[0]
+    count, the key-versions known, and the FD's false positives.
+    Reduced over blocks of rows: the fraction sum in float64, the
+    key-versions known exactly in int64, each rounded to float32 once."""
+    w, alive = state.w, state.alive
+    dev, total = w.device, alive.shape[0]
+    need = _needed_in_w_dtype(state)
+    need_f = torch.clamp(state.max_version, min=1).to(torch.float32)
+    track_fd = state.live_view.numel() > 0
+    cols = torch.arange(total, device=dev)
+    frac_min = torch.ones((), dtype=torch.float32, device=dev)
+    frac_sum = torch.zeros((), dtype=torch.float64, device=dev)
+    kv_known = torch.zeros((), dtype=torch.int64, device=dev)
+    fp = torch.zeros((), dtype=torch.int64, device=dev)
+    caught_up = state.max_version <= torch.iinfo(w.dtype).max  # _owners_caught_up
+    for r0, r1 in _row_blocks(total):
+        wb = w[r0:r1]
+        caught_up &= ((wb >= need) | ~alive[r0:r1, None]).all(dim=0)
+        pair = alive[r0:r1, None] & alive[None, :]
+        frac = torch.where(pair, wb.to(torch.float32) / need_f, 1.0)
+        frac_min = torch.minimum(frac_min, frac.min())
+        frac_sum += torch.where(pair, torch.clamp(frac, max=1.0), 0.0).sum(
+            dtype=torch.float64
+        )
+        kv_known += torch.where(pair, torch.minimum(wb, need), 0).sum(
+            dtype=torch.int64
+        )
+        if track_fd:
+            off_diag = cols[r0:r1, None] != cols[None, :]
+            fp += (pair & off_diag & ~state.live_view[r0:r1]).sum()
+    n_alive = alive.sum()
+    pair_count = n_alive * n_alive
+    n_converged = (caught_up | ~alive).sum()
     out = {
         "converged_owners": n_converged,
         "all_converged": n_converged == total,
-        "min_fraction": torch.clamp(frac.min(), max=1.0),
-        "mean_fraction": frac_sum / torch.clamp(pair_count, min=1),
-        "alive_count": alive.sum(),
-        "kv_known": kv_known,
+        "min_fraction": torch.clamp(frac_min, max=1.0),
+        "mean_fraction": (frac_sum / torch.clamp(pair_count, min=1)).to(torch.float32),
+        "alive_count": n_alive,
+        "kv_known": kv_known.to(torch.float32),
     }
-    if state.live_view.numel():
-        rows = torch.arange(total, device=wv.device)
-        off_diag = rows[:, None] != rows[None, :]
-        fp = (pair_mask & off_diag & ~state.live_view).sum()
-        denom = (pair_mask & off_diag).sum()
+    if track_fd:
+        denom = pair_count - n_alive  # alive pairs off the diagonal
         out["fd_false_positives"] = fp
         out["fd_false_positive_fraction"] = fp / torch.clamp(denom, min=1)
     return out

@@ -8,8 +8,10 @@ budget (the proportional, hash-dithered advance) and absorbs the
 partner's heartbeat knowledge, both directions computed from the
 pre-exchange rows. Optional modes, as on the TPU: the owner-diagonal
 refresh (``mv``/``hbv``, the round's first sub-exchange), the
-all-converged check (``check``, the last) and the fused failure-detector
-epilogue (``fd``, the last).
+all-converged check (``check``, the last), the fused failure-detector
+epilogue (``fd``, the last) and the rows' deficit totals given as an
+input (``totals``, from ops/pairs_totals.py: the two-pass form, which
+needs no shared memory and so takes any width).
 
 Both versions update ``w``/``hb`` (and the FD bookkeeping) IN PLACE and
 write ``fd.live``. CPU tensors take the plain version; CUDA tensors
@@ -50,9 +52,9 @@ class FdOperands:
 
 
 def pairs_supported(n: int, w_itemsize: int) -> bool:
-    """Whether the kernel takes this width: both rows of w staged in one
-    block's shared memory (beside its static shared memory), rows in
-    8-element vectors."""
+    """Whether the staged kernel takes this width: both rows of w staged
+    in one block's shared memory (beside its static shared memory), rows
+    in 8-element vectors. The totals mode only needs ``n % 8 == 0``."""
     return n % 8 == 0 and 2 * n * w_itemsize + STATIC_SMEM <= SMEM_LIMIT
 
 
@@ -68,55 +70,53 @@ def compiled_static_smem() -> int:
 
 def pairs_pull_plain(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
-    mv=None, hbv=None, check=None, fd: FdOperands | None = None,
+    mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
 ):
     """The plain version of ``pairs_pull`` (same operands, same in-place
-    effect, same returned flag)."""
-    n = w.shape[0]
+    effect, same returned flag). It runs over blocks of row pairs: each
+    block's rows are computed from their pre-exchange values and written
+    back, as the kernel's CTAs do, so it runs at any width the kernel
+    does."""
     dev = w.device
     p = prng.rows_of_groups(gm.to(torch.int64), c.to(torch.int64))
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    if mv is not None:
-        w0 = torch.where(eye, mv.to(w.dtype)[None, :], w)
-    else:
-        w0 = w
-    owners = torch.arange(n, device=dev)
-    adv = gossip.budgeted_advance(
-        w0, w0[p], budget, valid, salt, owners, run_salt
-    )
-    w_new = w0 + adv
-    flag = None
+    owners = torch.arange(w.shape[0], device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
     if check is not None:
         needed, alive, alive_owner = check
         need = torch.where(alive_owner, needed.to(torch.int32), 0)
-        ok = ((w_new.to(torch.int32) >= need[None, :]) | ~alive[:, None]).all()
-        flag = ok.to(torch.int32).reshape(1)
-    if hb is not None:
-        if mv is not None:
-            hb_in = torch.where(eye, hbv.to(hb.dtype)[None, :], hb)
-        else:
-            hb_in = hb
-        hb_new = torch.maximum(hb_in, torch.where(valid[:, None], hb_in[p], 0))
-        if fd is not None:
-            if fd.hb0 is not None:
-                hb0 = torch.where(
-                    eye, hbv.to(torch.int32)[None, :], fd.hb0.to(torch.int32)
+    for rows, partners in gossip.pair_row_blocks(p):
+        x = gossip.refreshed_rows(w, rows, mv)
+        v = valid[rows]
+        adv = gossip.budgeted_advance(
+            x, gossip.refreshed_rows(w, partners, mv), budget, v, salt, owners,
+            run_salt, None if totals is None else totals[rows], rows,
+        )
+        w_new = x + adv
+        if check is not None:
+            ok &= ((w_new.to(torch.int32) >= need[None, :]) | ~alive[rows, None]).all()
+        if hb is not None:
+            hb_diag = hbv if mv is not None else None
+            h = gossip.refreshed_rows(hb, rows, hb_diag)
+            h_p = gossip.refreshed_rows(hb, partners, hb_diag)
+            hb_new = torch.maximum(h, torch.where(v[:, None], h_p, 0))
+            if fd is not None:
+                if fd.hb0 is not None:
+                    hb0 = gossip.refreshed_rows(fd.hb0, rows, hbv, torch.int32)
+                else:
+                    hb0 = h.to(torch.int32)
+                out = fd_mod.fd_update(
+                    fd.tick, hb_new.to(torch.int32), hb0, fd.lc[rows].to(torch.int32),
+                    fd.im[rows].to(torch.float32), fd.ic[rows].to(torch.int32), fd.params,
                 )
-            else:
-                hb0 = hb_in.to(torch.int32)
-            out = fd_mod.fd_update(
-                fd.tick, hb_new.to(torch.int32), hb0, fd.lc.to(torch.int32),
-                fd.im.to(torch.float32), fd.ic.to(torch.int32), fd.params,
-            )
-            fd_mod.fd_store(0, *out, fd.lc, fd.im, fd.ic, fd.live)
-        hb.copy_(hb_new)
-    w.copy_(w_new)
-    return flag
+                fd_mod.fd_store(rows, *out, fd.lc, fd.im, fd.ic, fd.live)
+            hb.index_copy_(0, rows, hb_new)
+        w.index_copy_(0, rows, w_new)
+    return None if check is None else ok.to(torch.int32).reshape(1)
 
 
 def pairs_pull(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
-    mv=None, hbv=None, check=None, fd: FdOperands | None = None,
+    mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
 ):
     """One pair-fused sub-exchange, in place.
 
@@ -128,20 +128,29 @@ def pairs_pull(
     first (``hbv`` also refreshes the FD's hb0 diagonal). ``check`` =
     (needed, alive, alive_owner) asks for the all-converged flag of the
     output, returned as a (1,) int32 tensor (None without ``check``).
-    ``fd`` runs the FD phase on the post-exchange heartbeat rows."""
+    ``fd`` runs the FD phase on the post-exchange heartbeat rows.
+    ``totals`` (N,) float32, the rows' deficit totals of this
+    sub-exchange (``pairs_totals`` on the same operands), scales the
+    advance instead of the kernel's own sums: no row is staged, so any
+    width runs."""
     if w.device.type == "cpu":
         counters.plain_calls["pull"] += 1
         return pairs_pull_plain(
             w, hb, gm, c, valid, salt, run_salt, budget,
-            mv=mv, hbv=hbv, check=check, fd=fd,
+            mv=mv, hbv=hbv, check=check, fd=fd, totals=totals,
         )
     n, dev = w.shape[0], w.device
     if w.dtype not in (torch.int16, torch.int32):
         raise ValueError(f"w dtype {w.dtype} is not int16/int32")
-    if not pairs_supported(n, w.element_size()):
+    if totals is not None:
+        if n % 8:
+            raise ValueError(f"pairs kernel needs n % 8 == 0, got n={n}")
+        expect("totals", totals, torch.float32, (n,), dev)
+    elif not pairs_supported(n, w.element_size()):
         raise ValueError(
             f"pairs kernel cannot run n={n} with {w.dtype} watermarks "
-            "(needs n % 8 == 0 and both rows in shared memory)"
+            "(needs n % 8 == 0 and both rows in shared memory; pass "
+            "totals for the two-pass form)"
         )
     expect("w", w, w.dtype, (n, n), dev)
     expect("gm", gm, torch.int32, (n // 8,), dev)
@@ -196,18 +205,23 @@ def pairs_pull(
     lib = _build.load("pairs_pull")
     rc = lib.aiocluster_pairs_pull(
         w.data_ptr(), ptr(hb), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
-        n, salt_mix, float(budget), ptr(mv), ptr(hbv), ptr(need),
+        n, salt_mix, float(budget), ptr(totals), ptr(mv), ptr(hbv), ptr(need),
         ptr(alive), ptr(flag), tick, *fd_ptrs,
         consts.max_interval, consts.window, consts.prior_weight,
         consts.prior_wm, consts.phi, w.element_size(), h_code, im_code,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "pairs_pull kernel launch")
-    counters.launches[counter_key(mv is not None, check is not None, fd is not None)] += 1
+    counters.launches[
+        counter_key(mv is not None, check is not None, fd is not None, totals is not None)
+    ] += 1
     return flag
 
 
-def counter_key(diag: bool, check: bool, fd: bool) -> str:
+def counter_key(diag: bool, check: bool, fd: bool, totals: bool = False) -> str:
     """The ``counters.launches`` key of a launch in this mode."""
-    flags = [f for f, on in (("diag", diag), ("check", check), ("fd", fd)) if on]
+    flags = [
+        f for f, on in (("totals", totals), ("diag", diag), ("check", check), ("fd", fd))
+        if on
+    ]
     return f"pairs_pull[{'+'.join(flags) or 'pull'}]"

@@ -1,0 +1,73 @@
+"""The deficit row totals of one pair-fused sub-exchange: the wrapper of
+the CUDA kernel (csrc/pairs_totals.cu, the port of the reference's
+ops/pallas_pull.py::_pairs_totals_kernel) and its plain PyTorch version.
+
+Pass A of the two-pass pull: for every row ``i`` of ``w``, what it lacks
+of its partner's row ``p[i]`` under the grouped matching, summed over
+the owners and zero where the pair is not alive. ``pairs_pull(...,
+totals=...)`` applies the advance with them (pass B). With ``mv`` the
+owner diagonal is refreshed first, exactly as pass B refreshes it on the
+round's first sub-exchange. CPU tensors take the plain version; CUDA
+tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build, counters, gossip, prng
+from .fd import expect
+
+
+def pairs_totals_plain(w, gm, c, valid, *, mv=None) -> torch.Tensor:
+    """The plain version of ``pairs_totals`` (same operands, same (N,)
+    float32 result), taken over blocks of row pairs so that it runs at
+    any width the kernel does."""
+    p = prng.rows_of_groups(gm.to(torch.int64), c.to(torch.int64))
+    totals = torch.empty(w.shape[0], dtype=torch.float32, device=w.device)
+    for rows, partners in gossip.pair_row_blocks(p):
+        d = gossip.deficits(
+            gossip.refreshed_rows(w, rows, mv),
+            gossip.refreshed_rows(w, partners, mv),
+            valid[rows],
+        )
+        totals[rows] = gossip.deficit_totals(d)
+    return totals
+
+
+def pairs_totals(w, gm, c, valid, *, mv=None) -> torch.Tensor:
+    """(N,) float32 deficit totals of every row of one sub-exchange.
+
+    ``w`` (N, N) int16/int32 (read only); ``gm``/``c`` (N/8,) int32 the
+    grouped matching; ``valid`` (N,) bool the alive-pair mask per row;
+    ``mv`` (N,) int32 refreshes the owner diagonal first. Totals are
+    exact integer sums rounded to float32 once."""
+    if w.device.type == "cpu":
+        counters.plain_calls["totals"] += 1
+        return pairs_totals_plain(w, gm, c, valid, mv=mv)
+    n, dev = w.shape[0], w.device
+    if w.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"w dtype {w.dtype} is not int16/int32")
+    if n % 8:
+        raise ValueError(f"pairs totals kernel needs n % 8 == 0, got n={n}")
+    expect("w", w, w.dtype, (n, n), dev)
+    expect("gm", gm, torch.int32, (n // 8,), dev)
+    expect("c", c, torch.int32, (n // 8,), dev)
+    expect("valid", valid, torch.bool, (n,), dev)
+    if mv is not None:
+        expect("mv", mv, torch.int32, (n,), dev)
+    totals = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _build.load("pairs_totals")
+    rc = lib.aiocluster_pairs_totals(
+        w.data_ptr(), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
+        None if mv is None else mv.data_ptr(), totals.data_ptr(), n,
+        w.element_size(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, rc, "pairs_totals kernel launch")
+    counters.launches[counter_key(mv is not None)] += 1
+    return totals
+
+
+def counter_key(diag: bool) -> str:
+    """The ``counters.launches`` key of a launch in this mode."""
+    return f"pairs_totals[{'diag' if diag else 'sum'}]"

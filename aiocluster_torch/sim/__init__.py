@@ -1,7 +1,7 @@
 """The simulator: configuration, tensor state, the chunked runner, and
 carrying state across from the reference."""
 
-from .config import HEADLINE_BUDGET, SimConfig, headline_config
+from .config import HEADLINE_BUDGET, SimConfig, headline_config, lean_config
 from .simulator import Simulator
 from .state import SimState, init_state
 
@@ -12,4 +12,5 @@ __all__ = (
     "Simulator",
     "headline_config",
     "init_state",
+    "lean_config",
 )

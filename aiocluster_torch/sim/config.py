@@ -239,6 +239,26 @@ def unported_reason(cfg: SimConfig) -> str | None:
     return None
 
 
+def lean_config(n_nodes: int, rung: str = "int16", **overrides) -> SimConfig:
+    """The reference's memory-lean convergence profile (its
+    ``sim.memory.lean_config``), used for max-scale runs: no heartbeat
+    matrix, no failure detector, watermarks at the named rung ("int16" or
+    "int32"; ``SimConfig`` refuses the packed rungs, which are not
+    ported). Explicit ``overrides`` win. The north star is
+    ``lean_config(100_352, budget=2618)``."""
+    defaults = dict(
+        n_nodes=n_nodes,
+        keys_per_node=16,
+        fanout=3,
+        budget=2048,
+        track_failure_detector=False,
+        track_heartbeats=False,
+        version_dtype=rung,
+    )
+    defaults.update(overrides)
+    return SimConfig(**defaults)
+
+
 def headline_config(n_nodes: int = 10_240) -> SimConfig:
     """The reference bench's headline configuration (bench.py's
     ``SimConfig(n_nodes, keys_per_node=16, fanout=3,

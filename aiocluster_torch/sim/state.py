@@ -113,18 +113,18 @@ def init_state(
             f"initial versions overflow version_dtype={cfg.version_dtype} "
             f"(must stay < {limit})"
         )
-    eye = torch.eye(n, dtype=torch.bool, device=device)
     vdt = DTYPES[cfg.version_dtype]
     hdt = DTYPES[cfg.heartbeat_dtype]
-    w = torch.where(eye, initial_versions[None, :], 0).to(vdt)
-    hb_known = (
-        eye.to(hdt) if cfg.track_heartbeats
-        else torch.zeros((0, 0), dtype=hdt, device=device)
-    )
-    live_view = (
-        eye.clone() if cfg.track_failure_detector
-        else torch.zeros(fd_shape, dtype=torch.bool, device=device)
-    )
+
+    # Each (N, N) matrix is allocated once, in its own dtype, and only its
+    # diagonal written: at N = 100,352 an eye mask alone is 10 GB.
+    w = torch.zeros((n, n), dtype=vdt, device=device)
+    w.diagonal().copy_(initial_versions)
+    hb_shape = (n, n) if cfg.track_heartbeats else (0, 0)
+    hb_known = torch.zeros(hb_shape, dtype=hdt, device=device)
+    hb_known.diagonal().fill_(1)
+    live_view = torch.zeros(fd_shape, dtype=torch.bool, device=device)
+    live_view.diagonal().fill_(True)
     return SimState(
         tick=torch.zeros((), dtype=torch.int32, device=device),
         max_version=initial_versions,

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from aiocluster_torch import Simulator, SimConfig
-from aiocluster_torch.ops import counters, pairs_pull, prng
+from aiocluster_torch.ops import counters, gossip, pairs_pull, pairs_totals, prng
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
 from aiocluster_torch.sim.state import STATE_FIELDS
@@ -58,7 +58,7 @@ def _operands(n, seed, wdt, hdt, imdt, dev, *, diag, check, fd, hb0):
 
 
 def _clone(ops, kw):
-    ops = {k: v.clone() for k, v in ops.items()}
+    ops = {k: None if v is None else v.clone() for k, v in ops.items()}
     kw = dict(kw)
     if "fd" in kw:
         f = kw["fd"]
@@ -70,7 +70,7 @@ def _clone(ops, kw):
 
 def _run(fn, ops, kw):
     flag = fn(ops["w"], ops["hb"], ops["gm"], ops["c"], ops["valid"], 7, 0x12345678, 40, **kw)
-    outs = [ops["w"], ops["hb"]]
+    outs = [ops["w"]] + ([] if ops["hb"] is None else [ops["hb"]])
     if "fd" in kw:
         f = kw["fd"]
         outs += [f.lc, f.im, f.ic, f.live]
@@ -90,13 +90,60 @@ def _run(fn, ops, kw):
 )
 def test_pairs_kernel_equals_plain(dev, mode, rung):
     ops, kw = _operands(256, 3, *rung, dev, **mode)
-    before = counters.pull_launches()
+    before = counters.kernel_launches("pairs_pull")
     got = _run(pairs_pull.pairs_pull, *_clone(ops, kw))
-    assert counters.pull_launches() == before + 1
+    assert counters.kernel_launches("pairs_pull") == before + 1
     want = _run(pairs_pull.pairs_pull_plain, ops, kw)
     torch.cuda.synchronize()
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wdt", [torch.int16, torch.int32])
+@pytest.mark.parametrize("diag", [False, True])
+def test_pairs_totals_kernel_equals_plain(dev, wdt, diag):
+    ops, kw = _operands(256, 5, wdt, wdt, torch.float32, dev, diag=diag, check=False,
+                        fd=False, hb0=False)
+    mv = kw.get("mv")
+    before = counters.kernel_launches("pairs_totals")
+    got = pairs_totals.pairs_totals(ops["w"], ops["gm"], ops["c"], ops["valid"], mv=mv)
+    assert counters.kernel_launches("pairs_totals") == before + 1
+    want = pairs_totals.pairs_totals_plain(ops["w"], ops["gm"], ops["c"], ops["valid"], mv=mv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "mode", [
+        dict(diag=False, check=False, fd=False, hb0=False),
+        dict(diag=True, check=False, fd=False, hb0=False),
+        dict(diag=False, check=True, fd=True, hb0=True),
+        dict(diag=True, check=True, fd=False, hb0=False, lean=True),
+    ],
+)
+def test_pairs_kernel_totals_mode_equals_plain_and_staged(dev, mode):
+    """The totals mode (pass B) against its plain version and against the
+    staged kernel on the same operands."""
+    mode = dict(mode)
+    lean = mode.pop("lean", False)
+    ops, kw = _operands(256, 6, torch.int16, torch.int16, torch.bfloat16, dev, **mode)
+    if lean:
+        ops["hb"] = None
+        kw.pop("hbv", None)
+    kw["totals"] = pairs_totals.pairs_totals(
+        ops["w"], ops["gm"], ops["c"], ops["valid"], mv=kw.get("mv"))
+    before = counters.launches[pairs_pull.counter_key(
+        mode["diag"], mode["check"], mode["fd"], totals=True)]
+    got = _run(pairs_pull.pairs_pull, *_clone(ops, kw))
+    assert counters.launches[pairs_pull.counter_key(
+        mode["diag"], mode["check"], mode["fd"], totals=True)] == before + 1
+    want = _run(pairs_pull.pairs_pull_plain, *_clone(ops, kw))
+    staged_kw = dict(kw)
+    del staged_kw["totals"]
+    staged = _run(pairs_pull.pairs_pull, ops, staged_kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, staged, strict=True):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_fd_kernel_equals_plain(dev):
@@ -126,7 +173,7 @@ def test_simulator_kernel_path_equals_plain_path(dev):
     counters.reset()
     kern = Simulator(cfg, seed=2, device=dev)
     kern.run(5)
-    assert counters.pull_launches() == 15 and not counters.plain_calls
+    assert counters.kernel_launches("pairs_pull") == 15 and not counters.plain_calls
     plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False), seed=2, device=dev)
     plain.run(5)
     seam = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=True), seed=2, device=dev)
@@ -138,6 +185,32 @@ def test_simulator_kernel_path_equals_plain_path(dev):
     assert counters.launches["fd"] == 5
     cpu = Simulator(cfg, seed=2, device="cpu")
     assert cpu.run_until_converged(100) == Simulator(cfg, seed=2, device=dev).run_until_converged(100)
+
+
+def test_simulator_two_pass_path_equals_plain_path(dev, monkeypatch):
+    """Rows that no block may stage (SMEM_LIMIT patched) run both passes
+    on the card: 2 launches per sub-exchange, the plain path's states."""
+    monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    for cfg in (
+        SimConfig(n_nodes=512, keys_per_node=4, fanout=3, budget=64, **NARROW),
+        SimConfig(n_nodes=512, fanout=3, budget=300, version_dtype="int16",
+                  track_failure_detector=False, track_heartbeats=False),
+    ):
+        assert gossip.pull_phase_engaged(cfg, dev) == "pairs_two_pass"
+        counters.reset()
+        kern = Simulator(cfg, seed=3, device=dev)
+        kern.run(5)
+        assert counters.kernel_launches("pairs_pull") == 15
+        assert counters.kernel_launches("pairs_totals") == 15
+        assert not counters.plain_calls
+        plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False),
+                          seed=3, device=dev)
+        plain.run(5)
+        torch.cuda.synchronize()
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
+        cpu = Simulator(cfg, seed=3, device="cpu")
+        assert cpu.run_until_converged(100) == Simulator(cfg, seed=3, device=dev).run_until_converged(100)
 
 
 def test_draws_on_the_device_equal_the_host(dev):

@@ -56,11 +56,17 @@ def _case(n, seed, wdt, hdt, imdt, self_match=False):
     )
 
 
-def _reference(case, *, diag, check, fd, hb0, budget):
+def _reference(case, *, diag, check, fd, hb0, budget, totals=None, lean=False):
+    """The reference kernel, interpreted; ``lean`` drops hb (w only) and
+    ``totals`` feeds the rows' deficit totals."""
     j = {k: jnp.asarray(v) for k, v in case.items() if k != "imdt"}
     kw = {}
     if diag:
-        kw.update(mv=j["mv"], hbv=j["hbv"])
+        kw["mv"] = j["mv"]
+        if not lean:
+            kw["hbv"] = j["hbv"]
+    if totals is not None:
+        kw["totals"] = jnp.asarray(totals)
     if check:
         kw["check"] = (j["mv"], j["alive"], j["owner_alive"])
     if fd:
@@ -71,20 +77,27 @@ def _reference(case, *, diag, check, fd, hb0, budget):
         kw["fd_params"] = (FD_CONSTS["max_interval"], FD_CONSTS["window"],
                            FD_CONSTS["prior_weight"], FD_CONSTS["prior_mean"])
     out = fused_pull_pairs(
-        j["w"], j["hb"], j["gm"], j["c"], j["valid"], jnp.asarray(SALT, jnp.int32),
-        jnp.asarray(RUN_SALT, jnp.uint32), budget, interpret=True, **kw,
+        j["w"], None if lean else j["hb"], j["gm"], j["c"], j["valid"],
+        jnp.asarray(SALT, jnp.int32), jnp.asarray(RUN_SALT, jnp.uint32), budget,
+        interpret=True, **kw,
     )
     flag = None
     if check:
         out, flag = out
+    if lean:
+        out = (out,)
     return [np.asarray(x) for x in out], flag
 
 
-def _port(case, *, diag, check, fd, hb0, budget):
+def _port(case, *, diag, check, fd, hb0, budget, totals=None, lean=False):
     t = {k: torch.from_numpy(np.array(v)) for k, v in case.items() if k != "imdt"}
     kw = {}
     if diag:
-        kw.update(mv=t["mv"], hbv=t["hbv"])
+        kw["mv"] = t["mv"]
+        if not lean:
+            kw["hbv"] = t["hbv"]
+    if totals is not None:
+        kw["totals"] = torch.from_numpy(np.array(totals))
     if check:
         kw["check"] = (t["mv"], t["alive"], t["owner_alive"])
     if fd:
@@ -99,11 +112,12 @@ def _port(case, *, diag, check, fd, hb0, budget):
         )
     before = counters.plain_calls["pull"]
     flag = pairs_pull.pairs_pull(
-        t["w"], t["hb"], t["gm"], t["c"], t["valid"], SALT, RUN_SALT, budget, **kw,
+        t["w"], None if lean else t["hb"], t["gm"], t["c"], t["valid"], SALT,
+        RUN_SALT, budget, **kw,
     )
     # CPU tensors: the plain version
     assert counters.plain_calls["pull"] == before + 1
-    outs = [t["w"], t["hb"]]
+    outs = [t["w"]] if lean else [t["w"], t["hb"]]
     if fd:
         f = kw["fd"]
         outs += [f.lc, f.im, f.ic, f.live]

@@ -16,7 +16,7 @@ from aiocluster_tpu.ops.gossip import sim_step as ref_step
 from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
-from aiocluster_torch import Simulator, SimConfig
+from aiocluster_torch import Simulator, SimConfig, lean_config
 from aiocluster_torch.ops import counters, gossip, prng
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
 from aiocluster_torch.sim.state import STATE_FIELDS, init_state
@@ -143,21 +143,29 @@ def test_dispatch_resolution():
     with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
         gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="m8"), cuda)
     assert gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="pairs"), cuda) == "pairs"
-    # A kernel-wanting config the kernel cannot take is refused (and
+    # A kernel-wanting config the kernels cannot take is refused (and
     # counted), never run plain.
     counters.reset()
     with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
         gossip.fd_phase_engaged(dataclasses.replace(head, fanout=0), cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1d"):
-        gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1d"):
-        Simulator(SimConfig(n_nodes=65_536), device=cuda)  # before allocating
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
+        Simulator(dataclasses.replace(head, pallas_variant="m8"), device=cuda)  # before allocating
+    # Rows too wide for one block's shared memory take the two-pass form
+    # (the totals pass, then the pull fed the totals), FD still fused.
+    assert gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "pairs_two_pass"
+    assert gossip.fd_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "fused"
+    north_star = lean_config(100_352, budget=2618)
+    assert gossip.pull_phase_engaged(north_star, cuda) == "pairs_two_pass"
+    assert gossip.fd_phase_engaged(north_star, cuda) == "off"
     # The width bound counts the kernel's static shared memory too: two
     # int16 rows of 58,112 fill the dynamic limit alone, not with it.
     assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=57_984), cuda) == "pairs"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1d"):
-        gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=58_112), cuda)
-    assert sum(counters.refusals.values()) == 4
+    assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=58_112), cuda) == "pairs_two_pass"
+    # A pinned "pairs" that cannot stage takes the two-pass pairs form
+    # (the reference takes m8 there: the same bits).
+    pinned = dataclasses.replace(head, n_nodes=58_112, pallas_variant="pairs")
+    assert gossip.pull_phase_engaged(pinned, cuda) == "pairs_two_pass"
+    assert sum(counters.refusals.values()) == 2
     # use_pallas=True asks for the kernels on the CPU too: the same refusal.
     with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
         gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0, use_pallas=True), cpu)
@@ -176,7 +184,7 @@ def test_counters_on_the_cpu_path():
     assert counters.plain_calls == {"pull": 4, "fd": 2}
     counters.reset()
     Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=True), seed=1, device="cpu").run(2)
-    assert counters.plain_calls == {"pull": 4, "fd": 2} and counters.pull_launches() == 0
+    assert counters.plain_calls == {"pull": 4, "fd": 2} and counters.kernel_launches("pairs_pull") == 0
     counters.reset()
     assert not counters.plain_calls and not counters.launches and not counters.refusals
 
