@@ -48,11 +48,22 @@ SIGNATURES = {
         "aiocluster_pairs_totals",
         [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     ),
+    "m8_pull": (
+        "aiocluster_m8_pull",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P, _P, _P, _I, _I, _I, _P],
+    ),
+    "m8_totals": (
+        "aiocluster_m8_totals",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
     "fd": (
         "aiocluster_fd",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F, _F, _F, _I, _I, _P],
     ),
 }
+
+# Libraries of staged kernels, which export aiocluster_<name>_static_smem.
+STATIC_SMEM_QUERIES = ("pairs_pull", "m8_pull")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None  # wall time of the last build_all()
@@ -135,9 +146,10 @@ def load(name: str) -> ctypes.CDLL:
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    if name == "pairs_pull":
-        lib.aiocluster_pairs_pull_static_smem.argtypes = [ctypes.POINTER(_I)]
-        lib.aiocluster_pairs_pull_static_smem.restype = ctypes.c_int
+    if name in STATIC_SMEM_QUERIES:
+        query = getattr(lib, f"aiocluster_{name}_static_smem")
+        query.argtypes = [ctypes.POINTER(_I)]
+        query.restype = ctypes.c_int
     lib.aiocluster_error_string.argtypes = [ctypes.c_int]
     lib.aiocluster_error_string.restype = ctypes.c_char_p
     _libs[name] = lib

@@ -1,8 +1,9 @@
-// What the pair-fused kernels (pairs_pull.cu, pairs_totals.cu) share: the
-// matched partner of a row, the diagonal-refreshed row load and the
-// deficit sums. Both passes of the two-pass form read w through these,
-// so the totals pass sees the refreshed diagonal exactly as the pull
-// does.
+// What the pull kernels (the pair-fused pairs_pull.cu and pairs_totals.cu,
+// the single-pass m8_pull.cu and m8_totals.cu) share: the matched partner
+// of a row, the diagonal-refreshed row load, the deficit sums and the
+// budgeted advance. Both passes of each two-pass form read w through
+// these, so a totals pass sees the refreshed diagonal exactly as its pull
+// does, and every pull applies the same arithmetic.
 #pragma once
 
 #include <stdint.h>
@@ -18,19 +19,22 @@ __device__ __forceinline__ int partner_row(const int32_t* gm, const int32_t* c,
   return 8 * gm[g] + (((i & 7) - c[g]) & 7);
 }
 
-// Eight elements of row `row` from column j0 (a multiple of 8); with DIAG
-// the owner diagonal w[row, row] reads as mv[row] (the round's first
-// sub-exchange refreshes it). The element is picked with constant
-// indices: a computed index into x8 would put it in local memory.
+// Eight elements of row `row` from local column j0 (a multiple of 8) of
+// a block whose column 0 is global owner col0 (0 for the whole width);
+// with DIAG the owner diagonal, global owner `row`, reads as mv at its
+// local column (the round's first sub-exchange refreshes it). The
+// element is picked with constant indices: a computed index into x8
+// would put it in local memory.
 template <typename WT, bool DIAG>
 __device__ __forceinline__ Vec8<WT> ld8_row(const WT* w_row, int row, int j0,
-                                            const int32_t* mv) {
+                                            const int32_t* mv, int col0 = 0) {
   Vec8<WT> x8 = ld8(w_row + j0);
-  if (DIAG && row >= j0 && row < j0 + 8) {
-    const WT v = static_cast<WT>(mv[row]);
+  const int g0 = col0 + j0;
+  if (DIAG && row >= g0 && row < g0 + 8) {
+    const WT v = static_cast<WT>(mv[row - col0]);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      if (j0 + e == row) x8.v[e] = v;
+      if (g0 + e == row) x8.v[e] = v;
     }
   }
   return x8;
@@ -49,4 +53,22 @@ __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
     if (vi && y > x) ti += y - x;
     if (vp && x > y) tp += x - y;
   }
+}
+
+// How far a receiver advances on a deficit d of one owner: the
+// proportional share d * scale rounded down, plus one where the hashed
+// dither u falls below the fraction, never past d (the reference's
+// _advance; -fmad=false keeps the product and difference unfused).
+__device__ __forceinline__ int32_t advance(int32_t d, float scale, float u) {
+  const float x = __fmul_rn(static_cast<float>(d), scale);
+  const float fl = floorf(x);
+  const int32_t bump = u < __fsub_rn(x, fl) ? 1 : 0;
+  const int32_t a = static_cast<int32_t>(fl) + bump;
+  return a < d ? a : d;
+}
+
+// The share of every deficit a row may take: min(1, budget / max(total,
+// 1)) with the correctly rounded divide.
+__device__ __forceinline__ float budget_scale(float budget, float total) {
+  return fminf(1.0f, __fdiv_rn(budget, fmaxf(total, 1.0f)));
 }

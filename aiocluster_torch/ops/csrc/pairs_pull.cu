@@ -82,15 +82,6 @@ struct PairsArgs {
   FdConsts fd;
 };
 
-__device__ __forceinline__ int32_t advance(int32_t d, float scale,
-                                           float u) {
-  const float x = __fmul_rn(static_cast<float>(d), scale);
-  const float fl = floorf(x);
-  const int32_t bump = u < __fsub_rn(x, fl) ? 1 : 0;
-  const int32_t a = static_cast<int32_t>(fl) + bump;
-  return a < d ? a : d;
-}
-
 // The FD phase for eight (row, j0 + e) pairs: hb_new is the post-exchange
 // knowledge, hb_old the refreshed pre-exchange tile (the round-start
 // matrix at fanout == 1).
@@ -169,10 +160,8 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
     tot_i = static_cast<float>(ti);
     tot_p = static_cast<float>(tp);
   }
-  const float scale_i =
-      fminf(1.0f, __fdiv_rn(a.budget, fmaxf(tot_i, 1.0f)));
-  const float scale_p =
-      fminf(1.0f, __fdiv_rn(a.budget, fmaxf(tot_p, 1.0f)));
+  const float scale_i = budget_scale(a.budget, tot_i);
+  const float scale_p = budget_scale(a.budget, tot_p);
 
   // Pass 2: apply both directions' advances, absorb heartbeats, and run
   // the check and the FD epilogue on the fresh values.

@@ -17,6 +17,12 @@ reference's ``pallas_path_engaged`` / ``pallas_variant_engaged`` /
   deficit totals (ops/pairs_totals.py), then the pull fed those totals
   ("pairs_two_pass", the reference's sharded two-pass form on one
   device). A config the kernels cannot take is refused, never run plain;
+- ``pallas_variant="m8"`` on a CUDA device: every sub-exchange is one
+  launch of the single-pass pull (ops/m8_pull.py, out of place; "m8"),
+  or, where its rows do not stage, the m8 deficit totals
+  (ops/m8_totals.py) and then the pull fed those totals
+  ("m8_two_pass"); the FD phase is the standalone kernel ("kernel")
+  and the convergence flag the plain reduction, as in the reference;
 - ``use_pallas=False, use_pallas_fd=True`` on a CUDA device: the pull
   runs as plain PyTorch ops and the FD phase as the standalone kernel
   (ops/fd.py, "kernel") — the reference's A/B seam;
@@ -35,7 +41,7 @@ import torch
 
 from ..sim.config import SimConfig, unported_reason
 from ..sim.state import DTYPES, SimState
-from . import counters, pairs_pull, pairs_totals, prng
+from . import counters, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from . import fd as fd_mod
 from .fd import FdParams
 
@@ -134,40 +140,44 @@ def kernels_wanted(cfg: SimConfig, device) -> bool:
     )
 
 
+PAIRS_FORMS = ("pairs", "pairs_two_pass")
+M8_FORMS = ("m8", "m8_two_pass")
+
+
 def pull_phase_engaged(cfg: SimConfig, device) -> str:
     """Which implementation serves the sub-exchanges: "pairs" (the
     pair-fused pull with both rows staged in shared memory, one launch
     per sub-exchange), "pairs_two_pass" (rows too wide to stage: the
     deficit-totals pass, then the pull fed those totals, two launches
-    per sub-exchange) or "plain". A config that asks for the kernels and
-    that they cannot take raises ``NotImplementedError``."""
+    per sub-exchange), their single-pass counterparts "m8" and
+    "m8_two_pass" (``pallas_variant="m8"`` pins them, as it pins the
+    reference's m8 kernel) or "plain". A config that asks for the
+    kernels and that they cannot take raises ``NotImplementedError``."""
     if not kernels_wanted(cfg, device):
         return "plain"
-    if cfg.pallas_variant == "m8":
-        counters.refuse(
-            "pallas_variant='m8' (the single-pass pull kernel) is not "
-            "ported to the GPU: ROADMAP.md B3"
-        )
     if cfg.fanout < 1:
         counters.refuse(
             "fanout=0 on the kernel path (no sub-exchange carries the "
             "diagonal refresh and the FD epilogue) is not ported yet: "
             "ROADMAP.md B1e"
         )
-    if pairs_pull.pairs_supported(cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize):
-        return "pairs"
-    return "pairs_two_pass"
+    # Both single-launch forms stage the two rows a CTA reads.
+    staged = pairs_pull.pairs_supported(cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize)
+    if cfg.pallas_variant == "m8":
+        return "m8" if staged else "m8_two_pass"
+    return "pairs" if staged else "pairs_two_pass"
 
 
 def fd_phase_engaged(cfg: SimConfig, device) -> str:
     """Which implementation serves the FD phase: "fused" (the epilogue of
     the round's last pairs sub-exchange, in either pairs form), "kernel"
-    (the standalone pass), "plain", or "off" (no failure detector)."""
+    (the standalone pass; the m8 forms' too, as in the reference),
+    "plain", or "off" (no failure detector)."""
     if not cfg.track_failure_detector:
         return "off"
     if cfg.use_pallas_fd is False:
         return "plain"
-    if pull_phase_engaged(cfg, device) != "plain":
+    if pull_phase_engaged(cfg, device) in PAIRS_FORMS:
         return "fused"
     if cfg.use_pallas_fd is True or kernels_wanted(cfg, device):
         return "kernel"
@@ -228,7 +238,14 @@ def sim_step(
 
     flag = None
     w, hb = state.w, state.hb_known
-    if pull != "plain":
+    if pull in M8_FORMS:
+        w, hb = _m8_exchanges(
+            cfg, pull, w, hb, alive, draws, max_version, heartbeat, salt_of, run_salt
+        )
+        # m8 never writes its inputs: the input hb is the round-start
+        # matrix the FD phase reads.
+        hb_round_start = state.hb_known
+    elif pull != "plain":
         # The FD phase reads the round-start hb after the sub-exchanges
         # unless it fuses into a fanout-1 round's only call: keep a copy
         # (its owner diagonal is refreshed where it is read).
@@ -309,6 +326,38 @@ def sim_step(
     return new_state, all_converged_flag(new_state)
 
 
+def _m8_exchanges(cfg, pull, w, hb, alive, draws, max_version, heartbeat, salt_of, run_salt):
+    """The round's sub-exchanges on the m8 forms: each reads the
+    pre-exchange w/hb and writes other buffers. The buffer a sub-exchange
+    consumed takes the next one's output (``sim_step`` consumes its input
+    state), so a round holds two w matrices, not fanout + 1; the input
+    hb stays intact when the FD phase reads it afterwards. The first
+    sub-exchange refreshes the owner diagonal."""
+    gm_all, c_all, p_all = draws
+    track_hb = cfg.track_heartbeats
+    keep_hb0 = cfg.track_failure_detector
+    hb0 = hb
+    w_spare = hb_spare = None
+    for c in range(cfg.fanout):
+        first = c == 0
+        valid = alive & alive[p_all[c]]
+        mv = max_version if first else None
+        hbv = heartbeat if first and track_hb else None
+        totals = None
+        if pull == "m8_two_pass":
+            totals = m8_totals.m8_totals(w, gm_all[c], c_all[c], valid, mv=mv)
+        out = m8_pull.m8_pull(
+            w, hb if track_hb else None, gm_all[c], c_all[c], valid, salt_of(c),
+            run_salt, cfg.budget, mv=mv, hbv=hbv, totals=totals,
+            out=(w_spare, hb_spare if track_hb else None),
+        )
+        w_spare, w = w, out[0] if track_hb else out
+        if track_hb:
+            hb_spare = None if (keep_hb0 and hb is hb0) else hb
+            hb = out[1]
+    return w, hb
+
+
 # -- row blocks ---------------------------------------------------------------------
 
 
@@ -319,10 +368,11 @@ def sim_step(
 ROW_BLOCK_ELEMS = 1 << 26
 
 
-def _row_blocks(n: int):
-    """(r0, r1) bounds of consecutive blocks of the rows of an (n, n)
-    matrix, about ``ROW_BLOCK_ELEMS`` elements each."""
-    rows = max(1, ROW_BLOCK_ELEMS // n)
+def row_blocks(n: int, n_cols: int | None = None):
+    """(r0, r1) bounds of consecutive blocks of the rows of an (n,
+    n_cols) matrix (square by default), about ``ROW_BLOCK_ELEMS``
+    elements each."""
+    rows = max(1, ROW_BLOCK_ELEMS // (n if n_cols is None else n_cols))
     return ((r0, min(r0 + rows, n)) for r0 in range(0, n, rows))
 
 
@@ -344,14 +394,21 @@ def pair_row_blocks(p: torch.Tensor):
         yield rows, p[rows]
 
 
-def refreshed_rows(m: torch.Tensor, rows: torch.Tensor, diag, dtype=None) -> torch.Tensor:
-    """A copy of the rows ``rows`` of an (N, N) matrix ``m`` (in
-    ``dtype`` if given) whose owner diagonal reads ``diag`` ((N,), the
-    round's first sub-exchange refreshes it), or as stored when ``diag``
-    is None."""
+def refreshed_rows(
+    m: torch.Tensor, rows: torch.Tensor, diag, dtype=None, col0: int = 0
+) -> torch.Tensor:
+    """A copy of the rows ``rows`` of an (N, n_cols) matrix ``m`` (in
+    ``dtype`` if given) whose owner diagonal reads ``diag`` ((n_cols,),
+    the round's first sub-exchange refreshes it), or as stored when
+    ``diag`` is None. ``m`` holds the owners ``col0 ..`` (a column block;
+    the whole width by default): row r's diagonal is local column
+    ``r - col0``, where that lies in the block."""
     x = m[rows] if dtype is None else m[rows].to(dtype)
     if diag is not None:
-        x[torch.arange(rows.numel(), device=m.device), rows] = diag[rows].to(x.dtype)
+        local = rows - col0
+        hit = (local >= 0) & (local < m.shape[1])
+        at = torch.arange(rows.numel(), device=m.device)[hit]
+        x[at, local[hit]] = diag[local[hit]].to(x.dtype)
     return x
 
 
@@ -375,7 +432,7 @@ def _owners_caught_up(state: SimState) -> torch.Tensor:
     # A need that w's dtype cannot hold is reached by no row, and an alive
     # owner's own row is alive.
     ok = state.max_version <= torch.iinfo(w.dtype).max
-    for r0, r1 in _row_blocks(w.shape[0]):
+    for r0, r1 in row_blocks(w.shape[0]):
         ok &= ((w[r0:r1] >= need) | ~alive[r0:r1, None]).all(dim=0)
     return ok | ~alive
 
@@ -404,7 +461,7 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
     kv_known = torch.zeros((), dtype=torch.int64, device=dev)
     fp = torch.zeros((), dtype=torch.int64, device=dev)
     caught_up = state.max_version <= torch.iinfo(w.dtype).max  # _owners_caught_up
-    for r0, r1 in _row_blocks(total):
+    for r0, r1 in row_blocks(total):
         wb = w[r0:r1]
         caught_up &= ((wb >= need) | ~alive[r0:r1, None]).all(dim=0)
         pair = alive[r0:r1, None] & alive[None, :]

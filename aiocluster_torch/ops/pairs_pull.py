@@ -58,13 +58,14 @@ def pairs_supported(n: int, w_itemsize: int) -> bool:
     return n % 8 == 0 and 2 * n * w_itemsize + STATIC_SMEM <= SMEM_LIMIT
 
 
-def compiled_static_smem() -> int:
-    """The built kernel's static shared memory in bytes, as the CUDA
-    runtime reports it (needs a CUDA device)."""
-    lib = _build.load("pairs_pull")
+def compiled_static_smem(name: str = "pairs_pull") -> int:
+    """The static shared memory in bytes of library ``name``'s staged
+    kernel (``_build.STATIC_SMEM_QUERIES``), as the CUDA runtime reports
+    it (needs a CUDA device)."""
+    lib = _build.load(name)
     out = ctypes.c_int(0)
-    _build.check(lib, lib.aiocluster_pairs_pull_static_smem(ctypes.byref(out)),
-                 "pairs_pull static shared memory query")
+    query = getattr(lib, f"aiocluster_{name}_static_smem")
+    _build.check(lib, query(ctypes.byref(out)), f"{name} static shared memory query")
     return out.value
 
 

@@ -24,6 +24,22 @@ convergence at seed 1 through the kernels: it must converge at round
 are timed at that width and one trace of a few rounds is taken
 (``build/chip_smoke_trace_north_star.json``).
 
+Then the single-pass m8 path (``pallas_variant="m8"``): the m8 pull and
+the m8 totals pass are held bit-equal to their plain versions (and to
+the staged pairs kernel and the pairs totals, the same functions) at
+N = 10,240 in every mode, int16 and int32; the headline config pinned to
+m8 runs to convergence (round 24, one pull launch a sub-exchange and the
+standalone FD kernel once a round) and equals the pairs path after 4
+rounds; the north star pinned to m8 runs 100 rounds, its two-pass m8
+modes are held against their plain versions at that width, the
+reference's 8-shard computation is done block by block on the card (8
+column blocks of 12,544 owners: their totals sum to the whole width's
+and their outputs side by side are the whole width's), and the run goes
+on to convergence (round 209). Last, the reference's int16 experiment
+(benchmarks/records/_i16_kernel_experiment.py) on Hopper: the m8 pull's
+int16 variants bit-exact against the int32 kernel and timed as the
+experiment times them.
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -43,7 +59,9 @@ import numpy as np
 import torch
 
 from aiocluster_torch import Simulator, headline_config, lean_config
-from aiocluster_torch.ops import _build, counters, pairs_pull, pairs_totals, prng
+from aiocluster_torch.ops import (
+    _build, counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng,
+)
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
 from aiocluster_torch.sim.state import STATE_FIELDS
@@ -56,6 +74,7 @@ CONVERGED_ROUND = 24  # the reference's headline trajectory at seed 0
 # round 209 (benchmarks/records/r4_northstar_100k_convergence.json).
 NORTH_STAR_N, NORTH_STAR_SEED, NORTH_STAR_ROUND = 100_352, 1, 209
 FULL_WIDTH_ROUNDS = 100  # the north star's rounds before its parity check
+COLUMN_BLOCKS = 8  # the reference's certified north-star mesh: 8 shards
 TRACE_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
 NORTH_STAR_TRACE = TRACE_PATH.with_name("chip_smoke_trace_north_star.json")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -581,7 +600,7 @@ def north_star(dev, card_line):
     return record, launches, times
 
 
-def two_pass_kernel_entries(dev, errs, ns_launches, ns_times):
+def two_pass_kernel_entries(dev, errs, ns_launches, ns_rounds, ns_times):
     """The kernel-line entries of the two-pass modes on the north star's
     path: times at N = 10,240 beside the plain versions' and the bounds,
     the times at the north star's width (``ns_times``), and the launches
@@ -596,7 +615,8 @@ def two_pass_kernel_entries(dev, errs, ns_launches, ns_times):
         return dict(
             name=key, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
             replaces=f"aiocluster_tpu/ops/pallas_pull.py:{line}",
-            launches=ns_launches[key], max_abs_err=errs[key], ms=ms,
+            launches=ns_launches[key], launches_per_round=ns_launches[key] / ns_rounds,
+            max_abs_err=errs[key], ms=ms,
             plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
             path="north_star", n=N, n_main=NORTH_STAR_N, ms_main=ns_times[key][0],
             bound_ms_main=ns_times[key][1][0], parity_n=[N, NORTH_STAR_N],
@@ -637,6 +657,508 @@ def two_pass_kernel_entries(dev, errs, ns_launches, ns_times):
     return entries
 
 
+# -- the single-pass m8 path ---------------------------------------------------
+
+
+def m8_bytes(n, n_local, wsize, hsize, *, diag, totals, reads=1):
+    """Bytes one m8 pull moves: w (and hb; ``hsize`` 0 when lean) read
+    ``reads`` times and written once, and the vectors. ``reads=1`` is
+    what the function must move (its bound); ``reads=2`` is this design's
+    traffic (each row read as itself and as its partner's peer)."""
+    mat = n * n_local
+    b = (reads + 1) * mat * (wsize + hsize) + n * (4 + 4 + 1)
+    if totals:
+        b += n * 4
+    if diag:
+        b += n_local * 4 * (2 if hsize else 1)
+    return b
+
+
+def m8_totals_bytes(n, n_local, wsize, *, diag, reads=1):
+    """Bytes the m8 totals pass moves: w read ``reads`` times (2 in this
+    design), the totals written, the matching, valid and (diag) mv read."""
+    return reads * n * n_local * wsize + n * (4 + 4 + 1) + (n_local * 4 if diag else 0)
+
+
+def m8_case(n, wdt, seed, dev, *, diag, lean):
+    """Random operands of one m8 sub-exchange in the ranges a run sees,
+    drawn on the card from ``seed``, with a tenth of the nodes dead
+    (``lean``: no heartbeat matrix). Returns a factory of fresh copies of
+    w and hb, so every version starts from the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    w = draw(0, 17, (n, n)).to(wdt)
+    hb = None if lean else draw(0, 40, (n, n)).to(wdt)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    gm, c, p = prng.grouped_matching(prng.key(seed), n)
+    shared = dict(
+        gm=gm.to(dev, torch.int32), c=c.to(dev, torch.int32),
+        valid=alive & alive[p.to(dev)], salt=2 * seed + 1, run_salt=0x9E3779B9,
+        budget=2618,
+    )
+    if diag:
+        shared["mv"] = draw(16, 20, (n,))
+        if not lean:
+            shared["hbv"] = draw(38, 41, (n,))
+
+    def fresh():
+        return dict(shared, w=w.clone(), hb=None if hb is None else hb.clone())
+
+    return fresh
+
+
+def call_m8(fn, ops, **kw):
+    out = fn(
+        ops["w"], ops["hb"], ops["gm"], ops["c"], ops["valid"], ops["salt"],
+        ops["run_salt"], ops["budget"], mv=ops.get("mv"), hbv=ops.get("hbv"), **kw,
+    )
+    return [out] if ops["hb"] is None else list(out)
+
+
+def check_m8_kernels(dev):
+    """Phase 9a: the m8 totals pass and the m8 pull against their plain
+    versions at N = 10,240, int16 and int32, with a seeded tenth of the
+    nodes dead: totals with and without the diagonal refresh (also
+    against the pairs totals, the same function); the pull lean and with
+    hb, refresh on and off, totals given and not (also against the staged
+    pairs kernel on a copy of the same operands, and with its inputs left
+    untouched). Returns the max_abs_err of each launch key."""
+    errs: dict[str, float] = collections.defaultdict(float)
+    for wdt in (torch.int16, torch.int32):
+        for diag in (True, False):
+            ops = m8_case(N, wdt, 80 + diag, dev, diag=diag, lean=True)()
+            args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+            got = m8_totals.m8_totals(*args, mv=ops.get("mv"))
+            want = m8_totals.m8_totals_plain(*args, mv=ops.get("mv"))
+            pairs = pairs_totals.pairs_totals(*args, mv=ops.get("mv"))
+            torch.cuda.synchronize()
+            key = m8_totals.counter_key(diag)
+            err = max(max_abs_err([got], [want]), max_abs_err([got], [pairs]))
+            errs[key] = max(errs[key], err)
+            log("m8", f"n={N} {wdt} {key}: max_abs_err={err} against the plain version "
+                f"and the pairs totals (sum {float(got.double().sum()):.0f})")
+            check(err == 0.0, f"{key} disagrees")
+        for i, (lean, diag, given) in enumerate(
+            (lean, diag, given) for lean in (False, True) for diag in (True, False)
+            for given in (False, True)
+        ):
+            fresh = m8_case(N, wdt, 90 + i, dev, diag=diag, lean=lean)
+            ops = fresh()
+            tot = None
+            if given:
+                tot = m8_totals.m8_totals(ops["w"], ops["gm"], ops["c"], ops["valid"],
+                                          mv=ops.get("mv"))
+            got = call_m8(m8_pull.m8_pull, ops, totals=tot)
+            want = call_m8(m8_pull.m8_pull_plain, ops, totals=tot)
+            staged = fresh()
+            call_pull(pairs_pull.pairs_pull, staged)
+            untouched = fresh()
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got, want),
+                      max_abs_err(got, [staged["w"]] + ([] if lean else [staged["hb"]])))
+            check(torch.equal(ops["w"], untouched["w"])
+                  and (lean or torch.equal(ops["hb"], untouched["hb"])),
+                  "the m8 pull wrote its inputs")
+            key = m8_pull.counter_key(diag, given)
+            errs[key] = max(errs[key], err)
+            log("m8", f"n={N} {wdt} {'lean' if lean else 'hb'} {key}: max_abs_err={err} "
+                "against the plain version and the staged pairs kernel")
+            check(err == 0.0, f"{key} disagrees")
+            del ops, staged, untouched, got, want
+    return errs
+
+
+def headline_m8(dev, card_line):
+    """Phase 9b: the headline config pinned to m8 runs to convergence
+    through the m8 pull (one launch a sub-exchange, the diagonal refresh
+    on the first) and the standalone FD kernel (one launch a round), with
+    no plain call: round 24, the pairs path's. Then 4 rounds of it equal
+    4 rounds of the pairs path on every state tensor, and the round rate
+    is timed as the pairs path's is."""
+    cfg = dataclasses.replace(headline_config(), pallas_variant="m8")
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=0, device=dev)
+    converged = sim.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, plain = dict(counters.launches), dict(counters.plain_calls)
+    rounds = sim.tick
+    log("headline_m8", f"pallas_variant='m8': run_until_converged -> {converged} after "
+        f"{rounds} rounds ({run_s:.2f} s incl. setup); launches {launches}; plain calls "
+        f"{plain}")
+    check(converged == CONVERGED_ROUND,
+          f"headline m8 converged at {converged}, expected {CONVERGED_ROUND}")
+    check(counters.kernel_launches("m8_pull") == 3 * rounds
+          and launches.get("m8_pull[diag]") == rounds and launches.get("fd") == rounds
+          and counters.kernel_launches("pairs_pull") == 0 and not plain,
+          "headline m8 did not run 3 m8 pulls and 1 FD kernel a round")
+    m = sim.metrics()
+    check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
+          and np.isfinite(float(m["mean_fraction"])) and int(m["fd_false_positives"]) >= 0,
+          "headline m8 metrics disagree with the converged flag")
+    del sim
+    a = Simulator(cfg, seed=0, device=dev)
+    a.run(4)
+    b = Simulator(headline_config(), seed=0, device=dev)
+    b.run(4)
+    torch.cuda.synchronize()
+    check(states_equal(a.state, b.state), "4 rounds of the m8 path != the pairs path")
+    log("headline_m8", "4 rounds: m8 path == pairs path on every state tensor")
+    del a, b
+    sim = Simulator(cfg, seed=0, device=dev, chunk=16)
+    sim.run(8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(48)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) / 48 * 1e3
+    del sim
+    log("headline_m8", f"{1e3 / round_ms:.2f} rounds/s at N={N} ({round_ms:.3f} ms/round; "
+        f"{card_line})")
+    record = {"n": N, "seed": 0, "converged_round": converged, "rounds_run": rounds,
+              "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms}
+    return record, launches
+
+
+def m8_subexchange(dev, sim, seed, s):
+    """Operands of sub-exchange ``s`` of the round after the simulator's
+    tick, with a seeded tenth of the nodes dead and a seeded half of the
+    owners having written a key (so the masks and the refresh change
+    values): (gm, c, valid, mv, salt, run_salt)."""
+    n = sim.cfg.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    wrote = torch.rand(n, generator=gen, device=dev) < 0.5
+    mv = sim.state.max_version + wrote.to(torch.int32)
+    tick = sim.tick + 1
+    run_key = prng.key(sim.seed)
+    gm, c, p = (t[0][s] for t in prng.round_draws(run_key.to(dev), tick, 1, n, sim.cfg.fanout))
+    salt = tick * 2 * sim.cfg.fanout + 2 * s
+    return gm, c, alive & alive[p], mv, salt, prng.run_salt(run_key)
+
+
+def check_m8_full_width(dev, sim, errs):
+    """Phase 9c: the two-pass m8 modes against their plain versions at the
+    north star's width, on its state ``FULL_WIDTH_ROUNDS`` rounds in: the
+    first sub-exchange's (refresh) and a later one's, each from the
+    state's w (the kernels never write it). Raises each launch key's
+    max_abs_err in ``errs``."""
+    w, budget = sim.state.w, sim.cfg.budget
+    t0 = time.perf_counter()
+    for s, diag in ((0, True), (1, False)):
+        gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 8, s)
+        mv = mv if diag else None
+        tk = m8_totals.m8_totals(w, gm, c, valid, mv=mv)
+        tp = m8_totals.m8_totals_plain(w, gm, c, valid, mv=mv)
+        t_key = m8_totals.counter_key(diag)
+        t_err = max_abs_err([tk], [tp])
+        errs[t_key] = max(errs[t_key], t_err)
+        args = (gm, c, valid, salt, run_salt, budget)
+        wk = m8_pull.m8_pull(w, None, *args, mv=mv, totals=tk)
+        wp = m8_pull.m8_pull_plain(w, None, *args, mv=mv, totals=tp)
+        torch.cuda.synchronize()
+        p_key = m8_pull.counter_key(diag, True)
+        p_err = max_abs_err([wk], [wp])
+        errs[p_key] = max(errs[p_key], p_err)
+        log("north_star_m8", f"n={w.shape[0]} sub-exchange {s}: {t_key} max_abs_err={t_err} "
+            f"(totals sum {float(tk.double().sum()):.0f}, max {float(tk.max()):.0f}); "
+            f"{p_key} max_abs_err={p_err}")
+        del wk, wp
+    torch.cuda.empty_cache()
+    log("north_star_m8", f"every two-pass m8 mode equals its plain version on the north "
+        f"star's state {sim.tick} rounds in ({time.perf_counter() - t0:.1f} s)")
+
+
+def check_column_blocks(dev, sim, errs):
+    """Phase 9d: the reference's certified 8-shard computation, block by
+    block on one card. The first sub-exchange of the next round (refresh
+    on, a tenth of the nodes dead) over the whole width: its totals and
+    its pull. Then over 8 column blocks of the owners, each copied out
+    (2.5 GB) and run at its owner offset: the blocks' totals, summed in
+    float32, must equal the whole width's bit for bit, and each block's
+    pull with the whole width's totals must equal the whole width's
+    output on its columns."""
+    w, budget = sim.state.w, sim.cfg.budget
+    n = w.shape[0]
+    width = n // COLUMN_BLOCKS
+    t0 = time.perf_counter()
+    gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 9, 0)
+    args = (gm, c, valid, salt, run_salt, budget)
+    tot = m8_totals.m8_totals(w, gm, c, valid, mv=mv)
+    whole = m8_pull.m8_pull(w, None, *args, mv=mv, totals=tot)
+    summed = torch.zeros_like(tot)
+    err = 0.0
+    for k in range(COLUMN_BLOCKS):
+        cols = slice(k * width, (k + 1) * width)
+        block = w[:, cols].contiguous()
+        bmv = mv[cols].contiguous()
+        summed += m8_totals.m8_totals(block, gm, c, valid, mv=bmv, owner_offset=k * width)
+        out = m8_pull.m8_pull(block, None, *args, mv=bmv, owner_offset=k * width, totals=tot)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err([out], [whole[:, cols]]))
+        del block, out
+    torch.cuda.synchronize()
+    t_err = max_abs_err([summed], [tot])
+    for key in (m8_totals.counter_key(True), m8_pull.counter_key(True, True)):
+        errs[key] = max(errs[key], t_err, err)
+    log("north_star_m8", f"{COLUMN_BLOCKS} column blocks of {width} owners (owner_offset "
+        f"k*{width}): summed totals max_abs_err={t_err} against the whole width's; pulls "
+        f"side by side max_abs_err={err} ({time.perf_counter() - t0:.1f} s)")
+    del whole
+    torch.cuda.empty_cache()
+
+
+def north_star_m8(dev, card_line, errs):
+    """Phase 9c-d: the north star pinned to m8, through the two-pass m8
+    form (3 m8 totals and 3 m8 pull launches a round, no plain call). It
+    runs ``FULL_WIDTH_ROUNDS`` rounds; the full-width parity and the
+    column-block checks read that state (their launches are not the
+    run's); then it runs on to convergence, which must be round 209. The
+    round rate is timed over 16 more rounds and each pass at this width
+    with CUDA events. Returns the record, the run's launches and the
+    per-key times."""
+    cfg = lean_config(NORTH_STAR_N, budget=2618, pallas_variant="m8")
+    n = cfg.n_nodes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim.run(FULL_WIDTH_ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = collections.Counter(counters.launches)
+    plain = collections.Counter(counters.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_m8_full_width(dev, sim, errs)
+    check_column_blocks(dev, sim, errs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    converged = sim.run_until_converged(max_rounds=400)
+    torch.cuda.synchronize()
+    run_s += time.perf_counter() - t0
+    launches.update(counters.launches)
+    plain.update(counters.plain_calls)
+    launches, plain = dict(launches), dict(plain)
+    peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+    rounds = sim.tick
+    log("north_star_m8", f"lean_config({n}, budget=2618, pallas_variant='m8') seed "
+        f"{NORTH_STAR_SEED}: converged at round {converged} after {rounds} rounds in "
+        f"{run_s:.2f} s of rounds (init {init_s:.2f} s); launches {launches}; plain calls "
+        f"{plain}; refusals {dict(counters.refusals)}")
+    check(converged == NORTH_STAR_ROUND,
+          f"north star m8 converged at {converged}, expected {NORTH_STAR_ROUND}")
+
+    def total(kernel):
+        return sum(v for k, v in launches.items() if k.startswith(kernel + "["))
+
+    check(total("m8_totals") == 3 * rounds and total("m8_pull") == 3 * rounds
+          and launches.get("m8_totals[diag]") == rounds
+          and launches.get("m8_pull[totals+diag]") == rounds
+          and total("pairs_pull") == 0 and not plain and not counters.refusals,
+          "the north star m8 did not run every sub-exchange through both m8 kernels")
+    m = sim.metrics()
+    check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
+          and np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == n,
+          "north-star m8 metrics disagree with the converged flag")
+
+    win = 16
+    sim.run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(win)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) / win * 1e3
+    # A tracked round on this path also takes the plain convergence flag
+    # (the reference's m8 path does too): its cost, and a chunk's.
+    flag_ms = cuda_ms(lambda: gossip.all_converged_flag(sim.state), 3, 1)
+    t0 = time.perf_counter()
+    sim.run_until_converged(max_rounds=sim.tick + win)  # converged: metrics only
+    torch.cuda.synchronize()
+    metrics_ms = (time.perf_counter() - t0) * 1e3
+    log("north_star_m8", f"all_converged_flag {flag_ms:.3f} ms (CUDA events; a tracked "
+        f"round's flag on this path); the converged check at a run's start "
+        f"(convergence_metrics) {metrics_ms:.1f} ms")
+
+    # Each pass at this width, on the converged state (read only).
+    w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
+    gm, c, _ = prng.grouped_matching(prng.key(9), n)
+    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
+    tot = m8_totals.m8_totals(w, gm, c, alive, mv=mv)
+    times = {}
+    for diag in (True, False):
+        mvk = mv if diag else None
+        times[m8_totals.counter_key(diag)] = (
+            cuda_ms(lambda: m8_totals.m8_totals(w, gm, c, alive, mv=mvk), 10),
+            bound(m8_totals_bytes(n, n, 2, diag=diag), OPS_TOTALS * n * n / 2),
+            bound(m8_totals_bytes(n, n, 2, diag=diag, reads=2), OPS_TOTALS * n * n / 2),
+        )
+        times[m8_pull.counter_key(diag, True)] = (
+            cuda_ms(lambda: m8_pull.m8_pull(w, None, gm, c, alive, 1, 0x9E3779B9,
+                                            cfg.budget, mv=mvk, totals=tot), 10),
+            bound(m8_bytes(n, n, 2, 0, diag=diag, totals=True), OPS_PULL_LEAN * n * n / 2),
+            bound(m8_bytes(n, n, 2, 0, diag=diag, totals=True, reads=2),
+                  OPS_PULL_LEAN * n * n / 2),
+        )
+    torch.cuda.synchronize()
+    del sim, w, tot
+    torch.cuda.empty_cache()
+    # A round: one totals pass and one pull with the refresh, two of each
+    # without.
+    per_round = {k: (1 if "diag" in k else 2) for k in times}
+    per_round_ms = sum(per_round[k] * t[0] for k, t in times.items())
+    per_round_bound = sum(per_round[k] * t[1][0] for k, t in times.items())
+    per_round_design = sum(per_round[k] * t[2][0] for k, t in times.items())
+    log("north_star_m8", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round over {win} "
+        f"untracked rounds); run {rounds / run_s:.3f} rounds/s; kernels "
+        f"{per_round_ms:.3f} ms/round by CUDA events against the function's "
+        f"{per_round_bound:.3f} ms bound ({per_round_bound / per_round_ms:.1%}) and this "
+        f"design's {per_round_design:.3f} ms of traffic ({per_round_design / per_round_ms:.1%})"
+        f"; peak memory {peak_gb:.2f} GB while running; {card_line}")
+    for key, (ms, (b_ms, b_by), (d_ms, _)) in times.items():
+        log("north_star_m8", f"{key} at n={n}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+            f"this design's traffic {d_ms:.4f} ms)")
+    record = {
+        "n": n, "seed": NORTH_STAR_SEED, "converged_round": converged,
+        "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
+        "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
+        "kernel_ms_per_round": per_round_ms, "bound_ms_per_round": per_round_bound,
+        "design_bound_ms_per_round": per_round_design, "peak_memory_gb": peak_gb,
+        "flag_ms": flag_ms, "metrics_ms": metrics_ms,
+    }
+    return record, launches, times
+
+
+def i16_experiment(dev):
+    """Phase 9e: the reference's int16 experiment on Hopper. Its inputs
+    (N = 10,240, w in [0, 2000), hb in [0, 500), everyone alive, budget
+    2618; from a numpy seed), the m8 pull's int16 variants against the
+    int32 kernel (bit-exact) and its plain version, then each timed as
+    the experiment's ``main()`` times them: 64 chained calls, best of 2,
+    the variants in turns. Returns {arith: (ms, max_abs_err)}."""
+    rng = np.random.default_rng(0)
+    w0 = torch.from_numpy(rng.integers(0, 2000, (N, N), dtype=np.int16)).to(dev)
+    hb0 = torch.from_numpy(rng.integers(0, 500, (N, N), dtype=np.int16)).to(dev)
+    gm, c, _ = prng.grouped_matching(prng.key(0), N)
+    args = (gm.to(dev, torch.int32), c.to(dev, torch.int32),
+            torch.ones(N, dtype=torch.bool, device=dev), 3, 0xDEAD, 2618)
+    ref = m8_pull.m8_pull(w0, hb0, *args)
+    plain = m8_pull.m8_pull_plain(w0, hb0, *args)
+    torch.cuda.synchronize()
+    errs = {"i32": max_abs_err(list(ref), list(plain))}
+    for arith in ("i16", "i16_f32"):
+        out = m8_pull.m8_pull(w0, hb0, *args, arith=arith)
+        torch.cuda.synchronize()
+        errs[arith] = max_abs_err(list(out), list(ref))
+        log("i16", f"variant {arith}: max_abs_err={errs[arith]} against the int32 kernel")
+        check(errs[arith] == 0.0, f"the {arith} variant is not bit-exact")
+        del out
+    del ref, plain
+
+    def chained(arith):
+        w, hb = w0, hb0
+        for _ in range(64):
+            w, hb = m8_pull.m8_pull(w, hb, *args, arith=arith)
+
+    best = {a: float("inf") for a in errs}
+    for a in best:
+        chained(a)  # warm-up
+    for _ in range(2):
+        for a in best:
+            best[a] = min(best[a], cuda_ms(lambda a=a: chained(a), 1, 0) / 64)
+    log("i16", "64 chained calls, best of 2: " + ", ".join(
+        f"{a} {ms:.4f} ms/call ({best['i32'] / ms:.3f}x the int32 kernel)"
+        for a, ms in best.items()))
+    return {a: (best[a], errs[a]) for a in best}
+
+
+def m8_kernel_entries(dev, errs, head_launches, head_rounds, ns_launches, ns_rounds,
+                      ns_times, experiment):
+    """The kernel-line entries of the m8 path: the headline's staged modes
+    (with hb) and the north star's two-pass modes (lean), each timed at
+    N = 10,240 beside its plain version, its bound (the bytes the
+    function must move) and this design's traffic; the north star's modes
+    also at its width (``ns_times``); launches and launches a round from
+    the runs (each must be > 0). The int16 variants ride the entry of the
+    mode they run in."""
+    entries = []
+
+    def entry(key, kernel, line, launches, rounds, ms, plain_ms, b, d, **extra):
+        check(launches.get(key, 0) > 0, f"{key} was not launched on its path")
+        log("time", f"{key}: {ms:.4f} ms at n={N} (bound {b[0]:.4f} ms by {b[1]}; this "
+            f"design's traffic {d[0]:.4f} ms; plain {plain_ms:.3f} ms)"
+            + ("" if "ms_main" not in extra else
+               f"; {extra['ms_main']:.4f} ms at n={NORTH_STAR_N} (bound "
+               f"{extra['bound_ms_main']:.4f} ms)"))
+        return dict(
+            name=key, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
+            replaces=f"aiocluster_tpu/ops/pallas_pull.py:{line}",
+            launches=launches[key], launches_per_round=launches[key] / rounds,
+            max_abs_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, design_bound_ms=d[0], n=N, **extra,
+        )
+
+    for i, diag in enumerate((True, False)):
+        ops = m8_case(N, torch.int16, 100 + i, dev, diag=diag, lean=False)()
+        ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull, ops), 20)
+        plain_ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull_plain, ops), 3, 1)
+        del ops
+        key = m8_pull.counter_key(diag)
+        extra = dict(path="headline_m8")
+        if not diag:  # the experiment's mode
+            extra["ms_chained"] = experiment["i32"][0]
+            extra["variants"] = {
+                a: dict(ms_chained=t, max_abs_err=e,
+                        replaces="benchmarks/records/_i16_kernel_experiment.py:43")
+                for a, (t, e) in experiment.items() if a != "i32"
+            }
+        entries.append(entry(
+            key, "m8_pull", 263, head_launches, head_rounds, ms, plain_ms,
+            bound(m8_bytes(N, N, 2, 2, diag=diag, totals=False), OPS_PULL * N * N / 2),
+            bound(m8_bytes(N, N, 2, 2, diag=diag, totals=False, reads=2),
+                  OPS_PULL * N * N / 2),
+            **extra,
+        ))
+    for i, diag in enumerate((True, False)):
+        ops = m8_case(N, torch.int16, 110 + i, dev, diag=diag, lean=True)()
+        targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+        mv = ops.get("mv")
+        tot = m8_totals.m8_totals(*targs, mv=mv)
+        for key, kernel, line, fn, plain_fn, b, d in (
+            (m8_totals.counter_key(diag), "m8_totals", 374,
+             lambda: m8_totals.m8_totals(*targs, mv=mv),
+             lambda: m8_totals.m8_totals_plain(*targs, mv=mv),
+             bound(m8_totals_bytes(N, N, 2, diag=diag), OPS_TOTALS * N * N / 2),
+             bound(m8_totals_bytes(N, N, 2, diag=diag, reads=2), OPS_TOTALS * N * N / 2)),
+            (m8_pull.counter_key(diag, True), "m8_pull", 263,
+             lambda: call_m8(m8_pull.m8_pull, ops, totals=tot),
+             lambda: call_m8(m8_pull.m8_pull_plain, ops, totals=tot),
+             bound(m8_bytes(N, N, 2, 0, diag=diag, totals=True), OPS_PULL_LEAN * N * N / 2),
+             bound(m8_bytes(N, N, 2, 0, diag=diag, totals=True, reads=2),
+                   OPS_PULL_LEAN * N * N / 2)),
+        ):
+            ms = cuda_ms(fn, 20)
+            plain_ms = cuda_ms(plain_fn, 3, 1)
+            ms_main, b_main, d_main = ns_times[key]
+            entries.append(entry(
+                key, kernel, line, ns_launches, ns_rounds, ms, plain_ms, b, d,
+                path="north_star_m8", n_main=NORTH_STAR_N, ms_main=ms_main,
+                bound_ms_main=b_main[0], design_bound_ms_main=d_main[0],
+                parity_n=[N, NORTH_STAR_N],
+            ))
+        del ops, tot
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -654,6 +1176,11 @@ def main() -> int:
         f"(the wrapper's width check assumes {pairs_pull.STATIC_SMEM})")
     check(static_smem == pairs_pull.STATIC_SMEM,
           "pairs_pull.STATIC_SMEM disagrees with the compiled kernel")
+    m8_smem = pairs_pull.compiled_static_smem("m8_pull")
+    log("build", f"m8_kernel static shared memory {m8_smem} bytes (its width check, the "
+        f"pairs kernel's, assumes {pairs_pull.STATIC_SMEM})")
+    check(m8_smem == pairs_pull.STATIC_SMEM,
+          "the m8 kernel's static shared memory disagrees with its width check")
     for name, report in _build.ptxas_report.items():
         regs = [int(t.split()[0]) for t in report.split("Used ")[1:]]
         spills = sum(
@@ -667,10 +1194,14 @@ def main() -> int:
         if regs:
             log("build", f"{name}: {len(regs)} kernels, registers <= {max(regs)}, "
                 f"spilled bytes {spills}, kernels with a stack frame {stacks}")
+        if name.startswith("m8_"):
+            check(regs and spills == 0 and stacks == 0,
+                  f"{name}.cu built with a spill or a stack frame")
 
     pull_err = check_pull_kernel(dev)
     two_pass_errs = check_two_pass_kernels(dev)
     fd_err, fd_fresh, fd_params = check_fd_kernel(dev)
+    m8_errs = check_m8_kernels(dev)
 
     cfg = headline_config()
     plain_cfg = dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False)
@@ -733,6 +1264,9 @@ def main() -> int:
     check(all(torch.equal(a.cpu(), b) for a, b in zip(on_dev, on_cpu)),
           "device draws differ from host draws")
     log("draws", f"16 rounds x {cfg.fanout} matchings at N={N}: device == host")
+
+    # Phase 9b: the headline config pinned to m8.
+    head_m8, head_m8_launches = headline_m8(dev, card_line)
 
     # Phase 7: times. The round rate on the host clock, then one profiled
     # chunk for where a round's time goes.
@@ -814,7 +1348,9 @@ def main() -> int:
             name=f"pairs_pull[{name}]", route="cuda",
             source="aiocluster_torch/ops/csrc/pairs_pull.cu",
             replaces="aiocluster_tpu/ops/pallas_pull.py:490",
-            launches=main_launches.get(mode_keys[name], 0), max_abs_err=pull_err,
+            launches=main_launches.get(mode_keys[name], 0),
+            launches_per_round=main_launches.get(mode_keys[name], 0) / rounds_run,
+            max_abs_err=pull_err,
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, path="main", two_pass_ms=two_pass_ms,
         ))
@@ -832,9 +1368,10 @@ def main() -> int:
     kernels.append(dict(
         name="fd", route="cuda", source="aiocluster_torch/ops/csrc/fd.cu",
         replaces="aiocluster_tpu/ops/pallas_fd.py:51",
-        launches=seam_fd_launches, max_abs_err=fd_err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        path="seam",
+        launches=head_m8_launches["fd"],
+        launches_per_round=head_m8_launches["fd"] / head_m8["rounds_run"],
+        max_abs_err=fd_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, path="headline_m8", launches_seam=seam_fd_launches,
     ))
     log("time", f"fd: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.3f} ms)")
 
@@ -844,10 +1381,22 @@ def main() -> int:
     check_two_pass_full_width(dev, two_pass_errs)
     ns, ns_launches, ns_times = north_star(dev, card_line)
 
-    kernels += two_pass_kernel_entries(dev, two_pass_errs, ns_launches, ns_times)
+    kernels += two_pass_kernel_entries(dev, two_pass_errs, ns_launches, ns["rounds_run"],
+                                       ns_times)
+
+    # Phase 9c-e: the north star pinned to m8, then the int16 experiment.
+    ns_m8, ns_m8_launches, ns_m8_times = north_star_m8(dev, card_line, m8_errs)
+    experiment = i16_experiment(dev)
+    kernels += m8_kernel_entries(
+        dev, m8_errs, head_m8_launches, head_m8["rounds_run"], ns_m8_launches,
+        ns_m8["rounds_run"], ns_m8_times, experiment,
+    )
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
-        f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s")
+        f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
+        f"headline {head_m8['converged_round']} at {head_m8['rounds_per_s']:.2f} "
+        f"rounds/s, north star {ns_m8['converged_round']} at "
+        f"{ns_m8['rounds_per_s']:.3f} rounds/s")
 
     print(card_line)
     print(json.dumps({
@@ -861,6 +1410,10 @@ def main() -> int:
             "range_cost_us": range_us,
         },
         "north_star": ns,
+        "headline_m8": head_m8,
+        "north_star_m8": ns_m8,
+        "i16_experiment": {a: {"ms_chained": t, "max_abs_err": e}
+                           for a, (t, e) in experiment.items()},
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

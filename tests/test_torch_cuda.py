@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from aiocluster_torch import Simulator, SimConfig
-from aiocluster_torch.ops import counters, gossip, pairs_pull, pairs_totals, prng
+from aiocluster_torch.ops import counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
 from aiocluster_torch.sim.state import STATE_FIELDS
@@ -211,6 +211,98 @@ def test_simulator_two_pass_path_equals_plain_path(dev, monkeypatch):
             assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
         cpu = Simulator(cfg, seed=3, device="cpu")
         assert cpu.run_until_converged(100) == Simulator(cfg, seed=3, device=dev).run_until_converged(100)
+
+
+@pytest.mark.parametrize("totals", [False, True], ids=["staged", "totals"])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("lean", [False, True], ids=["hb", "lean"])
+@pytest.mark.parametrize("wdt", [torch.int16, torch.int32])
+def test_m8_kernels_equal_plain(dev, wdt, lean, diag, totals):
+    """The m8 pull (and, with totals, the m8 totals pass) against their
+    plain versions, and against the staged pairs kernel on a copy of the
+    same operands; then two column blocks of 128 owners pulled with the
+    whole width's totals, side by side, against the whole width."""
+    n = 256
+    ops, kw = _operands(n, 9, wdt, wdt, torch.float32, dev, diag=diag, check=False,
+                        fd=False, hb0=False)
+    hb = None if lean else ops["hb"]
+    mv = kw.get("mv")
+    hbv = kw.get("hbv") if not lean else None
+    args = (ops["gm"], ops["c"], ops["valid"], 7, 0x12345678, 40)
+    tot = None
+    if totals:
+        before = counters.kernel_launches("m8_totals")
+        tot = m8_totals.m8_totals(ops["w"], ops["gm"], ops["c"], ops["valid"], mv=mv)
+        assert counters.kernel_launches("m8_totals") == before + 1
+        assert torch.equal(tot, m8_totals.m8_totals_plain(
+            ops["w"], ops["gm"], ops["c"], ops["valid"], mv=mv))
+    before = counters.kernel_launches("m8_pull")
+    got = m8_pull.m8_pull(ops["w"], hb, *args, mv=mv, hbv=hbv, totals=tot)
+    assert counters.kernel_launches("m8_pull") == before + 1
+    want = m8_pull.m8_pull_plain(ops["w"], hb, *args, mv=mv, hbv=hbv, totals=tot)
+    got, want = ((x,) if lean else x for x in (got, want))
+    staged = _clone(ops, {})[0]
+    pairs_pull.pairs_pull(staged["w"], None if lean else staged["hb"], *args, mv=mv, hbv=hbv)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, (staged["w"], staged["hb"]), strict=False):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if totals:
+        parts = []
+        for col0 in (0, 128):
+            cols = slice(col0, col0 + 128)
+            bw = ops["w"][:, cols].contiguous()
+            bhb = None if lean else ops["hb"][:, cols].contiguous()
+            bmv = None if mv is None else mv[cols].contiguous()
+            bhbv = None if hbv is None else hbv[cols].contiguous()
+            part = m8_totals.m8_totals(bw, ops["gm"], ops["c"], ops["valid"], mv=bmv,
+                                       owner_offset=col0)
+            out = m8_pull.m8_pull(bw, bhb, *args, mv=bmv, hbv=bhbv, owner_offset=col0,
+                                  totals=tot)
+            parts.append((part, (out,) if lean else out))
+        assert torch.equal(parts[0][0] + parts[1][0], tot)
+        for k, whole in enumerate(got):
+            assert torch.equal(torch.cat([o[k] for _, o in parts], dim=1), whole)
+
+
+@pytest.mark.parametrize("arith", ["i16", "i16_f32"])
+def test_m8_int16_variants_equal_the_kernel(dev, arith):
+    n = 256
+    rng = np.random.default_rng(2)
+    gm, c, _ = prng.grouped_matching(prng.key(2), n)
+    w = torch.from_numpy(rng.integers(0, 2000, (n, n))).to(dev, torch.int16)
+    hb = torch.from_numpy(rng.integers(0, 500, (n, n))).to(dev, torch.int16)
+    args = (gm.to(dev, torch.int32), c.to(dev, torch.int32),
+            torch.ones(n, dtype=torch.bool, device=dev), 3, 0xDEAD, 2618)
+    want = m8_pull.m8_pull(w, hb, *args)
+    before = counters.launches[m8_pull.counter_key(False, arith=arith)]
+    got = m8_pull.m8_pull(w, hb, *args, arith=arith)
+    assert counters.launches[m8_pull.counter_key(False, arith=arith)] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_simulator_m8_paths_equal_plain_path(dev, monkeypatch):
+    """The pinned m8 forms on the card: 1 (staged) or 2 (two-pass) launches
+    per sub-exchange, the FD phase through the standalone kernel, the
+    plain path's states."""
+    cfg = SimConfig(n_nodes=512, keys_per_node=4, fanout=3, budget=64, pallas_variant="m8",
+                    **NARROW)
+    plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False),
+                      seed=3, device=dev)
+    plain.run(5)
+    for form in ("m8", "m8_two_pass"):
+        if form == "m8_two_pass":
+            monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+        assert gossip.pull_phase_engaged(cfg, dev) == form
+        counters.reset()
+        kern = Simulator(cfg, seed=3, device=dev)
+        kern.run(5)
+        torch.cuda.synchronize()
+        assert counters.kernel_launches("m8_pull") == 15 and counters.launches["fd"] == 5
+        assert counters.kernel_launches("m8_totals") == (15 if form == "m8_two_pass" else 0)
+        assert not counters.plain_calls
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
 
 
 def test_draws_on_the_device_equal_the_host(dev):

@@ -5,7 +5,9 @@ against the port's plain path), the same converged round through
 mid-run continuing identically, and the dispatch resolution."""
 
 import dataclasses
+import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
 from aiocluster_torch import Simulator, SimConfig, lean_config
-from aiocluster_torch.ops import counters, gossip, prng
+from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
 from aiocluster_torch.sim.state import STATE_FIELDS, init_state
 
@@ -139,17 +141,20 @@ def test_dispatch_resolution():
     assert gossip.fd_phase_engaged(head, cpu) == "plain"
     lean = dataclasses.replace(head, track_failure_detector=False, track_heartbeats=False)
     assert gossip.fd_phase_engaged(lean, cuda) == "off"
-    # The single-pass m8 kernel is not ported: refused on the card.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
-        gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="m8"), cuda)
+    # A pinned m8 takes the single-pass pull, its FD phase the standalone
+    # kernel (as in the reference).
+    m8 = dataclasses.replace(head, pallas_variant="m8")
+    assert gossip.pull_phase_engaged(m8, cuda) == "m8"
+    assert gossip.fd_phase_engaged(m8, cuda) == "kernel"
+    assert gossip.pull_phase_engaged(m8, cpu) == "plain"
     assert gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="pairs"), cuda) == "pairs"
     # A kernel-wanting config the kernels cannot take is refused (and
     # counted), never run plain.
     counters.reset()
     with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
         gossip.fd_phase_engaged(dataclasses.replace(head, fanout=0), cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B3"):
-        Simulator(dataclasses.replace(head, pallas_variant="m8"), device=cuda)  # before allocating
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
+        Simulator(dataclasses.replace(m8, fanout=0), device=cuda)  # before allocating
     # Rows too wide for one block's shared memory take the two-pass form
     # (the totals pass, then the pull fed the totals), FD still fused.
     assert gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "pairs_two_pass"
@@ -165,11 +170,99 @@ def test_dispatch_resolution():
     # (the reference takes m8 there: the same bits).
     pinned = dataclasses.replace(head, n_nodes=58_112, pallas_variant="pairs")
     assert gossip.pull_phase_engaged(pinned, cuda) == "pairs_two_pass"
+    # A pinned m8 stages its rows by the same width rule, else it takes
+    # the m8 two-pass form (the m8 totals, then the pull fed them).
+    assert gossip.pull_phase_engaged(dataclasses.replace(m8, n_nodes=57_984), cuda) == "m8"
+    wide_m8 = dataclasses.replace(m8, n_nodes=58_112)
+    assert gossip.pull_phase_engaged(wide_m8, cuda) == "m8_two_pass"
+    assert gossip.fd_phase_engaged(wide_m8, cuda) == "kernel"
+    north_star_m8 = lean_config(100_352, budget=2618, pallas_variant="m8")
+    assert gossip.pull_phase_engaged(north_star_m8, cuda) == "m8_two_pass"
+    assert gossip.fd_phase_engaged(north_star_m8, cuda) == "off"
     assert sum(counters.refusals.values()) == 2
     # use_pallas=True asks for the kernels on the CPU too: the same refusal.
     with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
         gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0, use_pallas=True), cpu)
     assert gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0), cpu) == "plain"
+
+
+# -- the pinned m8 path ---------------------------------------------------------
+
+M8_PROFILES = {
+    "headline_shaped": SimConfig(n_nodes=256, keys_per_node=4, fanout=3, budget=64,
+                                 use_pallas=True, pallas_variant="m8", **NARROW),
+    "lean": lean_config(256, budget=300, use_pallas=True, pallas_variant="m8"),
+}
+M8_ROUNDS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_m8_states(profile: str):
+    """The reference Simulator's states after each of the first
+    ``M8_ROUNDS`` rounds of a pinned-m8 profile, on its kernel path (the
+    m8 kernel and, with the FD, the standalone FD kernel, interpreted)."""
+    ref = RefSimulator(RefConfig(**dataclasses.asdict(M8_PROFILES[profile])), seed=4, chunk=1)
+    states = []
+    for _ in range(M8_ROUNDS):
+        ref.run(1)
+        states.append(jax.tree_util.tree_map(np.asarray, ref.state))
+    return states
+
+
+@pytest.mark.parametrize("form", ["m8", "m8_two_pass"])
+@pytest.mark.parametrize("profile", sorted(M8_PROFILES))
+def test_m8_simulator_equals_reference_and_pairs_path(profile, form, monkeypatch):
+    """The pinned-m8 Simulator (its kernels' plain versions here) equals
+    the reference's pinned-m8 Simulator round by round, in the single-pass
+    form and in the two-pass form (forced: no row may stage), and equals
+    the port's own pairs path on every state tensor."""
+    if form == "m8_two_pass":
+        monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    cfg = M8_PROFILES[profile]
+    assert gossip.pull_phase_engaged(cfg, "cpu") == form
+    counters.reset()
+    port = Simulator(cfg, seed=4, chunk=1, device="cpu")
+    pairs = Simulator(dataclasses.replace(cfg, pallas_variant="pairs"), seed=4, chunk=1,
+                      device="cpu")
+    for r, want in enumerate(_reference_m8_states(profile), start=1):
+        port.run(1)
+        pairs.run(1)
+        _assert_states_equal(want, port.state, f"round {r}")
+        _assert_states_equal(want, pairs.state, f"pairs path, round {r}")
+    # Both simulators' plain calls: the m8 path's (its FD phase the
+    # standalone FD wrapper's) and the pairs path's (FD fused).
+    per_round = {"m8_pull": cfg.fanout, "pull": cfg.fanout}
+    if form == "m8_two_pass":
+        per_round.update(m8_totals=cfg.fanout, totals=cfg.fanout)
+    if cfg.track_failure_detector:
+        per_round["fd"] = 1
+    assert dict(counters.plain_calls) == {k: v * M8_ROUNDS for k, v in per_round.items()}
+    assert not counters.launches and not counters.refusals
+    again = Simulator(cfg, seed=4, chunk=4, device="cpu")
+    assert again.run_until_converged(200) == Simulator(
+        dataclasses.replace(cfg, pallas_variant="pairs"), seed=4, device="cpu"
+    ).run_until_converged(200)
+
+
+def test_m8_round_ping_pongs_two_buffers():
+    """Each m8 sub-exchange reads its input and writes another buffer, and
+    the buffer it consumed takes the next one's output: at fanout 2 the
+    round's w ends in the input state's buffer. The round-start hb the
+    FD phase reads is never written: hb then takes two new buffers."""
+    base = dataclasses.replace(M8_PROFILES["headline_shaped"], fanout=2)
+    for fd in (True, False):
+        cfg = dataclasses.replace(base, track_failure_detector=fd)
+        state = init_state(cfg, device="cpu")
+        state = gossip.sim_step(state, prng.key(1), cfg)
+        w_ptr, hb_ptr = state.w.data_ptr(), state.hb_known.data_ptr()
+        hb0 = state.hb_known.clone()
+        new = gossip.sim_step(state, prng.key(1), cfg)
+        assert new.w.data_ptr() == w_ptr
+        if fd:
+            assert new.hb_known.data_ptr() != hb_ptr
+            assert torch.equal(state.hb_known, hb0)
+        else:
+            assert new.hb_known.data_ptr() == hb_ptr
 
 
 def test_counters_on_the_cpu_path():
