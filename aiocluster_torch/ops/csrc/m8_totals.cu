@@ -7,19 +7,23 @@
 // owner_offset).
 //
 // What bounds it: bytes. The function must read w once and write one
-// float per row; this design reads each row twice, as itself and as its
-// partner's peer (pairs_totals.cu visits each pair once instead). About
-// three integer operations per element.
+// float per row, with about three integer operations per element. The
+// reference's kernel reads each row twice, as itself and as its
+// partner's peer; this one reads it once.
 //
-// Design: as m8_pull.cu, one CTA per row i of the matching's row
-// involution p. The CTA streams rows i and p[i] in 8-element vector loads
-// with the owner diagonal refreshed on load exactly as the pull sees it
-// (pairs.cuh, at global owner col0 + j), sums row i's deficits exactly in
-// int64 (one block reduction) and writes totals[i] as float32, rounded
-// once: equal to the reference's float32 tile sums while a row total
-// stays below 2^24. A block's totals summed over the blocks are the whole
-// width's (integers below 2^24 add exactly in float32). A row whose pair
-// is not alive writes 0 without reading. No shared memory but the
+// Design: as pairs_totals.cu (the same pair body, pairs.cuh's
+// pair_totals), one CTA per LEADER row i (i <= p[i]) of the matching's
+// row involution p, so each matched pair is visited once and each row of
+// the block read once. The CTA streams rows i and p[i] in 8-element
+// vector loads with the owner diagonal refreshed on load exactly as the
+// pull sees it (at global owner col0 + j), sums both directions'
+// deficits exactly in int64 (one block reduction each), each masked by
+// its own row's valid, and writes totals[i] and totals[p[i]] as float32,
+// rounded once: equal to the reference's float32 tile sums while a row
+// total stays below 2^24. A block's totals summed over the blocks are the
+// whole width's (integers below 2^24 add exactly in float32). A pair with
+// no valid row writes both zeros without reading; a self-matched row
+// writes 0 once. Non-leader CTAs exit at once. No shared memory but the
 // reduction's, so any width that is a multiple of 8 runs.
 
 #include <cuda_runtime.h>
@@ -36,7 +40,7 @@ struct M8TotalsArgs {
   const void* w;          // (n_rows, n_cols) WT
   const int32_t* gm;      // (n_rows/8,) partner group of each group
   const int32_t* c;       // (n_rows/8,) within-pair row rotation
-  const uint8_t* valid;   // (n_rows,) alive-pair mask per row
+  const uint8_t* valid;   // (n_rows,) per-row mask
   const int32_t* mv;      // (n_cols,) owner max_version, or null
   float* totals;          // (n_rows,) written
   int32_t n_cols;
@@ -45,28 +49,8 @@ struct M8TotalsArgs {
 
 template <typename WT, bool DIAG>
 __global__ void __launch_bounds__(kThreads) m8_totals_kernel(M8TotalsArgs a) {
-  const int i = blockIdx.x;
-  if (a.valid[i] == 0) {
-    if (threadIdx.x == 0) a.totals[i] = 0.0f;
-    return;
-  }
-  const int p = partner_row(a.gm, a.c, i);
-  const size_t n = static_cast<size_t>(a.n_cols);
-  const WT* wi = static_cast<const WT*>(a.w) + static_cast<size_t>(i) * n;
-  const WT* wp = static_cast<const WT*>(a.w) + static_cast<size_t>(p) * n;
-  long long t = 0;
-  for (int k = threadIdx.x; k < (a.n_cols >> 3); k += blockDim.x) {
-    const int j0 = k << 3;
-    const Vec8<WT> x8 = ld8_row<WT, DIAG>(wi, i, j0, a.mv, a.col0);
-    const Vec8<WT> y8 = ld8_row<WT, DIAG>(wp, p, j0, a.mv, a.col0);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int32_t x = x8.v[e], y = y8.v[e];
-      if (y > x) t += y - x;
-    }
-  }
-  t = block_sum(t);
-  if (threadIdx.x == 0) a.totals[i] = static_cast<float>(t);
+  pair_totals<WT, DIAG>(static_cast<const WT*>(a.w), a.gm, a.c, a.valid, a.mv,
+                        a.totals, blockIdx.x, a.n_cols, a.col0);
 }
 
 template <typename WT>

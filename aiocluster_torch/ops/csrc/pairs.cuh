@@ -1,9 +1,10 @@
 // What the pull kernels (the pair-fused pairs_pull.cu and pairs_totals.cu,
 // the single-pass m8_pull.cu and m8_totals.cu) share: the matched partner
-// of a row, the diagonal-refreshed row load, the deficit sums and the
-// budgeted advance. Both passes of each two-pass form read w through
-// these, so a totals pass sees the refreshed diagonal exactly as its pull
-// does, and every pull applies the same arithmetic.
+// of a row, the diagonal-refreshed row load, the deficit sums, the
+// totals passes' pair body and the budgeted advance. Both passes of each
+// two-pass form read w through these, so a totals pass sees the
+// refreshed diagonal exactly as its pull does, and every pull applies the
+// same arithmetic.
 #pragma once
 
 #include <stdint.h>
@@ -41,7 +42,8 @@ __device__ __forceinline__ Vec8<WT> ld8_row(const WT* w_row, int row, int j0,
 }
 
 // Adds eight columns' deficits of both directions: row i (x) pulling from
-// p (y) when its pair is valid (vi), and p pulling from i (vp).
+// p (y) where row i is valid (vi), and p pulling from i where row p is
+// (vp).
 template <typename WT>
 __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
                                              const Vec8<WT>& y8, bool vi,
@@ -52,6 +54,43 @@ __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
     const int32_t x = x8.v[e], y = y8.v[e];
     if (vi && y > x) ti += y - x;
     if (vp && x > y) tp += x - y;
+  }
+}
+
+// The body of both totals passes (pairs_totals.cu, m8_totals.cu), run by
+// the CTA of row i over an (n_rows, n_cols) block of w whose column 0 is
+// global owner col0: where i leads its pair (i <= p[i]), stream rows i
+// and p once, sum each direction's deficits exactly in int64 (masked by
+// its own row's valid) and write totals[i] and totals[p] as float32,
+// rounded once. A pair with no valid row, or a self-matched row, writes
+// zeros without reading w. The branch depends on i alone, so the whole
+// block takes it and the reductions' barriers stay uniform.
+template <typename WT, bool DIAG>
+__device__ __forceinline__ void pair_totals(const WT* w, const int32_t* gm,
+                                            const int32_t* c,
+                                            const uint8_t* valid,
+                                            const int32_t* mv, float* totals,
+                                            int i, int n_cols, int col0) {
+  const int p = partner_row(gm, c, i);
+  if (p < i) return;  // row p leads this pair
+  const bool vi = valid[i] != 0;
+  const bool vp = valid[p] != 0;
+  long long ti = 0, tp = 0;
+  if ((vi || vp) && p != i) {
+    const size_t n = static_cast<size_t>(n_cols);
+    const WT* wi = w + static_cast<size_t>(i) * n;
+    const WT* wp = w + static_cast<size_t>(p) * n;
+    for (int k = threadIdx.x; k < (n_cols >> 3); k += blockDim.x) {
+      const int j0 = k << 3;
+      add_deficits(ld8_row<WT, DIAG>(wi, i, j0, mv, col0),
+                   ld8_row<WT, DIAG>(wp, p, j0, mv, col0), vi, vp, ti, tp);
+    }
+    ti = block_sum(ti);
+    tp = block_sum(tp);
+  }
+  if (threadIdx.x == 0) {
+    totals[i] = static_cast<float>(ti);
+    if (p != i) totals[p] = static_cast<float>(tp);
   }
 }
 

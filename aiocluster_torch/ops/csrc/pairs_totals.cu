@@ -17,12 +17,13 @@
 // twice). The CTA streams both rows in 8-element vector loads, with the
 // owner diagonal refreshed on load exactly as the pull's pass sees it
 // (pairs.cuh), sums both directions' deficits exactly in int64 (one
-// block reduction), and writes totals[i] and totals[p] as float32,
+// block reduction each), and writes totals[i] and totals[p] as float32,
 // rounded once: equal to the reference's float32 tile sums while a row
 // total stays below 2^24 (the lean profile's is at most 16 * N =
 // 1,605,632 at N = 100,352). A self-matched row (p == i) writes its
-// total, 0, once. No shared memory but the reduction's, so any width
-// that is a multiple of 8 runs.
+// total, 0, once. The pair body is pairs.cuh's pair_totals, which
+// m8_totals.cu runs over column blocks. No shared memory but the
+// reduction's, so any width that is a multiple of 8 runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,26 +47,8 @@ struct TotalsArgs {
 
 template <typename WT, bool DIAG>
 __global__ void __launch_bounds__(kThreads) pairs_totals_kernel(TotalsArgs a) {
-  const int n = a.n;
-  const int i = blockIdx.x;
-  const int p = partner_row(a.gm, a.c, i);
-  if (p < i) return;  // row p leads this pair
-  const bool vi = a.valid[i] != 0;
-  const bool vp = a.valid[p] != 0;
-  const WT* wi = static_cast<const WT*>(a.w) + static_cast<size_t>(i) * n;
-  const WT* wp = static_cast<const WT*>(a.w) + static_cast<size_t>(p) * n;
-  long long ti = 0, tp = 0;
-  for (int k = threadIdx.x; k < (n >> 3); k += blockDim.x) {
-    const int j0 = k << 3;
-    add_deficits(ld8_row<WT, DIAG>(wi, i, j0, a.mv),
-                 ld8_row<WT, DIAG>(wp, p, j0, a.mv), vi, vp, ti, tp);
-  }
-  ti = block_sum(ti);
-  tp = block_sum(tp);
-  if (threadIdx.x == 0) {
-    a.totals[i] = static_cast<float>(ti);
-    if (p != i) a.totals[p] = static_cast<float>(tp);
-  }
+  pair_totals<WT, DIAG>(static_cast<const WT*>(a.w), a.gm, a.c, a.valid, a.mv,
+                        a.totals, blockIdx.x, a.n, 0);
 }
 
 template <typename WT>

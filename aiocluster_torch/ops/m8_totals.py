@@ -4,7 +4,7 @@ ops/pallas_pull.py::_m8_totals_kernel) and its plain PyTorch version.
 
 Pass A of the two-pass m8 pull: for every row ``i`` of ``w``, what it
 lacks of its partner's row ``p[i]`` under the grouped matching, summed
-over the owners and zero where the pair is not alive. ``m8_pull(...,
+over the owners and zero where ``valid[i]`` is false. ``m8_pull(...,
 totals=...)`` applies the advance with them (pass B). ``w`` may be a
 column block of the owners (``owner_offset`` its first global owner):
 the blocks' totals sum to the whole width's, as the reference's sharded
@@ -45,9 +45,15 @@ def m8_totals(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Tenso
 
     ``w`` (N, n_local) int16/int32 (read only), the owners
     ``owner_offset .. owner_offset + n_local - 1``; ``gm``/``c`` (N/8,)
-    int32 the grouped matching; ``valid`` (N,) bool the alive-pair mask
-    per row; ``mv`` (n_local,) int32 refreshes the owner diagonal first.
-    Totals are exact integer sums rounded to float32 once."""
+    int32 the grouped matching; ``valid`` (N,) bool, per row (row ``i``'s
+    total is 0 where ``valid[i]`` is false, whatever ``valid[p[i]]``);
+    ``mv`` (n_local,) int32 refreshes the owner diagonal first. Totals
+    are exact integer sums rounded to float32 once.
+
+    Precondition: ``(gm, c)`` is an involution (``p[p[i]] == i``), as
+    every draw of ``prng.grouped_matching`` is. The kernel visits each
+    pair once, from its leader row ``i <= p[i]``, and writes both rows'
+    totals; the plain version takes any matching."""
     if w.device.type == "cpu":
         counters.plain_calls["m8_totals"] += 1
         return m8_totals_plain(w, gm, c, valid, mv=mv, owner_offset=owner_offset)

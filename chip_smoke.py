@@ -27,7 +27,8 @@ are timed at that width and one trace of a few rounds is taken
 Then the single-pass m8 path (``pallas_variant="m8"``): the m8 pull and
 the m8 totals pass are held bit-equal to their plain versions (and to
 the staged pairs kernel and the pairs totals, the same functions) at
-N = 10,240 in every mode, int16 and int32; the headline config pinned to
+N = 10,240 in every mode, int16 and int32 (the totals also where a row
+is valid and its partner is not); the headline config pinned to
 m8 runs to convergence (round 24, one pull launch a sub-exchange and the
 standalone FD kernel once a round) and equals the pairs path after 4
 rounds; the north star pinned to m8 runs 100 rounds, its two-pass m8
@@ -674,17 +675,20 @@ def m8_bytes(n, n_local, wsize, hsize, *, diag, totals, reads=1):
     return b
 
 
-def m8_totals_bytes(n, n_local, wsize, *, diag, reads=1):
-    """Bytes the m8 totals pass moves: w read ``reads`` times (2 in this
-    design), the totals written, the matching, valid and (diag) mv read."""
-    return reads * n * n_local * wsize + n * (4 + 4 + 1) + (n_local * 4 if diag else 0)
+def m8_totals_bytes(n, n_local, wsize, *, diag):
+    """Bytes the m8 totals pass moves: w read once (this design visits
+    each pair once, so its traffic is the function's bound), the totals
+    written, the matching, valid and (diag) mv read."""
+    return n * n_local * wsize + n * (4 + 4 + 1) + (n_local * 4 if diag else 0)
 
 
-def m8_case(n, wdt, seed, dev, *, diag, lean):
+def m8_case(n, wdt, seed, dev, *, diag, lean, asymmetric=False):
     """Random operands of one m8 sub-exchange in the ranges a run sees,
     drawn on the card from ``seed``, with a tenth of the nodes dead
-    (``lean``: no heartbeat matrix). Returns a factory of fresh copies of
-    w and hb, so every version starts from the same inputs."""
+    (``lean``: no heartbeat matrix; ``asymmetric``: a tenth of the rows'
+    valid flipped, so that some rows are valid where their partner is
+    not). Returns a factory of fresh copies of w and hb, so every version
+    starts from the same inputs."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def draw(lo, hi, shape):
@@ -703,6 +707,10 @@ def m8_case(n, wdt, seed, dev, *, diag, lean):
         shared["mv"] = draw(16, 20, (n,))
         if not lean:
             shared["hbv"] = draw(38, 41, (n,))
+    if asymmetric:
+        shared["valid"] = shared["valid"] ^ (torch.rand(n, generator=gen, device=dev) < 0.1)
+        check(bool((shared["valid"] != shared["valid"][p.to(dev)]).any()),
+              "the asymmetric case has no row valid apart from its partner")
 
     def fresh():
         return dict(shared, w=w.clone(), hb=None if hb is None else hb.clone())
@@ -721,15 +729,18 @@ def call_m8(fn, ops, **kw):
 def check_m8_kernels(dev):
     """Phase 9a: the m8 totals pass and the m8 pull against their plain
     versions at N = 10,240, int16 and int32, with a seeded tenth of the
-    nodes dead: totals with and without the diagonal refresh (also
-    against the pairs totals, the same function); the pull lean and with
-    hb, refresh on and off, totals given and not (also against the staged
-    pairs kernel on a copy of the same operands, and with its inputs left
-    untouched). Returns the max_abs_err of each launch key."""
+    nodes dead: totals with and without the diagonal refresh, valid per
+    pair and per row (asymmetric: the kernel visits each pair once and
+    masks each direction by its own row), also against the pairs totals,
+    the same function; the pull lean and with hb, refresh on and off,
+    totals given and not (also against the staged pairs kernel on a copy
+    of the same operands, and with its inputs left untouched). Returns
+    the max_abs_err of each launch key."""
     errs: dict[str, float] = collections.defaultdict(float)
     for wdt in (torch.int16, torch.int32):
-        for diag in (True, False):
-            ops = m8_case(N, wdt, 80 + diag, dev, diag=diag, lean=True)()
+        for diag, asym in ((d, a) for d in (True, False) for a in (False, True)):
+            ops = m8_case(N, wdt, 80 + diag + 2 * asym, dev, diag=diag, lean=True,
+                          asymmetric=asym)()
             args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
             got = m8_totals.m8_totals(*args, mv=ops.get("mv"))
             want = m8_totals.m8_totals_plain(*args, mv=ops.get("mv"))
@@ -738,8 +749,9 @@ def check_m8_kernels(dev):
             key = m8_totals.counter_key(diag)
             err = max(max_abs_err([got], [want]), max_abs_err([got], [pairs]))
             errs[key] = max(errs[key], err)
-            log("m8", f"n={N} {wdt} {key}: max_abs_err={err} against the plain version "
-                f"and the pairs totals (sum {float(got.double().sum()):.0f})")
+            log("m8", f"n={N} {wdt} {key}{' asymmetric valid' if asym else ''}: "
+                f"max_abs_err={err} against the plain version and the pairs totals "
+                f"(sum {float(got.double().sum()):.0f})")
             check(err == 0.0, f"{key} disagrees")
         for i, (lean, diag, given) in enumerate(
             (lean, diag, given) for lean in (False, True) for diag in (True, False)
@@ -997,10 +1009,10 @@ def north_star_m8(dev, card_line, errs):
     times = {}
     for diag in (True, False):
         mvk = mv if diag else None
-        times[m8_totals.counter_key(diag)] = (
+        t_bound = bound(m8_totals_bytes(n, n, 2, diag=diag), OPS_TOTALS * n * n / 2)
+        times[m8_totals.counter_key(diag)] = (  # its traffic is its bound
             cuda_ms(lambda: m8_totals.m8_totals(w, gm, c, alive, mv=mvk), 10),
-            bound(m8_totals_bytes(n, n, 2, diag=diag), OPS_TOTALS * n * n / 2),
-            bound(m8_totals_bytes(n, n, 2, diag=diag, reads=2), OPS_TOTALS * n * n / 2),
+            t_bound, t_bound,
         )
         times[m8_pull.counter_key(diag, True)] = (
             cuda_ms(lambda: m8_pull.m8_pull(w, None, gm, c, alive, 1, 0x9E3779B9,
@@ -1133,12 +1145,12 @@ def m8_kernel_entries(dev, errs, head_launches, head_rounds, ns_launches, ns_rou
         targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
         mv = ops.get("mv")
         tot = m8_totals.m8_totals(*targs, mv=mv)
+        t_bound = bound(m8_totals_bytes(N, N, 2, diag=diag), OPS_TOTALS * N * N / 2)
         for key, kernel, line, fn, plain_fn, b, d in (
             (m8_totals.counter_key(diag), "m8_totals", 374,
              lambda: m8_totals.m8_totals(*targs, mv=mv),
              lambda: m8_totals.m8_totals_plain(*targs, mv=mv),
-             bound(m8_totals_bytes(N, N, 2, diag=diag), OPS_TOTALS * N * N / 2),
-             bound(m8_totals_bytes(N, N, 2, diag=diag, reads=2), OPS_TOTALS * N * N / 2)),
+             t_bound, t_bound),
             (m8_pull.counter_key(diag, True), "m8_pull", 263,
              lambda: call_m8(m8_pull.m8_pull, ops, totals=tot),
              lambda: call_m8(m8_pull.m8_pull_plain, ops, totals=tot),

@@ -264,6 +264,65 @@ def test_m8_kernels_equal_plain(dev, wdt, lean, diag, totals):
             assert torch.equal(torch.cat([o[k] for _, o in parts], dim=1), whole)
 
 
+def _totals_operands(n, seed, wdt, dev, *, self_match, asymmetric):
+    """Operands of one m8 totals pass: a grouped matching (with groups 0
+    and 1 matched to themselves when ``self_match``, their old partners
+    to each other), valid per pair (alive & alive[p]) or, ``asymmetric``,
+    with a tenth of the rows flipped."""
+    rng = np.random.default_rng(seed)
+    gm, c, _ = prng.grouped_matching(prng.key(seed), n)
+    gm, c = gm.clone(), c.clone()
+    if self_match:
+        a, b = int(gm[0]), int(gm[1])
+        if a != 1:
+            gm[a], gm[b] = b, a
+            c[min(a, b)], c[max(a, b)] = 3, 5
+        gm[0], gm[1] = 0, 1
+        c[0], c[1] = 0, 4
+    p = prng.rows_of_groups(gm.long(), c.long())
+    assert torch.equal(p[p], torch.arange(n))
+    alive = torch.from_numpy(rng.random(n) < 0.85)
+    valid = alive & alive[p]
+    if asymmetric:
+        valid ^= torch.from_numpy(rng.random(n) < 0.1)
+        assert (valid != valid[p]).any()
+    w = torch.from_numpy(rng.integers(0, 50, (n, n))).to(dev, wdt)
+    mv = torch.from_numpy(rng.integers(40, 90, n)).to(dev, torch.int32)
+    return w, gm.to(dev, torch.int32), c.to(dev, torch.int32), valid.to(dev), mv
+
+
+@pytest.mark.parametrize("self_match", [False, True], ids=["matched", "self-matched"])
+@pytest.mark.parametrize("valid", ["pair", "asymmetric"])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("wdt", [torch.int16, torch.int32])
+def test_m8_totals_kernel_equals_plain(dev, wdt, diag, valid, self_match):
+    """The m8 totals kernel (one CTA per leader row, each direction masked
+    by its own row's valid) against its plain version and against the
+    pairs totals kernel (col0 = 0), and two column blocks whose totals sum
+    to the whole width's. n = 2,304: a row is 288 loads of 8, more than
+    the 256 threads of a CTA."""
+    n = 2304
+    w, gm, c, ok, mv = _totals_operands(
+        n, 11 + diag, wdt, dev, self_match=self_match, asymmetric=valid == "asymmetric")
+    mv = mv if diag else None
+    before = counters.launches[m8_totals.counter_key(diag)]
+    got = m8_totals.m8_totals(w, gm, c, ok, mv=mv)
+    assert counters.launches[m8_totals.counter_key(diag)] == before + 1
+    want = m8_totals.m8_totals_plain(w, gm, c, ok, mv=mv)
+    pairs = pairs_totals.pairs_totals(w, gm, c, ok, mv=mv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, pairs)
+    half = n // 2
+    summed = torch.zeros_like(got)
+    for col0 in (0, half):
+        cols = slice(col0, col0 + half)
+        summed += m8_totals.m8_totals(w[:, cols].contiguous(), gm, c, ok,
+                                      mv=None if mv is None else mv[cols].contiguous(),
+                                      owner_offset=col0)
+    torch.cuda.synchronize()
+    assert torch.equal(summed, got)
+
+
 @pytest.mark.parametrize("arith", ["i16", "i16_f32"])
 def test_m8_int16_variants_equal_the_kernel(dev, arith):
     n = 256

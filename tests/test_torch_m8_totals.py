@@ -1,9 +1,11 @@
 """The two-pass single-pass pull: the m8 deficit-totals pass (the CPU
 side of its CUDA kernel's wrapper) equals the reference's m8 totals
 Pallas kernel run in interpret mode, over the whole width and over
-column blocks whose totals sum to the whole width's; and pass A's totals
-fed to the m8 pull give the single pass's bits, block by block too.
-Tolerance 0 throughout."""
+column blocks whose totals sum to the whole width's, also where a row's
+valid differs from its partner's (the kernel visits each pair once and
+masks each direction by its own row); and pass A's totals fed to the m8
+pull give the single pass's bits, block by block too. Tolerance 0
+throughout."""
 
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from aiocluster_tpu.ops.pallas_pull import fused_pull_m8, fused_pull_totals_m8
-from aiocluster_torch.ops import counters, m8_pull, m8_totals, pairs_totals
+from aiocluster_torch.ops import counters, m8_pull, m8_totals, pairs_totals, prng
 from test_torch_m8_pull import BUDGET, _block, _t
 from test_torch_pairs_pull import RUN_SALT, SALT, _case
 
@@ -29,6 +31,27 @@ def _ref_totals(ops, diag, col0=0):
     ))
 
 
+WHOLE_WIDTH_CASES = [
+    ("int16", True, False),
+    ("int16", False, True),
+    ("int32", True, True),
+    ("int32", False, False),
+]
+
+
+def _asymmetric(case, seed):
+    """The case with a tenth of its rows' valid flipped, so that some rows
+    are valid where their partner is not (the reference's kernel masks
+    each row by its own valid)."""
+    n = case["valid"].shape[0]
+    flip = np.random.default_rng(seed).random(n) < 0.1
+    valid = case["valid"] ^ flip
+    p = prng.rows_of_groups(torch.from_numpy(case["gm"]).long(),
+                            torch.from_numpy(case["c"]).long()).numpy()
+    assert (valid != valid[p]).any()
+    return dict(case, valid=valid)
+
+
 def _port_totals(ops, diag, col0=0, fn=m8_totals.m8_totals):
     return fn(
         _t(ops["w"]), _t(ops["gm"]), _t(ops["c"]), _t(ops["valid"]),
@@ -36,18 +59,21 @@ def _port_totals(ops, diag, col0=0, fn=m8_totals.m8_totals):
     )
 
 
-@pytest.mark.parametrize(
-    "wdt, diag, self_match",
-    [
-        ("int16", True, False),
-        ("int16", False, True),
-        ("int32", True, True),
-        ("int32", False, False),
-    ],
-)
+@pytest.mark.parametrize("wdt, diag, self_match", WHOLE_WIDTH_CASES)
 def test_plain_totals_equals_interpret_kernel(wdt, diag, self_match):
     case = _case(128, seed=70 + diag + 2 * self_match, wdt=wdt, hdt="int16",
                  imdt="bfloat16", self_match=self_match)
+    _check_whole_width(case, diag)
+
+
+@pytest.mark.parametrize("wdt, diag, self_match", WHOLE_WIDTH_CASES)
+def test_plain_totals_asymmetric_valid_equals_interpret_kernel(wdt, diag, self_match):
+    case = _case(128, seed=74 + diag + 2 * self_match, wdt=wdt, hdt="int16",
+                 imdt="bfloat16", self_match=self_match)
+    _check_whole_width(_asymmetric(case, 170 + diag), diag)
+
+
+def _check_whole_width(case, diag):
     ops = _block(case, True, 0, None)
     want = _ref_totals(ops, diag)
     before = counters.plain_calls["m8_totals"]
@@ -67,6 +93,18 @@ def test_column_blocks_sum_to_the_whole_width(diag):
     whole width's (the reference's sharded psum)."""
     case = _case(256, seed=80 + diag, wdt="int16", hdt="int16", imdt="bfloat16",
                  self_match=True)
+    _check_column_blocks(case, diag)
+
+
+@pytest.mark.parametrize("self_match", [True, False])
+@pytest.mark.parametrize("diag", [True, False])
+def test_column_blocks_asymmetric_valid_sum_to_the_whole_width(diag, self_match):
+    case = _case(256, seed=84 + diag + 2 * self_match, wdt="int32", hdt="int32",
+                 imdt="bfloat16", self_match=self_match)
+    _check_column_blocks(_asymmetric(case, 180 + diag), diag)
+
+
+def _check_column_blocks(case, diag):
     whole = _port_totals(_block(case, True, 0, None), diag)
     summed = torch.zeros(256, dtype=torch.float32)
     for col0 in (0, 128):
