@@ -14,6 +14,7 @@ from .sim import (
     SimConfig,
     SimState,
     Simulator,
+    full_config,
     headline_config,
     init_state,
     lean_config,
@@ -24,6 +25,7 @@ __all__ = (
     "SimConfig",
     "SimState",
     "Simulator",
+    "full_config",
     "headline_config",
     "init_state",
     "lean_config",

@@ -9,6 +9,12 @@ counterpart of the reference's ``pallas_fallbacks`` ledger.
   ``"pull"`` counts sub-exchanges, ``"totals"`` their totals passes,
   ``"fd"`` standalone FD phases (a wrapper given CPU tensors counts here
   too).
+- ``fallbacks``: rounds whose phase a config asked the kernels for but
+  plain PyTorch ops served, because the reference serves that route with
+  XLA for want of a kernel too; keyed by the reference's reason name
+  (``"packed_dtype"``: the u4r rung with heartbeats or pinned to m8;
+  ``"fd_packed_bookkeeping"``: int8 sample counters or the live bitmap
+  off the pairs path).
 - ``refusals``: configs refused with ``NotImplementedError``, keyed by the
   message (which names the ``ROADMAP.md`` item that ports them).
 """
@@ -19,6 +25,7 @@ import collections
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
+fallbacks: collections.Counter = collections.Counter()
 refusals: collections.Counter = collections.Counter()
 
 
@@ -26,6 +33,7 @@ def reset() -> None:
     """Zero every counter."""
     launches.clear()
     plain_calls.clear()
+    fallbacks.clear()
     refusals.clear()
 
 

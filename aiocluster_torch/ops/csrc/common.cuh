@@ -7,8 +7,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Dtype codes the wrappers pass (bytes per element, or a tag).
-enum : int { kInt16 = 2, kInt32 = 4, kBf16 = 102, kF32 = 104 };
+// Dtype codes the wrappers pass (bytes per element, or a tag; kU4 is the
+// packed u4r residual rung, two owners a byte).
+enum : int { kInt8 = 1, kInt16 = 2, kInt32 = 4, kU4 = 100, kBf16 = 102, kF32 = 104 };
 
 // 8 consecutive elements starting at an 8-element boundary of a row whose
 // length is a multiple of 8: the address is aligned to 8 * sizeof(T)

@@ -3,7 +3,11 @@
 // Replaces: aiocluster_tpu/ops/pallas_fd.py::_fd_kernel (fused_fd), the FD
 // phase whenever it does not ride the pair-fused pull: in this port, a
 // round whose pull runs as plain PyTorch ops (use_pallas=False) with
-// use_pallas_fd=True, the reference's own A/B seam.
+// use_pallas_fd=True, the reference's own A/B seam, and the m8 forms. It
+// takes int8, int16 and int32 heartbeat matrices with int16 sample
+// counters and a bool live view; the shrunk bookkeeping (int8 counters,
+// the live bitmap) rides only the pair-fused epilogue, as in the
+// reference.
 //
 // What bounds it: bytes. Per (observer, owner) pair it reads hb, hb0,
 // last_change, imean and icount once and writes last_change, imean,
@@ -119,12 +123,17 @@ extern "C" int aiocluster_fd(const void* hb, const void* hb0, const void* hbv,
   a.fd.prior_wm = prior_wm;
   a.fd.phi = phi;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h_code == kInt16) {
-    return im_code == kBf16 ? launch<int16_t, __nv_bfloat16>(a, s)
-                            : launch<int16_t, float>(a, s);
+  switch (h_code) {
+    case kInt8:
+      return im_code == kBf16 ? launch<int8_t, __nv_bfloat16>(a, s)
+                              : launch<int8_t, float>(a, s);
+    case kInt16:
+      return im_code == kBf16 ? launch<int16_t, __nv_bfloat16>(a, s)
+                              : launch<int16_t, float>(a, s);
+    default:
+      return im_code == kBf16 ? launch<int32_t, __nv_bfloat16>(a, s)
+                              : launch<int32_t, float>(a, s);
   }
-  return im_code == kBf16 ? launch<int32_t, __nv_bfloat16>(a, s)
-                          : launch<int32_t, float>(a, s);
 }
 
 extern "C" const char* aiocluster_error_string(int code) {

@@ -5,7 +5,9 @@
 // pull, the owner-diagonal refresh (DIAG, the round's first
 // sub-exchange), the rows' deficit totals given as an input (TOTALS, the
 // sharded two-pass form, with m8_totals.cu as pass A) and a column block
-// of the owners (col0, the reference's owner_offset). Also the arithmetic
+// of the owners (col0, the reference's owner_offset), on int8, int16 and
+// int32 matrices (the reference's m8 kernel carries no packed u4r codec,
+// so the packed rung never reaches it). Also the arithmetic
 // variants of benchmarks/records/_i16_kernel_experiment.py::
 // _kernel_variant (ARITH): the same function with the deficit and the
 // heartbeat absorb in int16 (two per 32-bit word, Hopper's packed SIMD
@@ -234,8 +236,14 @@ template <typename WT>
 cudaError_t launch_hb(const M8Args& a, int n_rows, int h_code,
                       cudaStream_t s) {
   if (a.hb == nullptr) return launch_modes<WT, WT, false>(a, n_rows, s);
-  return h_code == kInt16 ? launch_modes<WT, int16_t, true>(a, n_rows, s)
-                          : launch_modes<WT, int32_t, true>(a, n_rows, s);
+  switch (h_code) {
+    case kInt8:
+      return launch_modes<WT, int8_t, true>(a, n_rows, s);
+    case kInt16:
+      return launch_modes<WT, int16_t, true>(a, n_rows, s);
+    default:
+      return launch_modes<WT, int32_t, true>(a, n_rows, s);
+  }
 }
 
 }  // namespace
@@ -278,8 +286,14 @@ extern "C" int aiocluster_m8_pull(const void* w, const void* hb, void* w_out,
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return w_code == kInt16 ? launch_hb<int16_t>(a, n_rows, h_code, s)
-                          : launch_hb<int32_t>(a, n_rows, h_code, s);
+  switch (w_code) {
+    case kInt8:
+      return launch_hb<int8_t>(a, n_rows, h_code, s);
+    case kInt16:
+      return launch_hb<int16_t>(a, n_rows, h_code, s);
+    default:
+      return launch_hb<int32_t>(a, n_rows, h_code, s);
+  }
 }
 
 // Static shared memory of the staged kernel (block_sum's partials), which

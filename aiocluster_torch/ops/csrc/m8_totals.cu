@@ -2,7 +2,8 @@
 // the sharded two-pass m8 form, which m8_pull.cu's TOTALS mode applies.
 //
 // Replaces: aiocluster_tpu/ops/pallas_pull.py::_m8_totals_kernel (the TPU
-// kernel behind fused_pull_totals_m8) for int16 and int32 watermarks, over
+// kernel behind fused_pull_totals_m8) for int8, int16 and int32 watermarks
+// (the reference's takes any itemsize and no packed codec), over
 // the whole width or a column block of the owners (col0, the reference's
 // owner_offset).
 //
@@ -80,8 +81,14 @@ extern "C" int aiocluster_m8_totals(const void* w, const void* gm,
   a.n_cols = n_cols;
   a.col0 = col0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_code == kInt16 ? launch<int16_t>(a, n_rows, s)
-                          : launch<int32_t>(a, n_rows, s);
+  switch (w_code) {
+    case kInt8:
+      return launch<int8_t>(a, n_rows, s);
+    case kInt16:
+      return launch<int16_t>(a, n_rows, s);
+    default:
+      return launch<int32_t>(a, n_rows, s);
+  }
 }
 
 extern "C" const char* aiocluster_error_string(int code) {

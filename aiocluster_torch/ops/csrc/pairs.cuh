@@ -1,7 +1,8 @@
 // What the pull kernels (the pair-fused pairs_pull.cu and pairs_totals.cu,
 // the single-pass m8_pull.cu and m8_totals.cu) share: the matched partner
-// of a row, the diagonal-refreshed row load, the deficit sums, the
-// totals passes' pair body and the budgeted advance. Both passes of each
+// of a row, the diagonal-refreshed row load and the deficit sums (also of
+// the packed u4r rung), the totals passes' pair body and the budgeted
+// advance. Both passes of each
 // two-pass form read w through these, so a totals pass sees the
 // refreshed diagonal exactly as its pull does, and every pull applies the
 // same arithmetic.
@@ -57,6 +58,61 @@ __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
   }
 }
 
+// The packed u4r rung: a row of w is n / 2 bytes, byte k holding owner 2k
+// in its low nibble and owner 2k + 1 in its high nibble, each a saturating
+// residual below the owner's max_version. Residual space is closed under
+// the pull: a direction's deficit is max(r_recv - r_send, 0) and an
+// advance shrinks the receiver's residual.
+
+// Eight bytes (sixteen owners) of packed row `row` from byte column k0 (a
+// multiple of 8). With DIAG, the round's first sub-exchange's refresh (the
+// reference's _refresh_packed): every residual rises by its owner's write
+// bump (`bump`: the bumps as packed nibbles, each clipped to [0, 15],
+// which keeps the saturating sum exact), saturating at 15, then the row's
+// own owner reads 0.
+template <bool DIAG>
+__device__ __forceinline__ Vec8<uint8_t> ld8_packed_row(const uint8_t* w_row,
+                                                        int row, int k0,
+                                                        const uint8_t* bump) {
+  Vec8<uint8_t> x8 = ld8(w_row + k0);
+  if (DIAG) {
+    const Vec8<uint8_t> b8 = ld8(bump + k0);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int owner = 2 * (k0 + e);
+      int lo = (x8.v[e] & 0xF) + (b8.v[e] & 0xF);
+      int hi = (x8.v[e] >> 4) + (b8.v[e] >> 4);
+      lo = lo < 15 ? lo : 15;
+      hi = hi < 15 ? hi : 15;
+      if (owner == row) lo = 0;
+      if (owner + 1 == row) hi = 0;
+      x8.v[e] = static_cast<uint8_t>(lo | (hi << 4));
+    }
+  }
+  return x8;
+}
+
+// add_deficits on sixteen packed owners: row i (residuals x) pulling from
+// p (y) where row i is valid, and p pulling from i where row p is.
+__device__ __forceinline__ void add_deficits_packed(const Vec8<uint8_t>& x8,
+                                                    const Vec8<uint8_t>& y8,
+                                                    bool vi, bool vp,
+                                                    long long& ti,
+                                                    long long& tp) {
+  int32_t si = 0, sp = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+#pragma unroll
+    for (int h = 0; h < 8; h += 4) {
+      const int32_t x = (x8.v[e] >> h) & 0xF, y = (y8.v[e] >> h) & 0xF;
+      if (vi && x > y) si += x - y;
+      if (vp && y > x) sp += y - x;
+    }
+  }
+  ti += si;
+  tp += sp;
+}
+
 // The body of both totals passes (pairs_totals.cu, m8_totals.cu), run by
 // the CTA of row i over an (n_rows, n_cols) block of w whose column 0 is
 // global owner col0: where i leads its pair (i <= p[i]), stream rows i
@@ -64,12 +120,14 @@ __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
 // its own row's valid) and write totals[i] and totals[p] as float32,
 // rounded once. A pair with no valid row, or a self-matched row, writes
 // zeros without reading w. The branch depends on i alone, so the whole
-// block takes it and the reductions' barriers stay uniform.
-template <typename WT, bool DIAG>
+// block takes it and the reductions' barriers stay uniform. PACKED: w is
+// the u4r rung (WT uint8, n_cols bytes a row, col0 0) and `mv` the packed
+// write-bump row; else `mv` is the owners' int32 max_version.
+template <typename WT, bool DIAG, bool PACKED = false>
 __device__ __forceinline__ void pair_totals(const WT* w, const int32_t* gm,
                                             const int32_t* c,
                                             const uint8_t* valid,
-                                            const int32_t* mv, float* totals,
+                                            const void* mv, float* totals,
                                             int i, int n_cols, int col0) {
   const int p = partner_row(gm, c, i);
   if (p < i) return;  // row p leads this pair
@@ -82,8 +140,16 @@ __device__ __forceinline__ void pair_totals(const WT* w, const int32_t* gm,
     const WT* wp = w + static_cast<size_t>(p) * n;
     for (int k = threadIdx.x; k < (n_cols >> 3); k += blockDim.x) {
       const int j0 = k << 3;
-      add_deficits(ld8_row<WT, DIAG>(wi, i, j0, mv, col0),
-                   ld8_row<WT, DIAG>(wp, p, j0, mv, col0), vi, vp, ti, tp);
+      if constexpr (PACKED) {
+        const uint8_t* bump = static_cast<const uint8_t*>(mv);
+        add_deficits_packed(ld8_packed_row<DIAG>(wi, i, j0, bump),
+                            ld8_packed_row<DIAG>(wp, p, j0, bump), vi, vp, ti,
+                            tp);
+      } else {
+        const int32_t* mv32 = static_cast<const int32_t*>(mv);
+        add_deficits(ld8_row<WT, DIAG>(wi, i, j0, mv32, col0),
+                     ld8_row<WT, DIAG>(wp, p, j0, mv32, col0), vi, vp, ti, tp);
+      }
     }
     ti = block_sum(ti);
     tp = block_sum(tp);

@@ -2,14 +2,14 @@
 // the two-pass form, which the pull's TOTALS mode (pairs_pull.cu) applies.
 //
 // Replaces: aiocluster_tpu/ops/pallas_pull.py::_pairs_totals_kernel (the
-// TPU kernel behind fused_pull_pairs_totals / pairs_totals) for int16 and
-// int32 watermarks over the full owner width (n_local == N). The packed
-// u4r mode, the lane axis and column shards (owner_offset) are not
-// ported.
+// TPU kernel behind fused_pull_pairs_totals / pairs_totals) for int8,
+// int16 and int32 watermarks and the packed u4r rung (PACKED, the
+// reference's `packed` decode) over the full owner width (n_local == N).
+// The lane axis and column shards (owner_offset) are not ported.
 //
 // What bounds it: bytes. It must read every row of w once (N^2 *
-// sizeof(w)) and write N floats, with about three integer operations
-// per element.
+// sizeof(w), N^2 / 2 packed) and write N floats, with about three integer
+// operations per element.
 //
 // Design: as in pairs_pull.cu, one CTA per LEADER row i (i <= p[i]) of
 // the matching's row involution p, so each matched pair is visited once
@@ -22,8 +22,11 @@
 // total stays below 2^24 (the lean profile's is at most 16 * N =
 // 1,605,632 at N = 100,352). A self-matched row (p == i) writes its
 // total, 0, once. The pair body is pairs.cuh's pair_totals, which
-// m8_totals.cu runs over column blocks. No shared memory but the
-// reduction's, so any width that is a multiple of 8 runs.
+// m8_totals.cu runs over column blocks. PACKED reads eight bytes (sixteen
+// owners) a vector, and one row total spans both nibble halves; `mv` is
+// then the packed write-bump row, exactly as the pull's pass sees it. No
+// shared memory but the reduction's, so any width that is a multiple of 8
+// (16 packed) runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,23 +43,25 @@ struct TotalsArgs {
   const int32_t* gm;     // (n/8,) partner group of each group
   const int32_t* c;      // (n/8,) within-pair row rotation
   const uint8_t* valid;  // (n,) alive-pair mask per row
-  const int32_t* mv;     // (n,) owner max_version, or null (no refresh)
+  const void* mv;        // (n,) int32 owner max_version (PACKED: (n/2,)
+                         // uint8 packed write bumps), or null (no refresh)
   float* totals;         // (n,) written
-  int32_t n;
+  int32_t n;             // owners (rows)
 };
 
-template <typename WT, bool DIAG>
+template <typename WT, bool DIAG, bool PACKED>
 __global__ void __launch_bounds__(kThreads) pairs_totals_kernel(TotalsArgs a) {
-  pair_totals<WT, DIAG>(static_cast<const WT*>(a.w), a.gm, a.c, a.valid, a.mv,
-                        a.totals, blockIdx.x, a.n, 0);
+  pair_totals<WT, DIAG, PACKED>(static_cast<const WT*>(a.w), a.gm, a.c,
+                                a.valid, a.mv, a.totals, blockIdx.x,
+                                PACKED ? a.n >> 1 : a.n, 0);
 }
 
-template <typename WT>
+template <typename WT, bool PACKED = false>
 cudaError_t launch(const TotalsArgs& a, cudaStream_t stream) {
   if (a.mv != nullptr) {
-    pairs_totals_kernel<WT, true><<<a.n, kThreads, 0, stream>>>(a);
+    pairs_totals_kernel<WT, true, PACKED><<<a.n, kThreads, 0, stream>>>(a);
   } else {
-    pairs_totals_kernel<WT, false><<<a.n, kThreads, 0, stream>>>(a);
+    pairs_totals_kernel<WT, false, PACKED><<<a.n, kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -72,11 +77,20 @@ extern "C" int aiocluster_pairs_totals(const void* w, const void* gm,
   a.gm = static_cast<const int32_t*>(gm);
   a.c = static_cast<const int32_t*>(c);
   a.valid = static_cast<const uint8_t*>(valid);
-  a.mv = static_cast<const int32_t*>(mv);
+  a.mv = mv;
   a.totals = static_cast<float*>(totals);
   a.n = n;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_code == kInt16 ? launch<int16_t>(a, s) : launch<int32_t>(a, s);
+  switch (w_code) {
+    case kU4:
+      return launch<uint8_t, true>(a, s);
+    case kInt8:
+      return launch<int8_t>(a, s);
+    case kInt16:
+      return launch<int16_t>(a, s);
+    default:
+      return launch<int32_t>(a, s);
+  }
 }
 
 extern "C" const char* aiocluster_error_string(int code) {

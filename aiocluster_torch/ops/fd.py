@@ -15,7 +15,13 @@ import dataclasses
 
 import torch
 
+from ..sim.packed import is_packed_live, pack_bits
 from . import _build, counters
+
+
+# The matrix dtypes the kernels take, one byte code each (their element
+# size; csrc/common.cuh).
+MATRIX_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,13 +72,13 @@ def fd_store(rows, lc2, imean, icount, live, lc, im, ic, live_out):
     ``rows`` (int64 ids) against owner columns ``0..``; the self
     diagonal stays live, death wipes the window, and each result rounds
     once into its stored dtype in those rows of ``lc``/``im``/``ic``/
-    ``live_out``."""
+    ``live_out`` (bool, or the uint8 bitmap of the live_bits rung)."""
     cols = torch.arange(live.shape[1], device=live.device)
     live = live | (rows[:, None] == cols[None, :])
     lc.index_copy_(0, rows, lc2.to(lc.dtype))
     im.index_copy_(0, rows, torch.where(live, imean, torch.zeros_like(imean)).to(im.dtype))
     ic.index_copy_(0, rows, torch.where(live, icount, torch.zeros_like(icount)).to(ic.dtype))
-    live_out.index_copy_(0, rows, live)
+    live_out.index_copy_(0, rows, pack_bits(live) if is_packed_live(live_out) else live)
 
 
 def fused_fd_plain(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
@@ -91,14 +97,16 @@ def fused_fd_plain(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
 
 def fused_fd(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
     """One standalone FD pass, in place on ``lc``/``im``/``ic``, writing
-    ``live``. CPU tensors take the plain version; CUDA tensors launch
-    csrc/fd.cu (or raise)."""
+    ``live``. The kernel takes int8/int16/int32 heartbeats with int16
+    sample counters and a bool live view (the reference's FD kernel has
+    no int8 counters or bitmap either). CPU tensors take the plain
+    version; CUDA tensors launch csrc/fd.cu (or raise)."""
     if hb.device.type == "cpu":
         counters.plain_calls["fd"] += 1
         return fused_fd_plain(tick, hb, hb0, hbv, lc, im, ic, live, k)
     n, dev, hdt = hb.shape[0], hb.device, hb.dtype
-    if hdt not in (torch.int16, torch.int32):
-        raise ValueError(f"heartbeat dtype {hdt} is not int16/int32")
+    if hdt not in MATRIX_DTYPES:
+        raise ValueError(f"heartbeat dtype {hdt} is not int8/int16/int32")
     if im.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"imean dtype {im.dtype} is not bfloat16/float32")
     if n % 8:

@@ -2,11 +2,14 @@
 nodes as tensor passes over the (N, N) watermark, heartbeat and
 failure-detector matrices — the port of the reference's ops/gossip.py
 for the slice it covers (grouped matching, proportional budget, FD on or
-off, no churn, no lifecycle, no fault plan).
+off, every rung of the memory ladder, no churn, no lifecycle, no fault
+plan). The packed u4r rung computes on the nibbles (the packed helpers
+below), and the shrunk FD bookkeeping stores int8 counters and the live
+bitmap.
 
 Two implementations serve a round, resolved once per call by
-``pull_phase_engaged`` / ``fd_phase_engaged`` (the counterparts of the
-reference's ``pallas_path_engaged`` / ``pallas_variant_engaged`` /
+``resolve_phases`` (the counterpart of the reference's
+``pallas_fallback_reason`` / ``pallas_path_engaged`` /
 ``fd_phase_engaged``):
 
 - on a CUDA device (``use_pallas="auto"``): every sub-exchange is one
@@ -16,7 +19,12 @@ reference's ``pallas_path_engaged`` / ``pallas_variant_engaged`` /
   block's shared memory, each sub-exchange is two launches instead: the
   deficit totals (ops/pairs_totals.py), then the pull fed those totals
   ("pairs_two_pass", the reference's sharded two-pass form on one
-  device). A config the kernels cannot take is refused, never run plain;
+  device). A config the kernels cannot take is refused, never run plain,
+  except on the two routes the reference itself serves with XLA for
+  want of a kernel: "packed_dtype" (u4r with heartbeats, or pinned to
+  m8) runs the plain round, "fd_packed_bookkeeping" (the shrunk FD
+  bookkeeping off the pairs path) the plain FD phase, each counted in
+  ``counters.fallbacks``;
 - ``pallas_variant="m8"`` on a CUDA device: every sub-exchange is one
   launch of the single-pass pull (ops/m8_pull.py, out of place; "m8"),
   or, where its rows do not stage, the m8 deficit totals
@@ -29,7 +37,8 @@ reference's ``pallas_path_engaged`` / ``pallas_variant_engaged`` /
 - on the CPU: the same resolution, with every wrapper taking its plain
   version (so ``use_pallas="auto"`` runs the plain round).
 
-ops/counters.py counts what served each phase, and every refusal.
+ops/counters.py counts what served each phase, every fallback and every
+refusal.
 
 ``sim_step`` consumes its input state, as the reference's donated
 buffers do: the matrices are updated in place where a phase can.
@@ -37,9 +46,12 @@ buffers do: the matrices are updated in place where a phase can.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..sim.config import SimConfig, unported_reason
+from ..sim.packed import U4_MAX, is_packed_w, live_view_bool, watermarks_i32
 from ..sim.state import DTYPES, SimState
 from . import counters, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from . import fd as fd_mod
@@ -101,6 +113,25 @@ def deficit_totals(d) -> torch.Tensor:
     return d.sum(dim=1, dtype=torch.int64).to(torch.float32)
 
 
+def budget_scale(total: torch.Tensor, budget: int) -> torch.Tensor:
+    """The share of every deficit a row may take: min(1, budget /
+    max(total, 1)). A tensor numerator: PyTorch computes ``scalar /
+    tensor`` as a reciprocal times the scalar, which is not the
+    correctly rounded quotient."""
+    quot = torch.full_like(total, float(budget)) / torch.clamp(total, min=1.0)
+    return torch.clamp(quot, max=1.0)
+
+
+def proportional_advance(d, scale, salt, owner_ids, run_salt=None, row_ids=None):
+    """(rows, cols) int32 advances on the deficits ``d``: each scaled by
+    its row's ``scale`` and rounded with the hashed dither of (row,
+    global owner ``owner_ids``, salt), never past the deficit."""
+    x = d.to(torch.float32) * scale[:, None]
+    floor = torch.floor(x)
+    bump = hash_uniform(salt, d.shape[0], owner_ids, run_salt, row_ids) < (x - floor)
+    return torch.minimum(floor.to(torch.int32) + bump.to(torch.int32), d.to(torch.int32))
+
+
 def budgeted_advance(
     w_recv, w_send, budget: int, valid, salt, owner_ids, run_salt=None,
     totals=None, row_ids=None,
@@ -115,18 +146,102 @@ def budgeted_advance(
     matrix's rows (the dither hashes them)."""
     d = deficits(w_recv, w_send, valid)
     total = deficit_totals(d) if totals is None else totals
-    # A tensor numerator: PyTorch computes ``scalar / tensor`` as a
-    # reciprocal times the scalar, which is not the correctly rounded
-    # quotient.
-    quot = torch.full_like(total, float(budget)) / torch.clamp(total, min=1.0)
-    scale = torch.clamp(quot, max=1.0)
-    x = d.to(torch.float32) * scale[:, None]
-    floor = torch.floor(x)
-    bump = hash_uniform(salt, d.shape[0], owner_ids, run_salt, row_ids) < (x - floor)
-    adv = torch.minimum(
-        floor.to(torch.int32) + bump.to(torch.int32), d.to(torch.int32)
+    adv = proportional_advance(
+        d, budget_scale(total, budget), salt, owner_ids, run_salt, row_ids
     )
     return adv.to(w_recv.dtype)
+
+
+# -- the packed u4 residual rung: the round's math on the nibbles -------------
+#
+# version_dtype="u4r" stores watermarks as saturating residuals below the
+# owner's max_version, two per byte (sim/packed.py). The sub-exchange is
+# closed in residual space (a direction's deficit is max(r_recv - r_send,
+# 0): the owner's max_version cancels), so these compute on the nibbles
+# and reproduce budgeted_advance bit for bit: one row total spans both
+# halves (exact integer sums, rounded to float32 once), then each half
+# takes the same scale and the dither of its own global owners.
+
+
+def nibbles(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) int32 nibble halves of packed bytes: owners 2k and
+    2k + 1 of byte column k."""
+    return (r & 0xF).to(torch.int32), (r >> 4).to(torch.int32)
+
+
+def pack_halves(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def packed_adv_halves(
+    r, r_peer, budget: int, valid, salt, owners, run_salt=None, totals=None,
+    row_ids=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_packed_adv_halves``: (a_lo, a_hi) int32 nibble
+    advances of each receiver row toward its peer row (the receiver's
+    residual shrinks by them). ``totals`` and ``row_ids`` as in
+    ``budgeted_advance``; ``owners`` are the logical columns' global
+    ids."""
+    lo, hi = nibbles(r)
+    plo, phi = nibbles(r_peer)
+    v = valid[:, None].to(torch.int32)
+    d_lo = torch.clamp(lo - plo, min=0) * v
+    d_hi = torch.clamp(hi - phi, min=0) * v
+    if totals is None:
+        totals = packed_totals(r, r_peer, valid)
+    scale = budget_scale(totals, budget)
+    return (
+        proportional_advance(d_lo, scale, salt, owners[0::2], run_salt, row_ids),
+        proportional_advance(d_hi, scale, salt, owners[1::2], run_salt, row_ids),
+    )
+
+
+def packed_totals(r, r_peer, valid) -> torch.Tensor:
+    """(rows,) float32 deficit totals of packed rows against their peer
+    rows: both halves summed exactly, rounded once."""
+    lo, hi = nibbles(r)
+    plo, phi = nibbles(r_peer)
+    d = torch.clamp(lo - plo, min=0).sum(dim=1, dtype=torch.int64) + torch.clamp(
+        hi - phi, min=0
+    ).sum(dim=1, dtype=torch.int64)
+    return torch.where(valid, d, 0).to(torch.float32)
+
+
+def packed_apply(r, a_lo, a_hi) -> torch.Tensor:
+    """Apply nibble advances: the receiver's residual shrinks (w += adv
+    in watermark space)."""
+    lo, hi = nibbles(r)
+    return pack_halves(lo - a_lo, hi - a_hi)
+
+
+def packed_writes_shift(r, bump) -> torch.Tensor:
+    """Owner writes raise max_version, which raises every observer's
+    residual by the owner's bump (``bump`` (n,), w unchanged), saturating
+    at the nibble ceiling."""
+    lo, hi = nibbles(r)
+    lo = torch.clamp(lo + bump[0::2].to(torch.int32)[None, :], max=U4_MAX)
+    hi = torch.clamp(hi + bump[1::2].to(torch.int32)[None, :], max=U4_MAX)
+    return pack_halves(lo, hi)
+
+
+def packed_diag_zero_(r, rows) -> torch.Tensor:
+    """The owner-diagonal refresh in residual space, in place: the rows
+    with global ids ``rows`` (of a matrix over every owner) get a zero
+    residual on themselves (w[j, j] = max_version[j]). Returns ``r``."""
+    at = torch.arange(rows.numel(), device=r.device)
+    keep = torch.where(rows % 2 == 0, 0xF0, 0x0F).to(torch.uint8)
+    r[at, rows // 2] &= keep
+    return r
+
+
+def refreshed_packed_rows(r, rows, bump) -> torch.Tensor:
+    """A copy of the packed rows ``rows`` as the round's first
+    sub-exchange sees them (``bump`` given: the writes shift, then the
+    diagonal zero; the reference's ``_refresh_packed``), or as stored."""
+    x = r[rows]
+    if bump is None:
+        return x
+    return packed_diag_zero_(packed_writes_shift(x, bump), rows)
 
 
 # -- dispatch -------------------------------------------------------------------
@@ -144,44 +259,111 @@ PAIRS_FORMS = ("pairs", "pairs_two_pass")
 M8_FORMS = ("m8", "m8_two_pass")
 
 
-def pull_phase_engaged(cfg: SimConfig, device) -> str:
-    """Which implementation serves the sub-exchanges: "pairs" (the
-    pair-fused pull with both rows staged in shared memory, one launch
-    per sub-exchange), "pairs_two_pass" (rows too wide to stage: the
-    deficit-totals pass, then the pull fed those totals, two launches
-    per sub-exchange), their single-pass counterparts "m8" and
-    "m8_two_pass" (``pallas_variant="m8"`` pins them, as it pins the
-    reference's m8 kernel) or "plain". A config that asks for the
-    kernels and that they cannot take raises ``NotImplementedError``."""
-    if not kernels_wanted(cfg, device):
-        return "plain"
+class Phases(NamedTuple):
+    """One resolution of a config's round on a device: the form that
+    serves the sub-exchanges and the one that serves the FD phase, each
+    with the reference's reason name where a config that asks for the
+    kernels runs that phase plain anyway (None elsewhere). ``sim_step``
+    dispatches on it and counts its reasons in ``counters.fallbacks``."""
+
+    pull: str
+    pull_fallback: str | None
+    fd: str
+    fd_fallback: str | None
+
+
+def fd_bookkeeping_packed(cfg: SimConfig) -> bool:
+    """Whether the FD bookkeeping sits below the int16/bool profile (int8
+    sample counters or the live bitmap): the pairs kernels' fused
+    epilogue takes both, the standalone FD kernel neither."""
+    return cfg.icount_dtype != "int16" or cfg.live_bits
+
+
+def _kernel_pull_form(cfg: SimConfig) -> str:
+    """The kernel form of the sub-exchanges: staged where the two rows a
+    CTA reads fit its shared memory (a packed row is n / 2 bytes), two
+    launches a sub-exchange beyond; ``pallas_variant="m8"`` pins the
+    single-pass pull."""
     if cfg.fanout < 1:
         counters.refuse(
             "fanout=0 on the kernel path (no sub-exchange carries the "
             "diagonal refresh and the FD epilogue) is not ported yet: "
             "ROADMAP.md B1e"
         )
-    # Both single-launch forms stage the two rows a CTA reads.
-    staged = pairs_pull.pairs_supported(cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize)
+    if cfg.version_dtype == "u4r":
+        staged = pairs_pull.pairs_supported(cfg.n_nodes // 2, 1)
+    else:
+        staged = pairs_pull.pairs_supported(
+            cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize
+        )
     if cfg.pallas_variant == "m8":
         return "m8" if staged else "m8_two_pass"
     return "pairs" if staged else "pairs_two_pass"
 
 
+def resolve_phases(cfg: SimConfig, device) -> Phases:
+    """Resolve both phases of a round once (the counterpart of the
+    reference's ``pallas_fallback_reason`` / ``pallas_path_engaged`` /
+    ``fd_phase_engaged``).
+
+    The pull is "pairs" or "pairs_two_pass" (the pair-fused pull, one or
+    two launches a sub-exchange), "m8" or "m8_two_pass" (pinned by
+    ``pallas_variant="m8"``), or "plain": no kernels wanted, or the one
+    route the reference serves with XLA for want of a kernel,
+    "packed_dtype" (the u4r rung with heartbeats, or pinned to m8: only
+    the pairs kernels carry the nibble codec, and only in the lean
+    profile). A config that asks for the kernels and that they cannot
+    take raises ``NotImplementedError``.
+
+    The FD phase is "fused" (the epilogue of the round's last pairs
+    sub-exchange), "kernel" (the standalone pass; the m8 forms' too, as
+    in the reference), "plain", or "off" (no failure detector). The
+    shrunk bookkeeping off the pairs path runs plain, as the standalone
+    kernel (nor the reference's) does not take it: where the kernels are
+    wanted that is "fd_packed_bookkeeping"."""
+    wanted = kernels_wanted(cfg, device)
+    pull_fallback = None
+    if wanted and cfg.version_dtype == "u4r" and (
+        cfg.track_heartbeats or cfg.pallas_variant == "m8"
+    ):
+        pull_fallback = "packed_dtype"
+    pull = _kernel_pull_form(cfg) if wanted and pull_fallback is None else "plain"
+    fd, fd_fallback = "off", None
+    if cfg.track_failure_detector:
+        if cfg.use_pallas_fd is False:
+            fd = "plain"
+        elif pull in PAIRS_FORMS:
+            fd = "fused"
+        elif fd_bookkeeping_packed(cfg):
+            fd = "plain"
+            fd_fallback = "fd_packed_bookkeeping" if wanted else None
+        elif cfg.use_pallas_fd is True or wanted:
+            fd = "kernel"
+        else:
+            fd = "plain"
+    return Phases(pull, pull_fallback, fd, fd_fallback)
+
+
+def pull_phase_engaged(cfg: SimConfig, device) -> str:
+    """The form that serves the sub-exchanges (``resolve_phases``)."""
+    return resolve_phases(cfg, device).pull
+
+
+def pull_fallback_reason(cfg: SimConfig, device) -> str | None:
+    """Why a config that asks for the kernels runs its pull plain anyway
+    ("packed_dtype"), or None (``resolve_phases``)."""
+    return resolve_phases(cfg, device).pull_fallback
+
+
 def fd_phase_engaged(cfg: SimConfig, device) -> str:
-    """Which implementation serves the FD phase: "fused" (the epilogue of
-    the round's last pairs sub-exchange, in either pairs form), "kernel"
-    (the standalone pass; the m8 forms' too, as in the reference),
-    "plain", or "off" (no failure detector)."""
-    if not cfg.track_failure_detector:
-        return "off"
-    if cfg.use_pallas_fd is False:
-        return "plain"
-    if pull_phase_engaged(cfg, device) in PAIRS_FORMS:
-        return "fused"
-    if cfg.use_pallas_fd is True or kernels_wanted(cfg, device):
-        return "kernel"
-    return "plain"
+    """The form that serves the FD phase (``resolve_phases``)."""
+    return resolve_phases(cfg, device).fd
+
+
+def fd_fallback_reason(cfg: SimConfig, device) -> str | None:
+    """Why a config that asks for the kernels runs its FD phase plain
+    anyway ("fd_packed_bookkeeping"), or None (``resolve_phases``)."""
+    return resolve_phases(cfg, device).fd_fallback
 
 
 # -- the round --------------------------------------------------------------------
@@ -229,9 +411,13 @@ def sim_step(
     heartbeat = state.heartbeat + alive_i32
     max_version = state.max_version + cfg.writes_per_round * alive_i32
     track_hb = cfg.track_heartbeats
-    pull = pull_phase_engaged(cfg, dev)
-    fd_phase = fd_phase_engaged(cfg, dev)
+    phases = resolve_phases(cfg, dev)
+    pull, fd_phase = phases.pull, phases.fd
+    for reason in (phases.pull_fallback, phases.fd_fallback):
+        if reason is not None:
+            counters.fallbacks[reason] += 1
     params = FdParams.from_config(cfg)
+    packed = is_packed_w(state.w)
 
     def salt_of(c: int) -> int:
         return new_tick * (2 * cfg.fanout) + 2 * c
@@ -259,7 +445,10 @@ def sim_step(
             valid = alive & alive[p_all[c]]
             kw = {}
             if first:
-                kw["mv"] = max_version
+                # The packed rung's refresh operand is the owners' write
+                # bump (the residuals shift by it, then the diagonal
+                # zeroes), the unpacked rungs' the new max_version.
+                kw["mv"] = max_version - state.max_version if packed else max_version
                 if track_hb:
                     kw["hbv"] = heartbeat
             if pull == "pairs_two_pass":
@@ -282,18 +471,33 @@ def sim_step(
             if out is not None:
                 flag = out
     else:
+        owners = torch.arange(n, device=dev)
         diag = torch.eye(n, dtype=torch.bool, device=dev)
-        w = torch.where(diag, max_version.to(w.dtype)[None, :], w)
+        if packed:
+            # Owner writes raise every observer's residual (saturating),
+            # then each owner's residual on itself is 0.
+            if cfg.writes_per_round != 0:
+                w = packed_writes_shift(w, max_version - state.max_version)
+            else:
+                w = w.clone()
+            w = packed_diag_zero_(w, owners)
+        else:
+            w = torch.where(diag, max_version.to(w.dtype)[None, :], w)
         if track_hb:
             hb = torch.where(diag, heartbeat.to(hb.dtype)[None, :], hb)
         hb_round_start = hb
-        owners = torch.arange(n, device=dev)
         for c in range(cfg.fanout):
             p = p_all[c]
             valid = alive & alive[p]
-            w = w + budgeted_advance(
-                w, w[p], cfg.budget, valid, salt_of(c), owners, run_salt
-            )
+            if packed:
+                a_lo, a_hi = packed_adv_halves(
+                    w, w[p], cfg.budget, valid, salt_of(c), owners, run_salt
+                )
+                w = packed_apply(w, a_lo, a_hi)
+            else:
+                w = w + budgeted_advance(
+                    w, w[p], cfg.budget, valid, salt_of(c), owners, run_salt
+                )
             if track_hb:
                 hb = torch.maximum(hb, torch.where(valid[:, None], hb[p], 0))
             counters.plain_calls["pull"] += 1
@@ -425,14 +629,24 @@ def _needed_in_w_dtype(state: SimState) -> torch.Tensor:
 
 def _owners_caught_up(state: SimState) -> torch.Tensor:
     """(N,) bool: every alive row's watermark on owner j has reached j's
-    max_version, or owner j is dead. Reduced over blocks of rows (as in
-    ``convergence_metrics``, which takes it in its own pass)."""
+    max_version, or owner j is dead. Reduced over blocks of rows in w's
+    own dtype; on the packed rung a zero residual IS caught up, read
+    straight off the bytes."""
     w, alive = state.w, state.alive
+    n = alive.shape[0]
+    if is_packed_w(w):
+        ok_lo = torch.ones(n // 2, dtype=torch.bool, device=w.device)
+        ok_hi = ok_lo.clone()
+        for r0, r1 in row_blocks(n):
+            dead = ~alive[r0:r1, None]
+            ok_lo &= (((w[r0:r1] & 0xF) == 0) | dead).all(dim=0)
+            ok_hi &= (((w[r0:r1] >> 4) == 0) | dead).all(dim=0)
+        return torch.stack((ok_lo, ok_hi), dim=-1).reshape(n) | ~alive
     need = _needed_in_w_dtype(state)
     # A need that w's dtype cannot hold is reached by no row, and an alive
     # owner's own row is alive.
     ok = state.max_version <= torch.iinfo(w.dtype).max
-    for r0, r1 in row_blocks(w.shape[0]):
+    for r0, r1 in row_blocks(n):
         ok &= ((w[r0:r1] >= need) | ~alive[r0:r1, None]).all(dim=0)
     return ok | ~alive
 
@@ -449,10 +663,12 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
     the worst and mean watermark fraction over alive pairs, the alive
     count, the key-versions known, and the FD's false positives.
     Reduced over blocks of rows: the fraction sum in float64, the
-    key-versions known exactly in int64, each rounded to float32 once."""
+    key-versions known exactly in int64, each rounded to float32 once.
+    The packed rungs are widened a block at a time (sim/packed.py)."""
     w, alive = state.w, state.alive
     dev, total = w.device, alive.shape[0]
-    need = _needed_in_w_dtype(state)
+    packed = is_packed_w(w)
+    need = state.max_version if packed else _needed_in_w_dtype(state)
     need_f = torch.clamp(state.max_version, min=1).to(torch.float32)
     track_fd = state.live_view.numel() > 0
     cols = torch.arange(total, device=dev)
@@ -460,9 +676,16 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
     frac_sum = torch.zeros((), dtype=torch.float64, device=dev)
     kv_known = torch.zeros((), dtype=torch.int64, device=dev)
     fp = torch.zeros((), dtype=torch.int64, device=dev)
-    caught_up = state.max_version <= torch.iinfo(w.dtype).max  # _owners_caught_up
+    # _owners_caught_up, in this pass: a packed watermark never exceeds
+    # its owner's max_version, an unpacked need beyond w's dtype is out
+    # of reach.
+    caught_up = (
+        torch.ones(total, dtype=torch.bool, device=dev)
+        if packed
+        else state.max_version <= torch.iinfo(w.dtype).max
+    )
     for r0, r1 in row_blocks(total):
-        wb = w[r0:r1]
+        wb = watermarks_i32(state, rows=slice(r0, r1)) if packed else w[r0:r1]
         caught_up &= ((wb >= need) | ~alive[r0:r1, None]).all(dim=0)
         pair = alive[r0:r1, None] & alive[None, :]
         frac = torch.where(pair, wb.to(torch.float32) / need_f, 1.0)
@@ -475,7 +698,8 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
         )
         if track_fd:
             off_diag = cols[r0:r1, None] != cols[None, :]
-            fp += (pair & off_diag & ~state.live_view[r0:r1]).sum()
+            live = live_view_bool(state, rows=slice(r0, r1))
+            fp += (pair & off_diag & ~live).sum()
     n_alive = alive.sum()
     pair_count = n_alive * n_alive
     n_converged = (caught_up | ~alive).sum()

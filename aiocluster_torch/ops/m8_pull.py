@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, counters, gossip, prng
-from .fd import expect
+from .fd import MATRIX_DTYPES, expect
 from .pairs_pull import pairs_supported
 
 ARITH_CODES = {"i32": 0, "i16": 1, "i16_f32": 2}
@@ -104,9 +104,9 @@ def m8_pull(
     """One single-pass sub-exchange into new tensors: returns (w', hb'),
     or w' alone when ``hb`` is None (the lean profile).
 
-    ``w`` (N, n_local) int16/int32 and ``hb`` (N, n_local) int16/int32 or
-    None, the owners ``owner_offset .. owner_offset + n_local - 1``
-    (read only); ``gm``/``c`` (N/8,) int32 the grouped matching;
+    ``w`` (N, n_local) and ``hb`` (N, n_local) or None, each
+    int8/int16/int32, the owners ``owner_offset .. owner_offset +
+    n_local - 1`` (read only); ``gm``/``c`` (N/8,) int32 the grouped matching;
     ``valid`` (N,) bool the alive-pair mask per row; ``salt`` the
     sub-exchange salt and ``run_salt`` the run's; ``budget``
     key-versions per exchange. ``mv``/``hbv`` (n_local,) int32 refresh
@@ -123,8 +123,8 @@ def m8_pull(
         )
     _check_modes(hb, mv, hbv, totals, arith)
     (n, n_local), dev = w.shape, w.device
-    if w.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"w dtype {w.dtype} is not int16/int32")
+    if w.dtype not in MATRIX_DTYPES:
+        raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32")
     if n % 8:
         raise ValueError(f"m8 kernel needs N % 8 == 0, got N={n}")
     if totals is not None:
@@ -145,8 +145,8 @@ def m8_pull(
     expect("valid", valid, torch.bool, (n,), dev)
     h_code = w.element_size()
     if hb is not None:
-        if hb.dtype not in (torch.int16, torch.int32):
-            raise ValueError(f"hb dtype {hb.dtype} is not int16/int32")
+        if hb.dtype not in MATRIX_DTYPES:
+            raise ValueError(f"hb dtype {hb.dtype} is not int8/int16/int32")
         expect("hb", hb, hb.dtype, (n, n_local), dev)
         h_code = hb.element_size()
     for name, vec in (("mv", mv), ("hbv", hbv)):

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, counters, gossip, prng
-from .fd import expect
+from .fd import MATRIX_DTYPES, expect
 
 
 def m8_totals_plain(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Tensor:
@@ -43,7 +43,7 @@ def m8_totals_plain(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch
 def m8_totals(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Tensor:
     """(N,) float32 deficit totals of every row of one sub-exchange.
 
-    ``w`` (N, n_local) int16/int32 (read only), the owners
+    ``w`` (N, n_local) int8/int16/int32 (read only), the owners
     ``owner_offset .. owner_offset + n_local - 1``; ``gm``/``c`` (N/8,)
     int32 the grouped matching; ``valid`` (N,) bool, per row (row ``i``'s
     total is 0 where ``valid[i]`` is false, whatever ``valid[p[i]]``);
@@ -58,8 +58,8 @@ def m8_totals(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Tenso
         counters.plain_calls["m8_totals"] += 1
         return m8_totals_plain(w, gm, c, valid, mv=mv, owner_offset=owner_offset)
     (n, n_local), dev = w.shape, w.device
-    if w.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"w dtype {w.dtype} is not int16/int32")
+    if w.dtype not in MATRIX_DTYPES:
+        raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32")
     if n % 8 or n_local % 8:
         raise ValueError(f"m8 totals kernel needs N and n_local % 8 == 0, got {w.shape}")
     expect("w", w, w.dtype, (n, n_local), dev)

@@ -9,9 +9,12 @@ partner's heartbeat knowledge, both directions computed from the
 pre-exchange rows. Optional modes, as on the TPU: the owner-diagonal
 refresh (``mv``/``hbv``, the round's first sub-exchange), the
 all-converged check (``check``, the last), the fused failure-detector
-epilogue (``fd``, the last) and the rows' deficit totals given as an
-input (``totals``, from ops/pairs_totals.py: the two-pass form, which
-needs no shared memory and so takes any width).
+epilogue (``fd``, the last; int16 or int8 sample counters, a bool live
+view or the live bitmap) and the rows' deficit totals given as an input
+(``totals``, from ops/pairs_totals.py: the two-pass form, which needs no
+shared memory and so takes any width). A uint8 ``w`` is the packed u4r
+rung (sim/packed.py; lean profile only, as in the reference): ``mv`` is
+then the owners' write bump of the round.
 
 Both versions update ``w``/``hb`` (and the FD bookkeeping) IN PLACE and
 write ``fd.live``. CPU tensors take the plain version; CUDA tensors
@@ -25,14 +28,16 @@ import dataclasses
 
 import torch
 
+from ..sim.packed import is_packed_live, is_packed_w, pack_u4
 from . import _build, counters, gossip, prng
 from . import fd as fd_mod
-from .fd import FdParams, expect
+from .fd import MATRIX_DTYPES, FdParams, expect
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 # Static shared memory of the kernel: block_sum's 32 long long partials
 # (csrc/common.cuh); chip_smoke.py holds it against the compiled kernel.
 STATIC_SMEM = 32 * 8
+U4_CODE = 100  # the packed u4r rung's dtype code (csrc/common.cuh kU4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +56,13 @@ class FdOperands:
     params: FdParams
 
 
-def pairs_supported(n: int, w_itemsize: int) -> bool:
-    """Whether the staged kernel takes this width: both rows of w staged
-    in one block's shared memory (beside its static shared memory), rows
-    in 8-element vectors. The totals mode only needs ``n % 8 == 0``."""
-    return n % 8 == 0 and 2 * n * w_itemsize + STATIC_SMEM <= SMEM_LIMIT
+def pairs_supported(n_cols: int, itemsize: int) -> bool:
+    """Whether the staged kernel takes rows of ``n_cols`` stored elements
+    of ``itemsize`` bytes (a packed u4r row stores n / 2 bytes): both
+    rows staged in one block's shared memory (beside its static shared
+    memory), rows in 8-element vectors. The totals mode only needs the
+    vectors."""
+    return n_cols % 8 == 0 and 2 * n_cols * itemsize + STATIC_SMEM <= SMEM_LIMIT
 
 
 def compiled_static_smem(name: str = "pairs_pull") -> int:
@@ -79,6 +86,8 @@ def pairs_pull_plain(
     back, as the kernel's CTAs do, so it runs at any width the kernel
     does."""
     dev = w.device
+    packed = is_packed_w(w)
+    _check_packed(packed, hb, fd)
     p = prng.rows_of_groups(gm.to(torch.int64), c.to(torch.int64))
     owners = torch.arange(w.shape[0], device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
@@ -86,15 +95,29 @@ def pairs_pull_plain(
         needed, alive, alive_owner = check
         need = torch.where(alive_owner, needed.to(torch.int32), 0)
     for rows, partners in gossip.pair_row_blocks(p):
-        x = gossip.refreshed_rows(w, rows, mv)
         v = valid[rows]
-        adv = gossip.budgeted_advance(
-            x, gossip.refreshed_rows(w, partners, mv), budget, v, salt, owners,
-            run_salt, None if totals is None else totals[rows], rows,
-        )
-        w_new = x + adv
-        if check is not None:
-            ok &= ((w_new.to(torch.int32) >= need[None, :]) | ~alive[rows, None]).all()
+        row_totals = None if totals is None else totals[rows]
+        if packed:
+            x = gossip.refreshed_packed_rows(w, rows, mv)
+            a_lo, a_hi = gossip.packed_adv_halves(
+                x, gossip.refreshed_packed_rows(w, partners, mv), budget, v, salt,
+                owners, run_salt, row_totals, rows,
+            )
+            w_new = gossip.packed_apply(x, a_lo, a_hi)
+            if check is not None:
+                # A zero residual is caught up; dead owners are excused.
+                lo, hi = gossip.nibbles(w_new)
+                caught = ((lo == 0) | ~alive_owner[0::2]) & ((hi == 0) | ~alive_owner[1::2])
+                ok &= (caught | ~alive[rows, None]).all()
+        else:
+            x = gossip.refreshed_rows(w, rows, mv)
+            adv = gossip.budgeted_advance(
+                x, gossip.refreshed_rows(w, partners, mv), budget, v, salt, owners,
+                run_salt, row_totals, rows,
+            )
+            w_new = x + adv
+            if check is not None:
+                ok &= ((w_new.to(torch.int32) >= need[None, :]) | ~alive[rows, None]).all()
         if hb is not None:
             hb_diag = hbv if mv is not None else None
             h = gossip.refreshed_rows(hb, rows, hb_diag)
@@ -115,18 +138,28 @@ def pairs_pull_plain(
     return None if check is None else ok.to(torch.int32).reshape(1)
 
 
+def _check_packed(packed: bool, hb, fd) -> None:
+    """The packed rung is lean-only in the pairs kernel, as in the
+    reference (its nibble codec carries no hb or FD tiles)."""
+    if packed and (hb is not None or fd is not None):
+        raise ValueError("packed u4 w is lean-only in the pairs kernel (no hb/FD)")
+
+
 def pairs_pull(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
 ):
     """One pair-fused sub-exchange, in place.
 
-    ``w`` (N, N) int16/int32 and ``hb`` (N, N) int16/int32 or None (the
-    lean profile); ``gm``/``c`` (N/8,) int32 the grouped matching;
-    ``valid`` (N,) bool the alive-pair mask per row; ``salt`` the
-    sub-exchange salt and ``run_salt`` the run's; ``budget`` key-versions
-    per exchange. ``mv``/``hbv`` (N,) int32 refresh the owner diagonal
-    first (``hbv`` also refreshes the FD's hb0 diagonal). ``check`` =
+    ``w`` (N, N) int8/int16/int32, or (N, N/2) uint8 (the packed u4r
+    rung, with ``hb`` and ``fd`` None), and ``hb`` (N, N)
+    int8/int16/int32 or None (the lean profile); ``gm``/``c`` (N/8,)
+    int32 the grouped matching; ``valid`` (N,) bool the alive-pair mask
+    per row; ``salt`` the sub-exchange salt and ``run_salt`` the run's;
+    ``budget`` key-versions per exchange. ``mv``/``hbv`` (N,) int32
+    refresh the owner diagonal first (``hbv`` also refreshes the FD's
+    hb0 diagonal; packed: ``mv`` is the owners' write bump, which raises
+    every residual, saturating, before the diagonal zeroes). ``check`` =
     (needed, alive, alive_owner) asks for the all-converged flag of the
     output, returned as a (1,) int32 tensor (None without ``check``).
     ``fd`` runs the FD phase on the post-exchange heartbeat rows.
@@ -141,42 +174,52 @@ def pairs_pull(
             mv=mv, hbv=hbv, check=check, fd=fd, totals=totals,
         )
     n, dev = w.shape[0], w.device
-    if w.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"w dtype {w.dtype} is not int16/int32")
+    packed = is_packed_w(w)
+    _check_packed(packed, hb, fd)
+    if not packed and w.dtype not in MATRIX_DTYPES:
+        raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32/uint8")
+    expect("w", w, w.dtype, (n, n // 2) if packed else (n, n), dev)
     if totals is not None:
-        if n % 8:
-            raise ValueError(f"pairs kernel needs n % 8 == 0, got n={n}")
+        if w.shape[1] % 8:
+            raise ValueError(f"pairs kernel needs rows of 8-element vectors, got {w.shape}")
         expect("totals", totals, torch.float32, (n,), dev)
-    elif not pairs_supported(n, w.element_size()):
+    elif not pairs_supported(w.shape[1], w.element_size()):
         raise ValueError(
             f"pairs kernel cannot run n={n} with {w.dtype} watermarks "
-            "(needs n % 8 == 0 and both rows in shared memory; pass "
-            "totals for the two-pass form)"
+            "(needs rows of 8-element vectors, both in shared memory; "
+            "pass totals for the two-pass form)"
         )
-    expect("w", w, w.dtype, (n, n), dev)
     expect("gm", gm, torch.int32, (n // 8,), dev)
     expect("c", c, torch.int32, (n // 8,), dev)
     expect("valid", valid, torch.bool, (n,), dev)
+    w_code = U4_CODE if packed else w.element_size()
     h_code = w.element_size()
     if hb is not None:
-        if hb.dtype not in (torch.int16, torch.int32):
-            raise ValueError(f"hb dtype {hb.dtype} is not int16/int32")
+        if hb.dtype not in MATRIX_DTYPES:
+            raise ValueError(f"hb dtype {hb.dtype} is not int8/int16/int32")
         expect("hb", hb, hb.dtype, (n, n), dev)
         h_code = hb.element_size()
     if mv is not None:
         expect("mv", mv, torch.int32, (n,), dev)
         if hb is not None and hbv is None:
             raise ValueError("hbv required when mv is given and hb is tracked")
+        if packed:
+            mv = pack_u4(mv)  # the write bumps as nibbles, each clipped to 15
     if hbv is not None:
         expect("hbv", hbv, torch.int32, (n,), dev)
     need = alive = flag = None
     if check is not None:
         needed, alive, alive_owner = check
-        need = torch.where(alive_owner, needed.to(torch.int32), 0)
+        if packed:
+            # A zero residual is caught up: the row carries only each
+            # owner's alive bit, one nibble each.
+            need = pack_u4(alive_owner.to(torch.int32))
+        else:
+            need = torch.where(alive_owner, needed.to(torch.int32), 0)
         expect("alive", alive, torch.bool, (n,), dev)
         flag = torch.ones(1, dtype=torch.int32, device=dev)
     fd_ptrs = [None] * 5
-    im_code = 104
+    im_code, ic_code, live_bits = 104, 2, 0
     consts = FdParams(0.0, 0, 0.0, 0.0, 0.0)
     tick = 0
     if fd is not None:
@@ -184,10 +227,16 @@ def pairs_pull(
             raise ValueError("the fused FD needs hb and hbv")
         if fd.im.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"imean dtype {fd.im.dtype} is not bfloat16/float32")
+        if fd.ic.dtype not in (torch.int8, torch.int16):
+            raise ValueError(f"icount dtype {fd.ic.dtype} is not int8/int16")
+        live_bits = int(is_packed_live(fd.live))
         expect("last_change", fd.lc, hb.dtype, (n, n), dev)
         expect("imean", fd.im, fd.im.dtype, (n, n), dev)
-        expect("icount", fd.ic, torch.int16, (n, n), dev)
-        expect("live", fd.live, torch.bool, (n, n), dev)
+        expect("icount", fd.ic, fd.ic.dtype, (n, n), dev)
+        if live_bits:
+            expect("live", fd.live, torch.uint8, (n, n // 8), dev)
+        else:
+            expect("live", fd.live, torch.bool, (n, n), dev)
         if fd.hb0 is not None:
             expect("hb0", fd.hb0, hb.dtype, (n, n), dev)
         fd_ptrs = [
@@ -196,6 +245,7 @@ def pairs_pull(
             None if fd.hb0 is None else fd.hb0.data_ptr(),
         ]
         im_code = 102 if fd.im.dtype == torch.bfloat16 else 104
+        ic_code = fd.ic.element_size()
         consts = fd.params
         tick = int(fd.tick)
     salt_mix = (int(salt) & prng.M32) ^ (int(run_salt) & prng.M32)
@@ -209,20 +259,26 @@ def pairs_pull(
         n, salt_mix, float(budget), ptr(totals), ptr(mv), ptr(hbv), ptr(need),
         ptr(alive), ptr(flag), tick, *fd_ptrs,
         consts.max_interval, consts.window, consts.prior_weight,
-        consts.prior_wm, consts.phi, w.element_size(), h_code, im_code,
+        consts.prior_wm, consts.phi, w_code, h_code, im_code, ic_code, live_bits,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "pairs_pull kernel launch")
     counters.launches[
-        counter_key(mv is not None, check is not None, fd is not None, totals is not None)
+        counter_key(mv is not None, check is not None, fd is not None, totals is not None,
+                    packed)
     ] += 1
     return flag
 
 
-def counter_key(diag: bool, check: bool, fd: bool, totals: bool = False) -> str:
+def counter_key(
+    diag: bool, check: bool, fd: bool, totals: bool = False, packed: bool = False
+) -> str:
     """The ``counters.launches`` key of a launch in this mode."""
     flags = [
-        f for f, on in (("totals", totals), ("diag", diag), ("check", check), ("fd", fd))
+        f for f, on in (
+            ("packed", packed), ("totals", totals), ("diag", diag), ("check", check),
+            ("fd", fd),
+        )
         if on
     ]
     return f"pairs_pull[{'+'.join(flags) or 'pull'}]"

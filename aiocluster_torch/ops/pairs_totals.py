@@ -7,16 +7,19 @@ of its partner's row ``p[i]`` under the grouped matching, summed over
 the owners and zero where the pair is not alive. ``pairs_pull(...,
 totals=...)`` applies the advance with them (pass B). With ``mv`` the
 owner diagonal is refreshed first, exactly as pass B refreshes it on the
-round's first sub-exchange. CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise.
+round's first sub-exchange (on the packed u4r rung ``mv`` is the
+owners' write bump, as in pass B). CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..sim.packed import is_packed_w, pack_u4
 from . import _build, counters, gossip, prng
-from .fd import expect
+from .fd import MATRIX_DTYPES, expect
+from .pairs_pull import U4_CODE
 
 
 def pairs_totals_plain(w, gm, c, valid, *, mv=None) -> torch.Tensor:
@@ -26,6 +29,13 @@ def pairs_totals_plain(w, gm, c, valid, *, mv=None) -> torch.Tensor:
     p = prng.rows_of_groups(gm.to(torch.int64), c.to(torch.int64))
     totals = torch.empty(w.shape[0], dtype=torch.float32, device=w.device)
     for rows, partners in gossip.pair_row_blocks(p):
+        if is_packed_w(w):
+            totals[rows] = gossip.packed_totals(
+                gossip.refreshed_packed_rows(w, rows, mv),
+                gossip.refreshed_packed_rows(w, partners, mv),
+                valid[rows],
+            )
+            continue
         d = gossip.deficits(
             gossip.refreshed_rows(w, rows, mv),
             gossip.refreshed_rows(w, partners, mv),
@@ -38,36 +48,41 @@ def pairs_totals_plain(w, gm, c, valid, *, mv=None) -> torch.Tensor:
 def pairs_totals(w, gm, c, valid, *, mv=None) -> torch.Tensor:
     """(N,) float32 deficit totals of every row of one sub-exchange.
 
-    ``w`` (N, N) int16/int32 (read only); ``gm``/``c`` (N/8,) int32 the
-    grouped matching; ``valid`` (N,) bool the alive-pair mask per row;
-    ``mv`` (N,) int32 refreshes the owner diagonal first. Totals are
-    exact integer sums rounded to float32 once."""
+    ``w`` (N, N) int8/int16/int32 or (N, N/2) uint8 (the packed u4r
+    rung), read only; ``gm``/``c`` (N/8,) int32 the grouped matching;
+    ``valid`` (N,) bool the alive-pair mask per row; ``mv`` (N,) int32
+    refreshes the owner diagonal first (packed: the write bump). Totals
+    are exact integer sums rounded to float32 once."""
     if w.device.type == "cpu":
         counters.plain_calls["totals"] += 1
         return pairs_totals_plain(w, gm, c, valid, mv=mv)
     n, dev = w.shape[0], w.device
-    if w.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"w dtype {w.dtype} is not int16/int32")
-    if n % 8:
-        raise ValueError(f"pairs totals kernel needs n % 8 == 0, got n={n}")
-    expect("w", w, w.dtype, (n, n), dev)
+    packed = is_packed_w(w)
+    if not packed and w.dtype not in MATRIX_DTYPES:
+        raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32/uint8")
+    expect("w", w, w.dtype, (n, n // 2) if packed else (n, n), dev)
+    if w.shape[1] % 8:
+        raise ValueError(f"pairs totals kernel needs rows of 8-element vectors, got {w.shape}")
     expect("gm", gm, torch.int32, (n // 8,), dev)
     expect("c", c, torch.int32, (n // 8,), dev)
     expect("valid", valid, torch.bool, (n,), dev)
     if mv is not None:
         expect("mv", mv, torch.int32, (n,), dev)
+        if packed:
+            mv = pack_u4(mv)  # the write bumps as nibbles, each clipped to 15
     totals = torch.empty(n, dtype=torch.float32, device=dev)
     lib = _build.load("pairs_totals")
     rc = lib.aiocluster_pairs_totals(
         w.data_ptr(), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
         None if mv is None else mv.data_ptr(), totals.data_ptr(), n,
-        w.element_size(), torch.cuda.current_stream(dev).cuda_stream,
+        U4_CODE if packed else w.element_size(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "pairs_totals kernel launch")
-    counters.launches[counter_key(mv is not None)] += 1
+    counters.launches[counter_key(mv is not None, packed)] += 1
     return totals
 
 
-def counter_key(diag: bool) -> str:
+def counter_key(diag: bool, packed: bool = False) -> str:
     """The ``counters.launches`` key of a launch in this mode."""
-    return f"pairs_totals[{'diag' if diag else 'sum'}]"
+    return f"pairs_totals[{'packed+' if packed else ''}{'diag' if diag else 'sum'}]"

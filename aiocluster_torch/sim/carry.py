@@ -6,6 +6,8 @@ port ``SimState`` on a device, and back: a run started in the
 reference continues in the port and computes the same thing. bfloat16
 arrays (numpy has no bfloat16 of its own) are accepted as the
 ``ml_dtypes`` type the reference produces or as their raw uint16 bits.
+The packed rungs carry across unchanged in layout: the u4r residual
+bytes (N, N/2) and the live bitmap (N, N/8) (sim/packed.py).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from .config import SimConfig
-from .state import DTYPES, STATE_FIELDS, SimState, expected_dtypes
+from .state import DTYPES, STATE_FIELDS, SimState, expected_dtypes, expected_shapes
 
 
 def _to_tensor(name: str, arr: np.ndarray, want: str, device) -> torch.Tensor:
@@ -44,9 +46,9 @@ def state_from_numpy(
         f: _to_tensor(f, arrays[f], want[f], torch.device(device))
         for f in STATE_FIELDS
     }
-    n = cfg.n_nodes
-    if tuple(fields["w"].shape) != (n, n):
-        raise ValueError(f"w shape {tuple(fields['w'].shape)} != ({n}, {n})")
+    for f, shape in expected_shapes(cfg).items():
+        if tuple(fields[f].shape) != shape:
+            raise ValueError(f"{f} shape {tuple(fields[f].shape)} != {shape}")
     return SimState(**fields)
 
 

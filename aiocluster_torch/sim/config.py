@@ -226,26 +226,43 @@ def unported_reason(cfg: SimConfig) -> str | None:
         return "the dead-node lifecycle (dead_grace_ticks) is not ported yet: ROADMAP.md A9"
     if cfg.fault_plan is not None or cfg.heterogeneity is not None:
         return "fault_plan / heterogeneity are not ported yet: ROADMAP.md A10"
-    if (
-        cfg.version_dtype in ("u4r", "int8")
-        or cfg.heartbeat_dtype == "int8"
-        or cfg.icount_dtype == "int8"
-        or cfg.live_bits
-    ):
-        return (
-            "the packed rungs (u4r/int8 matrices, int8 icount, live_bits) "
-            "are not ported yet: ROADMAP.md A11"
-        )
     return None
+
+
+# The memory ladder's named rungs (the reference's sim.memory tables): a
+# rung name selects the dtype and packing set of a profile. Horizons:
+# int16 versions/ticks < 32768, int8 < 128, u4r at most 15 versions per
+# owner (keys_per_node drops to 15), int8 sample counters need
+# window_ticks <= 126.
+LEAN_RUNGS: dict[str, dict] = {
+    "int32": dict(version_dtype="int32"),
+    "int16": dict(version_dtype="int16"),
+    "int8": dict(version_dtype="int8"),
+    "u4r": dict(version_dtype="u4r", keys_per_node=15),
+}
+
+FULL_RUNGS: dict[str, dict] = {
+    "int32": dict(version_dtype="int32", heartbeat_dtype="int32", fd_dtype="float32"),
+    "int16": dict(),  # full_config's defaults
+    # int8 sample counters and the live bitmap on int16 matrices.
+    "shrunk": dict(icount_dtype="int8", live_bits=True, window_ticks=100),
+    # int8 watermarks and ticks on top of the shrunk bookkeeping.
+    "deep": dict(
+        version_dtype="int8",
+        heartbeat_dtype="int8",
+        icount_dtype="int8",
+        live_bits=True,
+        window_ticks=100,
+    ),
+}
 
 
 def lean_config(n_nodes: int, rung: str = "int16", **overrides) -> SimConfig:
     """The reference's memory-lean convergence profile (its
     ``sim.memory.lean_config``), used for max-scale runs: no heartbeat
-    matrix, no failure detector, watermarks at the named rung ("int16" or
-    "int32"; ``SimConfig`` refuses the packed rungs, which are not
-    ported). Explicit ``overrides`` win. The north star is
-    ``lean_config(100_352, budget=2618)``."""
+    matrix, no failure detector, watermarks at the named ladder rung
+    (``LEAN_RUNGS``). Explicit ``overrides`` win over the rung's. The
+    north star is ``lean_config(100_352, budget=2618)``."""
     defaults = dict(
         n_nodes=n_nodes,
         keys_per_node=16,
@@ -253,8 +270,31 @@ def lean_config(n_nodes: int, rung: str = "int16", **overrides) -> SimConfig:
         budget=2048,
         track_failure_detector=False,
         track_heartbeats=False,
-        version_dtype=rung,
     )
+    defaults.update(LEAN_RUNGS[rung])
+    defaults.update(overrides)
+    return SimConfig(**defaults)
+
+
+def full_config(n_nodes: int, rung: str = "int16", **overrides) -> SimConfig:
+    """The reference's full profile (its ``sim.memory.full_config``):
+    heartbeats and the phi-accrual failure detector at the named ladder
+    rung (``FULL_RUNGS``). "int16" is int16 watermarks and ticks with
+    bfloat16 interval means; "shrunk" and "deep" narrow the FD
+    bookkeeping (int8 sample counters, the live bitmap) and, for
+    "deep", the matrices to int8. Explicit ``overrides`` win."""
+    defaults = dict(
+        n_nodes=n_nodes,
+        keys_per_node=16,
+        fanout=3,
+        budget=2048,
+        version_dtype="int16",
+        heartbeat_dtype="int16",
+        fd_dtype="bfloat16",
+        track_failure_detector=True,
+        track_heartbeats=True,
+    )
+    defaults.update(FULL_RUNGS[rung])
     defaults.update(overrides)
     return SimConfig(**defaults)
 

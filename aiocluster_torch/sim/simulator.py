@@ -22,6 +22,7 @@ from .state import (
     VERSION_LIMITS,
     SimState,
     expected_dtypes,
+    expected_shapes,
     init_state,
 )
 
@@ -171,6 +172,7 @@ def _check_state(state: SimState, cfg: SimConfig, device: torch.device) -> None:
             raise ValueError(f"state.{name} is {t.dtype}, config expects {dt}")
         if t.device.type != device.type:
             raise ValueError(f"state.{name} is on {t.device}, expected {device}")
-    n = cfg.n_nodes
-    if tuple(state.w.shape) != (n, n):
-        raise ValueError(f"state.w shape {tuple(state.w.shape)} != ({n}, {n})")
+    for name, shape in expected_shapes(cfg).items():
+        got = tuple(getattr(state, name).shape)
+        if got != shape:
+            raise ValueError(f"state.{name} shape {got} != {shape}")

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from .config import SimConfig
+from .packed import is_packed_w, pack_u4
 
 DTYPES = {
     "bool": torch.bool,
@@ -35,13 +36,15 @@ class SimState:
     heartbeat: torch.Tensor  # (N,) int32 — owner heartbeat counters
     alive: torch.Tensor  # (N,) bool — ground-truth liveness
     w: torch.Tensor  # (N, N) version_dtype — i's watermark on owner j
+    # (u4r: (N, N/2) uint8 residuals, two owners a byte; sim/packed.py)
     hb_known: torch.Tensor  # (N, N) heartbeat_dtype — highest hb of j known to i
     # Failure-detector state ((0, 0) when disabled): the sampling window
     # as a running (mean, count) pair.
     last_change: torch.Tensor  # (N, N) heartbeat_dtype — tick of last hb increase
     imean: torch.Tensor  # (N, N) fd_dtype — mean of sampled intervals (ticks)
-    icount: torch.Tensor  # (N, N) int16 — number of samples (window-capped)
+    icount: torch.Tensor  # (N, N) icount_dtype — number of samples (window-capped)
     live_view: torch.Tensor  # (N, N) bool — i's belief that j is alive
+    # (live_bits: (N, N/8) uint8, eight owners a byte; sim/packed.py)
     # Dead-node lifecycle stamps; (0, 0) unless dead_grace_ticks is set,
     # which the port does not run yet.
     dead_since: torch.Tensor  # (N, N) heartbeat_dtype
@@ -60,9 +63,22 @@ HEARTBEAT_LIMITS = {"int32": 2**31, "int16": 2**15, "int8": 2**7}
 
 
 def state_n_local(state: SimState) -> int:
-    """The owner-column count of the state's matrices (the packed u4
-    rung, whose stored width is halved, is not ported)."""
-    return int(state.w.shape[-1])
+    """The owner-column count of the state's matrices, decoding the
+    packed u4 rung (whose stored width is halved)."""
+    return int(state.w.shape[-1]) * (2 if is_packed_w(state.w) else 1)
+
+
+def expected_shapes(cfg: SimConfig) -> dict[str, tuple[int, ...]]:
+    """The (N, N)-class fields' stored shapes for this config's rung:
+    the packed u4 rung halves w's width, the live bitmap divides the live
+    view's by eight, and a disabled matrix is (0, 0)."""
+    n = cfg.n_nodes
+    fd = cfg.track_failure_detector
+    return {
+        "w": (n, n // 2) if cfg.version_dtype == "u4r" else (n, n),
+        "hb_known": (n, n) if cfg.track_heartbeats else (0, 0),
+        "live_view": ((n, n // 8) if cfg.live_bits else (n, n)) if fd else (0, 0),
+    }
 
 
 def expected_dtypes(cfg: SimConfig) -> dict[str, str]:
@@ -113,18 +129,30 @@ def init_state(
             f"initial versions overflow version_dtype={cfg.version_dtype} "
             f"(must stay < {limit})"
         )
-    vdt = DTYPES[cfg.version_dtype]
     hdt = DTYPES[cfg.heartbeat_dtype]
+    ids = torch.arange(n, device=device)
 
     # Each (N, N) matrix is allocated once, in its own dtype, and only its
     # diagonal written: at N = 100,352 an eye mask alone is 10 GB.
-    w = torch.zeros((n, n), dtype=vdt, device=device)
-    w.diagonal().copy_(initial_versions)
+    if cfg.version_dtype == "u4r":
+        # A fresh observer's residual on owner j IS j's initial version
+        # count (w = 0 off the diagonal), 0 on the diagonal: one packed
+        # row repeated, then each row's own nibble cleared.
+        row = pack_u4(initial_versions)
+        w = row[None, :].expand(n, n // 2).clone()
+        w[ids, ids // 2] &= torch.where(ids % 2 == 0, 0xF0, 0x0F).to(torch.uint8)
+    else:
+        w = torch.zeros((n, n), dtype=DTYPES[cfg.version_dtype], device=device)
+        w.diagonal().copy_(initial_versions)
     hb_shape = (n, n) if cfg.track_heartbeats else (0, 0)
     hb_known = torch.zeros(hb_shape, dtype=hdt, device=device)
     hb_known.diagonal().fill_(1)
-    live_view = torch.zeros(fd_shape, dtype=torch.bool, device=device)
-    live_view.diagonal().fill_(True)
+    if cfg.track_failure_detector and cfg.live_bits:
+        live_view = torch.zeros((n, n // 8), dtype=torch.uint8, device=device)
+        live_view[ids, ids // 8] = (1 << (ids % 8)).to(torch.uint8)
+    else:
+        live_view = torch.zeros(fd_shape, dtype=torch.bool, device=device)
+        live_view.diagonal().fill_(True)
     return SimState(
         tick=torch.zeros((), dtype=torch.int32, device=device),
         max_version=initial_versions,

@@ -41,6 +41,25 @@ on to convergence (round 209). Last, the reference's int16 experiment
 int16 variants bit-exact against the int32 kernel and timed as the
 experiment times them.
 
+Then the memory ladder's rungs (phase 10): every new kernel mode (int8
+matrices, the packed u4r codec, the FD epilogue on int8 sample counters
+and the live bitmap, the int8 m8 and FD kernels) held bit-equal to its
+plain version at N = 10,240, staged and two-pass, and the staged modes
+again at their paths' widths on an early state (int8 pairs and m8 at
+100,352; deep and shrunk with the fused FD at 49,152). Full-width runs:
+the lean int8 north star (round 209, staged pairs, also timed in the
+two-pass form; pinned to m8, 209); the lean u4r north star beside the
+port's int16 keys-15 run (the same converged round, residuals equal to
+clip(max_version - w, 0, 15) at rounds 1, 2 and the converged round);
+the widest u4r, ``lean_config(262_144, "u4r")`` (34.4 GB, the packed
+two-pass form: 8 untracked rounds, one sub-exchange against the plain
+versions); the full deep and shrunk rungs at N = 49,152 (round 103, the
+fused FD on the shrunk bookkeeping); the deep rung at the headline width
+field for field against the int16/window-100 profile (both 24); and
+short runs at N = 10,240 of every other route the rungs take (the int8
+m8 and FD kernels, fanout 1, the two-pass forms). Each mode is timed
+beside its bound at N = 10,240 and at its run's width.
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -59,12 +78,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from aiocluster_torch import Simulator, headline_config, lean_config
+from aiocluster_torch import Simulator, full_config, headline_config, lean_config
 from aiocluster_torch.ops import (
     _build, counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng,
 )
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
+from aiocluster_torch.sim.packed import pack_bits, unpack_bits, unpack_u4
 from aiocluster_torch.sim.state import STATE_FIELDS
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -209,9 +229,12 @@ def max_abs_err(xs, ys) -> float:
     return err
 
 
-def pull_bytes(n, wsize, hsize, *, diag, check, fd, hb0, imsize=2, totals=False):
+def pull_bytes(n, wsize, hsize, *, diag, check, fd, hb0, imsize=2, icsize=2, livesize=1,
+               totals=False):
     """Bytes one pull must move: w (and hb; ``hsize`` 0 in the lean
-    profile) read and written once, the FD matrices, the vectors."""
+    profile) read and written once, the FD matrices (sample counters
+    ``icsize`` bytes, the live view ``livesize``: 1/8 as the bitmap),
+    the vectors."""
     mat = n * n
     b = 2 * mat * wsize + 2 * mat * hsize + n * (4 + 4 + 1)
     if totals:
@@ -221,7 +244,7 @@ def pull_bytes(n, wsize, hsize, *, diag, check, fd, hb0, imsize=2, totals=False)
     if check:
         b += n * (4 + 1)
     if fd:
-        b += 2 * mat * (hsize + imsize + 2) + mat * 1 + n * 4
+        b += 2 * mat * (hsize + imsize + icsize) + mat * livesize + n * 4
         if hb0:
             b += mat * hsize
     return b
@@ -1171,6 +1194,910 @@ def m8_kernel_entries(dev, errs, head_launches, head_rounds, ns_launches, ns_rou
     return entries
 
 
+# -- the memory ladder's rungs (int8, packed u4r, the shrunk FD bookkeeping) ----
+
+# lean_config(100_352, rung="int8", budget=2618) at seed 1 converges where
+# the int16 north star does: the rungs share one trajectory.
+LADDER_NS_ROUND = NORTH_STAR_ROUND
+# full_config(49_152, rung, budget=2618) at seed 1: the reference's
+# certified full-profile round at this width
+# (benchmarks/records/r5_full_profile_convergence.json, key "49152").
+FULL_N, FULL_ROUND = 49_152, 103
+FULL_CHECK_ROUNDS = 40  # the full rungs' rounds before their parity check
+WIDEST_U4R_N, WIDEST_U4R_ROUNDS = 262_144, 8
+# The FD bookkeeping's stored form per rung: (icount dtype, live bitmap).
+FD_RUNGS = {
+    "deep": dict(wdt=torch.int8, hdt=torch.int8, icdt=torch.int8, bits=True),
+    "shrunk": dict(wdt=torch.int16, hdt=torch.int16, icdt=torch.int8, bits=True),
+}
+LADDER_CHECKS = (
+    # (rung, operands, modes): every new mode of the pairs kernel, each
+    # staged and in the totals mode.
+    ("int8", dict(wdt=torch.int8), ("first", "middle", "last")),
+    ("u4r", dict(wdt="u4"), ("first", "middle", "last")),
+    ("deep", FD_RUNGS["deep"], ("first", "middle", "last_fd", "only_fd")),
+    ("shrunk", FD_RUNGS["shrunk"], ("last_fd", "only_fd")),
+)
+LADDER_MODES = {
+    "first": dict(diag=True, check=False, fd=False, hb0=False),
+    "middle": dict(diag=False, check=False, fd=False, hb0=False),
+    "last": dict(diag=False, check=True, fd=False, hb0=False),
+    "last_fd": dict(diag=False, check=True, fd=True, hb0=True),
+    "only_fd": dict(diag=True, check=True, fd=True, hb0=False),
+}
+
+
+def ladder_case(n, seed, dev, *, wdt, hdt=None, imdt=torch.bfloat16, icdt=torch.int16,
+                bits=False, diag, check, fd, hb0):
+    """Random operands of one sub-exchange on a ladder rung, drawn on the
+    card from ``seed`` (``wdt`` "u4" is the packed rung; ``hdt`` None the
+    lean profile), a tenth of the nodes dead. Returns a factory of fresh
+    copies, for ``call_pull`` and ``outputs``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi, shape, dt=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(dt)
+
+    packed = wdt == "u4"
+    gm, c, p = prng.grouped_matching(prng.key(seed), n)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    w = draw(0, 256, (n, n // 2), torch.uint8) if packed else draw(0, 17, (n, n), wdt)
+    hb = None if hdt is None else draw(0, 40, (n, n), hdt)
+    shared = dict(gm=gm.to(dev, torch.int32), c=c.to(dev, torch.int32),
+                  valid=alive & alive[p.to(dev)], salt=2 * seed + 1, run_salt=0x9E3779B9,
+                  budget=2618)
+    mv = draw(0, 3, (n,)) if packed else draw(16, 20, (n,))
+    if diag:
+        shared["mv"] = mv
+        if hdt is not None:
+            shared["hbv"] = draw(38, 41, (n,))
+    if check:
+        shared["check"] = (mv, alive, torch.rand(n, generator=gen, device=dev) < 0.95)
+    lc = im = ic = live = h0 = None
+    if fd:
+        shared["hbv"] = draw(38, 41, (n,))
+        lc = draw(0, 40, (n, n), hdt)
+        im = (torch.rand((n, n), generator=gen, device=dev) * 6).to(imdt)
+        ic = draw(0, 101, (n, n), icdt)  # up to the window: the clamp runs
+        live = torch.rand((n, n), generator=gen, device=dev) < 0.5
+        live = pack_bits(live) if bits else live
+        h0 = draw(0, 40, (n, n), hdt) if hb0 else None
+    params = FdParams.from_config(full_config(n, "deep"))
+
+    def fresh():
+        ops = dict(shared, w=w.clone(), hb=None if hb is None else hb.clone())
+        if fd:
+            ops["fd"] = pairs_pull.FdOperands(
+                40, lc.clone(), im.clone(), ic.clone(), live.clone(), h0, params)
+        return ops
+
+    return fresh
+
+
+def ladder_key(m, rung, totals=False) -> str:
+    """The name of a ladder mode's entry: its launch key and its rung."""
+    key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], totals, rung == "u4r")
+    return f"{key} {rung}"
+
+
+def check_ladder_kernels(dev):
+    """Phase 10a: every new mode of the pairs kernels against its plain
+    version at N = 10,240: int8 (lean and with hb), the packed u4r codec
+    (write-bump refresh, nibble check), the FD epilogue on int8 sample
+    counters and the live bitmap (deep: int8 matrices; shrunk: int16),
+    each staged and in the totals mode (the two-pass form also against
+    the staged kernel); the totals pass on int8 and packed rows; the m8
+    kernels on int8 (lean and with int8 hb); the standalone FD kernel on
+    int8 heartbeats. Returns each entry's max_abs_err."""
+    errs: dict[str, float] = collections.defaultdict(float)
+    seed = 200
+    for rung, operands, modes in LADDER_CHECKS:
+        for name in modes:
+            m = LADDER_MODES[name]
+            seed += 1
+            fresh = ladder_case(N, seed, dev, **operands, **m)
+            kern, plain, staged, two_pass = fresh(), fresh(), fresh(), fresh()
+            fk = call_pull(pairs_pull.pairs_pull, kern)
+            fp = call_pull(pairs_pull.pairs_pull_plain, plain)
+            err = max_abs_err(outputs(kern, fk), outputs(plain, fp))
+            errs[ladder_key(m, rung)] = max(errs[ladder_key(m, rung)], err)
+            args = (two_pass["w"], two_pass["gm"], two_pass["c"], two_pass["valid"])
+            two_pass["totals"] = pairs_totals.pairs_totals(*args, mv=two_pass.get("mv"))
+            staged["totals"] = pairs_totals.pairs_totals_plain(*args, mv=staged.get("mv"))
+            ft = call_pull(pairs_pull.pairs_pull, two_pass)
+            fp = call_pull(pairs_pull.pairs_pull_plain, staged)
+            torch.cuda.synchronize()
+            t_err = max(max_abs_err([two_pass["totals"]], [staged["totals"]]),
+                        max_abs_err(outputs(two_pass, ft), outputs(staged, fp)),
+                        max_abs_err(outputs(two_pass, ft), outputs(kern, fk)))
+            t_key = ladder_key(m, rung, totals=True)
+            errs[t_key] = max(errs[t_key], t_err)
+            flag = "" if fk is None else f" flag={int(fk[0])}"
+            log("ladder", f"n={N} {rung} {name}: {ladder_key(m, rung)} max_abs_err={err}; "
+                f"two-pass {t_key} max_abs_err={t_err} (against the plain version and the "
+                f"staged kernel){flag}")
+            check(err == 0.0 and t_err == 0.0, f"{rung} {name} disagrees")
+            del kern, plain, staged, two_pass
+    for rung, wdt in (("int8", torch.int8), ("u4r", "u4")):
+        for diag in (True, False):
+            ops = ladder_case(N, 230 + diag, dev, wdt=wdt, diag=diag, check=False, fd=False,
+                              hb0=False)()
+            args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+            got = pairs_totals.pairs_totals(*args, mv=ops.get("mv"))
+            want = pairs_totals.pairs_totals_plain(*args, mv=ops.get("mv"))
+            torch.cuda.synchronize()
+            key = f"{pairs_totals.counter_key(diag, rung == 'u4r')} {rung}"
+            errs[key] = max(errs[key], max_abs_err([got], [want]))
+            log("ladder", f"n={N} {key}: max_abs_err={errs[key]} "
+                f"(sum {float(got.double().sum()):.0f})")
+            check(errs[key] == 0.0, f"{key} disagrees")
+    for hdt, diag, given in ((h, d, g) for h in (None, torch.int8) for d in (True, False)
+                             for g in (False, True)):
+        ops = ladder_case(N, 240 + diag + 2 * given, dev, wdt=torch.int8, hdt=hdt, diag=diag,
+                          check=False, fd=False, hb0=False)()
+        tot = None
+        if given:
+            targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+            tot = m8_totals.m8_totals(*targs, mv=ops.get("mv"))
+            t_want = m8_totals.m8_totals_plain(*targs, mv=ops.get("mv"))
+            t_key = f"{m8_totals.counter_key(diag)} int8"
+            errs[t_key] = max(errs[t_key], max_abs_err([tot], [t_want]))
+        got = call_m8(m8_pull.m8_pull, ops, totals=tot)
+        want = call_m8(m8_pull.m8_pull_plain, ops, totals=tot)
+        torch.cuda.synchronize()
+        key = f"{m8_pull.counter_key(diag, given)} int8{'' if hdt is None else '+hb'}"
+        errs[key] = max(errs[key], max_abs_err(got, want))
+        log("ladder", f"n={N} {key}: max_abs_err={errs[key]}")
+        check(errs[key] == 0.0, f"{key} disagrees")
+    ops = ladder_case(N, 250, dev, wdt=torch.int8, hdt=torch.int8, diag=False, check=False,
+                      fd=True, hb0=True)()
+    f = ops["fd"]
+
+    def fd_fresh():
+        return [ops["hb"], f.hb0, ops["hbv"], f.lc.clone(), f.im.clone(),
+                f.ic.to(torch.int16, copy=True),
+                torch.zeros((N, N), dtype=torch.bool, device=dev)]
+
+    a, b = fd_fresh(), fd_fresh()
+    fd_mod.fused_fd(40, *a, f.params)
+    fd_mod.fused_fd_plain(40, *b, f.params)
+    torch.cuda.synchronize()
+    errs["fd int8"] = max_abs_err(a[3:], b[3:])
+    log("ladder", f"n={N} fd int8 heartbeats: max_abs_err={errs['fd int8']}")
+    check(errs["fd int8"] == 0.0, "the fd kernel disagrees on int8 heartbeats")
+    return errs
+
+
+def chained_round_check(dev, sim, rung, errs, seed=8):
+    """One round's sub-exchanges at the simulator's width, chained as
+    ``sim_step`` chains them (the first refreshes the diagonal, the last
+    carries the check and, with the FD, the fused epilogue reading the
+    round-start hb), then a fourth whose check every row passes (need 0:
+    the flag must stay 1 across every CTA). The kernel runs on copies of
+    every matrix it writes, the plain version (over blocks of row pairs)
+    on the state itself. A seeded tenth of the nodes is dead and a seeded
+    half of the owners wrote a key, so the masks and the refresh change
+    values. Raises each mode's max_abs_err in ``errs``; returns the
+    round's (key, max_abs_err) pairs."""
+    st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    wrote = torch.rand(n, generator=gen, device=dev) < 0.5
+    mv = st.max_version + wrote.to(torch.int32)
+    heartbeat = st.heartbeat + alive.to(torch.int32)
+    tick = sim.tick + 1
+    run_key = prng.key(sim.seed)
+    gm_all, c_all, p_all = (
+        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
+    )
+    plain = dict(w=st.w, hb=st.hb_known if cfg.track_heartbeats else None)
+    kern = {k: None if v is None else v.clone() for k, v in plain.items()}
+    fds = None
+    if cfg.track_failure_detector:
+        params = FdParams.from_config(cfg)
+        hb0 = st.hb_known.clone()  # the round-start matrix, diagonal unrefreshed
+        fds = (pairs_pull.FdOperands(tick, st.last_change.clone(), st.imean.clone(),
+                                     st.icount.clone(), st.live_view.clone(), hb0.clone(),
+                                     params),
+               pairs_pull.FdOperands(tick, st.last_change, st.imean, st.icount, st.live_view,
+                                     hb0, params))
+    steps = [("first", 0)] + [("middle", s) for s in range(1, cfg.fanout - 1)]
+    steps += [("last_fd" if fds else "last", cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
+    found = []
+    for name, s in steps:
+        mode = LADDER_MODES["last" if name == "need 0" else name]
+        valid = alive & alive[p_all[s]]
+        kw = {}
+        if mode["diag"]:
+            kw["mv"] = mv
+            if cfg.track_heartbeats:
+                kw["hbv"] = heartbeat
+        if mode["check"]:
+            kw["check"] = (torch.zeros_like(mv) if name == "need 0" else mv, alive, alive)
+        args = (gm_all[s], c_all[s], valid, tick * 2 * cfg.fanout + 2 * s,
+                prng.run_salt(run_key), cfg.budget)
+        outs = []
+        for ops, fd in ((kern, fds and fds[0]), (plain, fds and fds[1])):
+            fn = pairs_pull.pairs_pull if ops is kern else pairs_pull.pairs_pull_plain
+            extra = dict(hbv=heartbeat, fd=fd) if mode["fd"] else {}
+            flag = fn(ops["w"], ops["hb"], *args, **kw, **extra)
+            outs.append([ops["w"]] + ([] if ops["hb"] is None else [ops["hb"]])
+                        + ([fd.lc, fd.im, fd.ic, fd.live] if mode["fd"] else [])
+                        + ([] if flag is None else [flag]))
+        torch.cuda.synchronize()
+        key = ladder_key(mode, rung)
+        err = max_abs_err(*outs)
+        errs[key] = max(errs[key], err)
+        found.append((f"{key} ({name})", err))
+        if name == "need 0":
+            check(int(outs[0][-1][0]) == 1, f"{rung}: the check flag of a passing "
+                  "sub-exchange is 0")
+    del kern, fds, outs
+    torch.cuda.empty_cache()
+    return found
+
+
+def check_ladder_full_width(dev, errs):
+    """Phase 10a': the staged modes at the width of their paths' runs,
+    against the plain versions, on an early state (at convergence every
+    deficit is 0, which would prove little): the lean int8 north star's
+    state ``FULL_WIDTH_ROUNDS`` rounds in (rows of 100,352 bytes, two
+    staged in 200 KB of opt-in shared memory): the m8 pull in both modes
+    from that state, then one round of pairs pulls chained; the full deep
+    and shrunk rungs at N = 49,152, ``FULL_CHECK_ROUNDS`` rounds in: one
+    round chained, the last with the fused FD epilogue on the int8
+    counters and the live bitmap (last_change, imean, icount and the
+    bitmap compared). Raises each mode's max_abs_err in ``errs``."""
+    t0 = time.perf_counter()
+    cfg = lean_config(NORTH_STAR_N, "int8", budget=2618)
+    sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+    sim.run(FULL_WIDTH_ROUNDS)
+    found = []
+    for s, diag in ((0, True), (1, False)):
+        gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 8, s)
+        args = (sim.state.w, None, gm, c, valid, salt, run_salt, cfg.budget)
+        wk = m8_pull.m8_pull(*args, mv=mv if diag else None)
+        wp = m8_pull.m8_pull_plain(*args, mv=mv if diag else None)
+        torch.cuda.synchronize()
+        key = f"{m8_pull.counter_key(diag)} int8"
+        err = max_abs_err([wk], [wp])
+        errs[key] = max(errs[key], err)
+        found.append((key, err))
+        del wk, wp
+    torch.cuda.empty_cache()
+    found += chained_round_check(dev, sim, "int8", errs)
+    del sim
+    torch.cuda.empty_cache()
+    log("ladder_full_width", f"n={NORTH_STAR_N} int8, the north star's state "
+        f"{FULL_WIDTH_ROUNDS} rounds in: " + ", ".join(f"{k} max_abs_err={e}" for k, e in found))
+    for rung in ("deep", "shrunk"):
+        sim = Simulator(full_config(FULL_N, rung, budget=2618), seed=NORTH_STAR_SEED,
+                        device=dev)
+        sim.run(FULL_CHECK_ROUNDS)
+        found = chained_round_check(dev, sim, rung, errs)
+        del sim
+        torch.cuda.empty_cache()
+        log("ladder_full_width", f"n={FULL_N} {rung}, {FULL_CHECK_ROUNDS} rounds in: "
+            + ", ".join(f"{k} max_abs_err={e}" for k, e in found))
+    log("ladder_full_width", f"every staged ladder mode equals its plain version at its "
+        f"path's width ({time.perf_counter() - t0:.1f} s with the rounds)")
+
+
+def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8):
+    """Run ``cfg`` to convergence through the kernels from counters at 0:
+    it must converge at round ``want`` (None: any) with no plain call,
+    fallback or refusal. Returns (simulator, round, launches, seconds,
+    peak GB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=seed, device=dev, chunk=chunk)
+    converged = sim.run_until_converged(max_rounds=max_rounds)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(counters.launches)
+    log(what, f"converged at round {converged} after {sim.tick} rounds in {run_s:.2f} s "
+        f"(with init); launches {launches}; plain calls {dict(counters.plain_calls)}; "
+        f"fallbacks {dict(counters.fallbacks)}; refusals {dict(counters.refusals)}")
+    check(want is None or converged == want, f"{what} converged at {converged}, expected {want}")
+    check(converged is not None and not counters.plain_calls and not counters.fallbacks
+          and not counters.refusals, f"{what} did not run through the kernels alone")
+    m = sim.metrics()
+    check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
+          and np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == cfg.n_nodes,
+          f"{what}: metrics disagree with the converged flag")
+    return sim, converged, launches, run_s, torch.cuda.max_memory_allocated() / 1e9
+
+
+def round_rate(sim, rounds=16):
+    """ms a round on the host clock over ``rounds`` untracked rounds
+    (after two of warm-up)."""
+    sim.run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(rounds)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / rounds * 1e3
+
+
+def lean_int8_north_star(dev, card_line):
+    """Phase 10b: lean_config(100_352, "int8", budget=2618) at seed 1
+    through the staged pairs kernel (int8 rows stage up to 116,096):
+    round 209, 3 launches a round; then pinned to m8 (staged m8 pulls and
+    the plain flag, as in the reference): round 209 again. Each path's
+    pulls are timed at this width on the converged state, the pairs path
+    also in the two-pass form (each pass, and the round with no row
+    staged)."""
+    cfg = lean_config(NORTH_STAR_N, "int8", budget=2618)
+    check(gossip.pull_phase_engaged(cfg, dev) == "pairs", "int8 north star is not staged")
+    sim, conv, launches, run_s, peak = run_to(cfg, dev, NORTH_STAR_SEED, LADDER_NS_ROUND,
+                                              "north_star_int8")
+    rounds = sim.tick
+    check(counters.kernel_launches("pairs_pull") == 3 * rounds
+          and counters.kernel_launches("pairs_totals") == 0
+          and launches.get("pairs_pull[check]") == rounds,
+          "the int8 north star did not run 3 staged pulls a round")
+    round_ms = round_rate(sim)
+    w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
+    gm, c, _ = prng.grouped_matching(prng.key(9), NORTH_STAR_N)
+    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
+    times = {}
+    for name in ("first", "middle", "last"):
+        m = LADDER_MODES[name]
+        kw = {"mv": mv} if m["diag"] else {}
+        if m["check"]:
+            kw["check"] = (mv, alive, alive)
+        times[ladder_key(m, "int8")] = (NORTH_STAR_N, cuda_ms(lambda: pairs_pull.pairs_pull(
+            w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget, **kw), 10),
+            ladder_pull_bound(NORTH_STAR_N, "int8", m, False))
+    # The same rounds and pulls in the two-pass form (no row staged, as
+    # beyond 116,096 int8), on the same state, for the dispatch's width
+    # rule: each pass alone, then the round.
+    tot = pairs_totals.pairs_totals(w, gm, c, alive)
+    for diag in (True, False):
+        times[f"{pairs_totals.counter_key(diag)} int8"] = (NORTH_STAR_N, cuda_ms(
+            lambda: pairs_totals.pairs_totals(w, gm, c, alive, mv=mv if diag else None), 10),
+            bound(totals_bytes(NORTH_STAR_N, 1, diag=diag),
+                  OPS_TOTALS * NORTH_STAR_N * NORTH_STAR_N / 2))
+    for name in ("first", "middle", "last"):
+        m = LADDER_MODES[name]
+        kw = {"mv": mv} if m["diag"] else {}
+        if m["check"]:
+            kw["check"] = (mv, alive, alive)
+        times[ladder_key(m, "int8", totals=True)] = (NORTH_STAR_N, cuda_ms(
+            lambda: pairs_pull.pairs_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
+                                          totals=tot, **kw), 10),
+            ladder_pull_bound(NORTH_STAR_N, "int8", m, True))
+    del tot
+    saved = pairs_pull.SMEM_LIMIT
+    pairs_pull.SMEM_LIMIT = pairs_pull.STATIC_SMEM
+    try:
+        check(gossip.pull_phase_engaged(cfg, dev) == "pairs_two_pass",
+              "the forced int8 north star is staged")
+        counters.reset()
+        two_pass_round_ms = round_rate(sim)
+        check(counters.kernel_launches("pairs_totals") == 3 * 18
+              and counters.kernel_launches("pairs_pull") == 3 * 18,
+              "the forced int8 north star did not take both passes a sub-exchange")
+    finally:
+        pairs_pull.SMEM_LIMIT = saved
+    del sim, w
+    record = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, converged_round=conv,
+                  rounds_run=rounds, run_s=run_s, round_ms=round_ms,
+                  rounds_per_s=1e3 / round_ms, peak_memory_gb=peak,
+                  two_pass_round_ms=two_pass_round_ms)
+    log("north_star_int8", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round over 16 "
+        f"untracked rounds; forced two-pass {two_pass_round_ms:.3f} ms/round); peak memory "
+        f"{peak:.2f} GB; passes at n={NORTH_STAR_N}: "
+        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items()) + f"; {card_line}")
+
+    m8_cfg = dataclasses.replace(cfg, pallas_variant="m8")
+    check(gossip.pull_phase_engaged(m8_cfg, dev) == "m8", "int8 north star m8 is not staged")
+    sim, conv8, launches8, run8_s, peak8 = run_to(m8_cfg, dev, NORTH_STAR_SEED,
+                                                  LADDER_NS_ROUND, "north_star_int8_m8")
+    check(counters.kernel_launches("m8_pull") == 3 * sim.tick
+          and launches8.get("m8_pull[diag]") == sim.tick,
+          "the int8 north star m8 did not run 3 m8 pulls a round")
+    round8_ms = round_rate(sim)
+    w = sim.state.w
+    for diag in (True, False):
+        times[f"{m8_pull.counter_key(diag)} int8"] = (NORTH_STAR_N, cuda_ms(
+            lambda: m8_pull.m8_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
+                                    mv=mv if diag else None), 10),
+            bound(m8_bytes(NORTH_STAR_N, NORTH_STAR_N, 1, 0, diag=diag, totals=False),
+                  OPS_PULL_LEAN * NORTH_STAR_N * NORTH_STAR_N / 2))
+    rounds8 = sim.tick
+    del sim, w
+    torch.cuda.empty_cache()
+    record_m8 = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, converged_round=conv8,
+                     rounds_run=rounds8, run_s=run8_s, round_ms=round8_ms,
+                     rounds_per_s=1e3 / round8_ms, peak_memory_gb=peak8)
+    log("north_star_int8_m8", f"{1e3 / round8_ms:.3f} rounds/s ({round8_ms:.3f} ms/round); "
+        f"peak memory {peak8:.2f} GB; m8 pulls at n={NORTH_STAR_N}: "
+        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items() if k.startswith("m8"))
+        + f"; {card_line}")
+    return (record, launches, rounds), (record_m8, launches8, rounds8), times
+
+
+def residual_errs(w16, mv, w_u4) -> float:
+    """Max abs difference, over blocks of rows, between clip(max_version
+    - w, 0, 15) of an int16 state and the residuals of a u4r state."""
+    n = w16.shape[0]
+    step = max(1, (1 << 26) // n)
+    err = 0.0
+    for r0 in range(0, n, step):
+        want = torch.clamp(mv[None, :] - w16[r0:r0 + step].to(torch.int32), 0, 15)
+        got = unpack_u4(w_u4[r0:r0 + step])
+        err = max(err, float((want - got).abs().max()))
+    return err
+
+
+def lean_u4r_north_star(dev, card_line):
+    """Phase 10c: lean_config(100_352, "u4r", budget=2618) at seed 1 (keys
+    15; 5.04 GB, the staged packed pull) and the port's int16 run of
+    lean_config(100_352, budget=2618, keys_per_node=15), stepped side by
+    side: the u4r residuals equal clip(max_version - w, 0, 15) of the
+    int16 run at rounds 1 and 2 and at the converged round, and both
+    converge at the same round (the reference's u4r contract)."""
+    cfg = lean_config(NORTH_STAR_N, "u4r", budget=2618)
+    ref_cfg = lean_config(NORTH_STAR_N, budget=2618, keys_per_node=15)
+    check(gossip.pull_phase_engaged(cfg, dev) == "pairs", "u4r north star is not staged")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    u4 = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev, chunk=1)
+    i16 = Simulator(ref_cfg, seed=NORTH_STAR_SEED, device=dev, chunk=1)
+    errs = []
+    for r in (1, 2):
+        u4.run(1)
+        i16.run(1)
+        errs.append(residual_errs(i16.state.w, i16.state.max_version, u4.state.w))
+    conv_u4 = u4.run_until_converged(max_rounds=400)
+    u4_launches = {k: v for k, v in counters.launches.items() if "packed" in k}
+    u4_rounds = u4.tick
+    conv_16 = i16.run_until_converged(max_rounds=400)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(u4.tick == i16.tick == conv_u4, "the two runs did not stop at the converged round")
+    errs.append(residual_errs(i16.state.w, i16.state.max_version, u4.state.w))
+    log("north_star_u4r", f"u4r converged at round {conv_u4}, the int16 keys-15 run at "
+        f"{conv_16}; residual max_abs_err at rounds 1, 2, {conv_u4}: {errs} ({run_s:.2f} s "
+        f"for both); u4r launches {u4_launches}; plain calls {dict(counters.plain_calls)}; "
+        f"fallbacks {dict(counters.fallbacks)}")
+    check(conv_u4 == conv_16 and conv_u4 is not None, "u4r and int16 keys-15 rounds differ")
+    check(max(errs) == 0.0, "the u4r residuals differ from the int16 run's")
+    check(not counters.plain_calls and not counters.fallbacks
+          and sum(u4_launches.values()) == 3 * u4_rounds,
+          "the u4r north star did not run 3 packed pulls a round")
+    both_peak = torch.cuda.max_memory_allocated() / 1e9
+    del i16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    round_ms = round_rate(u4)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    w, alive, mv = u4.state.w, u4.state.alive, u4.state.max_version
+    gm, c, _ = prng.grouped_matching(prng.key(9), NORTH_STAR_N)
+    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
+    bump = torch.ones_like(mv)
+    times = {}
+    for name in ("first", "middle", "last"):
+        m = LADDER_MODES[name]
+        kw = {"mv": bump} if m["diag"] else {}
+        if m["check"]:
+            kw["check"] = (mv, alive, alive)
+        times[ladder_key(m, "u4r")] = (NORTH_STAR_N, cuda_ms(lambda: pairs_pull.pairs_pull(
+            w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget, **kw), 10),
+            ladder_pull_bound(NORTH_STAR_N, "u4r", m, False))
+    del u4, w
+    torch.cuda.empty_cache()
+    record = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, converged_round=conv_u4,
+                  int16_keys15_round=conv_16, residual_max_abs_err=errs,
+                  rounds_run=u4_rounds, round_ms=round_ms, rounds_per_s=1e3 / round_ms,
+                  peak_memory_gb_u4r_alone=peak, peak_memory_gb_with_int16_run=both_peak)
+    log("north_star_u4r", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round, u4r "
+        f"alone); peak {peak:.2f} GB alone, {both_peak:.2f} GB beside the int16 run; pulls at "
+        f"n={NORTH_STAR_N}: "
+        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items()) + f"; {card_line}")
+    return record, u4_launches, u4_rounds, times
+
+
+def widest_u4r(dev, card_line, errs):
+    """Phase 10d: lean_config(262_144, "u4r", budget=2618) at seed 1, 34.4
+    GB: rows too wide to stage, so every sub-exchange is the packed totals
+    pass and the packed pull fed its totals. 8 untracked rounds (rounds/s,
+    peak memory), then one sub-exchange held against the plain versions
+    over blocks of row pairs (the kernel on a copy of w), then 2 tracked
+    rounds (the packed check). Each pass is timed at this width."""
+    cfg = lean_config(WIDEST_U4R_N, "u4r", budget=2618)
+    n = cfg.n_nodes
+    check(gossip.pull_phase_engaged(cfg, dev) == "pairs_two_pass", "widest u4r is staged")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim.run(WIDEST_U4R_ROUNDS)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) / WIDEST_U4R_ROUNDS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = collections.Counter(counters.launches)
+    check(counters.kernel_launches("pairs_totals") == 3 * WIDEST_U4R_ROUNDS
+          and counters.kernel_launches("pairs_pull") == 3 * WIDEST_U4R_ROUNDS
+          and not counters.plain_calls and not counters.fallbacks,
+          "the widest u4r run did not take both packed passes a sub-exchange")
+    m = sim.metrics()
+    frac = float(m["mean_fraction"])
+    check(np.isfinite(frac) and 0.0 < frac <= 1.0, "widest u4r metrics are not finite")
+    log("widest_u4r", f"lean_config({n}, 'u4r', budget=2618): init {init_s:.2f} s, "
+        f"{WIDEST_U4R_ROUNDS} rounds at {round_ms:.3f} ms/round ({1e3 / round_ms:.3f} "
+        f"rounds/s); peak memory {peak:.2f} GB; mean fraction {frac:.6f}; {card_line}")
+
+    # One sub-exchange (the round's first: write bumps of a seeded half of
+    # the owners, a tenth of the nodes dead) against the plain versions.
+    t0 = time.perf_counter()
+    gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 8, 0)
+    bump = mv - sim.state.max_version
+    w_plain = sim.state.w
+    w_kern = w_plain.clone()
+    tk = pairs_totals.pairs_totals(w_kern, gm, c, valid, mv=bump)
+    tp = pairs_totals.pairs_totals_plain(w_plain, gm, c, valid, mv=bump)
+    t_err = max_abs_err([tk], [tp])
+    args = (gm, c, valid, salt, run_salt, cfg.budget)
+    pairs_pull.pairs_pull(w_kern, None, *args, mv=bump, totals=tk)
+    pairs_pull.pairs_pull_plain(w_plain, None, *args, mv=bump, totals=tp)
+    torch.cuda.synchronize()
+    p_err = max_abs_err([w_kern], [w_plain])
+    del w_kern
+    torch.cuda.empty_cache()
+    for key, err in ((f"{pairs_totals.counter_key(True, True)} u4r", t_err),
+                     (ladder_key(LADDER_MODES["first"], "u4r", totals=True), p_err)):
+        errs[key] = max(errs[key], err)
+    log("widest_u4r", f"one sub-exchange at n={n}: packed totals max_abs_err={t_err} (sum "
+        f"{float(tk.double().sum()):.0f}), packed pull max_abs_err={p_err} against the plain "
+        f"versions ({time.perf_counter() - t0:.1f} s)")
+    check(t_err == 0.0 and p_err == 0.0, "the widest u4r sub-exchange disagrees")
+    counters.reset()
+    sim.run_until_converged(max_rounds=sim.tick + 2)  # two tracked rounds
+    torch.cuda.synchronize()
+    launches.update(counters.launches)
+    launches = dict(launches)
+    check(launches.get("pairs_pull[packed+totals+check]", 0) == 2,
+          "the tracked widest u4r rounds did not carry the packed check")
+    w, alive = sim.state.w, sim.state.alive
+    gm, c, _ = prng.grouped_matching(prng.key(9), n)
+    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
+    tot = pairs_totals.pairs_totals(w, gm, c, alive)
+    times = {}
+    for diag in (True, False):
+        times[f"{pairs_totals.counter_key(diag, True)} u4r"] = (n, cuda_ms(
+            lambda: pairs_totals.pairs_totals(w, gm, c, alive, mv=bump if diag else None), 5),
+            bound(totals_bytes(n, 0.5, diag=diag), OPS_TOTALS * n * n / 2))
+    for name in ("first", "middle", "last"):
+        mm = LADDER_MODES[name]
+        kw = {"mv": bump} if mm["diag"] else {}
+        if mm["check"]:
+            kw["check"] = (sim.state.max_version, alive, alive)
+        times[ladder_key(mm, "u4r", totals=True)] = (n, cuda_ms(
+            lambda: pairs_pull.pairs_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
+                                          totals=tot, **kw), 5),
+            ladder_pull_bound(n, "u4r", mm, True))
+    del sim, w, tot, w_plain
+    torch.cuda.empty_cache()
+    record = dict(n=n, seed=NORTH_STAR_SEED, rounds=WIDEST_U4R_ROUNDS, init_s=init_s,
+                  round_ms=round_ms, rounds_per_s=1e3 / round_ms, peak_memory_gb=peak)
+    log("widest_u4r", "passes at this width: "
+        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items()))
+    return record, launches, WIDEST_U4R_ROUNDS + 2, times
+
+
+def full_pull_times(sim, rung, dev):
+    """The full rung's pulls timed at its width on ``sim``'s converged
+    state (updated in place): the first and a middle sub-exchange (deep
+    only: the shrunk rung's are int16, the headline's instances) and the
+    last, with the FD epilogue and the round-start hb0 stream."""
+    st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    gm, c, _ = prng.grouped_matching(prng.key(9), n)
+    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
+    fd = pairs_pull.FdOperands(sim.tick + 1, st.last_change, st.imean, st.icount,
+                               st.live_view, st.hb_known.clone(), FdParams.from_config(cfg))
+    times = {}
+    for mode in ("first", "middle", "last_fd"):
+        mm = LADDER_MODES[mode]
+        if rung == "shrunk" and not mm["fd"]:
+            continue
+        kw = {}
+        if mm["diag"]:
+            kw.update(mv=st.max_version, hbv=st.heartbeat)
+        if mm["check"]:
+            kw["check"] = (st.max_version, st.alive, st.alive)
+        if mm["fd"]:
+            kw.update(hbv=st.heartbeat, fd=fd)
+        times[ladder_key(mm, rung)] = (n, cuda_ms(lambda: pairs_pull.pairs_pull(
+            st.w, st.hb_known, gm, c, st.alive, 1, 0x9E3779B9, cfg.budget, **kw), 10),
+            ladder_pull_bound(n, rung, mm, False))
+    return times
+
+
+def full_ladder(dev, card_line):
+    """Phase 10e: full_config(49_152, "deep" and "shrunk", budget=2618) at
+    seed 1, staged pairs with the fused FD epilogue on int8 sample
+    counters and the live bitmap: both converge at round 103, the
+    reference's full-profile round at this width (the FD does not feed
+    back into w without the lifecycle). Each run's round rate, peak
+    memory, and its pulls timed at this width on its converged state."""
+    records, all_launches, times = {}, {}, {}
+    for rung in ("deep", "shrunk"):
+        cfg = full_config(FULL_N, rung, budget=2618)
+        check(gossip.pull_phase_engaged(cfg, dev) == "pairs"
+              and gossip.fd_phase_engaged(cfg, dev) == "fused",
+              f"full {rung} is not staged with the fused FD")
+        what = f"full_{rung}"
+        sim, conv, launches, run_s, peak = run_to(cfg, dev, NORTH_STAR_SEED, FULL_ROUND, what)
+        rounds = sim.tick
+        check(counters.kernel_launches("pairs_pull") == 3 * rounds
+              and launches.get("pairs_pull[check+fd]") == rounds,
+              f"full {rung} did not run 3 pulls a round, the last with the FD")
+        round_ms = round_rate(sim)
+        fp = int(sim.metrics()["fd_false_positives"])
+        rung_times = full_pull_times(sim, rung, dev)
+        times.update(rung_times)
+        records[rung] = dict(n=FULL_N, seed=NORTH_STAR_SEED, converged_round=conv,
+                             rounds_run=rounds, run_s=run_s, round_ms=round_ms,
+                             rounds_per_s=1e3 / round_ms, peak_memory_gb=peak,
+                             fd_false_positives=fp)
+        all_launches[rung] = (launches, rounds)
+        log(what, f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round); peak memory "
+            f"{peak:.2f} GB; FD false positives {fp}; pulls at n={FULL_N}: "
+            + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in rung_times.items())
+            + f"; {card_line}")
+        del sim
+        torch.cuda.empty_cache()
+    return records, all_launches, times
+
+
+def headline_deep_parity(dev):
+    """Phase 10f: full_config(10_240, "deep", budget=2618) against
+    full_config(10_240, "int16", budget=2618, window_ticks=100) at seed
+    0: after 24 rounds every field is equal (w, hb and last_change and
+    icount widened, imean as stored bf16, live unpacked), and both
+    converge at 24."""
+    deep = full_config(N, "deep", budget=2618)
+    wide = full_config(N, "int16", budget=2618, window_ticks=100)
+    a = Simulator(deep, seed=0, device=dev)
+    b = Simulator(wide, seed=0, device=dev)
+    a.run(CONVERGED_ROUND)
+    b.run(CONVERGED_ROUND)
+    torch.cuda.synchronize()
+    sa, sb = a.state, b.state
+    same = {
+        f: torch.equal(getattr(sa, f).to(torch.int32), getattr(sb, f).to(torch.int32))
+        for f in ("w", "hb_known", "last_change", "icount", "max_version", "heartbeat")
+    }
+    same["imean"] = torch.equal(sa.imean, sb.imean)
+    same["live_view"] = torch.equal(unpack_bits(sa.live_view), sb.live_view)
+    log("headline_deep", f"24 rounds of full_config({N}, 'deep') against the int16/window-100 "
+        f"profile: fields equal {same}")
+    check(all(same.values()), "the deep rung's state differs from the int16 profile's")
+    del a, b, sa, sb
+    rounds = {}
+    for name, cfg in (("deep", deep), ("int16", wide)):
+        sim = Simulator(cfg, seed=0, device=dev)
+        rounds[name] = sim.run_until_converged(max_rounds=100)
+        del sim
+    log("headline_deep", f"converged rounds {rounds}")
+    check(rounds == {"deep": CONVERGED_ROUND, "int16": CONVERGED_ROUND},
+          "the deep and int16 headline-width runs did not both converge at 24")
+    return rounds
+
+
+def int8_side_paths(dev, card_line):
+    """Phase 10g: the ladder's kernels off the main runs' paths, at
+    N = 10,240. The deep rung with int16 bookkeeping pinned to m8 (staged
+    m8 pulls on int8 w and hb, the standalone FD kernel on int8
+    heartbeats once a round): round 24. The deep and shrunk rungs at
+    fanout 1 (one sub-exchange a round: refresh, check and FD in one
+    launch): the int16 profile's round. Then, with no row staged (the
+    shared-memory limit set to the static shared memory, as at widths
+    beyond 116,096 int8), the two-pass forms: the lean int8 rung through
+    the pairs and the m8 totals passes (the staged run's round), and the
+    deep and shrunk rungs through the pairs totals pass and the pull's
+    totals mode with the fused FD (round 24; fanout 1: as staged).
+    Returns each run's (launches, rounds) by name."""
+    runs = {}
+    cfg = full_config(N, "deep", budget=2618, icount_dtype="int16", live_bits=False,
+                      pallas_variant="m8")
+    check(gossip.pull_phase_engaged(cfg, dev) == "m8"
+          and gossip.fd_phase_engaged(cfg, dev) == "kernel",
+          "the int8 m8 headline does not take the m8 and FD kernels")
+    sim, _, launches, _, _ = run_to(cfg, dev, 0, CONVERGED_ROUND, "headline_int8_m8")
+    check(launches.get("fd") == sim.tick and counters.kernel_launches("m8_pull") == 3 * sim.tick,
+          "the int8 m8 headline did not run 3 m8 pulls and 1 FD kernel a round")
+    runs["headline_int8_m8"] = (launches, sim.tick)
+    del sim
+    lean = lean_config(N, "int8", budget=2618)
+    staged = Simulator(lean, seed=0, device=dev)
+    lean_round = staged.run_until_converged(max_rounds=200)
+    del staged
+    # Fanout 1: the round's only sub-exchange refreshes, checks and runs
+    # the FD, on the int16/window-100 profile's round.
+    one = Simulator(full_config(N, "int16", budget=2618, window_ticks=100, fanout=1), seed=0,
+                    device=dev)
+    one_round = one.run_until_converged(max_rounds=400)
+    del one
+    for rung in ("deep", "shrunk"):
+        c1 = full_config(N, rung, budget=2618, fanout=1)
+        sim, _, launches, _, _ = run_to(c1, dev, 0, one_round, f"fanout1_{rung}")
+        runs[f"fanout1_{rung}"] = (launches, sim.tick)
+        del sim
+    saved = pairs_pull.SMEM_LIMIT
+    pairs_pull.SMEM_LIMIT = pairs_pull.STATIC_SMEM
+    try:
+        for name, c2, form, want in (
+            ("two_pass_int8", lean, "pairs_two_pass", lean_round),
+            ("two_pass_int8_m8", dataclasses.replace(lean, pallas_variant="m8"),
+             "m8_two_pass", lean_round),
+            ("two_pass_deep", full_config(N, "deep", budget=2618), "pairs_two_pass",
+             CONVERGED_ROUND),
+            ("two_pass_shrunk", full_config(N, "shrunk", budget=2618), "pairs_two_pass",
+             CONVERGED_ROUND),
+            ("two_pass_fanout1_deep", full_config(N, "deep", budget=2618, fanout=1),
+             "pairs_two_pass", one_round),
+            ("two_pass_fanout1_shrunk", full_config(N, "shrunk", budget=2618, fanout=1),
+             "pairs_two_pass", one_round),
+        ):
+            check(gossip.pull_phase_engaged(c2, dev) == form, f"{name}: {form} not engaged")
+            sim, _, launches, _, _ = run_to(c2, dev, 0, want, name)
+            runs[name] = (launches, sim.tick)
+            del sim
+    finally:
+        pairs_pull.SMEM_LIMIT = saved
+    log("int8_side_paths", f"the lean int8 rung at n={N} converges at {lean_round} staged and "
+        f"in both two-pass forms; the deep and shrunk rungs at fanout 1 at {one_round}, the "
+        f"int16 profile's, staged and two-pass; {card_line}")
+    return runs
+
+
+def ladder_pull_bound(n, rung, m, totals):
+    """(bytes, operations) of one ladder pull at width ``n``: w (and hb)
+    read and written once, the FD bookkeeping at the rung's sizes."""
+    wsize = {"u4r": 0.5, "int8": 1, "deep": 1, "shrunk": 2}[rung]
+    hsize = {"deep": 1, "shrunk": 2}.get(rung, 0)
+    b = pull_bytes(n, wsize, hsize, diag=m["diag"], check=m["check"], fd=m["fd"],
+                   hb0=m["hb0"], icsize=1, livesize=1 / 8, totals=totals)
+    ops = (OPS_PULL if hsize else OPS_PULL_LEAN) + (2 * OPS_FD if m["fd"] else 0)
+    return bound(b, ops * n * n / 2)
+
+
+def ladder_entries(dev, errs, runs, main_times):
+    """The kernel-line entries of the ladder's modes: each timed at
+    N = 10,240 by CUDA events beside its plain version and its bound,
+    and (``main_times``, (n, ms)) at its path's width, with the launches
+    of its path's run (``runs``: name -> (launches, rounds); each must
+    be > 0)."""
+    entries = []
+
+    def entry(name, kernel, line, run, launch_key, ms, plain_ms, b, **extra):
+        launches, rounds = runs[run]
+        check(launches.get(launch_key, 0) > 0, f"{name} was not launched on {run}")
+        main = main_times.get(name)
+        msg = f"{name}: {ms:.4f} ms at n={N} (bound {b[0]:.4f} ms by {b[1]}; plain {plain_ms:.3f} ms)"
+        if main is not None:
+            extra.update(n_main=main[0], ms_main=main[1], bound_ms_main=main[2][0])
+            msg += f"; {main[1]:.4f} ms at n={main[0]} (bound {main[2][0]:.4f} ms)"
+        log("time", msg + f"; {launches[launch_key]} launches on {run}")
+        return dict(
+            name=name, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
+            replaces=line, launches=launches[launch_key],
+            launches_per_round=launches[launch_key] / rounds, max_abs_err=errs[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+            path=run, n=N, **extra,
+        )
+
+    pull_line = "aiocluster_tpu/ops/pallas_pull.py:490"
+    staged_runs = {"int8": "north_star_int8", "u4r": "north_star_u4r",
+                   "deep": "full_deep", "shrunk": "full_shrunk"}
+    two_pass_runs = {"int8": "two_pass_int8", "u4r": "widest_u4r",
+                     "deep": "two_pass_deep", "shrunk": "two_pass_shrunk"}
+    seed = 300
+    for rung, operands, modes in LADDER_CHECKS:
+        for mode in modes:
+            m = LADDER_MODES[mode]
+            for totals in (False, True):
+                seed += 1
+                fresh = ladder_case(N, seed, dev, **operands, **m)
+
+                def prepared(plain=False):
+                    ops = fresh()
+                    if totals:
+                        fn = pairs_totals.pairs_totals_plain if plain else pairs_totals.pairs_totals
+                        ops["totals"] = fn(ops["w"], ops["gm"], ops["c"], ops["valid"],
+                                           mv=ops.get("mv"))
+                    return ops
+
+                ops = prepared()
+                ms = cuda_ms(lambda: call_pull(pairs_pull.pairs_pull, ops), 20)
+                ops = prepared(plain=True)
+                plain_ms = cuda_ms(lambda: call_pull(pairs_pull.pairs_pull_plain, ops), 3, 1)
+                del ops
+                name = ladder_key(m, rung, totals)
+                key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], totals,
+                                             rung == "u4r")
+                run = (two_pass_runs if totals else staged_runs)[rung]
+                if mode == "only_fd":  # the only sub-exchange of a fanout-1 round
+                    run = f"{'two_pass_' if totals else ''}fanout1_{rung}"
+                entries.append(entry(name, "pairs_pull", pull_line, run, key, ms, plain_ms,
+                                     ladder_pull_bound(N, rung, m, totals)))
+    for rung, wdt in (("int8", torch.int8), ("u4r", "u4")):
+        for diag in (True, False):
+            ops = ladder_case(N, 320 + diag, dev, wdt=wdt, diag=diag, check=False, fd=False,
+                              hb0=False)()
+            args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+            mv = ops.get("mv")
+            ms = cuda_ms(lambda: pairs_totals.pairs_totals(*args, mv=mv), 20)
+            plain_ms = cuda_ms(lambda: pairs_totals.pairs_totals_plain(*args, mv=mv), 3, 1)
+            key = pairs_totals.counter_key(diag, rung == "u4r")
+            entries.append(entry(
+                f"{key} {rung}", "pairs_totals", "aiocluster_tpu/ops/pallas_pull.py:899",
+                two_pass_runs[rung], key, ms, plain_ms,
+                bound(totals_bytes(N, 0.5 if rung == "u4r" else 1, diag=diag),
+                      OPS_TOTALS * N * N / 2),
+            ))
+    m8_line = "aiocluster_tpu/ops/pallas_pull.py:263"
+    for hdt, given, diag in ((h, g, d) for h in (None, torch.int8) for g in (False, True)
+                             for d in (True, False)):
+        if hdt is not None and given:
+            continue  # the two-pass m8 form runs the lean profile here
+        ops = ladder_case(N, 330 + diag + 2 * given, dev, wdt=torch.int8, hdt=hdt, diag=diag,
+                          check=False, fd=False, hb0=False)()
+        targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+        tot = m8_totals.m8_totals(*targs, mv=ops.get("mv")) if given else None
+        ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull, ops, totals=tot), 20)
+        plain_ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull_plain, ops, totals=tot), 3, 1)
+        key = m8_pull.counter_key(diag, given)
+        name = f"{key} int8{'' if hdt is None else '+hb'}"
+        run = ("two_pass_int8_m8" if given else "north_star_int8_m8") if hdt is None else (
+            "headline_int8_m8")
+        hsize = 0 if hdt is None else 1
+        entries.append(entry(
+            name, "m8_pull", m8_line, run, key, ms, plain_ms,
+            bound(m8_bytes(N, N, 1, hsize, diag=diag, totals=given),
+                  (OPS_PULL if hsize else OPS_PULL_LEAN) * N * N / 2),
+            design_bound_ms=bound(m8_bytes(N, N, 1, hsize, diag=diag, totals=given, reads=2),
+                                  OPS_PULL_LEAN * N * N / 2)[0],
+        ))
+        if given:
+            tkey = m8_totals.counter_key(diag)
+            t_ms = cuda_ms(lambda: m8_totals.m8_totals(*targs, mv=ops.get("mv")), 20)
+            t_plain = cuda_ms(lambda: m8_totals.m8_totals_plain(*targs, mv=ops.get("mv")), 3, 1)
+            entries.append(entry(
+                f"{tkey} int8", "m8_totals", "aiocluster_tpu/ops/pallas_pull.py:374",
+                "two_pass_int8_m8", tkey, t_ms, t_plain,
+                bound(m8_totals_bytes(N, N, 1, diag=diag), OPS_TOTALS * N * N / 2),
+            ))
+        del ops, tot
+    ops = ladder_case(N, 340, dev, wdt=torch.int8, hdt=torch.int8, diag=False, check=False,
+                      fd=True, hb0=True)()
+    f = ops["fd"]
+    live = torch.zeros((N, N), dtype=torch.bool, device=dev)
+    ic16 = f.ic.to(torch.int16)
+    args = (ops["hb"], f.hb0, ops["hbv"], f.lc, f.im, ic16, live, f.params)
+    ms = cuda_ms(lambda: fd_mod.fused_fd(40, *args), 20)
+    plain_ms = cuda_ms(lambda: fd_mod.fused_fd_plain(40, *args), 3, 1)
+    mat = N * N
+    entries.append(entry(
+        "fd int8", "fd", "aiocluster_tpu/ops/pallas_fd.py:51", "headline_int8_m8", "fd", ms,
+        plain_ms, bound(mat * (3 * 1 + 2 * 2 + 1 * 1 + 2 * 2 + 1) + N * 4, OPS_FD * mat),
+    ))
+    del ops, f, live, ic16, args
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1206,7 +2133,7 @@ def main() -> int:
         if regs:
             log("build", f"{name}: {len(regs)} kernels, registers <= {max(regs)}, "
                 f"spilled bytes {spills}, kernels with a stack frame {stacks}")
-        if name.startswith("m8_"):
+        if name.startswith(("m8_", "pairs_")):
             check(regs and spills == 0 and stacks == 0,
                   f"{name}.cu built with a spill or a stack frame")
 
@@ -1403,12 +2330,35 @@ def main() -> int:
         dev, m8_errs, head_m8_launches, head_m8["rounds_run"], ns_m8_launches,
         ns_m8["rounds_run"], ns_m8_times, experiment,
     )
+
+    # Phase 10: the memory ladder's rungs: their kernels against the plain
+    # versions, then each rung's run at full width (counters at 0 just
+    # before each, read just after), then their times.
+    ladder_errs = check_ladder_kernels(dev)
+    check_ladder_full_width(dev, ladder_errs)
+    ns8, ns8_m8, ns8_times = lean_int8_north_star(dev, card_line)
+    u4, u4_launches, u4_rounds, u4_times = lean_u4r_north_star(dev, card_line)
+    wide, wide_launches, wide_rounds, wide_times = widest_u4r(dev, card_line, ladder_errs)
+    full, full_runs, full_times = full_ladder(dev, card_line)
+    head_deep = headline_deep_parity(dev)
+    runs = int8_side_paths(dev, card_line)
+    runs.update(
+        north_star_int8=ns8[1:], north_star_int8_m8=ns8_m8[1:],
+        north_star_u4r=(u4_launches, u4_rounds), widest_u4r=(wide_launches, wide_rounds),
+        full_deep=full_runs["deep"], full_shrunk=full_runs["shrunk"],
+    )
+    kernels += ladder_entries(dev, ladder_errs, runs,
+                              {**ns8_times, **u4_times, **wide_times, **full_times})
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
         f"headline {head_m8['converged_round']} at {head_m8['rounds_per_s']:.2f} "
         f"rounds/s, north star {ns_m8['converged_round']} at "
-        f"{ns_m8['rounds_per_s']:.3f} rounds/s")
+        f"{ns_m8['rounds_per_s']:.3f} rounds/s; ladder: int8 north star "
+        f"{ns8[0]['converged_round']} (m8 {ns8_m8[0]['converged_round']}), u4r "
+        f"{u4['converged_round']} (int16 keys 15: {u4['int16_keys15_round']}), full deep "
+        f"{full['deep']['converged_round']}, shrunk {full['shrunk']['converged_round']}, "
+        f"widest u4r {wide['rounds_per_s']:.3f} rounds/s at {wide['peak_memory_gb']:.1f} GB")
 
     print(card_line)
     print(json.dumps({
@@ -1426,6 +2376,12 @@ def main() -> int:
         "north_star_m8": ns_m8,
         "i16_experiment": {a: {"ms_chained": t, "max_abs_err": e}
                            for a, (t, e) in experiment.items()},
+        "ladder": {
+            "north_star_int8": ns8[0], "north_star_int8_m8": ns8_m8[0],
+            "north_star_u4r": u4, "widest_u4r": wide, "full_deep": full["deep"],
+            "full_shrunk": full["shrunk"], "headline_deep_rounds": head_deep,
+            "build_s": _build.build_seconds,
+        },
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

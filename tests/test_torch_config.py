@@ -1,6 +1,6 @@
 """The port's SimConfig mirrors the reference's field for field, rejects
-the same invalid inputs, and refuses every config outside the ported
-slice with NotImplementedError."""
+the same invalid inputs, refuses every config outside the ported slice
+with NotImplementedError, and takes every rung of the memory ladder."""
 
 import dataclasses
 
@@ -8,12 +8,14 @@ import pytest
 
 from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import budget_from_mtu
+from aiocluster_torch import Simulator
 from aiocluster_torch.sim.config import (
     HEADLINE_BUDGET,
     SimConfig,
     headline_config,
     unported_reason,
 )
+from aiocluster_torch.sim.state import DTYPES, expected_dtypes
 
 
 def test_fields_and_defaults_match_reference():
@@ -79,11 +81,6 @@ def test_invalid_inputs_raise_like_reference(bad):
         (dict(dead_grace_ticks=8), "A9"),
         (dict(fault_plan=object()), "A10"),
         (dict(heterogeneity=object()), "A10"),
-        (dict(version_dtype="u4r"), "A11"),
-        (dict(version_dtype="int8"), "A11"),
-        (dict(heartbeat_dtype="int8"), "A11"),
-        (dict(icount_dtype="int8", window_ticks=100), "A11"),
-        (dict(live_bits=True), "A11"),
     ],
 )
 def test_out_of_slice_configs_are_refused(over, item):
@@ -101,3 +98,27 @@ def test_in_slice_configs_construct():
         dict(n_nodes=128, use_pallas=False, use_pallas_fd=True),
     ):
         assert unported_reason(SimConfig(**kw)) is None
+
+
+@pytest.mark.parametrize(
+    "over",
+    [
+        dict(version_dtype="u4r"),
+        dict(version_dtype="int8"),
+        dict(heartbeat_dtype="int8"),
+        dict(icount_dtype="int8", window_ticks=100),
+        dict(live_bits=True),
+    ],
+    ids=["u4r", "int8", "hb_int8", "icount_int8", "live_bits"],
+)
+def test_ladder_rungs_construct_and_run(over):
+    """The memory ladder's rungs (once refused) construct and run: two
+    rounds on the CPU, every field stored in its rung's dtype."""
+    cfg = SimConfig(n_nodes=256, keys_per_node=8, budget=24, **over)
+    assert unported_reason(cfg) is None
+    sim = Simulator(cfg, seed=0, device="cpu")
+    sim.run(2)
+    for name, dt in expected_dtypes(cfg).items():
+        assert getattr(sim.state, name).dtype == DTYPES[dt], name
+    m = sim.metrics()
+    assert 0.0 < float(m["mean_fraction"]) <= 1.0 and int(m["alive_count"]) == 256

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from aiocluster_torch import Simulator, SimConfig
+from aiocluster_torch import Simulator, SimConfig, full_config, lean_config
 from aiocluster_torch.ops import counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
+from aiocluster_torch.sim.packed import pack_bits
 from aiocluster_torch.sim.state import STATE_FIELDS
 
 pytestmark = pytest.mark.cuda
@@ -370,3 +371,185 @@ def test_draws_on_the_device_equal_the_host(dev):
     on_cpu = prng.round_draws(key, 3, 4, 1024, 3)
     for a, b in zip(on_dev, on_cpu, strict=True):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+# -- the memory ladder's rungs (int8, packed u4r, shrunk FD bookkeeping) ------
+
+LADDER_N = 10_240  # the headline width
+LADDER_MODES = {
+    "first": dict(diag=True, check=False, fd=False, hb0=False),
+    "middle": dict(diag=False, check=False, fd=False, hb0=False),
+    "last": dict(diag=False, check=True, fd=True, hb0=True),
+    "only": dict(diag=True, check=True, fd=True, hb0=False),
+}
+
+
+def _ladder_operands(n, seed, dev, *, wdt, hdt=None, imdt=torch.bfloat16, icdt=torch.int16,
+                     bits=False, diag, check, fd, hb0):
+    """Operands of one sub-exchange drawn on the card from ``seed``
+    (``wdt`` "u4" is the packed rung; ``hdt`` None is the lean profile),
+    with the FD bookkeeping at the given rung. Returns (ops, kw)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi, shape, dt=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(dt)
+
+    packed = wdt == "u4"
+    gm, c, p = prng.grouped_matching(prng.key(seed), n)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.85
+    ops = dict(
+        w=draw(0, 256, (n, n // 2), torch.uint8) if packed else draw(0, 40, (n, n), wdt),
+        hb=None if hdt is None else draw(0, 30, (n, n), hdt),
+        gm=gm.to(dev, torch.int32), c=c.to(dev, torch.int32),
+        valid=alive & alive[p.to(dev)],
+    )
+    kw = {}
+    mv = draw(0, 4, (n,)) if packed else draw(30, 60, (n,))
+    if diag:
+        kw["mv"] = mv
+        if hdt is not None:
+            kw["hbv"] = draw(28, 31, (n,))
+    if check:
+        kw["check"] = (mv, alive, torch.rand(n, generator=gen, device=dev) < 0.9)
+    if fd:
+        kw["hbv"] = draw(28, 31, (n,))
+        live = torch.rand((n, n), generator=gen, device=dev) < 0.5
+        kw["fd"] = pairs_pull.FdOperands(
+            31, draw(0, 31, (n, n), hdt),
+            (torch.rand((n, n), generator=gen, device=dev) * 6).to(imdt),
+            draw(0, 12, (n, n), icdt), pack_bits(live) if bits else live,
+            draw(0, 31, (n, n), hdt) if hb0 else None, FdParams(10.0, 100, 5.0, 16.5, 7.5),
+        )
+    return ops, kw
+
+
+def _with_totals(fn, ops, kw):
+    kw = dict(kw, totals=fn(ops["w"], ops["gm"], ops["c"], ops["valid"], mv=kw.get("mv")))
+    return ops, kw
+
+
+LADDER_FD_RUNGS = {
+    "deep": dict(wdt=torch.int8, hdt=torch.int8, icdt=torch.int8, bits=True),
+    "shrunk": dict(wdt=torch.int16, hdt=torch.int16, icdt=torch.int8, bits=True),
+    "i8w_i16hb": dict(wdt=torch.int8, hdt=torch.int16, imdt=torch.float32),
+}
+
+
+@pytest.mark.parametrize("form", ["staged", "two_pass"])
+@pytest.mark.parametrize("mode", list(LADDER_MODES))
+@pytest.mark.parametrize("rung", list(LADDER_FD_RUNGS))
+def test_pairs_kernel_ladder_rungs_equal_plain(dev, rung, mode, form):
+    """The int8 instances and the FD epilogue's int8 counters and live
+    bitmap, staged and in the totals mode, at the headline width."""
+    ops, kw = _ladder_operands(LADDER_N, 11, dev, **LADDER_FD_RUNGS[rung], **LADDER_MODES[mode])
+    kern, plain = _clone(ops, kw), _clone(ops, kw)
+    if form == "two_pass":
+        kern = _with_totals(pairs_totals.pairs_totals, *kern)
+        plain = _with_totals(pairs_totals.pairs_totals_plain, *plain)
+    got = _run(pairs_pull.pairs_pull, *kern)
+    want = _run(pairs_pull.pairs_pull_plain, *plain)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["staged", "two_pass"])
+@pytest.mark.parametrize("mode", ["first", "middle", "last"])
+@pytest.mark.parametrize("wdt", [torch.int8, "u4"], ids=["int8", "u4r"])
+def test_pairs_kernel_lean_ladder_equals_plain(dev, wdt, mode, form):
+    """Lean int8 and the packed u4r codec (refresh = write bump + diagonal
+    zero, the nibble check), staged and in the totals mode; the packed
+    staged pull also equals the packed two-pass pull."""
+    m = dict(LADDER_MODES[mode], fd=False, hb0=False)
+    ops, kw = _ladder_operands(LADDER_N, 12, dev, wdt=wdt, **m)
+    kern, plain = _clone(ops, kw), _clone(ops, kw)
+    if form == "two_pass":
+        kern = _with_totals(pairs_totals.pairs_totals, *kern)
+        plain = _with_totals(pairs_totals.pairs_totals_plain, *plain)
+    got = _run(pairs_pull.pairs_pull, *kern)
+    want = _run(pairs_pull.pairs_pull_plain, *plain)
+    other = _clone(ops, kw)
+    if form == "staged":
+        other = _with_totals(pairs_totals.pairs_totals, *other)
+    else:
+        other = (other[0], {k: v for k, v in other[1].items() if k != "totals"})
+    third = _run(pairs_pull.pairs_pull, *other)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, third, strict=True):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("wdt", [torch.int8, "u4"], ids=["int8", "u4r"])
+def test_pairs_totals_ladder_equals_plain(dev, wdt, diag):
+    ops, kw = _ladder_operands(LADDER_N, 13, dev, wdt=wdt, diag=diag, check=False, fd=False,
+                               hb0=False)
+    args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+    got = pairs_totals.pairs_totals(*args, mv=kw.get("mv"))
+    want = pairs_totals.pairs_totals_plain(*args, mv=kw.get("mv"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("totals", [False, True], ids=["staged", "totals"])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("hdt", [None, torch.int8], ids=["lean", "hb_int8"])
+def test_m8_kernels_int8_equal_plain(dev, hdt, diag, totals):
+    ops, kw = _ladder_operands(LADDER_N, 14, dev, wdt=torch.int8, hdt=hdt, diag=diag,
+                               check=False, fd=False, hb0=False)
+    args = (ops["w"], ops["hb"], ops["gm"], ops["c"], ops["valid"], 9, 77, 2618)
+    tot = None
+    if totals:
+        targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+        tot = m8_totals.m8_totals(*targs, mv=kw.get("mv"))
+        assert torch.equal(tot, m8_totals.m8_totals_plain(*targs, mv=kw.get("mv")))
+    got = m8_pull.m8_pull(*args, mv=kw.get("mv"), hbv=kw.get("hbv"), totals=tot)
+    want = m8_pull.m8_pull_plain(*args, mv=kw.get("mv"), hbv=kw.get("hbv"), totals=tot)
+    torch.cuda.synchronize()
+    for a, b in zip([got] if hdt is None else got, [want] if hdt is None else want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("imdt", [torch.bfloat16, torch.float32])
+def test_fd_kernel_int8_heartbeats_equal_plain(dev, imdt):
+    ops, kw = _ladder_operands(LADDER_N, 15, dev, wdt=torch.int8, hdt=torch.int8, imdt=imdt,
+                               diag=False, check=False, fd=True, hb0=True)
+    f = kw["fd"]
+
+    def fresh():
+        return [ops["hb"], f.hb0, kw["hbv"], f.lc.clone(), f.im.clone(), f.ic.clone(),
+                f.live.clone()]
+
+    a, b = fresh(), fresh()
+    fd_mod.fused_fd(31, *a, f.params)
+    fd_mod.fused_fd_plain(31, *b, f.params)
+    torch.cuda.synchronize()
+    for x, y in zip(a[3:], b[3:], strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("two_pass", [False, True], ids=["staged", "two_pass"])
+@pytest.mark.parametrize("rung", ["lean_int8", "lean_u4r", "shrunk", "deep"])
+def test_simulator_ladder_kernel_path_equals_plain_path(dev, rung, two_pass, monkeypatch):
+    """Each rung's kernel path equals its plain path on the card after 6
+    rounds, every sub-exchange through the kernels and nothing plain."""
+    if two_pass:
+        monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    if rung.startswith("lean"):
+        cfg = lean_config(512, rung[5:], budget=64, keys_per_node=8)
+    else:
+        cfg = full_config(512, rung, budget=64, keys_per_node=8)
+    counters.reset()
+    kern = Simulator(cfg, seed=4, device=dev)
+    kern.run(6)
+    assert counters.kernel_launches("pairs_pull") == 18
+    assert counters.kernel_launches("pairs_totals") == (18 if two_pass else 0)
+    assert not counters.plain_calls and not counters.fallbacks
+    plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False), seed=4,
+                      device=dev)
+    plain.run(6)
+    torch.cuda.synchronize()
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
+    assert Simulator(cfg, seed=4, device=dev).run_until_converged(100) == Simulator(
+        cfg, seed=4, device="cpu").run_until_converged(100)

@@ -240,11 +240,15 @@ def test_lean_config_matches_reference(n, rung, over):
     )
 
 
-def test_lean_config_packed_rungs_refused():
+def test_lean_config_packed_rungs_run():
+    """The packed lean rungs (once refused) equal the reference's configs
+    and run two rounds on the CPU."""
     for rung in ("int8", "u4r"):
-        ref_lean_config(1_024, rung)  # the reference runs them
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-            lean_config(1_024, rung)
+        cfg = lean_config(1_024, rung)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_lean_config(1_024, rung))
+        sim = Simulator(cfg, seed=0, device="cpu")
+        sim.run(2)
+        assert sim.tick == 2 and 0.0 < float(sim.metrics()["mean_fraction"]) <= 1.0
 
 
 # -- init_state and the convergence reductions over row blocks -----------------
