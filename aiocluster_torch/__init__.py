@@ -4,9 +4,10 @@ ported to PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 The reference package (``aiocluster_tpu``, JAX on a TPU) stays as it is;
 this package imports nothing from it, nor JAX. ``Simulator(cfg,
 seed=...)`` follows the reference's trajectory round for round on the
-same ``SimConfig`` and seed. Its entry points run on the CUDA device
-unless the caller passes ``device="cpu"``, where every kernel wrapper
-takes its plain PyTorch version.
+same ``SimConfig`` and seed, and ``SweepSimulator(cfg, seeds, ...)``
+runs S such scenarios together, one lane each. Its entry points run on
+the CUDA device unless the caller passes ``device="cpu"``, where every
+kernel wrapper takes its plain PyTorch version.
 """
 
 from .sim import (
@@ -14,6 +15,9 @@ from .sim import (
     SimConfig,
     SimState,
     Simulator,
+    SweepParams,
+    SweepResult,
+    SweepSimulator,
     full_config,
     headline_config,
     init_state,
@@ -25,6 +29,9 @@ __all__ = (
     "SimConfig",
     "SimState",
     "Simulator",
+    "SweepParams",
+    "SweepResult",
+    "SweepSimulator",
     "full_config",
     "headline_config",
     "init_state",

@@ -42,11 +42,12 @@ SIGNATURES = {
     "pairs_pull": (
         "aiocluster_pairs_pull",
         [_P, _P, _P, _P, _P, _I, _U, _F, _P, _P, _P, _P, _P, _P,
-         _I, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P],
+         _I, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F, _I, _I, _I, _I, _I,
+         _I, _P, _P, _P],
     ),
     "pairs_totals": (
         "aiocluster_pairs_totals",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
     "m8_pull": (
         "aiocluster_m8_pull",

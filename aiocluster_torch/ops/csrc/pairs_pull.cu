@@ -10,7 +10,8 @@
 // live bitmap), the totals input (TOTALS: the rows' deficit totals come
 // from pairs_totals.cu, the two-pass form for rows too wide to stage) and
 // the packed u4r rung (pairs_packed_kernel: the reference's nibble codec,
-// lean profile only, as there). The lane mode and column blocks
+// lean profile only, as there), each also over S sweep lanes in one launch
+// (LANES below: the reference's fused_pull_pairs_lanes). Column blocks
 // (owner_offset) are not ported.
 //
 // What bounds it: on int16 and int32 rows, bytes: each sub-exchange must
@@ -67,6 +68,17 @@
 // leader row, the staging and totals, the check) and differs only in the
 // row codec and the apply step.
 //
+// LANES (the lane lift of a sweep): the grid's second dimension is the
+// lane, gridDim.y = S, and every operand carries a leading lane axis.
+// At frame entry the CTA offsets each matrix pointer by lane * n * row_len
+// elements and each vector by lane * its length (at_lane, in size_t: at
+// the north star 2 * 100,352^2 passes 2^31), and reads its lane's
+// salt_mix and phi from (S,) device arrays, which sweeps build once a
+// chunk. A lane is a runtime value, not a template mode, so the lift adds
+// no instance; S = 1 keeps its by-value scalars and needs no array. A lane
+// whose valid mask is all 0 (a swept fanout below the static bound) still
+// gets the refresh, the check and the FD epilogue, as in the reference.
+//
 // Bit parity with the reference and the plain PyTorch version: built with
 // -fmad=false, the scale and the running mean use the correctly rounded
 // divide, bf16 stores round to nearest even (common.cuh), and the dither
@@ -111,7 +123,53 @@ struct PairsArgs {
   const uint8_t* bump;      // PACKED + DIAG: (n/2,) packed write bumps
   const uint8_t* owner_ok;  // PACKED + CHECK: (n/2,) packed owner-alive bits
   FdConsts fd;
+  int32_t lanes;            // LANES: sweep lanes (gridDim.y), 1 outside sweeps
+  const uint32_t* lane_salt;  // LANES: (lanes,) salt_mix of each lane, or null
+  const float* lane_phi;    // LANES + FD: (lanes,) phi of each lane, or null
 };
+
+template <typename T>
+__device__ __forceinline__ T* shifted(T* p, size_t k) {
+  return p == nullptr ? p : p + k;
+}
+
+// The operands of lane blockIdx.y: every pointer moved to the lane's slice
+// (w of `row_len` stored elements a row; PACKED moves the packed bump and
+// owner-alive rows instead of mv and need), the lane's salt and phi read
+// from their arrays where given. Lane 0 is the operands as passed.
+template <typename WT, typename HT, typename IMT, bool PACKED>
+__device__ __forceinline__ PairsArgs at_lane(PairsArgs a, int row_len) {
+  const size_t s = blockIdx.y;
+  const size_t n = static_cast<size_t>(a.n);
+  const size_t vec = s * n, mat = vec * n;
+  a.w = static_cast<WT*>(a.w) + vec * static_cast<size_t>(row_len);
+  a.gm += s * (n >> 3);
+  a.c += s * (n >> 3);
+  a.valid += vec;
+  a.totals = shifted(a.totals, vec);
+  a.alive = shifted(a.alive, vec);
+  a.flag = shifted(a.flag, s);
+  if (PACKED) {
+    a.bump = shifted(a.bump, vec >> 1);
+    a.owner_ok = shifted(a.owner_ok, vec >> 1);
+  } else {
+    a.hb = shifted(static_cast<HT*>(a.hb), mat);
+    a.mv = shifted(a.mv, vec);
+    a.hbv = shifted(a.hbv, vec);
+    a.need = shifted(a.need, vec);
+    if (a.lc != nullptr) {
+      a.lc = static_cast<HT*>(a.lc) + mat;
+      a.im = static_cast<IMT*>(a.im) + mat;
+      a.ic = a.ic_int8 ? static_cast<void*>(static_cast<int8_t*>(a.ic) + mat)
+                       : static_cast<void*>(static_cast<int16_t*>(a.ic) + mat);
+      a.live += a.live_bits ? mat >> 3 : mat;
+      a.hb0 = shifted(static_cast<const HT*>(a.hb0), mat);
+    }
+  }
+  if (a.lane_salt != nullptr) a.salt_mix = a.lane_salt[s];
+  if (a.lane_phi != nullptr) a.fd.phi = a.lane_phi[s];
+  return a;
+}
 
 // The epilogue's sample counters of eight columns, widened to int32, and
 // their narrowing store (int16, or int8 on the shrunk rungs).
@@ -301,8 +359,9 @@ __device__ __forceinline__ void pair_frame(const PairsArgs& a, int row_len,
 // heartbeats, and run the check and the FD epilogue on the fresh values.
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
           bool FD, bool TOTALS>
-__global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
-  const int n = a.n;
+__global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs args) {
+  const int n = args.n;
+  const PairsArgs a = at_lane<WT, HT, IMT, false>(args, n);
   pair_frame<UnpackedRows<WT>, DIAG, CHECK, TOTALS>(
       a, n,
       [&](const Pair& r, int j0, const Vec8<WT>& x8, const Vec8<WT>& y8,
@@ -366,8 +425,9 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs a) {
 // and each 8-byte vector holds sixteen owners' residuals; the check
 // reads the packed owner-alive row (a residual of 0 is caught up).
 template <bool DIAG, bool CHECK, bool TOTALS>
-__global__ void __launch_bounds__(kThreads) pairs_packed_kernel(PairsArgs a) {
-  const int nb = a.n >> 1;  // bytes a row
+__global__ void __launch_bounds__(kThreads) pairs_packed_kernel(PairsArgs args) {
+  const int nb = args.n >> 1;  // bytes a row
+  const PairsArgs a = at_lane<uint8_t, uint8_t, float, true>(args, nb);
   pair_frame<PackedRows, DIAG, CHECK, TOTALS>(
       a, nb,
       [&](const Pair& r, int k0, const Vec8<uint8_t>& x8,
@@ -405,8 +465,8 @@ __global__ void __launch_bounds__(kThreads) pairs_packed_kernel(PairsArgs a) {
       });
 }
 
-// Launches a kernel instance over one CTA per row with `smem` bytes of
-// dynamic shared memory (opted in above 48 KB).
+// Launches a kernel instance over one CTA per row and lane with `smem`
+// bytes of dynamic shared memory (opted in above 48 KB).
 template <typename Kernel>
 cudaError_t launch_rows(Kernel kernel, const PairsArgs& a, size_t smem,
                         cudaStream_t stream) {
@@ -416,7 +476,7 @@ cudaError_t launch_rows(Kernel kernel, const PairsArgs& a, size_t smem,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<a.n, kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.n, a.lanes), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -491,7 +551,10 @@ cudaError_t launch_hb(const PairsArgs& a, int h_code, int im_code, bool diag,
 
 // w_code kU4 is the packed u4r rung: `mv` is then the (n/2,) packed write
 // bumps and `need` the (n/2,) packed owner-alive bits, and hb and the FD
-// must be null (cudaErrorInvalidValue otherwise).
+// must be null (cudaErrorInvalidValue otherwise). `lanes` > 1 is the lane
+// lift: every operand carries a leading lane axis, `flag` holds one flag a
+// lane, and `lane_salt` ((lanes,) uint32 salt_mix) and `lane_phi`
+// ((lanes,) float) replace `salt_mix` and `phi` where given.
 extern "C" int aiocluster_pairs_pull(
     void* w, void* hb, const void* gm, const void* c, const void* valid,
     int n, unsigned int salt_mix, float budget, const void* totals,
@@ -499,7 +562,9 @@ extern "C" int aiocluster_pairs_pull(
     void* flag, int tick, void* lc, void* im, void* ic, void* live,
     const void* hb0, float max_interval, int window, float prior_weight,
     float prior_wm, float phi, int w_code, int h_code, int im_code,
-    int ic_code, int live_bits, void* stream) {
+    int ic_code, int live_bits, int lanes, const void* lane_salt,
+    const void* lane_phi, void* stream) {
+  if (lanes < 1 || lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   PairsArgs a;
   a.w = w;
   a.hb = hb;
@@ -530,6 +595,9 @@ extern "C" int aiocluster_pairs_pull(
   a.fd.prior_weight = prior_weight;
   a.fd.prior_wm = prior_wm;
   a.fd.phi = phi;
+  a.lanes = lanes;
+  a.lane_salt = static_cast<const uint32_t*>(lane_salt);
+  a.lane_phi = static_cast<const float*>(lane_phi);
   const bool diag = mv != nullptr;
   const bool check = need != nullptr;
   const bool fd = lc != nullptr;

@@ -4,8 +4,11 @@
 // Replaces: aiocluster_tpu/ops/pallas_pull.py::_pairs_totals_kernel (the
 // TPU kernel behind fused_pull_pairs_totals / pairs_totals) for int8,
 // int16 and int32 watermarks and the packed u4r rung (PACKED, the
-// reference's `packed` decode) over the full owner width (n_local == N).
-// The lane axis and column shards (owner_offset) are not ported.
+// reference's `packed` decode) over the full owner width (n_local == N),
+// also over S sweep lanes in one launch (fused_pull_pairs_totals_lanes:
+// blockIdx.y is the lane, every operand carries a leading lane axis and
+// the CTA offsets its pointers to its lane's slice in size_t, as
+// pairs_pull.cu does). Column shards (owner_offset) are not ported.
 //
 // What bounds it: bytes. It must read every row of w once (N^2 *
 // sizeof(w), N^2 / 2 packed) and write N floats, with about three integer
@@ -47,31 +50,45 @@ struct TotalsArgs {
                          // uint8 packed write bumps), or null (no refresh)
   float* totals;         // (n,) written
   int32_t n;             // owners (rows)
+  int32_t lanes;         // sweep lanes (gridDim.y), 1 outside sweeps
 };
 
 template <typename WT, bool DIAG, bool PACKED>
 __global__ void __launch_bounds__(kThreads) pairs_totals_kernel(TotalsArgs a) {
-  pair_totals<WT, DIAG, PACKED>(static_cast<const WT*>(a.w), a.gm, a.c,
-                                a.valid, a.mv, a.totals, blockIdx.x,
-                                PACKED ? a.n >> 1 : a.n, 0);
+  const int n_cols = PACKED ? a.n >> 1 : a.n;
+  const size_t s = blockIdx.y;
+  const size_t vec = s * static_cast<size_t>(a.n);
+  // The refresh row: PACKED bytes of write bumps, else int32 max_version.
+  const void* mv = nullptr;
+  if (a.mv != nullptr) {
+    mv = PACKED ? static_cast<const void*>(static_cast<const uint8_t*>(a.mv) + (vec >> 1))
+                : static_cast<const void*>(static_cast<const int32_t*>(a.mv) + vec);
+  }
+  pair_totals<WT, DIAG, PACKED>(
+      static_cast<const WT*>(a.w) + vec * static_cast<size_t>(n_cols),
+      a.gm + s * (a.n >> 3), a.c + s * (a.n >> 3), a.valid + vec, mv,
+      a.totals + vec, blockIdx.x, n_cols, 0);
 }
 
 template <typename WT, bool PACKED = false>
 cudaError_t launch(const TotalsArgs& a, cudaStream_t stream) {
+  const dim3 grid(a.n, a.lanes);
   if (a.mv != nullptr) {
-    pairs_totals_kernel<WT, true, PACKED><<<a.n, kThreads, 0, stream>>>(a);
+    pairs_totals_kernel<WT, true, PACKED><<<grid, kThreads, 0, stream>>>(a);
   } else {
-    pairs_totals_kernel<WT, false, PACKED><<<a.n, kThreads, 0, stream>>>(a);
+    pairs_totals_kernel<WT, false, PACKED><<<grid, kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// `lanes` > 1 is the lane lift: every operand carries a leading lane axis.
 extern "C" int aiocluster_pairs_totals(const void* w, const void* gm,
                                        const void* c, const void* valid,
                                        const void* mv, void* totals, int n,
-                                       int w_code, void* stream) {
+                                       int w_code, int lanes, void* stream) {
+  if (lanes < 1 || lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   TotalsArgs a;
   a.w = w;
   a.gm = static_cast<const int32_t*>(gm);
@@ -80,6 +97,7 @@ extern "C" int aiocluster_pairs_totals(const void* w, const void* gm,
   a.mv = mv;
   a.totals = static_cast<float*>(totals);
   a.n = n;
+  a.lanes = lanes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w_code) {
     case kU4:

@@ -133,9 +133,10 @@ def fused_fd(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
     counters.launches["fd"] += 1
 
 
-def expect(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def expect(name: str, t: torch.Tensor, dtype, shape, device, align: int = 16) -> None:
     """The kernels' operand contract: dtype, shape, contiguity, one CUDA
-    device and 16-byte-aligned storage (8-element vector accesses)."""
+    device and 16-byte-aligned storage (8-element vector accesses;
+    ``align`` for operands read one scalar at a time)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device != device:
@@ -146,5 +147,5 @@ def expect(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} storage must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} storage must be {align}-byte aligned")

@@ -20,11 +20,12 @@ Two implementations serve a round, resolved once per call by
   deficit totals (ops/pairs_totals.py), then the pull fed those totals
   ("pairs_two_pass", the reference's sharded two-pass form on one
   device). A config the kernels cannot take is refused, never run plain,
-  except on the two routes the reference itself serves with XLA for
-  want of a kernel: "packed_dtype" (u4r with heartbeats, or pinned to
-  m8) runs the plain round, "fd_packed_bookkeeping" (the shrunk FD
-  bookkeeping off the pairs path) the plain FD phase, each counted in
-  ``counters.fallbacks``;
+  except on the routes the reference itself serves with XLA for want of
+  a kernel: "packed_dtype" (u4r with heartbeats, or pinned to m8) and
+  "fanout" (fanout 0: no sub-exchange carries the refresh and the FD
+  epilogue; its FD phase is the standalone kernel) run the plain pull,
+  "fd_packed_bookkeeping" (the shrunk FD bookkeeping off the pairs path)
+  the plain FD phase, each counted in ``counters.fallbacks``;
 - ``pallas_variant="m8"`` on a CUDA device: every sub-exchange is one
   launch of the single-pass pull (ops/m8_pull.py, out of place; "m8"),
   or, where its rows do not stage, the m8 deficit totals
@@ -40,19 +41,27 @@ Two implementations serve a round, resolved once per call by
 ops/counters.py counts what served each phase, every fallback and every
 refusal.
 
-``sim_step`` consumes its input state, as the reference's donated
-buffers do: the matrices are updated in place where a phase can.
+``sweep_step`` is the round of a sweep's S lanes (sim/sweep.py): on the
+pairs forms each sub-exchange is one lane launch for all lanes (two in
+the two-pass form), each lane with its own salts, fanout mask, write
+rate and FD phi; elsewhere each lane runs the plain round
+(``resolve_phases(sweep=True)``).
+
+``sim_step`` and ``sweep_step`` consume their input state, as the
+reference's donated buffers do: the matrices are updated in place where
+a phase can.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from ..sim.config import SimConfig, unported_reason
 from ..sim.packed import U4_MAX, is_packed_w, live_view_bool, watermarks_i32
-from ..sim.state import DTYPES, SimState
+from ..sim.state import DTYPES, STATE_FIELDS, SimState, SweepParams, lane
 from . import counters, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from . import fd as fd_mod
 from .fd import FdParams
@@ -284,12 +293,6 @@ def _kernel_pull_form(cfg: SimConfig) -> str:
     CTA reads fit its shared memory (a packed row is n / 2 bytes), two
     launches a sub-exchange beyond; ``pallas_variant="m8"`` pins the
     single-pass pull."""
-    if cfg.fanout < 1:
-        counters.refuse(
-            "fanout=0 on the kernel path (no sub-exchange carries the "
-            "diagonal refresh and the FD epilogue) is not ported yet: "
-            "ROADMAP.md B1e"
-        )
     if cfg.version_dtype == "u4r":
         staged = pairs_pull.pairs_supported(cfg.n_nodes // 2, 1)
     else:
@@ -301,42 +304,53 @@ def _kernel_pull_form(cfg: SimConfig) -> str:
     return "pairs" if staged else "pairs_two_pass"
 
 
-def resolve_phases(cfg: SimConfig, device) -> Phases:
+def resolve_phases(cfg: SimConfig, device, sweep: bool = False) -> Phases:
     """Resolve both phases of a round once (the counterpart of the
     reference's ``pallas_fallback_reason`` / ``pallas_path_engaged`` /
     ``fd_phase_engaged``).
 
     The pull is "pairs" or "pairs_two_pass" (the pair-fused pull, one or
     two launches a sub-exchange), "m8" or "m8_two_pass" (pinned by
-    ``pallas_variant="m8"``), or "plain": no kernels wanted, or the one
-    route the reference serves with XLA for want of a kernel,
-    "packed_dtype" (the u4r rung with heartbeats, or pinned to m8: only
-    the pairs kernels carry the nibble codec, and only in the lean
-    profile). A config that asks for the kernels and that they cannot
-    take raises ``NotImplementedError``.
+    ``pallas_variant="m8"``), or "plain": no kernels wanted, or a route
+    the reference serves with XLA for want of a kernel, "packed_dtype"
+    (the u4r rung with heartbeats, or pinned to m8: only the pairs
+    kernels carry the nibble codec, and only in the lean profile) or
+    "fanout" (fanout 0: no sub-exchange exists to carry the diagonal
+    refresh and the FD epilogue).
 
     The FD phase is "fused" (the epilogue of the round's last pairs
-    sub-exchange), "kernel" (the standalone pass; the m8 forms' too, as
-    in the reference), "plain", or "off" (no failure detector). The
-    shrunk bookkeeping off the pairs path runs plain, as the standalone
-    kernel (nor the reference's) does not take it: where the kernels are
-    wanted that is "fd_packed_bookkeeping"."""
+    sub-exchange), "kernel" (the standalone pass; the m8 forms' and
+    fanout 0's too, as in the reference), "plain", or "off" (no failure
+    detector). The shrunk bookkeeping off the pairs path runs plain, as
+    the standalone kernel (nor the reference's) does not take it: where
+    the kernels are wanted that is "fd_packed_bookkeeping".
+
+    ``sweep``: the round of a sweep's lanes (``sweep_step``). Only the
+    pairs forms carry the lane axis, as in the reference: a sweep pinned
+    to m8 runs its pull plain ("sweep_needs_pairs"), and a sweep's FD
+    phase off the pairs forms runs plain (the standalone FD kernel has
+    no lane axis)."""
     wanted = kernels_wanted(cfg, device)
     pull_fallback = None
     if wanted and cfg.version_dtype == "u4r" and (
         cfg.track_heartbeats or cfg.pallas_variant == "m8"
     ):
         pull_fallback = "packed_dtype"
+    elif wanted and cfg.fanout < 1:
+        pull_fallback = "fanout"
     pull = _kernel_pull_form(cfg) if wanted and pull_fallback is None else "plain"
+    if sweep and pull in M8_FORMS:
+        pull, pull_fallback = "plain", "sweep_needs_pairs"
     fd, fd_fallback = "off", None
     if cfg.track_failure_detector:
         if cfg.use_pallas_fd is False:
             fd = "plain"
         elif pull in PAIRS_FORMS:
             fd = "fused"
-        elif fd_bookkeeping_packed(cfg):
+        elif sweep or fd_bookkeeping_packed(cfg):
             fd = "plain"
-            fd_fallback = "fd_packed_bookkeeping" if wanted else None
+            if wanted and fd_bookkeeping_packed(cfg):
+                fd_fallback = "fd_packed_bookkeeping"
         elif cfg.use_pallas_fd is True or wanted:
             fd = "kernel"
         else:
@@ -351,7 +365,7 @@ def pull_phase_engaged(cfg: SimConfig, device) -> str:
 
 def pull_fallback_reason(cfg: SimConfig, device) -> str | None:
     """Why a config that asks for the kernels runs its pull plain anyway
-    ("packed_dtype"), or None (``resolve_phases``)."""
+    ("packed_dtype", "fanout"), or None (``resolve_phases``)."""
     return resolve_phases(cfg, device).pull_fallback
 
 
@@ -562,6 +576,187 @@ def _m8_exchanges(cfg, pull, w, hb, alive, draws, max_version, heartbeat, salt_o
     return w, hb
 
 
+# -- the round of a sweep's lanes -----------------------------------------------------
+
+
+def lane_fanouts(cfg: SimConfig, sweep: SweepParams, lanes: int, device) -> torch.Tensor:
+    """(S,) int64 fanout of each lane: the swept values, else the
+    config's for all."""
+    if sweep.fanout is not None:
+        return sweep.fanout.to(device=device, dtype=torch.int64)
+    return torch.full((lanes,), cfg.fanout, dtype=torch.int64, device=device)
+
+
+def lane_salt_table(
+    first_tick: int, rounds: int, fanout: int, lane_fanout: torch.Tensor,
+    run_salts: torch.Tensor,
+) -> torch.Tensor:
+    """(rounds, fanout, S) int32 salt_mix of every sub-exchange of rounds
+    ``first_tick ..`` (post-increment ticks) and every lane, built on the
+    lanes' device in one pass: the reference's salt ``tick * (2 *
+    f_lane) + 2 * c`` (a lane's salt spacing is its own fanout's) xor
+    the lane's run salt."""
+    dev = lane_fanout.device
+    ticks = torch.arange(first_tick, first_tick + rounds, dtype=torch.int64, device=dev)
+    subs = torch.arange(fanout, dtype=torch.int64, device=dev)
+    salt = ticks[:, None, None] * (2 * lane_fanout)[None, None, :] + 2 * subs[None, :, None]
+    return prng.salt_mix(salt, run_salts.to(dev)[None, None, :])
+
+
+def lane_configs(cfg: SimConfig, sweep: SweepParams, lanes: int) -> list[SimConfig]:
+    """Each lane's config as a sequential run would hold it (the swept
+    values as static fields), pinned to the plain round: the sweep's
+    plain route runs every lane through ``sim_step`` with it."""
+    values = {
+        name: getattr(sweep, name).tolist()
+        for name in ("fanout", "phi_threshold", "writes_per_round")
+        if getattr(sweep, name) is not None
+    }
+    return [
+        dataclasses.replace(
+            cfg, use_pallas=False, use_pallas_fd=False,
+            **{k: v[s] for k, v in values.items()},
+        )
+        for s in range(lanes)
+    ]
+
+
+def sweep_step(
+    states: SimState,
+    keys: torch.Tensor,
+    cfg: SimConfig,
+    sweep: SweepParams,
+    *,
+    tick: int,
+    draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    salts: torch.Tensor,
+    run_salts: list[int],
+    active: torch.Tensor | None,
+    return_converged: bool = False,
+):
+    """Advance every lane of a sweep by one gossip round (the reference's
+    ``sim_step`` under its lane ``vmap``): lane s equals ``sim_step`` of
+    a sequential run with seed ``keys[s]`` and the lane's values of
+    ``sweep`` as static config fields.
+
+    ``states`` is lane-batched (``init_lanes``), ``keys`` the (S, 2) lane
+    keys, ``tick`` the host value of the (shared) pre-round tick.
+    ``draws`` are the round's (gm, c, p) of every lane, (fanout, S, ...)
+    (``prng.round_draws`` of the keys), ``salts`` the round's (fanout, S)
+    salt_mix table (``lane_salt_table``), ``run_salts`` the lanes' run
+    salts as host ints and ``active`` the (fanout, S) bool table of the
+    sub-exchanges each lane runs (``c < f_lane``; None when fanout is not
+    swept).
+
+    On the pairs forms each sub-exchange is one lane launch for all S
+    lanes (two in the two-pass form: the totals, then the pull), on the
+    lanes' salts; a lane whose fanout is below the config's voids its
+    sub-exchanges ``c >= f_lane`` (``valid`` all 0) while the refresh
+    still rides c = 0 and the check and the FD epilogue (with the lane's
+    phi) c = fanout - 1. Elsewhere every lane runs the plain round.
+    ``return_converged=True`` also returns the (S,) bool flags."""
+    reason = unported_reason(cfg)
+    if reason is not None:
+        counters.refuse(reason)
+    lanes, new_tick = states.w.shape[0], tick + 1
+    phases = resolve_phases(cfg, states.w.device, sweep=True)
+    for why in (phases.pull_fallback, phases.fd_fallback):
+        if why is not None:
+            counters.fallbacks[why] += 1
+    if phases.pull not in PAIRS_FORMS:
+        return _plain_lanes(states, keys, cfg, sweep, tick, draws, run_salts,
+                            return_converged)
+    gm_all, c_all, p_all = draws
+
+    alive = states.alive
+    alive_i32 = alive.to(torch.int32)
+    heartbeat = states.heartbeat + alive_i32
+    wpr = cfg.writes_per_round
+    if sweep.writes_per_round is not None:
+        wpr = sweep.writes_per_round.to(torch.int32)[:, None]
+    max_version = states.max_version + wpr * alive_i32
+    track_hb, packed = cfg.track_heartbeats, is_packed_w(states.w)
+    fused = phases.fd == "fused"
+    w, hb = states.w, states.hb_known
+    # As in sim_step: the FD epilogue reads the round-start hb unless it
+    # fuses into a fanout-1 round's only launch.
+    hb_round_start = None
+    if cfg.track_failure_detector and not (fused and cfg.fanout == 1):
+        hb_round_start = hb.clone()
+    flag = None
+    for c in range(cfg.fanout):
+        first, last = c == 0, c == cfg.fanout - 1
+        valid = alive & torch.gather(alive, 1, p_all[c].long())
+        if active is not None:
+            valid &= active[c][:, None]
+        kw = {}
+        if first:
+            kw["mv"] = max_version - states.max_version if packed else max_version
+            if track_hb:
+                kw["hbv"] = heartbeat
+        if phases.pull == "pairs_two_pass":
+            kw["totals"] = pairs_totals.pairs_totals_lanes(
+                w, gm_all[c], c_all[c], valid, mv=kw.get("mv")
+            )
+        if last and return_converged:
+            kw["check"] = (max_version, alive, alive)
+        if last and fused:
+            kw["hbv"] = heartbeat
+            kw["fd"] = pairs_pull.FdOperands(
+                new_tick, states.last_change, states.imean, states.icount,
+                states.live_view, hb_round_start, FdParams.from_config(cfg),
+                phi=sweep.phi_threshold,
+            )
+        out = pairs_pull.pairs_pull_lanes(
+            w, hb if track_hb else None, gm_all[c], c_all[c], valid, salts[c],
+            cfg.budget, **kw,
+        )
+        if out is not None:
+            flag = out
+    if cfg.track_failure_detector and not fused:
+        # use_pallas_fd=False: the plain FD phase, lane by lane with
+        # each lane's phi (the epilogue's input hb0 kept above).
+        for s, lane_cfg in enumerate(lane_configs(cfg, sweep, lanes)):
+            fd_mod.fused_fd_plain(
+                new_tick, hb[s], hb_round_start[s], heartbeat[s], states.last_change[s],
+                states.imean[s], states.icount[s], states.live_view[s],
+                FdParams.from_config(lane_cfg),
+            )
+            counters.plain_calls["fd"] += 1
+    new = states.replace(
+        tick=states.tick + 1, max_version=max_version, heartbeat=heartbeat, w=w,
+        hb_known=hb,
+    )
+    if not return_converged:
+        return new
+    return new, flag > 0
+
+
+def _plain_lanes(states, keys, cfg, sweep, tick, draws, run_salts, return_converged):
+    """The plain route of ``sweep_step``: each lane runs ``sim_step``'s
+    plain round with its own config on its views of the batch, and what
+    the round wrote into new tensors is copied back into the batch."""
+    gm_all, c_all, p_all = draws
+    flags = []
+    for s, lane_cfg in enumerate(lane_configs(cfg, sweep, states.w.shape[0])):
+        f = lane_cfg.fanout
+        view = lane(states, s)
+        out = sim_step(
+            view, keys[s], lane_cfg, tick=tick, run_salt=run_salts[s],
+            draws=(gm_all[:f, s], c_all[:f, s], p_all[:f, s]),
+            return_converged=return_converged,
+        )
+        new, conv = out if return_converged else (out, None)
+        for name in STATE_FIELDS:
+            src, dst = getattr(new, name), getattr(view, name)
+            if src.data_ptr() != dst.data_ptr() and src.numel():
+                dst.copy_(src)
+        flags.append(conv)
+    if not return_converged:
+        return states
+    return states, torch.stack(flags)
+
+
 # -- row blocks ---------------------------------------------------------------------
 
 
@@ -580,16 +775,18 @@ def row_blocks(n: int, n_cols: int | None = None):
     return ((r0, min(r0 + rows, n)) for r0 in range(0, n, rows))
 
 
-def pair_row_blocks(p: torch.Tensor):
+def pair_row_blocks(p: torch.Tensor, leaders: torch.Tensor | None = None):
     """The rows of an involution ``p``'s pairs in blocks of about
     ``ROW_BLOCK_ELEMS`` elements: each block holds whole pairs (leader
     rows ``i <= p[i]``, then their partners that are other rows) and each
     row lies in one block, so a pass that writes a block's rows from
     their pre-exchange values may update the matrix in place. Yields
-    ``(rows, p[rows])`` as int64 tensors."""
+    ``(rows, p[rows])`` as int64 tensors. ``leaders`` (int64 leader
+    rows) restricts the blocks to those rows' pairs."""
     n = p.shape[0]
-    ids = torch.arange(n, device=p.device)
-    leaders = ids[ids <= p]
+    if leaders is None:
+        ids = torch.arange(n, device=p.device)
+        leaders = ids[ids <= p]
     per = max(1, ROW_BLOCK_ELEMS // (2 * n))
     for k in range(0, leaders.numel(), per):
         lead = leaders[k : k + per]
@@ -715,4 +912,60 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
         denom = pair_count - n_alive  # alive pairs off the diagonal
         out["fd_false_positives"] = fp
         out["fd_false_positive_fraction"] = fp / torch.clamp(denom, min=1)
+    return out
+
+
+# -- staleness ----------------------------------------------------------------------
+
+# The nearest-rank percentiles the staleness tensor is compressed to (the
+# reference's obs.sim.STALENESS_PCTS): keys ``staleness_p<label>``.
+STALENESS_PCTS = (("50", 0.50), ("99", 0.99), ("100", 1.0))
+
+
+def staleness_tensor(state: SimState) -> torch.Tensor:
+    """(N,) int32 per-node staleness (the reference's
+    ``staleness_tensor``): how many key-versions node ``i`` lags behind
+    the alive owner it is most behind on, 0 for dead observers and at
+    full convergence. Reduced over blocks of rows, the packed rung
+    widened a block at a time."""
+    alive, need = state.alive, state.max_version.to(torch.int32)
+    n = alive.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=alive.device)
+    for r0, r1 in row_blocks(n):
+        pair = alive[r0:r1, None] & alive[None, :]
+        lag = torch.where(pair, need[None, :] - watermarks_i32(state, rows=slice(r0, r1)), 0)
+        out[r0:r1] = torch.clamp(lag.max(dim=1).values, min=0)
+    return out
+
+
+def version_spread(state: SimState) -> torch.Tensor:
+    """The worst version lag over alive (observer, owner) pairs: the max
+    of ``staleness_tensor``."""
+    return staleness_tensor(state).max()
+
+
+def _nearest_rank(n: int, q: float) -> int:
+    """Nearest-rank pick index over n sorted values."""
+    return min(n - 1, int(q * (n - 1) + 0.5))
+
+
+def staleness_percentiles(state: SimState, per_node: torch.Tensor | None = None) -> dict:
+    """The staleness tensor (``per_node``, computed when not given)
+    compressed to its nearest-rank percentiles ``staleness_p50`` /
+    ``p99`` / ``p100``, as device scalars."""
+    if per_node is None:
+        per_node = staleness_tensor(state)
+    ordered = torch.sort(per_node).values
+    n = int(per_node.shape[0])
+    return {f"staleness_p{label}": ordered[_nearest_rank(n, q)] for label, q in STALENESS_PCTS}
+
+
+def metrics_sample(state: SimState) -> dict[str, torch.Tensor]:
+    """``convergence_metrics`` with the version spread and the staleness
+    percentiles (the reference's ``_metrics_sample``, a sweep's per-lane
+    bundle), one staleness pass for both."""
+    out = convergence_metrics(state)
+    per_node = staleness_tensor(state)
+    out["version_spread"] = per_node.max()
+    out.update(staleness_percentiles(state, per_node))
     return out

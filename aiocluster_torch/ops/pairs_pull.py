@@ -16,6 +16,11 @@ shared memory and so takes any width). A uint8 ``w`` is the packed u4r
 rung (sim/packed.py; lean profile only, as in the reference): ``mv`` is
 then the owners' write bump of the round.
 
+``pairs_pull_lanes`` is the lane lift of a sweep (the reference's
+``fused_pull_pairs_lanes``): every operand carries a leading lane axis S,
+each lane with its own salt and FD phi, and one launch serves all S
+lanes; lane s computes exactly ``pairs_pull`` on lane s's operands.
+
 Both versions update ``w``/``hb`` (and the FD bookkeeping) IN PLACE and
 write ``fd.live``. CPU tensors take the plain version; CUDA tensors
 launch the kernel or raise.
@@ -45,7 +50,9 @@ class FdOperands:
     """The fused FD epilogue's operands: the round's tick, the FD
     bookkeeping (updated in place), the live view (written), the
     round-start heartbeat matrix (None at fanout == 1, where the input hb
-    IS the round-start matrix) and the constants."""
+    IS the round-start matrix) and the constants. A lane launch may give
+    ``phi``, an (S,) float32 tensor of each lane's threshold, in place of
+    ``params.phi``."""
 
     tick: int
     lc: torch.Tensor
@@ -54,6 +61,17 @@ class FdOperands:
     live: torch.Tensor
     hb0: torch.Tensor | None
     params: FdParams
+    phi: torch.Tensor | None = None
+
+    def lane(self, s: int) -> "FdOperands":
+        """Lane ``s``'s operands of a lane launch, with its own phi."""
+        params = self.params
+        if self.phi is not None:
+            params = dataclasses.replace(params, phi=float(self.phi[s]))
+        return FdOperands(
+            self.tick, self.lc[s], self.im[s], self.ic[s], self.live[s],
+            None if self.hb0 is None else self.hb0[s], params,
+        )
 
 
 def pairs_supported(n_cols: int, itemsize: int) -> bool:
@@ -79,12 +97,16 @@ def compiled_static_smem(name: str = "pairs_pull") -> int:
 def pairs_pull_plain(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
+    leaders=None,
 ):
     """The plain version of ``pairs_pull`` (same operands, same in-place
     effect, same returned flag). It runs over blocks of row pairs: each
     block's rows are computed from their pre-exchange values and written
     back, as the kernel's CTAs do, so it runs at any width the kernel
-    does."""
+    does. ``leaders`` (int64 leader rows ``i <= p[i]``) computes only
+    those rows' pairs (and their flag): a sample, for holding a kernel
+    launch at a width where a second copy of every matrix does not
+    fit."""
     dev = w.device
     packed = is_packed_w(w)
     _check_packed(packed, hb, fd)
@@ -94,7 +116,7 @@ def pairs_pull_plain(
     if check is not None:
         needed, alive, alive_owner = check
         need = torch.where(alive_owner, needed.to(torch.int32), 0)
-    for rows, partners in gossip.pair_row_blocks(p):
+    for rows, partners in gossip.pair_row_blocks(p, leaders):
         v = valid[rows]
         row_totals = None if totals is None else totals[rows]
         if packed:
@@ -173,40 +195,95 @@ def pairs_pull(
             w, hb, gm, c, valid, salt, run_salt, budget,
             mv=mv, hbv=hbv, check=check, fd=fd, totals=totals,
         )
-    n, dev = w.shape[0], w.device
+    salt_mix = (int(salt) & prng.M32) ^ (int(run_salt) & prng.M32)
+    return _launch(w, hb, gm, c, valid, salt_mix, budget, (), mv, hbv, check, fd, totals)
+
+
+def pairs_pull_lanes_plain(
+    w, hb, gm, c, valid, salt_mix, budget, *,
+    mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
+):
+    """The plain version of ``pairs_pull_lanes``: ``pairs_pull_plain`` on
+    each lane's operands with the lane's salt and phi, lane after lane.
+    Returns the (S,) int32 flags with ``check``, else None."""
+    flags = []
+    for s in range(w.shape[0]):
+        def at(t):
+            return None if t is None else t[s]
+
+        flag = pairs_pull_plain(
+            w[s], at(hb), gm[s], c[s], valid[s], int(salt_mix[s]), 0, budget,
+            mv=at(mv), hbv=at(hbv), fd=None if fd is None else fd.lane(s),
+            check=None if check is None else tuple(t[s] for t in check),
+            totals=at(totals),
+        )
+        flags.append(flag)
+    return None if check is None else torch.cat(flags)
+
+
+def pairs_pull_lanes(
+    w, hb, gm, c, valid, salt_mix, budget, *,
+    mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
+):
+    """One pair-fused sub-exchange of S sweep lanes in one launch, in
+    place: ``pairs_pull`` with a leading lane axis on every operand —
+    (S, N, N) matrices, (S, N/8) matchings, (S, N) vectors — and
+    ``salt_mix`` an (S,) int32 tensor of each lane's sub-exchange salt
+    xor its run salt (the bits as uint32). ``fd.phi`` (S,) float32 gives
+    each lane's threshold (``fd.params.phi`` for all when None).
+    Returns the (S,) int32 flags with ``check``, else None."""
+    if w.device.type == "cpu":
+        counters.plain_calls["pull"] += 1
+        return pairs_pull_lanes_plain(
+            w, hb, gm, c, valid, salt_mix, budget,
+            mv=mv, hbv=hbv, check=check, fd=fd, totals=totals,
+        )
+    lanes = (w.shape[0],)
+    expect("salt_mix", salt_mix, torch.int32, lanes, w.device, align=4)
+    if fd is not None and fd.phi is not None:
+        expect("phi", fd.phi, torch.float32, lanes, w.device, align=4)
+    return _launch(w, hb, gm, c, valid, salt_mix, budget, lanes, mv, hbv, check, fd, totals)
+
+
+def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals):
+    """Check the operands of a launch over ``lanes`` (``()``: one
+    sub-exchange; ``(S,)``: S lanes, ``salt`` their (S,) salt_mix, else
+    the salt_mix int) and launch the kernel."""
+    dev = w.device
+    n = w.shape[-2]
     packed = is_packed_w(w)
     _check_packed(packed, hb, fd)
     if not packed and w.dtype not in MATRIX_DTYPES:
         raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32/uint8")
-    expect("w", w, w.dtype, (n, n // 2) if packed else (n, n), dev)
+    expect("w", w, w.dtype, (*lanes, n, n // 2) if packed else (*lanes, n, n), dev)
     if totals is not None:
-        if w.shape[1] % 8:
+        if w.shape[-1] % 8:
             raise ValueError(f"pairs kernel needs rows of 8-element vectors, got {w.shape}")
-        expect("totals", totals, torch.float32, (n,), dev)
-    elif not pairs_supported(w.shape[1], w.element_size()):
+        expect("totals", totals, torch.float32, (*lanes, n), dev)
+    elif not pairs_supported(w.shape[-1], w.element_size()):
         raise ValueError(
             f"pairs kernel cannot run n={n} with {w.dtype} watermarks "
             "(needs rows of 8-element vectors, both in shared memory; "
             "pass totals for the two-pass form)"
         )
-    expect("gm", gm, torch.int32, (n // 8,), dev)
-    expect("c", c, torch.int32, (n // 8,), dev)
-    expect("valid", valid, torch.bool, (n,), dev)
+    expect("gm", gm, torch.int32, (*lanes, n // 8), dev)
+    expect("c", c, torch.int32, (*lanes, n // 8), dev)
+    expect("valid", valid, torch.bool, (*lanes, n), dev)
     w_code = U4_CODE if packed else w.element_size()
     h_code = w.element_size()
     if hb is not None:
         if hb.dtype not in MATRIX_DTYPES:
             raise ValueError(f"hb dtype {hb.dtype} is not int8/int16/int32")
-        expect("hb", hb, hb.dtype, (n, n), dev)
+        expect("hb", hb, hb.dtype, (*lanes, n, n), dev)
         h_code = hb.element_size()
     if mv is not None:
-        expect("mv", mv, torch.int32, (n,), dev)
+        expect("mv", mv, torch.int32, (*lanes, n), dev)
         if hb is not None and hbv is None:
             raise ValueError("hbv required when mv is given and hb is tracked")
         if packed:
             mv = pack_u4(mv)  # the write bumps as nibbles, each clipped to 15
     if hbv is not None:
-        expect("hbv", hbv, torch.int32, (n,), dev)
+        expect("hbv", hbv, torch.int32, (*lanes, n), dev)
     need = alive = flag = None
     if check is not None:
         needed, alive, alive_owner = check
@@ -216,12 +293,13 @@ def pairs_pull(
             need = pack_u4(alive_owner.to(torch.int32))
         else:
             need = torch.where(alive_owner, needed.to(torch.int32), 0)
-        expect("alive", alive, torch.bool, (n,), dev)
-        flag = torch.ones(1, dtype=torch.int32, device=dev)
+        expect("alive", alive, torch.bool, (*lanes, n), dev)
+        flag = torch.ones(lanes or (1,), dtype=torch.int32, device=dev)
     fd_ptrs = [None] * 5
     im_code, ic_code, live_bits = 104, 2, 0
     consts = FdParams(0.0, 0, 0.0, 0.0, 0.0)
     tick = 0
+    phi = None
     if fd is not None:
         if hb is None or hbv is None:
             raise ValueError("the fused FD needs hb and hbv")
@@ -230,15 +308,15 @@ def pairs_pull(
         if fd.ic.dtype not in (torch.int8, torch.int16):
             raise ValueError(f"icount dtype {fd.ic.dtype} is not int8/int16")
         live_bits = int(is_packed_live(fd.live))
-        expect("last_change", fd.lc, hb.dtype, (n, n), dev)
-        expect("imean", fd.im, fd.im.dtype, (n, n), dev)
-        expect("icount", fd.ic, fd.ic.dtype, (n, n), dev)
+        expect("last_change", fd.lc, hb.dtype, (*lanes, n, n), dev)
+        expect("imean", fd.im, fd.im.dtype, (*lanes, n, n), dev)
+        expect("icount", fd.ic, fd.ic.dtype, (*lanes, n, n), dev)
         if live_bits:
-            expect("live", fd.live, torch.uint8, (n, n // 8), dev)
+            expect("live", fd.live, torch.uint8, (*lanes, n, n // 8), dev)
         else:
-            expect("live", fd.live, torch.bool, (n, n), dev)
+            expect("live", fd.live, torch.bool, (*lanes, n, n), dev)
         if fd.hb0 is not None:
-            expect("hb0", fd.hb0, hb.dtype, (n, n), dev)
+            expect("hb0", fd.hb0, hb.dtype, (*lanes, n, n), dev)
         fd_ptrs = [
             fd.lc.data_ptr(), fd.im.data_ptr(), fd.ic.data_ptr(),
             fd.live.data_ptr(),
@@ -248,32 +326,36 @@ def pairs_pull(
         ic_code = fd.ic.element_size()
         consts = fd.params
         tick = int(fd.tick)
-    salt_mix = (int(salt) & prng.M32) ^ (int(run_salt) & prng.M32)
+        phi = fd.phi
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    lane_salt = salt if lanes else None
     lib = _build.load("pairs_pull")
     rc = lib.aiocluster_pairs_pull(
         w.data_ptr(), ptr(hb), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
-        n, salt_mix, float(budget), ptr(totals), ptr(mv), ptr(hbv), ptr(need),
-        ptr(alive), ptr(flag), tick, *fd_ptrs,
+        n, 0 if lanes else salt, float(budget), ptr(totals), ptr(mv), ptr(hbv),
+        ptr(need), ptr(alive), ptr(flag), tick, *fd_ptrs,
         consts.max_interval, consts.window, consts.prior_weight,
         consts.prior_wm, consts.phi, w_code, h_code, im_code, ic_code, live_bits,
+        lanes[0] if lanes else 1, ptr(lane_salt), ptr(phi),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "pairs_pull kernel launch")
     counters.launches[
         counter_key(mv is not None, check is not None, fd is not None, totals is not None,
-                    packed)
+                    packed, lanes=bool(lanes))
     ] += 1
     return flag
 
 
 def counter_key(
-    diag: bool, check: bool, fd: bool, totals: bool = False, packed: bool = False
+    diag: bool, check: bool, fd: bool, totals: bool = False, packed: bool = False,
+    lanes: bool = False,
 ) -> str:
-    """The ``counters.launches`` key of a launch in this mode."""
+    """The ``counters.launches`` key of a launch in this mode (``lanes``:
+    a lane launch of a sweep)."""
     flags = [
         f for f, on in (
             ("packed", packed), ("totals", totals), ("diag", diag), ("check", check),
@@ -281,4 +363,4 @@ def counter_key(
         )
         if on
     ]
-    return f"pairs_pull[{'+'.join(flags) or 'pull'}]"
+    return f"pairs_pull[{'lanes+' if lanes else ''}{'+'.join(flags) or 'pull'}]"

@@ -8,8 +8,10 @@ the owners and zero where the pair is not alive. ``pairs_pull(...,
 totals=...)`` applies the advance with them (pass B). With ``mv`` the
 owner diagonal is refreshed first, exactly as pass B refreshes it on the
 round's first sub-exchange (on the packed u4r rung ``mv`` is the
-owners' write bump, as in pass B). CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise.
+owners' write bump, as in pass B). ``pairs_totals_lanes`` is the lane
+lift of a sweep (the reference's ``fused_pull_pairs_totals_lanes``): a
+leading lane axis on every operand, one launch for all lanes. CPU
+tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -56,33 +58,60 @@ def pairs_totals(w, gm, c, valid, *, mv=None) -> torch.Tensor:
     if w.device.type == "cpu":
         counters.plain_calls["totals"] += 1
         return pairs_totals_plain(w, gm, c, valid, mv=mv)
-    n, dev = w.shape[0], w.device
+    return _launch(w, gm, c, valid, mv, ())
+
+
+def pairs_totals_lanes_plain(w, gm, c, valid, *, mv=None) -> torch.Tensor:
+    """The plain version of ``pairs_totals_lanes``: ``pairs_totals_plain``
+    on each lane's operands, lane after lane."""
+    return torch.stack([
+        pairs_totals_plain(w[s], gm[s], c[s], valid[s], mv=None if mv is None else mv[s])
+        for s in range(w.shape[0])
+    ])
+
+
+def pairs_totals_lanes(w, gm, c, valid, *, mv=None) -> torch.Tensor:
+    """(S, N) float32 deficit totals of one sub-exchange of S sweep lanes
+    in one launch: ``pairs_totals`` with a leading lane axis on every
+    operand."""
+    if w.device.type == "cpu":
+        counters.plain_calls["totals"] += 1
+        return pairs_totals_lanes_plain(w, gm, c, valid, mv=mv)
+    return _launch(w, gm, c, valid, mv, (w.shape[0],))
+
+
+def _launch(w, gm, c, valid, mv, lanes) -> torch.Tensor:
+    """Check the operands of a launch over ``lanes`` (``()`` or (S,))
+    and launch the kernel."""
+    n, dev = w.shape[-2], w.device
     packed = is_packed_w(w)
     if not packed and w.dtype not in MATRIX_DTYPES:
         raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32/uint8")
-    expect("w", w, w.dtype, (n, n // 2) if packed else (n, n), dev)
-    if w.shape[1] % 8:
+    expect("w", w, w.dtype, (*lanes, n, n // 2) if packed else (*lanes, n, n), dev)
+    if w.shape[-1] % 8:
         raise ValueError(f"pairs totals kernel needs rows of 8-element vectors, got {w.shape}")
-    expect("gm", gm, torch.int32, (n // 8,), dev)
-    expect("c", c, torch.int32, (n // 8,), dev)
-    expect("valid", valid, torch.bool, (n,), dev)
+    expect("gm", gm, torch.int32, (*lanes, n // 8), dev)
+    expect("c", c, torch.int32, (*lanes, n // 8), dev)
+    expect("valid", valid, torch.bool, (*lanes, n), dev)
     if mv is not None:
-        expect("mv", mv, torch.int32, (n,), dev)
+        expect("mv", mv, torch.int32, (*lanes, n), dev)
         if packed:
             mv = pack_u4(mv)  # the write bumps as nibbles, each clipped to 15
-    totals = torch.empty(n, dtype=torch.float32, device=dev)
+    totals = torch.empty((*lanes, n), dtype=torch.float32, device=dev)
     lib = _build.load("pairs_totals")
     rc = lib.aiocluster_pairs_totals(
         w.data_ptr(), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
         None if mv is None else mv.data_ptr(), totals.data_ptr(), n,
-        U4_CODE if packed else w.element_size(),
+        U4_CODE if packed else w.element_size(), lanes[0] if lanes else 1,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "pairs_totals kernel launch")
-    counters.launches[counter_key(mv is not None, packed)] += 1
+    counters.launches[counter_key(mv is not None, packed, lanes=bool(lanes))] += 1
     return totals
 
 
-def counter_key(diag: bool, packed: bool = False) -> str:
-    """The ``counters.launches`` key of a launch in this mode."""
-    return f"pairs_totals[{'packed+' if packed else ''}{'diag' if diag else 'sum'}]"
+def counter_key(diag: bool, packed: bool = False, lanes: bool = False) -> str:
+    """The ``counters.launches`` key of a launch in this mode (``lanes``:
+    a lane launch of a sweep)."""
+    flags = ("lanes+" if lanes else "") + ("packed+" if packed else "")
+    return f"pairs_totals[{flags}{'diag' if diag else 'sum'}]"

@@ -69,6 +69,16 @@ def key(seed: int) -> torch.Tensor:
     return torch.tensor([0, seed & M32], dtype=torch.int64)
 
 
+def keys(seeds) -> torch.Tensor:
+    """(S, 2) keys of a sweep's lanes, row s equal to ``key(seeds[s])``
+    (the reference's ``vmap(random.key)`` over uint32 seeds, which admits
+    seeds in [0, 2**32) only)."""
+    seeds = [int(s) for s in seeds]
+    if any(not 0 <= s < 2**32 for s in seeds):
+        raise ValueError("sweep seeds must be in [0, 2**32)")
+    return torch.tensor([[0, s] for s in seeds], dtype=torch.int64).reshape(-1, 2)
+
+
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a batch: ``data`` broadcasts against
     the keys' leading axes."""
@@ -180,6 +190,17 @@ def run_salt(run_key: torch.Tensor) -> int:
     return int(bits(run_key))
 
 
+def run_salts(lane_keys: torch.Tensor) -> torch.Tensor:
+    """``run_salt`` of each lane's key: (S, 2) -> (S,) int64 words."""
+    return bits(lane_keys)
+
+
+def salt_mix(salt: torch.Tensor, run_salts: torch.Tensor) -> torch.Tensor:
+    """The kernels' dither salt of each lane, ``(salt ^ run_salt) mod
+    2**32`` as int32 bits (the lane launches read them as uint32)."""
+    return _wrap_i32((salt & M32) ^ (run_salts & M32)).to(torch.int32)
+
+
 def round_draws(
     run_key: torch.Tensor, first_tick: int, rounds: int, n: int, fanout: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -189,13 +210,20 @@ def round_draws(
     ``churn_key, peer_key = split(round_key)``; sub-exchange ``c`` draws
     ``_grouped_matching(fold_in(peer_key, c), n)``. Returns int32
     ``(gm, c, p)`` of shape (rounds, fanout, ...) on the device of
-    ``run_key``, with no host sync on the way."""
+    ``run_key``, with no host sync on the way. ``run_key`` may be a
+    batch of keys (S, 2), a sweep's lanes: every lane's draws come out
+    of the same one pass, laid out (rounds, fanout, S, ...) so that one
+    sub-exchange of all lanes is one contiguous block."""
     dev = run_key.device
+    lead = run_key.shape[:-1]
     ticks = torch.arange(first_tick, first_tick + rounds, dtype=torch.int64, device=dev)
-    round_keys = fold_in(run_key.expand(rounds, 2), ticks)
-    peer_keys = split(round_keys)[:, 1, :]
+    ticks = ticks.reshape(rounds, *(1 for _ in lead))
+    round_keys = fold_in(run_key.expand(rounds, *lead, 2), ticks)
+    peer_keys = split(round_keys)[..., 1, :]
     sub_keys = fold_in(
-        peer_keys[:, None, :],
-        torch.arange(fanout, dtype=torch.int64, device=dev)[None, :],
+        peer_keys[:, None],
+        torch.arange(fanout, dtype=torch.int64, device=dev).reshape(
+            1, fanout, *(1 for _ in lead)
+        ),
     )
     return tuple(t.to(torch.int32) for t in grouped_matching(sub_keys, n))

@@ -5,6 +5,11 @@ replica ``i`` knows about owner ``j`` is one watermark ``w[i, j]`` (a
 version prefix), plus heartbeat knowledge and the phi-accrual failure
 detector's bookkeeping. The state is a frozen dataclass of tensors that
 all live on one device; ``dataclasses.replace`` makes the next one.
+
+A sweep (sim/sweep.py) holds S lanes in one ``SimState`` whose fields
+carry a leading lane axis (``init_lanes``); ``lane(states, s)`` is lane
+s's state as views, and ``SweepParams`` the per-lane values of the
+sweepable scalars.
 """
 
 from __future__ import annotations
@@ -55,6 +60,25 @@ class SimState:
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 
+
+@dataclasses.dataclass(frozen=True)
+class SweepParams:
+    """Per-lane values of the sweepable ``SimConfig`` scalars (the
+    reference's ``SweepParams``): each None (every lane uses the config's
+    value) or an (S,) tensor on the states' device.
+
+    - ``fanout`` (int64, <= cfg.fanout): a lane's sub-exchanges ``c >=
+      fanout`` are voided (their alive-pair mask is all 0) and its dither
+      salts use its own value, so the lane equals a run with
+      ``replace(cfg, fanout=...)``.
+    - ``phi_threshold`` (float32): the FD liveness bound.
+    - ``writes_per_round`` (int32): the owners' write rate.
+    """
+
+    fanout: torch.Tensor | None = None
+    phi_threshold: torch.Tensor | None = None
+    writes_per_round: torch.Tensor | None = None
+
 # Largest representable watermark / heartbeat per dtype rung: init_state
 # and the horizon guard (Simulator._check_horizon) enforce these bounds
 # loudly instead of letting a narrow rung wrap.
@@ -99,6 +123,55 @@ def expected_dtypes(cfg: SimConfig) -> dict[str, str]:
         "live_view": "uint8" if cfg.live_bits else "bool",
         "dead_since": hdt,
     }
+
+
+def init_lanes(
+    cfg: SimConfig, lanes: int, initial_versions=None, *,
+    device: str | torch.device = "cuda",
+) -> SimState:
+    """S = ``lanes`` copies of ``init_state`` in one state whose fields
+    carry a leading lane axis: the broadcast is materialised, as the
+    reference's sweep does, because every lane's matrices are updated in
+    place."""
+    base = init_state(cfg, initial_versions, device=device)
+    return SimState(**{
+        f: getattr(base, f)[None].expand(lanes, *getattr(base, f).shape).clone()
+        for f in STATE_FIELDS
+    })
+
+
+def lane(states: SimState, s: int) -> SimState:
+    """Lane ``s`` of a lane-batched state, as views: writing a field of
+    the lane in place writes the batch."""
+    return SimState(**{f: getattr(states, f)[s] for f in STATE_FIELDS})
+
+
+def check_lanes(states: SimState, cfg: SimConfig, lanes: int, device) -> None:
+    """A provided lane-batched state must hold ``lanes`` lanes of this
+    config's rung, field for field, on ``device`` (nothing is moved or
+    cast silently)."""
+    device = torch.device(device)
+    if states.w.dim() < 1 or states.w.shape[0] != lanes:
+        raise ValueError(
+            f"provided states carry {states.w.shape[0] if states.w.dim() else 0} "
+            f"lanes, expected {lanes}"
+        )
+    want = expected_dtypes(cfg)
+    n = cfg.n_nodes
+    fd = (n, n) if cfg.track_failure_detector else (0, 0)
+    shapes = dict(
+        tick=(), max_version=(n,), heartbeat=(n,), alive=(n,), last_change=fd,
+        imean=fd, icount=fd, dead_since=(0, 0), **expected_shapes(cfg),
+    )
+    for f in STATE_FIELDS:
+        t = getattr(states, f)
+        if t.dtype != DTYPES[want[f]]:
+            raise ValueError(f"states.{f} is {t.dtype}, config expects {want[f]}")
+        if t.device.type != device.type:
+            raise ValueError(f"states.{f} is on {t.device}, expected {device}")
+        shape = shapes[f]
+        if tuple(t.shape) != (lanes, *shape):
+            raise ValueError(f"states.{f} shape {tuple(t.shape)} != {(lanes, *shape)}")
 
 
 def init_state(

@@ -60,6 +60,23 @@ short runs at N = 10,240 of every other route the rungs take (the int8
 m8 and FD kernels, fanout 1, the two-pass forms). Each mode is timed
 beside its bound at N = 10,240 and at its run's width.
 
+Then sweeps (phase 11), ``SweepSimulator`` through the lane launches of
+the pairs kernels (one launch a sub-exchange for all S lanes): every lane
+mode held bit-equal to its plain version at N = 10,240 with S = 3 (and
+each lane to the single-lane kernel on its operands); the reference's
+sweep_bench scenario at the headline width (8 lanes, seeds 0-7, phi
+7.0 + 0.25 i) to convergence, every lane equal to its sequential run
+(lane 0 at 24), timed against 8 sequential runs and traced
+(``build/chip_smoke_trace_sweep.json``); a fanout and write-rate sweep
+(a fanout-0 lane beside it, its sequential run through the plain pull
+and the standalone FD kernel); the north star as a 2-lane sweep (seeds
+1 and 2, the two-pass lane launches, lane 0 at 209, lane 1 equal to its
+sequential run); short sweeps through every other lane mode; the
+counters of a sweep pinned to m8 and of a fanout-0 round. Last (phase
+12), ``full_config(65_536)`` past the staged width: the two-pass form
+with the fused FD, one chained round held against the plain versions on
+a sample of row pairs (a second copy of the state does not fit).
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -78,14 +95,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from aiocluster_torch import Simulator, full_config, headline_config, lean_config
+from aiocluster_torch import (
+    Simulator, SweepSimulator, full_config, headline_config, lean_config,
+)
 from aiocluster_torch.ops import (
     _build, counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng,
 )
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
 from aiocluster_torch.sim.packed import pack_bits, unpack_bits, unpack_u4
-from aiocluster_torch.sim.state import STATE_FIELDS
+from aiocluster_torch.sim.state import STATE_FIELDS, lane
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
@@ -98,6 +117,7 @@ FULL_WIDTH_ROUNDS = 100  # the north star's rounds before its parity check
 COLUMN_BLOCKS = 8  # the reference's certified north-star mesh: 8 shards
 TRACE_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
 NORTH_STAR_TRACE = TRACE_PATH.with_name("chip_smoke_trace_north_star.json")
+SWEEP_TRACE = TRACE_PATH.with_name("chip_smoke_trace_sweep.json")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Integer/float operations per element, counted from the kernel source:
 # per row direction the deficit (3), the hash and dither (13), the
@@ -1510,10 +1530,10 @@ def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8):
     return sim, converged, launches, run_s, torch.cuda.max_memory_allocated() / 1e9
 
 
-def round_rate(sim, rounds=16):
+def round_rate(sim, rounds=16, warmup=2):
     """ms a round on the host clock over ``rounds`` untracked rounds
-    (after two of warm-up)."""
-    sim.run(2)
+    after ``warmup`` of them."""
+    sim.run(warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run(rounds)
@@ -2098,6 +2118,869 @@ def ladder_entries(dev, errs, runs, main_times):
     return entries
 
 
+# -- sweeps: the lane lift of the pairs kernels (phase 11) ---------------------
+
+# sweep_bench.measure's scenario ladder at the headline width: 8 lanes,
+# seeds 0-7, phi_threshold 7.0 + 0.25 i.
+SWEEP_SEEDS = list(range(8))
+SWEEP_PHIS = [7.0 + 0.25 * i for i in range(8)]
+FANOUT_SWEEP = dict(fanout=[0, 1, 2, 3], writes_per_round=[0, 1, 2, 1])
+FANOUT_SWEEP_ROUNDS = 16
+NS_PAIR_SEEDS = [1, 2]
+NS_PAIR_CHECK_ROUND = 20  # the north-star pair's w held against seed 2's here
+NS_PAIR_LEADERS = 2048  # row pairs of each lane in its sampled round check
+LANE_S = 3  # lanes of the side sweeps and of the timed lane entries
+LANE_CHECK_S = len(SWEEP_SEEDS)  # lanes of the kernel checks: the phi ladder's
+SIDE_SWEEP_ROUNDS = 6
+# The lane modes' operands per rung (ladder_case), and the modes held.
+LANE_RUNGS = {
+    "int16": dict(wdt=torch.int16, hdt=torch.int16),
+    "lean16": dict(wdt=torch.int16),
+    "int8": dict(wdt=torch.int8),
+    "u4r": dict(wdt="u4"),
+    "shrunk": FD_RUNGS["shrunk"],
+}
+LANE_CHECKS = (
+    ("int16", ("first", "middle", "last_fd", "only_fd")),
+    ("lean16", ("first", "middle", "last")),
+    ("int8", ("first", "middle", "last")),
+    ("u4r", ("first", "middle", "last")),
+    ("shrunk", ("last_fd",)),
+)
+# Bytes a pair of each rung's matrices: (w, hb, imean, icount, live).
+LANE_SIZES = {
+    "int16": (2, 2, 2, 2, 1), "lean16": (2, 0, 2, 2, 1), "int8": (1, 0, 2, 2, 1),
+    "u4r": (0.5, 0, 2, 2, 1), "shrunk": (2, 2, 2, 1, 1 / 8),
+}
+
+
+def lane_case(n, lanes, seed, dev, *, void=True, **kw):
+    """``ladder_case`` operands of ``lanes`` lanes (seeds ``seed ..``)
+    stacked on a leading lane axis, each lane with its own salt, run salt
+    and FD phi (7.0 + 0.5 s). With ``void``, lane 1's alive-pair mask is
+    all 0 (a swept fanout below the bound voids the sub-exchange: the
+    refresh, check and FD still run); the timed cases leave it out, so
+    that every lane does the work its bound counts. Returns a factory of
+    fresh copies: ``fresh()`` of every lane, ``fresh(s)`` of lane ``s``
+    alone as one sub-exchange's operands (``call_pull``)."""
+    cases = [ladder_case(n, seed + s, dev, **kw)() for s in range(lanes)]
+    c0 = cases[0]
+
+    def stack(get):
+        return torch.stack([get(x) for x in cases])
+
+    base = dict(
+        w=stack(lambda x: x["w"]), hb=None if c0["hb"] is None else stack(lambda x: x["hb"]),
+        gm=stack(lambda x: x["gm"]), c=stack(lambda x: x["c"]),
+        valid=stack(lambda x: x["valid"]), budget=c0["budget"],
+        salt_mix=prng.salt_mix(
+            torch.tensor([x["salt"] for x in cases], device=dev),
+            torch.tensor([x["run_salt"] + 977 * s for s, x in enumerate(cases)], device=dev),
+        ),
+    )
+    if void and lanes > 1:
+        base["valid"][1] = False
+    for k in ("mv", "hbv"):
+        if k in c0:
+            base[k] = stack(lambda x, k=k: x[k])
+    if "check" in c0:
+        base["check"] = tuple(stack(lambda x, i=i: x["check"][i]) for i in range(3))
+    fd = None
+    if "fd" in c0:
+        fd = pairs_pull.FdOperands(
+            40, stack(lambda x: x["fd"].lc), stack(lambda x: x["fd"].im),
+            stack(lambda x: x["fd"].ic), stack(lambda x: x["fd"].live),
+            None if c0["fd"].hb0 is None else stack(lambda x: x["fd"].hb0), c0["fd"].params,
+            phi=torch.tensor([7.0 + 0.5 * s for s in range(lanes)], device=dev),
+        )
+    if fd is not None:
+        base["fd"] = fd
+    del cases, c0
+
+    def fresh(s=None):
+        ops = base if s is None else lane_of(base, s)
+        ops = dict(ops, w=ops["w"].clone(), hb=None if ops["hb"] is None else ops["hb"].clone())
+        if fd is not None:
+            f = ops["fd"]
+            ops["fd"] = dataclasses.replace(f, lc=f.lc.clone(), im=f.im.clone(),
+                                            ic=f.ic.clone(), live=f.live.clone())
+        return ops
+
+    return fresh
+
+
+def call_lanes(fn, ops):
+    return fn(
+        ops["w"], ops["hb"], ops["gm"], ops["c"], ops["valid"], ops["salt_mix"], ops["budget"],
+        mv=ops.get("mv"), hbv=ops.get("hbv"), check=ops.get("check"), fd=ops.get("fd"),
+        totals=ops.get("totals"),
+    )
+
+
+def lane_of(ops, s):
+    """Lane ``s`` of lane operands as one sub-exchange's (``call_pull``)."""
+    out = {k: None if v is None else v[s] for k, v in ops.items()
+           if k in ("w", "hb", "gm", "c", "valid", "mv", "hbv", "totals")}
+    out.update(salt=int(ops["salt_mix"][s]) & prng.M32, run_salt=0, budget=ops["budget"])
+    if "check" in ops:
+        out["check"] = tuple(x[s] for x in ops["check"])
+    if "fd" in ops:
+        out["fd"] = ops["fd"].lane(s)
+    return out
+
+
+def lane_key(m, rung, totals=False) -> str:
+    key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], totals, rung == "u4r",
+                                 lanes=True)
+    return f"{key} {rung}"
+
+
+def lane_totals_key(diag, rung) -> str:
+    return f"{pairs_totals.counter_key(diag, rung == 'u4r', lanes=True)} {rung}"
+
+
+def check_lane_kernels(dev):
+    """Phase 11a: the lane launches of S = 8 lanes (the phi ladder's)
+    against their plain versions at N = 10,240, in every mode a sweep
+    runs: int16 with hb (staged first, middle, check+FD, and the fanout-1
+    round's only launch), lean int16, lean int8 and packed u4r (first,
+    middle, check), and the FD epilogue on the shrunk bookkeeping; each
+    staged and totals-fed (the totals lane launch against its plain
+    version, the two-pass pull also against the staged lane launch). Lane
+    s of every staged launch is also held against the single-lane kernel
+    on lane s's operands. Returns each entry's max_abs_err."""
+    errs: dict[str, float] = collections.defaultdict(float)
+    seed = 400
+    for rung, modes in LANE_CHECKS:
+        for name in modes:
+            m = LADDER_MODES[name]
+            seed += 10
+            fresh = lane_case(N, LANE_CHECK_S, seed, dev, **LANE_RUNGS[rung], **m)
+            kern, plain = fresh(), fresh()
+            fk = call_lanes(pairs_pull.pairs_pull_lanes, kern)
+            fp = call_lanes(pairs_pull.pairs_pull_lanes_plain, plain)
+            err = max_abs_err(outputs(kern, fk), outputs(plain, fp))
+            del plain
+            lane_err = 0.0
+            got = outputs(kern, None)
+            for s in range(LANE_CHECK_S):
+                ops_s = fresh(s)
+                f_s = call_pull(pairs_pull.pairs_pull, ops_s)
+                want = [x[s] for x in got] + ([] if fk is None else [fk[s : s + 1]])
+                lane_err = max(lane_err, max_abs_err(outputs(ops_s, f_s), want))
+                del ops_s
+            two, two_plain = fresh(), fresh()
+            args = (two["w"], two["gm"], two["c"], two["valid"])
+            two["totals"] = pairs_totals.pairs_totals_lanes(*args, mv=two.get("mv"))
+            two_plain["totals"] = pairs_totals.pairs_totals_lanes_plain(*args, mv=two.get("mv"))
+            t_err = max_abs_err([two["totals"]], [two_plain["totals"]])
+            ft = call_lanes(pairs_pull.pairs_pull_lanes, two)
+            fpt = call_lanes(pairs_pull.pairs_pull_lanes_plain, two_plain)
+            torch.cuda.synchronize()
+            p_err = max(max_abs_err(outputs(two, ft), outputs(two_plain, fpt)),
+                        max_abs_err(outputs(two, ft), outputs(kern, fk)))
+            key, t_key = lane_key(m, rung), lane_key(m, rung, totals=True)
+            tot_key = lane_totals_key(m["diag"], rung)
+            errs[key] = max(errs[key], err, lane_err)
+            errs[t_key] = max(errs[t_key], p_err)
+            errs[tot_key] = max(errs[tot_key], t_err)
+            flags = "" if fk is None else f" flags={fk.tolist()}"
+            log("lanes", f"n={N} S={LANE_CHECK_S} {rung} {name}: {key} max_abs_err={err} "
+                f"(each lane against the single-lane kernel: {lane_err}); {tot_key} {t_err}; "
+                f"{t_key} {p_err} (against the plain version and the staged launch){flags}")
+            check(err == 0.0 and lane_err == 0.0 and t_err == 0.0 and p_err == 0.0,
+                  f"lane launches of {rung} {name} disagree")
+            del kern, two, two_plain, fresh
+    torch.cuda.empty_cache()
+    return errs
+
+
+def lanes_equal_sequential(sweep, cfg, dev, per_lane, what):
+    """Each lane of ``sweep`` equals a sequential ``Simulator`` run with
+    the lane's seed and values (``per_lane``: field -> list) stepped to
+    the sweep's tick, field for field."""
+    for s, seed in enumerate(sweep.seeds):
+        lane_cfg = dataclasses.replace(cfg, **{k: v[s] for k, v in per_lane.items()})
+        seq = Simulator(lane_cfg, seed=seed, device=dev)
+        seq.run(sweep.tick)
+        torch.cuda.synchronize()
+        check(states_equal(lane(sweep.states, s), seq.state),
+              f"{what}: lane {s} differs from its sequential run")
+        del seq
+
+
+def side_sweeps(dev, card_line):
+    """Phase 11e: short sweeps of S = 3 lanes at N = 10,240 through every
+    lane mode that the main sweeps do not reach: lean int16, int8 and
+    u4r, the shrunk FD bookkeeping, fanout 1 (the round's only launch
+    refreshes, checks and runs the FD), and with no row staged (the
+    shared-memory limit set to the static shared memory, as beyond
+    57,984 int16) every two-pass form. Each lane equals its sequential
+    run. Returns each run's (launches, rounds) by name."""
+    runs = {}
+    head = headline_config()
+    phis = dict(phi_threshold=[7.0, 8.0, 9.0])
+    table = (
+        ("sweep_lean16", lean_config(N, budget=2618), dict(writes_per_round=[0, 1, 0])),
+        ("sweep_int8", lean_config(N, "int8", budget=2618), {}),
+        ("sweep_u4r", lean_config(N, "u4r", budget=2618), {}),
+        ("sweep_shrunk", full_config(N, "shrunk", budget=2618), phis),
+        ("sweep_fanout1", dataclasses.replace(head, fanout=1), phis),
+    )
+    saved = pairs_pull.SMEM_LIMIT
+    for two_pass in (False, True):
+        rows = table
+        if two_pass:
+            rows += (("sweep_headline", head, dict(fanout=[3, 2, 1], **phis)),)
+        pairs_pull.SMEM_LIMIT = pairs_pull.STATIC_SMEM if two_pass else saved
+        try:
+            for name, cfg, per_lane in rows:
+                name += "_two_pass" if two_pass else ""
+                form = gossip.resolve_phases(cfg, dev, sweep=True).pull
+                check(form == ("pairs_two_pass" if two_pass else "pairs"),
+                      f"{name}: the lane kernels are not engaged ({form})")
+                counters.reset()
+                sweep = SweepSimulator(cfg, [0, 1, 2], device=dev, **per_lane)
+                sweep.run_until_converged(max_rounds=SIDE_SWEEP_ROUNDS)  # tracked: the check
+                torch.cuda.synchronize()
+                launches = dict(counters.launches)
+                check(not counters.plain_calls and not counters.fallbacks
+                      and all("[lanes+" in k for k in launches)
+                      and counters.kernel_launches("pairs_pull") == cfg.fanout * sweep.tick,
+                      f"{name}: not one lane launch a sub-exchange ({launches})")
+                lanes_equal_sequential(sweep, cfg, dev, per_lane, name)
+                runs[name] = (launches, sweep.tick)
+                log("side_sweeps", f"{name}: {sweep.tick} tracked rounds of 3 lanes, each lane "
+                    f"equal to its sequential run; launches {launches}")
+                del sweep
+        finally:
+            pairs_pull.SMEM_LIMIT = saved
+    torch.cuda.empty_cache()
+    log("side_sweeps", f"every lane mode ran on a sweep's path; {card_line}")
+    return runs
+
+
+def headline_sweep(dev, card_line):
+    """Phase 11b: the reference's sweep_bench scenario at the headline
+    width: 8 lanes (seeds 0-7, phi 7.0 + 0.25 i) to convergence through
+    the lane launches (one a sub-exchange for all lanes, no plain call).
+    Each lane converges where its sequential run does (lane 0 at 24) and
+    its final state equals that run's stepped to the sweep's tick. Then
+    the wall to convergence against 8 sequential runs (the reference's
+    amortization_ratio), the untracked lane-rounds/s against the
+    sequential rounds/s (both timed as phase 7 times the headline), a
+    trace of 8 rounds, and the peak memory."""
+    cfg = headline_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sweep = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, device=dev)
+    rounds = sweep.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    ticks = sweep.tick
+    launches = dict(counters.launches)
+    check(not counters.plain_calls and not counters.fallbacks and not counters.refusals
+          and all(k.startswith("pairs_pull[lanes+") for k in launches)
+          and counters.kernel_launches("pairs_pull") == 3 * sweep.tick,
+          f"the headline sweep did not take one lane launch a sub-exchange ({launches})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    seq_rounds = []
+    for seed, phi in zip(SWEEP_SEEDS, SWEEP_PHIS):
+        seq = Simulator(dataclasses.replace(cfg, phi_threshold=phi), seed=seed, device=dev)
+        seq_rounds.append(seq.run_until_converged(max_rounds=200))
+        del seq
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    log("sweep", f"headline phi ladder, 8 lanes: converged at {rounds} (sequential runs: "
+        f"{seq_rounds}) after {sweep.tick} rounds; {sweep_s:.3f} s to convergence with "
+        f"init against {seq_s:.3f} s for the 8 sequential runs (amortization "
+        f"{seq_s / sweep_s:.3f}); launches {launches}; peak {peak_gb:.2f} GB")
+    check(rounds == seq_rounds, "a sweep lane converged at another round than its sequential run")
+    check(rounds[0] == CONVERGED_ROUND, f"lane 0 converged at {rounds[0]}, expected 24")
+    lanes_equal_sequential(sweep, cfg, dev, dict(phi_threshold=SWEEP_PHIS), "headline sweep")
+    res = sweep.result()
+    check(res.summary()["lanes_converged"] == 8 and all(
+        r["min_fraction"] == 1.0 and r["version_spread"] == 0 for r in res.rows()),
+        "the sweep's result table disagrees with its converged rounds")
+    # The steady rates, each timed as phase 7 times the headline (chunks
+    # of 16, 8 rounds of warm-up, 48 untracked rounds), in the order
+    # sequential, sweep, sweep, sequential.
+    rate_seq = Simulator(cfg, seed=0, device=dev, chunk=16)
+    rate_sweep = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, device=dev,
+                                chunk=16)
+    seq_a, sweep_a, sweep_b, seq_b = (
+        round_rate(x, 48, warmup=8) for x in (rate_seq, rate_sweep, rate_sweep, rate_seq))
+    del rate_seq, rate_sweep
+    sweep_ms, seq_ms = (sweep_a + sweep_b) / 2, (seq_a + seq_b) / 2
+    lane_rounds_per_s = len(SWEEP_SEEDS) * 1e3 / sweep_ms
+    log("sweep", f"untracked, chunks of 16: {sweep_ms:.3f} ms a sweep round ({sweep_a:.3f}, "
+        f"{sweep_b:.3f}) = {lane_rounds_per_s:.2f} lane-rounds/s against {1e3 / seq_ms:.2f} "
+        f"rounds/s sequential ({seq_ms:.3f} ms a round: {seq_a:.3f}, {seq_b:.3f}): "
+        f"{lane_rounds_per_s * seq_ms / 1e3:.3f}x; {card_line}")
+    prof_rounds = 8
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        with torch.profiler.record_function("chip_smoke.sweep"):
+            sweep.run(prof_rounds)
+            torch.cuda.synchronize()
+    SWEEP_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(SWEEP_TRACE))
+    tb = trace_breakdown(SWEEP_TRACE, "chip_smoke.sweep",
+                         ("aiocluster_torch.draws", "aiocluster_torch.sweep_step"))
+    busy = tb["device_busy_ms"] / tb["window_ms"] if tb["device_events"] else None
+    host = {k: v / prof_rounds for k, v in tb["host_ms"].items()}
+    if busy is not None:
+        log("sweep", f"trace of {prof_rounds} rounds: {tb['window_ms'] / prof_rounds:.3f} ms a "
+            f"round under the profiler, device busy {busy:.1%} "
+            f"({tb['device_busy_ms'] / prof_rounds:.3f} ms a round); host per round: draws "
+            f"{host['aiocluster_torch.draws']:.3f} ms, sweep_step "
+            f"{host['aiocluster_torch.sweep_step']:.3f} ms")
+    del sweep
+    torch.cuda.empty_cache()
+    return {
+        "lanes": len(SWEEP_SEEDS), "seeds": SWEEP_SEEDS, "phi_threshold": SWEEP_PHIS,
+        "rounds_to_convergence": rounds, "rounds_run": ticks,
+        "sweep_wall_seconds": sweep_s, "sequential_wall_seconds": seq_s,
+        "amortization_ratio": seq_s / sweep_s, "round_ms": sweep_ms,
+        "sim_sweep_lane_rounds_per_sec": lane_rounds_per_s,
+        "sequential_rounds_per_s": 1e3 / seq_ms, "sequential_round_ms": seq_ms,
+        "round_ms_each": [sweep_a, sweep_b], "sequential_round_ms_each": [seq_a, seq_b],
+        "peak_memory_gb": peak_gb,
+        "device_busy_share": busy, "host_ms_per_round": host,
+    }, launches
+
+
+def fanout_sweep(dev, card_line):
+    """Phase 11c: fanout and write-rate lanes at the headline width
+    (fanout 0, 1, 2, 3; writes 0, 1, 2, 1), 16 rounds: the lane launches
+    void each lane's sub-exchanges past its fanout, and every lane equals
+    its sequential run (the fanout-0 lane's through C1: the plain pull
+    and the standalone FD kernel)."""
+    cfg = headline_config()
+    counters.reset()
+    sweep = SweepSimulator(cfg, [0, 1, 2, 3], device=dev, **FANOUT_SWEEP)
+    sweep.run(FANOUT_SWEEP_ROUNDS)
+    torch.cuda.synchronize()
+    launches = dict(counters.launches)
+    check(not counters.plain_calls and not counters.fallbacks
+          and counters.kernel_launches("pairs_pull") == 3 * FANOUT_SWEEP_ROUNDS
+          and all(k.startswith("pairs_pull[lanes+") for k in launches),
+          f"the fanout sweep did not take one lane launch a sub-exchange ({launches})")
+    counters.reset()
+    lanes_equal_sequential(sweep, cfg, dev, FANOUT_SWEEP, "fanout sweep")
+    check(counters.fallbacks.get("fanout") == FANOUT_SWEEP_ROUNDS
+          and counters.launches.get("fd") == FANOUT_SWEEP_ROUNDS,
+          "the fanout-0 sequential run did not take the plain pull and the FD kernel")
+    log("sweep", f"fanout {FANOUT_SWEEP['fanout']} writes {FANOUT_SWEEP['writes_per_round']}, "
+        f"{FANOUT_SWEEP_ROUNDS} rounds: every lane equals its sequential run (fanout 0 through "
+        f"C1: fallbacks {dict(counters.fallbacks)}, fd launches {counters.launches['fd']}); "
+        f"sweep launches {launches}; {card_line}")
+    del sweep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rows_equal(a, b) -> bool:
+    """Two (n, n) matrices equal, compared over blocks of rows (no
+    transient the size of a north-star matrix)."""
+    step = max(1, (1 << 26) // a.shape[-1])
+    return all(torch.equal(a[r0 : r0 + step], b[r0 : r0 + step])
+               for r0 in range(0, a.shape[0], step))
+
+
+def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, seed=9):
+    """``sampled_round_check`` for a sweep's lane launches: one round's
+    sub-exchanges of every lane, chained as ``sweep_step`` chains them in
+    the two-pass form (the lanes' own draws and salts), then a fourth
+    whose check every row passes. Each totals lane launch is held against
+    ``pairs_totals_lanes_plain`` over every row of every lane; each pull
+    lane launch runs on the lanes' state itself and is held lane by lane
+    over a seeded sample of ``leaders`` row pairs of that lane
+    (``pairs_pull_plain(leaders=)`` on the rows put back). A seeded
+    tenth of each lane's nodes is dead and half its owners wrote a key.
+    Raises each mode's max_abs_err in ``errs`` under its lane key;
+    returns the round's (key, max_abs_err) pairs."""
+    st, cfg = sweep.states, sweep.cfg
+    n, lanes = cfg.n_nodes, sweep.lanes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    alive = torch.rand(lanes, n, generator=gen, device=dev) < 0.9
+    wrote = torch.rand(lanes, n, generator=gen, device=dev) < 0.5
+    mv = st.max_version + wrote.to(torch.int32)
+    hb = st.hb_known if cfg.track_heartbeats else None
+    heartbeat = None if hb is None else st.heartbeat + alive.to(torch.int32)
+    tick = sweep.tick + 1
+    keys = prng.keys(sweep.seeds)
+    gm_all, c_all, p_all = (t[0] for t in prng.round_draws(keys.to(dev), tick, 1, n, cfg.fanout))
+    salts = gossip.lane_salt_table(
+        tick, 1, cfg.fanout, torch.full((lanes,), cfg.fanout, dtype=torch.int64, device=dev),
+        prng.run_salts(keys).to(dev),
+    )[0]
+    steps = [("first", 0)] + [("middle", c) for c in range(1, cfg.fanout - 1)]
+    steps += [("last", cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
+    ids = torch.arange(n, device=dev)
+    found = []
+    for name, c in steps:
+        mode = LADDER_MODES["last" if name == "need 0" else name]
+        p = p_all[c].long()
+        valid = alive & torch.gather(alive, 1, p)
+        kw = {}
+        if mode["diag"]:
+            kw["mv"] = mv
+            if hb is not None:
+                kw["hbv"] = heartbeat
+        if mode["check"]:
+            kw["check"] = (torch.zeros_like(mv) if name == "need 0" else mv, alive, alive)
+        tk = pairs_totals.pairs_totals_lanes(st.w, gm_all[c], c_all[c], valid, mv=kw.get("mv"))
+        tp = pairs_totals.pairs_totals_lanes_plain(st.w, gm_all[c], c_all[c], valid,
+                                                   mv=kw.get("mv"))
+        t_key = lane_totals_key(mode["diag"], rung)
+        t_err = max_abs_err([tk], [tp])
+        errs[t_key] = max(errs[t_key], t_err)
+        mats = [st.w] + ([] if hb is None else [hb])
+        rows, leads, pre = [], [], []
+        for s in range(lanes):
+            lead = ids[ids <= p[s]]
+            lead = lead[torch.randperm(lead.numel(), generator=gen, device=dev)[:leaders]]
+            partners = p[s][lead]
+            leads.append(lead)
+            rows.append(torch.cat((lead, partners[partners != lead])))
+            pre.append([m[s][rows[s]] for m in mats])
+        fk = pairs_pull.pairs_pull_lanes(st.w, hb, gm_all[c], c_all[c], valid, salts[c],
+                                         cfg.budget, totals=tk, **kw)
+        torch.cuda.synchronize()
+        key = lane_key(mode, rung, totals=True)
+        err, flags = 0.0, []
+        for s in range(lanes):
+            post = [m[s][rows[s]] for m in mats]
+            for m, x in zip(mats, pre[s]):
+                m[s][rows[s]] = x
+
+            def at(t, s=s):
+                return None if t is None else t[s]
+
+            fp = pairs_pull.pairs_pull_plain(
+                st.w[s], at(hb), gm_all[c][s], c_all[c][s], valid[s], int(salts[c][s]), 0,
+                cfg.budget, totals=tp[s], leaders=leads[s], mv=at(kw.get("mv")),
+                hbv=at(kw.get("hbv")),
+                check=None if "check" not in kw else tuple(t[s] for t in kw["check"]),
+            )
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([m[s][rows[s]] for m in mats], post))
+            if fp is not None:
+                flags.append(int(fp[0]))
+        errs[key] = max(errs[key], err)
+        found.append((f"{t_key} ({name})", t_err))
+        found.append((f"{key} ({name})" + ("" if fk is None else
+                      f" flags {fk.tolist()} (samples {flags})"), err))
+        if name == "need 0":
+            check(fk.tolist() == [1] * lanes, "the check flag of a passing sub-exchange is 0")
+        del pre
+    torch.cuda.empty_cache()
+    return found
+
+
+def north_star_pair(dev, card_line, errs):
+    """Phase 11d: the north star's lean_config(100_352, budget=2618) as
+    a 2-lane sweep (seeds 1 and 2, 40.3 GB): each sub-exchange is a
+    totals lane launch and a pull lane launch. At round 20 lane 1's w
+    equals a sequential seed-2 run's (both held: about 60 GB); that run
+    goes on to convergence, then the sweep: lane 0 at 209, lane 1 at
+    the sequential run's round. Then ms a round, the lane launches' times
+    at this width on the converged lanes beside their bounds, and the
+    peak memory. Last, a new pair at round 20 holds one chained round of
+    lane launches against the plain versions
+    (``sampled_lane_round_check``, raising ``errs``): the only lane
+    launches whose lane offsets pass 2**31 elements."""
+    cfg = lean_config(NORTH_STAR_N, budget=2618)
+    n = cfg.n_nodes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sweep = SweepSimulator(cfg, NS_PAIR_SEEDS, device=dev)
+    sweep.run(NS_PAIR_CHECK_ROUND)
+    seq = Simulator(cfg, seed=NS_PAIR_SEEDS[1], device=dev)
+    seq.run(NS_PAIR_CHECK_ROUND)
+    torch.cuda.synchronize()
+    check(rows_equal(sweep.states.w[1], seq.state.w),
+          f"north-star lane 1's w differs from the sequential run at round {NS_PAIR_CHECK_ROUND}")
+    both_gb = torch.cuda.max_memory_allocated() / 1e9
+    seq_round = seq.run_until_converged(max_rounds=400)
+    del seq
+    torch.cuda.empty_cache()
+    counters.reset()
+    t1 = time.perf_counter()
+    rounds = sweep.run_until_converged(max_rounds=400)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = dict(counters.launches)
+    total_s = time.perf_counter() - t0
+    log("sweep", f"north-star pair, seeds {NS_PAIR_SEEDS}: lane 1's w equals the sequential "
+        f"seed-2 run at round {NS_PAIR_CHECK_ROUND} ({both_gb:.2f} GB held); converged at "
+        f"{rounds} (sequential seed 2: {seq_round}) after {sweep.tick} rounds; {run_s:.2f} s "
+        f"from round {NS_PAIR_CHECK_ROUND} ({total_s:.2f} s in all with the sequential run); "
+        f"launches {launches}")
+    check(rounds == [NORTH_STAR_ROUND, seq_round],
+          f"the north-star pair converged at {rounds}, expected [209, {seq_round}]")
+    ticks = sweep.tick
+    subs = 3 * (ticks - NS_PAIR_CHECK_ROUND)
+    check(not counters.plain_calls and not counters.fallbacks
+          and counters.kernel_launches("pairs_pull") == subs
+          and counters.kernel_launches("pairs_totals") == subs
+          and all("[lanes+" in k for k in launches),
+          "the north-star pair did not take two lane launches a sub-exchange")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    round_ms = round_rate(sweep, 8)
+    # Each lane launch at this width, on the converged lanes.
+    st, lanes = sweep.states, len(NS_PAIR_SEEDS)
+    w, alive, mv = st.w, st.alive, st.max_version
+    draws = [prng.grouped_matching(prng.key(9 + s), n) for s in range(lanes)]
+    gm = torch.stack([d[0] for d in draws]).to(dev, torch.int32)
+    c = torch.stack([d[1] for d in draws]).to(dev, torch.int32)
+    salt = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    tot = pairs_totals.pairs_totals_lanes(w, gm, c, alive, mv=mv)
+    times = {}
+    for diag in (True, False):
+        times[lane_totals_key(diag, "lean16")] = (
+            cuda_ms(lambda: pairs_totals.pairs_totals_lanes(
+                w, gm, c, alive, mv=mv if diag else None), 10),
+            bound(lanes * totals_bytes(n, 2, diag=diag), lanes * OPS_TOTALS * n * n / 2),
+        )
+    for name in ("first", "middle", "last"):
+        mm = LADDER_MODES[name]
+        kw = {"mv": mv} if mm["diag"] else {}
+        if mm["check"]:
+            kw["check"] = (mv, alive, alive)
+        times[lane_key(mm, "lean16", totals=True)] = (
+            cuda_ms(lambda: pairs_pull.pairs_pull_lanes(
+                w, None, gm, c, alive, salt, cfg.budget, totals=tot, **kw), 10),
+            bound(lanes * pull_bytes(n, 2, 0, diag=mm["diag"], check=mm["check"], fd=False,
+                                     hb0=False, totals=True),
+                  lanes * OPS_PULL_LEAN * n * n / 2),
+        )
+    torch.cuda.synchronize()
+    for key, (ms, (b_ms, b_by)) in times.items():
+        log("sweep", f"{key} at n={n} S={lanes}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
+    per_round = {k: (2 if "[lanes+sum]" in k else 1) for k in times}
+    kern_ms = sum(per_round[k] * ms for k, (ms, _) in times.items())
+    bound_ms = sum(per_round[k] * b[0] for k, (_, b) in times.items())
+    log("sweep", f"north-star pair: {round_ms:.3f} ms a round ({2e3 / round_ms:.3f} "
+        f"lane-rounds/s); lane launches {kern_ms:.3f} ms a round by CUDA events against a "
+        f"{bound_ms:.3f} ms bound ({bound_ms / kern_ms:.1%}); peak {peak_gb:.2f} GB; {card_line}")
+    del sweep, st, w, tot
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sweep = SweepSimulator(cfg, NS_PAIR_SEEDS, device=dev)
+    sweep.run(NS_PAIR_CHECK_ROUND)
+    round_errs = collections.defaultdict(float)
+    found = sampled_lane_round_check(dev, sweep, "lean16", round_errs)
+    for k, e in round_errs.items():
+        errs[k] = max(errs[k], e)
+    log("sweep", f"north-star pair, one chained round of lane launches {NS_PAIR_CHECK_ROUND} "
+        f"rounds in, {NS_PAIR_LEADERS} row pairs a lane a pull: "
+        + ", ".join(f"{k} max_abs_err={e}" for k, e in found)
+        + f" ({time.perf_counter() - t0:.1f} s with the rounds)")
+    check(all(e == 0.0 for e in round_errs.values()),
+          f"the north-star pair's lane launches disagree: {found}")
+    del sweep
+    torch.cuda.empty_cache()
+    return {
+        "n": n, "seeds": NS_PAIR_SEEDS, "rounds_to_convergence": rounds,
+        "sequential_seed2_round": seq_round, "rounds_run": ticks, "run_s": run_s,
+        "round_ms": round_ms, "lane_rounds_per_s": 2e3 / round_ms,
+        "kernel_ms_per_round": kern_ms, "bound_ms_per_round": bound_ms,
+        "peak_memory_gb": peak_gb, "both_held_gb": both_gb,
+        "round_check_max_abs_err": dict(round_errs), "round_check_leaders": NS_PAIR_LEADERS,
+    }, launches, times
+
+
+def sweep_counters(dev, card_line):
+    """Phase 11f: what the counters show off the lane kernels. A sweep
+    pinned to m8 (no lane lift, as in the reference) runs its pull plain
+    with the fallback "sweep_needs_pairs" and its FD plain, and equals
+    the pairs sweep; a fanout-0 headline round (C1) counts the fallback
+    "fanout" and one fd.cu launch and equals the plain round."""
+    cfg = headline_config()
+    counters.reset()
+    m8 = SweepSimulator(dataclasses.replace(cfg, pallas_variant="m8"), [0, 1], device=dev,
+                        phi_threshold=[7.0, 9.0])
+    m8.run(2)
+    torch.cuda.synchronize()
+    m8_counts = (dict(counters.fallbacks), dict(counters.plain_calls), dict(counters.launches))
+    check(m8_counts == ({"sweep_needs_pairs": 2}, {"pull": 12, "fd": 4}, {}),
+          f"the pinned-m8 sweep's counters: {m8_counts}")
+    pairs = SweepSimulator(cfg, [0, 1], device=dev, phi_threshold=[7.0, 9.0])
+    pairs.run(2)
+    torch.cuda.synchronize()
+    check(states_equal(m8.states, pairs.states), "the pinned-m8 sweep differs from the pairs sweep")
+    del m8, pairs
+    zero = dataclasses.replace(cfg, fanout=0)
+    counters.reset()
+    kern = Simulator(zero, seed=0, device=dev)
+    kern.run(1)
+    torch.cuda.synchronize()
+    zero_counts = (dict(counters.fallbacks), dict(counters.launches), dict(counters.plain_calls))
+    check(zero_counts == ({"fanout": 1}, {"fd": 1}, {}),
+          f"a fanout-0 round's counters: {zero_counts}")
+    plain = Simulator(dataclasses.replace(zero, use_pallas=False, use_pallas_fd=False), seed=0,
+                      device=dev)
+    plain.run(1)
+    torch.cuda.synchronize()
+    check(states_equal(kern.state, plain.state), "the fanout-0 round differs from the plain round")
+    log("sweep", f"pinned-m8 sweep, 2 rounds: (fallbacks, plain calls, launches) {m8_counts}, "
+        f"equal to the pairs sweep; fanout-0 headline round: (fallbacks, launches, plain "
+        f"calls) {zero_counts}, equal to the plain round; {card_line}")
+    del kern, plain
+    torch.cuda.empty_cache()
+    return {"pinned_m8_sweep": m8_counts, "fanout0_round": zero_counts}
+
+
+def lane_bound(n, lanes, rung, m, totals):
+    """The least time of one lane launch: ``lanes`` times one lane's bytes
+    and operations at the rung's sizes."""
+    wsize, hsize, imsize, icsize, livesize = LANE_SIZES[rung]
+    b = pull_bytes(n, wsize, hsize, diag=m["diag"], check=m["check"], fd=m["fd"], hb0=m["hb0"],
+                   imsize=imsize, icsize=icsize, livesize=livesize, totals=totals)
+    ops = (OPS_PULL if hsize else OPS_PULL_LEAN) + (2 * OPS_FD if m["fd"] else 0)
+    return bound(lanes * b, lanes * ops * n * n / 2)
+
+
+def headline_lane_times(dev):
+    """The headline sweep's lane launches at its own shapes (S = 8,
+    N = 10,240, int16 with hb and the FD) by CUDA events, beside S times
+    the single-lane bound: name -> (ms, bound)."""
+    times = {}
+    for i, name in enumerate(("first", "middle", "last_fd")):
+        m = LADDER_MODES[name]
+        ops = lane_case(N, len(SWEEP_SEEDS), 700 + 10 * i, dev, void=False,
+                        **LANE_RUNGS["int16"], **m)()
+        key = lane_key(m, "int16")
+        times[key] = (cuda_ms(lambda: call_lanes(pairs_pull.pairs_pull_lanes, ops), 10),
+                      lane_bound(N, len(SWEEP_SEEDS), "int16", m, False))
+        log("time", f"{key} at S={len(SWEEP_SEEDS)} n={N}: {times[key][0]:.4f} ms (bound "
+            f"{times[key][1][0]:.4f} ms by {times[key][1][1]})")
+        del ops
+    torch.cuda.empty_cache()
+    return times
+
+
+def lane_entries(dev, errs, runs, head_times, ns_times):
+    """The kernel-line entries of every lane mode: each timed at
+    N = 10,240 with S = 3 by CUDA events beside its plain version and
+    its bound (S times one lane's), with the launches of the sweep whose
+    path runs it (each must be > 0); the headline modes also at the phi
+    ladder's S = 8 (``head_times``) and the north star's at its S = 2
+    and width (``ns_times``)."""
+    entries = []
+    pull_line = "aiocluster_tpu/ops/pallas_pull.py:490 (lanes: fused_pull_pairs_lanes :1803)"
+    totals_line = ("aiocluster_tpu/ops/pallas_pull.py:899 "
+                   "(lanes: fused_pull_pairs_totals_lanes :1959)")
+
+    def run_of(rung, mode, totals):
+        if rung == "int16":
+            if mode == "only_fd":
+                return "sweep_fanout1" + ("_two_pass" if totals else "")
+            return "sweep_headline_two_pass" if totals else "sweep_headline"
+        if rung == "lean16" and totals:
+            return "sweep_north_star"
+        return f"sweep_{rung}" + ("_two_pass" if totals else "")
+
+    def entry(name, kernel, line, run, ms, plain_ms, b):
+        launch_key = name.rsplit(" ", 1)[0]
+        launches, rounds = runs[run]
+        check(launches.get(launch_key, 0) > 0, f"{name} was not launched on {run}")
+        extra, msg = {}, ""
+        main = (len(SWEEP_SEEDS), N, *head_times[name]) if name in head_times else (
+            (len(NS_PAIR_SEEDS), NORTH_STAR_N, *ns_times[name]) if name in ns_times else None)
+        if main is not None:
+            extra = dict(lanes_main=main[0], n_main=main[1], ms_main=main[2],
+                         bound_ms_main=main[3][0])
+            msg = f"; {main[2]:.4f} ms at S={main[0]} n={main[1]} (bound {main[3][0]:.4f} ms)"
+        log("time", f"{name}: {ms:.4f} ms at S={LANE_S} n={N} (bound {b[0]:.4f} ms by {b[1]}; "
+            f"plain {plain_ms:.3f} ms){msg}; {launches[launch_key]} launches on {run}")
+        return dict(
+            name=name, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
+            replaces=line, launches=launches[launch_key],
+            launches_per_round=launches[launch_key] / rounds, max_abs_err=errs[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+            path=run, n=N, lanes=LANE_S, **extra,
+        )
+
+    seed = 500
+    for rung, modes in LANE_CHECKS:
+        for mode in modes:
+            m = LADDER_MODES[mode]
+            for totals in (False, True):
+                seed += 10
+                fresh = lane_case(N, LANE_S, seed, dev, void=False, **LANE_RUNGS[rung], **m)
+
+                def prepared(plain=False):
+                    ops = fresh()
+                    if totals:
+                        fn = (pairs_totals.pairs_totals_lanes_plain if plain
+                              else pairs_totals.pairs_totals_lanes)
+                        ops["totals"] = fn(ops["w"], ops["gm"], ops["c"], ops["valid"],
+                                           mv=ops.get("mv"))
+                    return ops
+
+                ops = prepared()
+                ms = cuda_ms(lambda: call_lanes(pairs_pull.pairs_pull_lanes, ops), 10)
+                ops = prepared(plain=True)
+                plain_ms = cuda_ms(lambda: call_lanes(pairs_pull.pairs_pull_lanes_plain, ops),
+                                   1, 1)
+                del ops
+                entries.append(entry(lane_key(m, rung, totals), "pairs_pull", pull_line,
+                                     run_of(rung, mode, totals), ms, plain_ms,
+                                     lane_bound(N, LANE_S, rung, m, totals)))
+        for diag in (True, False):
+            ops = lane_case(N, LANE_S, 600 + diag, dev, void=False, **LANE_RUNGS[rung],
+                            diag=diag, check=False, fd=False, hb0=False)()
+            args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+            mv = ops.get("mv")
+            ms = cuda_ms(lambda: pairs_totals.pairs_totals_lanes(*args, mv=mv), 10)
+            plain_ms = cuda_ms(lambda: pairs_totals.pairs_totals_lanes_plain(*args, mv=mv), 1, 1)
+            entries.append(entry(
+                lane_totals_key(diag, rung), "pairs_totals", totals_line,
+                run_of(rung, "first", True), ms, plain_ms,
+                bound(LANE_S * totals_bytes(N, LANE_SIZES[rung][0], diag=diag),
+                      LANE_S * OPS_TOTALS * N * N / 2),
+            ))
+            del ops
+    torch.cuda.empty_cache()
+    return entries
+
+
+# -- the full profile past the staged width (C2) ---------------------------------
+
+C2_N, C2_ROUNDS, C2_LEADERS = 65_536, 10, 2048
+
+
+def sampled_round_check(dev, sim, errs, leaders=C2_LEADERS, seed=8):
+    """One round's sub-exchanges at the simulator's width, chained as
+    ``sim_step`` chains them in the two-pass form (each totals pass held
+    against its plain version over every row; the first pull refreshes
+    the diagonal, the last carries the check and the fused FD epilogue
+    reading the round-start hb), then a fourth whose check every row
+    passes (need 0: the flag stays 1 over every CTA). A second copy of
+    every matrix does not fit beside a full profile at this width, so
+    the kernel runs on the state itself and each pull is held over a
+    seeded sample of ``leaders`` row pairs: their pre-exchange rows are
+    kept, the kernel's outputs on them read, the rows put back and the
+    plain version run over those pairs alone. A seeded tenth of the
+    nodes is dead and half the owners wrote a key. Raises each mode's
+    max_abs_err in ``errs``; returns the round's (key, max_abs_err)
+    pairs."""
+    st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    wrote = torch.rand(n, generator=gen, device=dev) < 0.5
+    mv = st.max_version + wrote.to(torch.int32)
+    heartbeat = st.heartbeat + alive.to(torch.int32)
+    tick = sim.tick + 1
+    run_key = prng.key(sim.seed)
+    gm_all, c_all, p_all = (
+        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
+    )
+    fd = pairs_pull.FdOperands(tick, st.last_change, st.imean, st.icount, st.live_view,
+                               st.hb_known.clone(), FdParams.from_config(cfg))
+    steps = [("first", 0)] + [("middle", s) for s in range(1, cfg.fanout - 1)]
+    steps += [("last_fd", cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
+    ids = torch.arange(n, device=dev)
+    found = []
+    for name, s in steps:
+        mode = LADDER_MODES["last" if name == "need 0" else name]
+        p = p_all[s].long()
+        valid = alive & alive[p]
+        kw = {}
+        if mode["diag"]:
+            kw.update(mv=mv, hbv=heartbeat)
+        if mode["check"]:
+            kw["check"] = (torch.zeros_like(mv) if name == "need 0" else mv, alive, alive)
+        if mode["fd"]:
+            kw.update(hbv=heartbeat, fd=fd)
+        tk = pairs_totals.pairs_totals(st.w, gm_all[s], c_all[s], valid, mv=kw.get("mv"))
+        tp = pairs_totals.pairs_totals_plain(st.w, gm_all[s], c_all[s], valid, mv=kw.get("mv"))
+        t_key = f"{pairs_totals.counter_key(mode['diag'])} full int16"
+        t_err = max_abs_err([tk], [tp])
+        errs[t_key] = max(errs[t_key], t_err)
+        lead = ids[ids <= p]
+        lead = lead[torch.randperm(lead.numel(), generator=gen, device=dev)[:leaders]]
+        partners = p[lead]
+        rows = torch.cat((lead, partners[partners != lead]))
+        mats = [st.w, st.hb_known] + (
+            [st.last_change, st.imean, st.icount, st.live_view] if mode["fd"] else [])
+        pre = [m[rows] for m in mats]
+        args = (gm_all[s], c_all[s], valid, tick * 2 * cfg.fanout + 2 * s,
+                prng.run_salt(run_key), cfg.budget)
+        fk = pairs_pull.pairs_pull(st.w, st.hb_known, *args, totals=tk, **kw)
+        torch.cuda.synchronize()
+        post = [m[rows] for m in mats]
+        for m, x in zip(mats, pre):
+            m[rows] = x
+        fp = pairs_pull.pairs_pull_plain(st.w, st.hb_known, *args, totals=tp, leaders=lead, **kw)
+        torch.cuda.synchronize()
+        key = (f"{pairs_pull.counter_key(mode['diag'], mode['check'], mode['fd'], True)} "
+               "full int16")
+        err = max_abs_err([m[rows] for m in mats], post)
+        errs[key] = max(errs[key], err)
+        flags = "" if fk is None else f" flag {int(fk[0])} (sample {int(fp[0])})"
+        found.append((f"{t_key} ({name})", t_err))
+        found.append((f"{key} ({name}){flags}", err))
+        if name == "need 0":
+            check(int(fk[0]) == 1, "the check flag of a passing sub-exchange is 0")
+        del pre, post
+    del fd
+    torch.cuda.empty_cache()
+    return found
+
+
+def full_past_staged(dev, card_line):
+    """Phase 12 (C2): the full profile beyond the staged width,
+    full_config(65_536) (int16, about 56 GB with the round-start hb
+    copy): the two-pass pairs form with the fused FD epilogue, a totals
+    and a pull launch a sub-exchange. ``C2_ROUNDS`` rounds from counters
+    at 0, one chained round held against the plain versions
+    (``sampled_round_check``), then its round time and peak memory."""
+    cfg = full_config(C2_N, budget=2618)
+    check(gossip.resolve_phases(cfg, dev) == gossip.Phases("pairs_two_pass", None, "fused", None),
+          "full_config(65_536) does not take the two-pass pairs form with the fused FD")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+    sim.run(C2_ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(counters.launches)
+    check(counters.kernel_launches("pairs_pull") == 3 * C2_ROUNDS
+          and counters.kernel_launches("pairs_totals") == 3 * C2_ROUNDS
+          and launches.get("pairs_pull[totals+fd]") == C2_ROUNDS
+          and not counters.plain_calls and not counters.fallbacks,
+          f"full_config({C2_N}) did not run two launches a sub-exchange ({launches})")
+    errs = collections.defaultdict(float)
+    found = sampled_round_check(dev, sim, errs)
+    check(all(e == 0.0 for e in errs.values()), f"the C2 round disagrees: {found}")
+    round_ms = round_rate(sim, 8)
+    m = sim.metrics()
+    check(np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == C2_N,
+          f"full_config({C2_N}) metrics are not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("c2", f"full_config({C2_N}) int16 two-pass with the fused FD: {C2_ROUNDS} rounds in "
+        f"{run_s:.2f} s with init; launches {launches}; one chained round {C2_ROUNDS} rounds "
+        f"in, {C2_LEADERS} row pairs a pull: " + ", ".join(f"{k} max_abs_err={e}" for k, e in found)
+        + f"; {round_ms:.3f} ms a round; peak {peak_gb:.2f} GB; mean fraction "
+        f"{float(m['mean_fraction']):.4f}; {card_line}")
+    del sim
+    torch.cuda.empty_cache()
+    return {"n": C2_N, "round_ms": round_ms, "peak_memory_gb": peak_gb,
+            "max_abs_err": dict(errs), "sample_leaders": C2_LEADERS, "run_s": run_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2349,6 +3232,24 @@ def main() -> int:
     )
     kernels += ladder_entries(dev, ladder_errs, runs,
                               {**ns8_times, **u4_times, **wide_times, **full_times})
+
+    # Phase 11: sweeps, the lane lift of the pairs kernels: every lane mode
+    # against its plain version, then each sweep from counters at 0 (read
+    # just after), then the lane modes' times.
+    lane_errs = check_lane_kernels(dev)
+    head_sweep, head_sweep_launches = headline_sweep(dev, card_line)
+    fanout_sweep(dev, card_line)
+    ns_pair, ns_pair_launches, ns_pair_times = north_star_pair(dev, card_line, lane_errs)
+    sweep_runs = side_sweeps(dev, card_line)
+    sweep_runs.update(
+        sweep_headline=(head_sweep_launches, head_sweep["rounds_run"]),
+        sweep_north_star=(ns_pair_launches, ns_pair["rounds_run"] - NS_PAIR_CHECK_ROUND),
+    )
+    sweep_counts = sweep_counters(dev, card_line)
+    kernels += lane_entries(dev, lane_errs, sweep_runs, headline_lane_times(dev), ns_pair_times)
+
+    # Phase 12 (C2): the full profile past the staged width.
+    c2 = full_past_staged(dev, card_line)
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -2358,7 +3259,11 @@ def main() -> int:
         f"{ns8[0]['converged_round']} (m8 {ns8_m8[0]['converged_round']}), u4r "
         f"{u4['converged_round']} (int16 keys 15: {u4['int16_keys15_round']}), full deep "
         f"{full['deep']['converged_round']}, shrunk {full['shrunk']['converged_round']}, "
-        f"widest u4r {wide['rounds_per_s']:.3f} rounds/s at {wide['peak_memory_gb']:.1f} GB")
+        f"widest u4r {wide['rounds_per_s']:.3f} rounds/s at {wide['peak_memory_gb']:.1f} GB; "
+        f"sweeps: headline ladder {head_sweep['rounds_to_convergence']} at "
+        f"{head_sweep['sim_sweep_lane_rounds_per_sec']:.2f} lane-rounds/s, north-star pair "
+        f"{ns_pair['rounds_to_convergence']} at {ns_pair['round_ms']:.3f} ms a round; "
+        f"full_config({C2_N}) {c2['round_ms']:.3f} ms a round at {c2['peak_memory_gb']:.1f} GB")
 
     print(card_line)
     print(json.dumps({
@@ -2382,6 +3287,11 @@ def main() -> int:
             "full_shrunk": full["shrunk"], "headline_deep_rounds": head_deep,
             "build_s": _build.build_seconds,
         },
+        "sweeps": {
+            "headline_phi_ladder": head_sweep, "north_star_pair": ns_pair,
+            "counters": sweep_counts,
+        },
+        "full_past_staged": c2,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

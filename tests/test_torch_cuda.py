@@ -553,3 +553,139 @@ def test_simulator_ladder_kernel_path_equals_plain_path(dev, rung, two_pass, mon
         assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
     assert Simulator(cfg, seed=4, device=dev).run_until_converged(100) == Simulator(
         cfg, seed=4, device="cpu").run_until_converged(100)
+
+
+# -- the lane lift of a sweep ------------------------------------------------------
+
+LANES = 3
+
+
+def _lane_operands(n, seed, dev, **kw):
+    """``_ladder_operands`` of LANES lanes stacked on a leading axis (lane
+    1's alive-pair mask all 0: a voided sub-exchange), their salt_mix and
+    per-lane phi."""
+    lanes = [_ladder_operands(n, seed + s, dev, **kw) for s in range(LANES)]
+    ops = {k: None if lanes[0][0][k] is None else torch.stack([o[k] for o, _ in lanes])
+           for k in lanes[0][0]}
+    ops["valid"][1] = False
+    kw0 = lanes[0][1]
+    lkw = {}
+    for k in ("mv", "hbv"):
+        if k in kw0:
+            lkw[k] = torch.stack([k_[k] for _, k_ in lanes])
+    if "check" in kw0:
+        lkw["check"] = tuple(torch.stack([k_["check"][i] for _, k_ in lanes]) for i in range(3))
+    if "fd" in kw0:
+        f = [k_["fd"] for _, k_ in lanes]
+        lkw["fd"] = dataclasses.replace(
+            f[0], lc=torch.stack([x.lc for x in f]), im=torch.stack([x.im for x in f]),
+            ic=torch.stack([x.ic for x in f]), live=torch.stack([x.live for x in f]),
+            hb0=None if f[0].hb0 is None else torch.stack([x.hb0 for x in f]),
+            phi=torch.tensor([7.0, 8.25, 9.5], device=dev),
+        )
+    salt = prng.salt_mix(torch.tensor([7, 2**31 + 5, 123], device=dev),
+                         torch.tensor([0x12345678, 0, 0xFFFFFFFF], device=dev))
+    return ops, lkw, salt
+
+
+def _run_lanes(fn, ops, kw, salt):
+    flag = fn(ops["w"], ops["hb"], ops["gm"], ops["c"], ops["valid"], salt, 40, **kw)
+    outs = [ops["w"]] + ([] if ops["hb"] is None else [ops["hb"]])
+    if "fd" in kw:
+        f = kw["fd"]
+        outs += [f.lc, f.im, f.ic, f.live]
+    return outs + ([flag] if flag is not None else [])
+
+
+LANE_CASES = {
+    "first": dict(wdt=torch.int16, hdt=torch.int16, diag=True, check=False, fd=False, hb0=False),
+    "middle": dict(wdt=torch.int16, hdt=torch.int16, diag=False, check=False, fd=False,
+                   hb0=False),
+    "check_fd": dict(wdt=torch.int16, hdt=torch.int16, diag=False, check=True, fd=True,
+                     hb0=True),
+    "shrunk_only": dict(wdt=torch.int16, hdt=torch.int16, icdt=torch.int8, bits=True,
+                        diag=True, check=True, fd=True, hb0=False),
+    "int8_lean": dict(wdt=torch.int8, diag=True, check=True, fd=False, hb0=False),
+    "u4r": dict(wdt="u4", diag=True, check=True, fd=False, hb0=False),
+}
+
+
+@pytest.mark.parametrize("form", ["staged", "two_pass"])
+@pytest.mark.parametrize("case", list(LANE_CASES))
+def test_pairs_lanes_kernel_equals_plain(dev, case, form):
+    """One lane launch of S = 3 lanes against the plain lane version, and
+    each lane against the single-lane kernel on that lane's operands."""
+    ops, kw, salt = _lane_operands(256, 21, dev, **LANE_CASES[case])
+    kern, plain = _clone(ops, kw), _clone(ops, kw)
+    single = _clone(ops, kw)
+    if form == "two_pass":
+        kern = _with_totals(pairs_totals.pairs_totals_lanes, *kern)
+        plain = _with_totals(pairs_totals.pairs_totals_lanes_plain, *plain)
+        torch.cuda.synchronize()
+        assert torch.equal(kern[1]["totals"], plain[1]["totals"])
+    counters.reset()
+    got = _run_lanes(pairs_pull.pairs_pull_lanes, *kern, salt)
+    assert counters.kernel_launches("pairs_pull") == 1
+    assert all(k.startswith("pairs_pull[lanes") for k in counters.launches)
+    want = _run_lanes(pairs_pull.pairs_pull_lanes_plain, *plain, salt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    s_ops, s_kw = single
+    for s in range(LANES):
+        kw_s = {k: v[s] for k, v in s_kw.items() if k in ("mv", "hbv")}
+        if "check" in s_kw:
+            kw_s["check"] = tuple(x[s] for x in s_kw["check"])
+        if "fd" in s_kw:
+            kw_s["fd"] = s_kw["fd"].lane(s)
+        ops_s = {k: None if v is None else v[s] for k, v in s_ops.items()}
+        if form == "two_pass":
+            kw_s["totals"] = pairs_totals.pairs_totals(
+                ops_s["w"], ops_s["gm"], ops_s["c"], ops_s["valid"], mv=kw_s.get("mv"))
+        flag = pairs_pull.pairs_pull(
+            ops_s["w"], ops_s["hb"], ops_s["gm"], ops_s["c"], ops_s["valid"],
+            int(salt[s]) & prng.M32, 0, 40, **kw_s,
+        )
+        torch.cuda.synchronize()
+        assert torch.equal(ops_s["w"], got[0][s])
+        if flag is not None:
+            assert int(flag[0]) == int(got[-1][s])
+
+
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("wdt", [torch.int16, torch.int8, "u4"], ids=["int16", "int8", "u4r"])
+def test_pairs_totals_lanes_kernel_equals_plain(dev, wdt, diag):
+    ops, kw, _ = _lane_operands(256, 31, dev, wdt=wdt, diag=diag, check=False, fd=False,
+                                hb0=False)
+    args = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+    got = pairs_totals.pairs_totals_lanes(*args, mv=kw.get("mv"))
+    want = pairs_totals.pairs_totals_lanes_plain(*args, mv=kw.get("mv"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not got[1].any()
+
+
+@pytest.mark.parametrize("two_pass", [False, True], ids=["staged", "two_pass"])
+def test_sweep_kernel_path_equals_sequential_runs(dev, two_pass, monkeypatch):
+    """A sweep on the card (fanout, phi and write lanes, a fanout-0 lane):
+    one lane launch a sub-exchange (two in two-pass), no plain call, and
+    each lane equals its sequential run on the card."""
+    from aiocluster_torch import SweepSimulator
+    from aiocluster_torch.sim.state import lane
+
+    if two_pass:
+        monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    cfg = SimConfig(n_nodes=512, keys_per_node=4, fanout=3, budget=64, **NARROW)
+    values = dict(fanout=[0, 2, 3], phi_threshold=[7.0, 8.0, 9.5], writes_per_round=[1, 0, 2])
+    counters.reset()
+    sweep = SweepSimulator(cfg, [1, 2, 3], device=dev, **values)
+    sweep.run(6)
+    torch.cuda.synchronize()
+    assert counters.kernel_launches("pairs_pull") == 18 and not counters.plain_calls
+    assert counters.kernel_launches("pairs_totals") == (18 if two_pass else 0)
+    assert all("[lanes+" in k for k in counters.launches)
+    for s in range(3):
+        seq = Simulator(dataclasses.replace(cfg, **{k: v[s] for k, v in values.items()}),
+                        seed=s + 1, device=dev)
+        seq.run(6)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(lane(sweep.states, s), f), getattr(seq.state, f)), (s, f)

@@ -148,13 +148,19 @@ def test_dispatch_resolution():
     assert gossip.fd_phase_engaged(m8, cuda) == "kernel"
     assert gossip.pull_phase_engaged(m8, cpu) == "plain"
     assert gossip.pull_phase_engaged(dataclasses.replace(head, pallas_variant="pairs"), cuda) == "pairs"
-    # A kernel-wanting config the kernels cannot take is refused (and
-    # counted), never run plain.
+    # Fanout 0 (no sub-exchange to carry the refresh and the FD
+    # epilogue): the pull runs plain with the reference's fallback
+    # "fanout", the FD phase the standalone kernel (plain on the shrunk
+    # bookkeeping), as in the reference. Nothing is refused.
     counters.reset()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
-        gossip.fd_phase_engaged(dataclasses.replace(head, fanout=0), cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
-        Simulator(dataclasses.replace(m8, fanout=0), device=cuda)  # before allocating
+    zero = gossip.Phases("plain", "fanout", "kernel", None)
+    assert gossip.resolve_phases(dataclasses.replace(head, fanout=0), cuda) == zero
+    assert gossip.fd_phase_engaged(dataclasses.replace(head, fanout=0), cuda) == "kernel"
+    assert gossip.resolve_phases(dataclasses.replace(m8, fanout=0), cuda) == zero
+    shrunk = dataclasses.replace(head, fanout=0, icount_dtype="int8", live_bits=True,
+                                 window_ticks=100)
+    assert gossip.resolve_phases(shrunk, cuda) == gossip.Phases(
+        "plain", "fanout", "plain", "fd_packed_bookkeeping")
     # Rows too wide for one block's shared memory take the two-pass form
     # (the totals pass, then the pull fed the totals), FD still fused.
     assert gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "pairs_two_pass"
@@ -179,11 +185,37 @@ def test_dispatch_resolution():
     north_star_m8 = lean_config(100_352, budget=2618, pallas_variant="m8")
     assert gossip.pull_phase_engaged(north_star_m8, cuda) == "m8_two_pass"
     assert gossip.fd_phase_engaged(north_star_m8, cuda) == "off"
-    assert sum(counters.refusals.values()) == 2
-    # use_pallas=True asks for the kernels on the CPU too: the same refusal.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B1e"):
-        gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0, use_pallas=True), cpu)
+    assert not counters.refusals
+    # use_pallas=True asks for the kernels on the CPU too: the same route,
+    # and the reference's gates name it so.
+    wanted_zero = dataclasses.replace(head, fanout=0, use_pallas=True)
+    assert gossip.resolve_phases(wanted_zero, cpu) == zero
+    from aiocluster_tpu.ops import gossip as ref_gossip
+    ref_zero = RefConfig(**dataclasses.asdict(wanted_zero))
+    assert ref_gossip.pallas_fallback_reason(ref_zero) == "fanout"
+    assert ref_gossip.fd_phase_engaged(ref_zero) == "kernel"
     assert gossip.pull_phase_engaged(dataclasses.replace(head, fanout=0), cpu) == "plain"
+
+
+def test_fanout_zero_round_equals_reference():
+    """A fanout-0 headline-shaped config at n = 256 that asks for the
+    kernels: each round (diagonal refresh, no exchange, the FD phase
+    through the standalone FD wrapper) equals the reference's, with the
+    fallback "fanout" counted once a round."""
+    kw = dict(n_nodes=256, keys_per_node=16, fanout=0, budget=2618, writes_per_round=1,
+              **NARROW)
+    rcfg = RefConfig(**dict(kw, use_pallas=False, use_pallas_fd=False))
+    pcfg = SimConfig(**dict(kw, use_pallas=True))
+    rs, ps = ref_init(rcfg), init_state(pcfg, device="cpu")
+    key, pkey = random.key(0), prng.key(0)
+    counters.reset()
+    for r in range(1, 7):
+        rs, rflag = ref_step(rs, key, rcfg, return_converged=True)
+        ps, pflag = gossip.sim_step(ps, pkey, pcfg, return_converged=True)
+        _assert_states_equal(rs, ps, f"round {r}")
+        assert bool(rflag) == bool(pflag) is False
+    assert counters.fallbacks == {"fanout": 6}
+    assert counters.plain_calls == {"fd": 6} and not counters.launches
 
 
 # -- the pinned m8 path ---------------------------------------------------------
