@@ -5,9 +5,12 @@ The reference package (``aiocluster_tpu``, JAX on a TPU) stays as it is;
 this package imports nothing from it, nor JAX. ``Simulator(cfg,
 seed=...)`` follows the reference's trajectory round for round on the
 same ``SimConfig`` and seed, and ``SweepSimulator(cfg, seeds, ...)``
-runs S such scenarios together, one lane each. Its entry points run on
-the CUDA device unless the caller passes ``device="cpu"``, where every
-kernel wrapper takes its plain PyTorch version.
+runs S such scenarios together, one lane each. ``Simulator(cfg,
+mesh=parallel.make_mesh(...))`` holds the state as column blocks of the
+owners over a mesh's devices (the reference's owner-sharded simulator).
+Its entry points run on the CUDA device unless the caller passes
+``device="cpu"`` (or a mesh of CPU devices), where every kernel wrapper
+takes its plain PyTorch version.
 """
 
 from .sim import (

@@ -7,7 +7,11 @@
 // takes int8, int16 and int32 heartbeat matrices with int16 sample
 // counters and a bool live view; the shrunk bookkeeping (int8 counters,
 // the live bitmap) rides only the pair-fused epilogue, as in the
-// reference.
+// reference. The matrices may be a column block of the owners (the
+// reference's owner_offset, fused_fd(owner_offset=)): (n, n_cols) with
+// column j global owner col0 + j, hbv the block's (n_cols,) slice; the
+// self diagonal (live forced true, hb0 refreshed from hbv) lies where
+// col0 + j == row. col0 is one runtime value, not a template mode.
 //
 // What bounds it: bytes. Per (observer, owner) pair it reads hb, hb0,
 // last_change, imean and icount once and writes last_change, imean,
@@ -36,14 +40,16 @@ namespace {
 constexpr int kThreads = 256;
 
 struct FdArgs {
-  const void* hb;   // (n, n) HT post-exchange heartbeat knowledge
-  const void* hb0;  // (n, n) HT round-start heartbeat knowledge
-  const int32_t* hbv;  // (n,) owner heartbeats (hb0's diagonal)
-  void* lc;         // (n, n) HT last_change, in place
-  void* im;         // (n, n) IMT interval mean, in place
-  int16_t* ic;      // (n, n) sample count, in place
-  uint8_t* live;    // (n, n) bool live view, written
-  int32_t n;
+  const void* hb;   // (n, n_cols) HT post-exchange heartbeat knowledge
+  const void* hb0;  // (n, n_cols) HT round-start heartbeat knowledge
+  const int32_t* hbv;  // (n_cols,) owner heartbeats (hb0's diagonal)
+  void* lc;         // (n, n_cols) HT last_change, in place
+  void* im;         // (n, n_cols) IMT interval mean, in place
+  int16_t* ic;      // (n, n_cols) sample count, in place
+  uint8_t* live;    // (n, n_cols) bool live view, written
+  int32_t n;        // rows (all observers)
+  int32_t n_cols;   // the block's owners
+  int32_t col0;     // global owner of column 0
   int32_t tick;
   FdConsts fd;
 };
@@ -51,9 +57,9 @@ struct FdArgs {
 template <typename HT, typename IMT>
 __global__ void __launch_bounds__(kThreads) fd_kernel(FdArgs a) {
   const int n = a.n;
-  const int chunks = n >> 3;
+  const int chunks = a.n_cols >> 3;
   for (int row = blockIdx.x; row < n; row += gridDim.x) {
-    const size_t base = static_cast<size_t>(row) * n;
+    const size_t base = static_cast<size_t>(row) * a.n_cols;
     for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
       const int j0 = k << 3;
       const size_t off = base + j0;
@@ -68,13 +74,13 @@ __global__ void __launch_bounds__(kThreads) fd_kernel(FdArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int j = j0 + e;
-        const int32_t h0 =
-            (j == row) ? a.hbv[j] : static_cast<int32_t>(h08.v[e]);
+        const bool self = a.col0 + j == row;  // the global self diagonal
+        const int32_t h0 = self ? a.hbv[j] : static_cast<int32_t>(h08.v[e]);
         const FdResult r = fd_update(
             a.tick, static_cast<int32_t>(hb8.v[e]), h0,
             static_cast<int32_t>(lc8.v[e]), to_f32(im8.v[e]),
             static_cast<int32_t>(ic8.v[e]), a.fd);
-        const bool live = r.live || j == row;
+        const bool live = r.live || self;
         lc8.v[e] = static_cast<HT>(r.last_change);
         im8.v[e] = from_f32<IMT>(live ? r.imean : 0.0f);
         ic8.v[e] = static_cast<int16_t>(live ? r.icount : 0);
@@ -102,9 +108,11 @@ cudaError_t launch(const FdArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
+// The matrices hold `n_cols` owners from global owner `col0` (n and 0: the
+// whole width).
 extern "C" int aiocluster_fd(const void* hb, const void* hb0, const void* hbv,
                              void* lc, void* im, void* ic, void* live, int n,
-                             int tick, float max_interval, int window,
+                             int n_cols, int col0, int tick, float max_interval, int window,
                              float prior_weight, float prior_wm, float phi,
                              int h_code, int im_code, void* stream) {
   FdArgs a;
@@ -116,6 +124,8 @@ extern "C" int aiocluster_fd(const void* hb, const void* hb0, const void* hbv,
   a.ic = static_cast<int16_t*>(ic);
   a.live = static_cast<uint8_t*>(live);
   a.n = n;
+  a.n_cols = n_cols;
+  a.col0 = col0;
   a.tick = tick;
   a.fd.max_interval = max_interval;
   a.fd.window = window;

@@ -65,21 +65,23 @@ __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
 // advance shrinks the receiver's residual.
 
 // Eight bytes (sixteen owners) of packed row `row` from byte column k0 (a
-// multiple of 8). With DIAG, the round's first sub-exchange's refresh (the
-// reference's _refresh_packed): every residual rises by its owner's write
-// bump (`bump`: the bumps as packed nibbles, each clipped to [0, 15],
-// which keeps the saturating sum exact), saturating at 15, then the row's
-// own owner reads 0.
+// multiple of 8) of a block whose column 0 is global owner col0 (even; 0
+// for the whole width). With DIAG, the round's first sub-exchange's
+// refresh (the reference's _refresh_packed): every residual rises by its
+// owner's write bump (`bump`: the block's bumps as packed nibbles, each
+// clipped to [0, 15], which keeps the saturating sum exact), saturating
+// at 15, then the row's own owner, global owner `row`, reads 0.
 template <bool DIAG>
 __device__ __forceinline__ Vec8<uint8_t> ld8_packed_row(const uint8_t* w_row,
                                                         int row, int k0,
-                                                        const uint8_t* bump) {
+                                                        const uint8_t* bump,
+                                                        int col0 = 0) {
   Vec8<uint8_t> x8 = ld8(w_row + k0);
   if (DIAG) {
     const Vec8<uint8_t> b8 = ld8(bump + k0);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const int owner = 2 * (k0 + e);
+      const int owner = col0 + 2 * (k0 + e);
       int lo = (x8.v[e] & 0xF) + (b8.v[e] & 0xF);
       int hi = (x8.v[e] >> 4) + (b8.v[e] >> 4);
       lo = lo < 15 ? lo : 15;
@@ -121,8 +123,9 @@ __device__ __forceinline__ void add_deficits_packed(const Vec8<uint8_t>& x8,
 // rounded once. A pair with no valid row, or a self-matched row, writes
 // zeros without reading w. The branch depends on i alone, so the whole
 // block takes it and the reductions' barriers stay uniform. PACKED: w is
-// the u4r rung (WT uint8, n_cols bytes a row, col0 0) and `mv` the packed
-// write-bump row; else `mv` is the owners' int32 max_version.
+// the u4r rung (WT uint8, n_cols bytes a row, two owners a byte from
+// global owner col0) and `mv` the block's packed write-bump row; else
+// `mv` is the block's owners' int32 max_version.
 template <typename WT, bool DIAG, bool PACKED = false>
 __device__ __forceinline__ void pair_totals(const WT* w, const int32_t* gm,
                                             const int32_t* c,
@@ -142,9 +145,9 @@ __device__ __forceinline__ void pair_totals(const WT* w, const int32_t* gm,
       const int j0 = k << 3;
       if constexpr (PACKED) {
         const uint8_t* bump = static_cast<const uint8_t*>(mv);
-        add_deficits_packed(ld8_packed_row<DIAG>(wi, i, j0, bump),
-                            ld8_packed_row<DIAG>(wp, p, j0, bump), vi, vp, ti,
-                            tp);
+        add_deficits_packed(ld8_packed_row<DIAG>(wi, i, j0, bump, col0),
+                            ld8_packed_row<DIAG>(wp, p, j0, bump, col0), vi,
+                            vp, ti, tp);
       } else {
         const int32_t* mv32 = static_cast<const int32_t*>(mv);
         add_deficits(ld8_row<WT, DIAG>(wi, i, j0, mv32, col0),

@@ -11,8 +11,9 @@
 // from pairs_totals.cu, the two-pass form for rows too wide to stage) and
 // the packed u4r rung (pairs_packed_kernel: the reference's nibble codec,
 // lean profile only, as there), each also over S sweep lanes in one launch
-// (LANES below: the reference's fused_pull_pairs_lanes). Column blocks
-// (owner_offset) are not ported.
+// (LANES below: the reference's fused_pull_pairs_lanes) and each on a
+// column block of the owners (COLUMN BLOCKS below: the reference's
+// owner_offset, the owner-sharded simulator's blocks).
 //
 // What bounds it: on int16 and int32 rows, bytes: each sub-exchange must
 // read and write every row of w and hb once (4 bytes per pair per int16
@@ -79,6 +80,22 @@
 // whose valid mask is all 0 (a swept fanout below the static bound) still
 // gets the refresh, the check and the FD epilogue, as in the reference.
 //
+// COLUMN BLOCKS (the owner-sharded round): w and the (n, n)-class matrices
+// are (n, n_cols) blocks whose column j is global owner col0 + j; rows
+// stay global (the pairing is over rows, so a CTA's partner row lies in
+// the same block). col0 is one runtime value (no template mode): it keys
+// the diagonal refresh (row i's own owner sits at local column i - col0,
+// in one block only), the dither hash (global owner col0 + j), and the
+// FD epilogue's self diagonal and hb0 refresh; mv, hbv and need are the
+// block's (n_cols,) slices (packed: n_cols / 2 bytes; col0 even), the
+// live bitmap's byte b covers local columns 8b .. 8b + 7 (col0 % 8 ==
+// 0). The sharded round always feeds the rows' global totals (TOTALS),
+// summed over the blocks' pairs_totals.cu shares; a block staged alone
+// sums only its own columns, as the reference's kernel does. The check
+// clears the flag from the block's columns; the round takes the min over
+// the blocks. Every offset into a block is size_t (n * n_cols passes
+// 2^31 at the north star's width).
+//
 // Bit parity with the reference and the plain PyTorch version: built with
 // -fmad=false, the scale and the running mean use the correctly rounded
 // divide, bf16 stores round to nearest even (common.cuh), and the dither
@@ -98,30 +115,32 @@ namespace {
 constexpr int kThreads = 256;
 
 struct PairsArgs {
-  void* w;                  // (n, n) WT, updated in place
-  void* hb;                 // (n, n) HT, in place; null in the lean profile
+  void* w;                  // (n, n_cols) WT, updated in place
+  void* hb;                 // (n, n_cols) HT, in place; null when lean
   const int32_t* gm;        // (n/8,) partner group of each group
   const int32_t* c;         // (n/8,) within-pair row rotation
   const uint8_t* valid;     // (n,) alive-pair mask per row
-  int32_t n;
+  int32_t n;                // rows (all owners)
+  int32_t n_cols;           // the block's owners (n: the whole width)
+  int32_t col0;             // global owner of column 0
   uint32_t salt_mix;        // sub-exchange salt ^ run salt
   float budget;
   const float* totals;      // TOTALS: (n,) rows' deficit totals
-  const int32_t* mv;        // DIAG: (n,) owner max_version
-  const int32_t* hbv;       // DIAG / FD: (n,) owner heartbeat
-  const int32_t* need;      // CHECK: (n,) target, 0 for dead owners
+  const int32_t* mv;        // DIAG: (n_cols,) owner max_version
+  const int32_t* hbv;       // DIAG / FD: (n_cols,) owner heartbeat
+  const int32_t* need;      // CHECK: (n_cols,) target, 0 for dead owners
   const uint8_t* alive;     // CHECK: (n,) row liveness
   int32_t* flag;            // CHECK: starts at 1, cleared by a failing row
   int32_t tick;             // FD: the round's tick
-  void* lc;                 // FD: (n, n) HT last_change, in place
-  void* im;                 // FD: (n, n) IMT interval mean, in place
-  void* ic;                 // FD: (n, n) int16/int8 sample count, in place
-  uint8_t* live;            // FD: (n, n) bool live view or (n, n/8) bitmap
-  const void* hb0;          // FD: (n, n) HT round-start hb, or null
+  void* lc;                 // FD: (n, n_cols) HT last_change, in place
+  void* im;                 // FD: (n, n_cols) IMT interval mean, in place
+  void* ic;                 // FD: (n, n_cols) int16/int8 sample count
+  uint8_t* live;            // FD: (n, n_cols) bool or (n, n_cols/8) bitmap
+  const void* hb0;          // FD: (n, n_cols) HT round-start hb, or null
   bool ic_int8;             // FD: the sample counters are int8
   bool live_bits;           // FD: live is the bitmap
-  const uint8_t* bump;      // PACKED + DIAG: (n/2,) packed write bumps
-  const uint8_t* owner_ok;  // PACKED + CHECK: (n/2,) packed owner-alive bits
+  const uint8_t* bump;      // PACKED + DIAG: (n_cols/2,) packed write bumps
+  const uint8_t* owner_ok;  // PACKED + CHECK: (n_cols/2,) packed alive bits
   FdConsts fd;
   int32_t lanes;            // LANES: sweep lanes (gridDim.y), 1 outside sweeps
   const uint32_t* lane_salt;  // LANES: (lanes,) salt_mix of each lane, or null
@@ -141,7 +160,8 @@ template <typename WT, typename HT, typename IMT, bool PACKED>
 __device__ __forceinline__ PairsArgs at_lane(PairsArgs a, int row_len) {
   const size_t s = blockIdx.y;
   const size_t n = static_cast<size_t>(a.n);
-  const size_t vec = s * n, mat = vec * n;
+  const size_t vec = s * n, mat = vec * static_cast<size_t>(a.n_cols);
+  const size_t owners = s * static_cast<size_t>(a.n_cols);
   a.w = static_cast<WT*>(a.w) + vec * static_cast<size_t>(row_len);
   a.gm += s * (n >> 3);
   a.c += s * (n >> 3);
@@ -150,13 +170,13 @@ __device__ __forceinline__ PairsArgs at_lane(PairsArgs a, int row_len) {
   a.alive = shifted(a.alive, vec);
   a.flag = shifted(a.flag, s);
   if (PACKED) {
-    a.bump = shifted(a.bump, vec >> 1);
-    a.owner_ok = shifted(a.owner_ok, vec >> 1);
+    a.bump = shifted(a.bump, owners >> 1);
+    a.owner_ok = shifted(a.owner_ok, owners >> 1);
   } else {
     a.hb = shifted(static_cast<HT*>(a.hb), mat);
-    a.mv = shifted(a.mv, vec);
-    a.hbv = shifted(a.hbv, vec);
-    a.need = shifted(a.need, vec);
+    a.mv = shifted(a.mv, owners);
+    a.hbv = shifted(a.hbv, owners);
+    a.need = shifted(a.need, owners);
     if (a.lc != nullptr) {
       a.lc = static_cast<HT*>(a.lc) + mat;
       a.im = static_cast<IMT*>(a.im) + mat;
@@ -201,14 +221,14 @@ __device__ __forceinline__ void store_counts(const PairsArgs& a, size_t off,
   }
 }
 
-// The FD phase for eight (row, j0 + e) pairs: hb_new is the post-exchange
-// knowledge, hb_old the refreshed pre-exchange tile (the round-start
-// matrix at fanout == 1).
+// The FD phase for eight (row, local column j0 + e) pairs: hb_new is the
+// post-exchange knowledge, hb_old the refreshed pre-exchange tile (the
+// round-start matrix at fanout == 1).
 template <typename HT, typename IMT>
 __device__ __forceinline__ void fd_chunk(const PairsArgs& a, int row, int j0,
                                          const int32_t (&hb_new)[8],
                                          const int32_t (&hb_old)[8]) {
-  const size_t off = static_cast<size_t>(row) * a.n + j0;
+  const size_t off = static_cast<size_t>(row) * a.n_cols + j0;
   HT* lcm = static_cast<HT*>(a.lc) + off;
   IMT* imm = static_cast<IMT*>(a.im) + off;
   Vec8<HT> lc8 = ld8(lcm);
@@ -222,14 +242,15 @@ __device__ __forceinline__ void fd_chunk(const PairsArgs& a, int row, int j0,
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int j = j0 + e;
+    const bool self = a.col0 + j == row;  // the global self diagonal
     int32_t h0 = hb_old[e];
     if (a.hb0 != nullptr) {
-      h0 = (j == row) ? a.hbv[j] : static_cast<int32_t>(h08.v[e]);
+      h0 = self ? a.hbv[j] : static_cast<int32_t>(h08.v[e]);
     }
     const FdResult r =
         fd_update(a.tick, hb_new[e], h0, static_cast<int32_t>(lc8.v[e]),
                   to_f32(im8.v[e]), ic[e], a.fd);
-    const bool live = r.live || j == row;
+    const bool live = r.live || self;
     lc8.v[e] = static_cast<HT>(r.last_change);
     im8.v[e] = from_f32<IMT>(live ? r.imean : 0.0f);
     ic[e] = live ? r.icount : 0;
@@ -256,7 +277,7 @@ struct UnpackedRows {
   static __device__ __forceinline__ Vec8<T> load(const PairsArgs& a,
                                                  const T* row_ptr, int row,
                                                  int j0) {
-    return ld8_row<WT, DIAG>(row_ptr, row, j0, a.mv);
+    return ld8_row<WT, DIAG>(row_ptr, row, j0, a.mv, a.col0);
   }
   static __device__ __forceinline__ void sums(const Vec8<T>& x8,
                                               const Vec8<T>& y8, bool vi,
@@ -272,7 +293,7 @@ struct PackedRows {
   static __device__ __forceinline__ Vec8<T> load(const PairsArgs& a,
                                                  const T* row_ptr, int row,
                                                  int k0) {
-    return ld8_packed_row<DIAG>(row_ptr, row, k0, a.bump);
+    return ld8_packed_row<DIAG>(row_ptr, row, k0, a.bump, a.col0);
   }
   static __device__ __forceinline__ void sums(const Vec8<T>& x8,
                                               const Vec8<T>& y8, bool vi,
@@ -360,7 +381,7 @@ __device__ __forceinline__ void pair_frame(const PairsArgs& a, int row_len,
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
           bool FD, bool TOTALS>
 __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs args) {
-  const int n = args.n;
+  const int n = args.n_cols;  // elements a row
   const PairsArgs a = at_lane<WT, HT, IMT, false>(args, n);
   pair_frame<UnpackedRows<WT>, DIAG, CHECK, TOTALS>(
       a, n,
@@ -371,13 +392,14 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs args) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const int j = j0 + e;
+          const uint32_t owner = a.col0 + j;  // the dither's global owner
           const int32_t x = x8.v[e], y = y8.v[e];
           const int32_t di = (r.vi && y > x) ? y - x : 0;
           const int32_t dp = (r.vp && x > y) ? x - y : 0;
           const int32_t nx = x + advance(di, r.scale_i,
-                                         dither24(hash_mix_u32(i, j, a.salt_mix)));
+                                         dither24(hash_mix_u32(i, owner, a.salt_mix)));
           const int32_t ny = y + advance(dp, r.scale_p,
-                                         dither24(hash_mix_u32(p, j, a.salt_mix)));
+                                         dither24(hash_mix_u32(p, owner, a.salt_mix)));
           nx8.v[e] = static_cast<WT>(nx);
           ny8.v[e] = static_cast<WT>(ny);
           if (CHECK) {
@@ -402,8 +424,8 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs args) {
           hi[e] = hi8.v[e];
           hp[e] = hp8.v[e];
           if (DIAG) {
-            if (j == i) hi[e] = a.hbv[j];
-            if (j == p) hp[e] = a.hbv[j];
+            if (a.col0 + j == i) hi[e] = a.hbv[j];
+            if (a.col0 + j == p) hp[e] = a.hbv[j];
           }
           const int32_t from_p = r.vi ? hp[e] : 0;
           const int32_t from_i = r.vp ? hi[e] : 0;
@@ -426,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs args) {
 // reads the packed owner-alive row (a residual of 0 is caught up).
 template <bool DIAG, bool CHECK, bool TOTALS>
 __global__ void __launch_bounds__(kThreads) pairs_packed_kernel(PairsArgs args) {
-  const int nb = args.n >> 1;  // bytes a row
+  const int nb = args.n_cols >> 1;  // bytes a row
   const PairsArgs a = at_lane<uint8_t, uint8_t, float, true>(args, nb);
   pair_frame<PackedRows, DIAG, CHECK, TOTALS>(
       a, nb,
@@ -440,7 +462,7 @@ __global__ void __launch_bounds__(kThreads) pairs_packed_kernel(PairsArgs args) 
           uint32_t bx = 0, by = 0;
 #pragma unroll
           for (int h = 0; h < 8; h += 4) {
-            const uint32_t j = 2 * (k0 + e) + (h >> 2);
+            const uint32_t j = a.col0 + 2 * (k0 + e) + (h >> 2);  // global
             const int32_t x = (x8.v[e] >> h) & 0xF, y = (y8.v[e] >> h) & 0xF;
             const int32_t di = (r.vi && x > y) ? x - y : 0;
             const int32_t dp = (r.vp && y > x) ? y - x : 0;
@@ -485,15 +507,15 @@ cudaError_t launch_packed(const PairsArgs& a, cudaStream_t s) {
   if (a.totals != nullptr) {
     return launch_rows(pairs_packed_kernel<DIAG, CHECK, true>, a, 0, s);
   }
-  // Both packed rows staged: 2 * (n / 2) bytes.
+  // Both packed rows staged: 2 * (n_cols / 2) bytes.
   return launch_rows(pairs_packed_kernel<DIAG, CHECK, false>, a,
-                     static_cast<size_t>(a.n), s);
+                     static_cast<size_t>(a.n_cols), s);
 }
 
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
           bool FD, bool TOTALS>
 cudaError_t launch_one(const PairsArgs& a, cudaStream_t stream) {
-  const size_t smem = TOTALS ? 0 : 2 * static_cast<size_t>(a.n) * sizeof(WT);
+  const size_t smem = TOTALS ? 0 : 2 * static_cast<size_t>(a.n_cols) * sizeof(WT);
   return launch_rows(pairs_kernel<WT, HT, IMT, DIAG, CHECK, FD, TOTALS>, a,
                      smem, stream);
 }
@@ -549,15 +571,17 @@ cudaError_t launch_hb(const PairsArgs& a, int h_code, int im_code, bool diag,
 
 }  // namespace
 
-// w_code kU4 is the packed u4r rung: `mv` is then the (n/2,) packed write
-// bumps and `need` the (n/2,) packed owner-alive bits, and hb and the FD
-// must be null (cudaErrorInvalidValue otherwise). `lanes` > 1 is the lane
-// lift: every operand carries a leading lane axis, `flag` holds one flag a
-// lane, and `lane_salt` ((lanes,) uint32 salt_mix) and `lane_phi`
-// ((lanes,) float) replace `salt_mix` and `phi` where given.
+// The matrices hold `n_cols` owners from global owner `col0` (n and 0: the
+// whole width). w_code kU4 is the packed u4r rung: `mv` is then the
+// (n_cols/2,) packed write bumps and `need` the (n_cols/2,) packed
+// owner-alive bits, and hb and the FD must be null (cudaErrorInvalidValue
+// otherwise). `lanes` > 1 is the lane lift: every operand carries a
+// leading lane axis, `flag` holds one flag a lane, and `lane_salt`
+// ((lanes,) uint32 salt_mix) and `lane_phi` ((lanes,) float) replace
+// `salt_mix` and `phi` where given.
 extern "C" int aiocluster_pairs_pull(
     void* w, void* hb, const void* gm, const void* c, const void* valid,
-    int n, unsigned int salt_mix, float budget, const void* totals,
+    int n, int n_cols, int col0, unsigned int salt_mix, float budget, const void* totals,
     const void* mv, const void* hbv, const void* need, const void* alive,
     void* flag, int tick, void* lc, void* im, void* ic, void* live,
     const void* hb0, float max_interval, int window, float prior_weight,
@@ -572,6 +596,8 @@ extern "C" int aiocluster_pairs_pull(
   a.c = static_cast<const int32_t*>(c);
   a.valid = static_cast<const uint8_t*>(valid);
   a.n = n;
+  a.n_cols = n_cols;
+  a.col0 = col0;
   a.salt_mix = salt_mix;
   a.budget = budget;
   a.totals = static_cast<const float*>(totals);

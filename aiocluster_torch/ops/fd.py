@@ -67,13 +67,14 @@ def fd_update(tick: int, hb, hb0, lc, im32, ic, k: FdParams):
     return lc2, imean, icount, live
 
 
-def fd_store(rows, lc2, imean, icount, live, lc, im, ic, live_out):
+def fd_store(rows, lc2, imean, icount, live, lc, im, ic, live_out, col0: int = 0):
     """Finish an FD update in place: the update's results are the rows
-    ``rows`` (int64 ids) against owner columns ``0..``; the self
-    diagonal stays live, death wipes the window, and each result rounds
-    once into its stored dtype in those rows of ``lc``/``im``/``ic``/
-    ``live_out`` (bool, or the uint8 bitmap of the live_bits rung)."""
-    cols = torch.arange(live.shape[1], device=live.device)
+    ``rows`` (int64 ids) against owner columns ``col0 ..`` (a column
+    block; the whole width by default); the self diagonal stays live,
+    death wipes the window, and each result rounds once into its stored
+    dtype in those rows of ``lc``/``im``/``ic``/``live_out`` (bool, or
+    the uint8 bitmap of the live_bits rung)."""
+    cols = col0 + torch.arange(live.shape[1], device=live.device)
     live = live | (rows[:, None] == cols[None, :])
     lc.index_copy_(0, rows, lc2.to(lc.dtype))
     im.index_copy_(0, rows, torch.where(live, imean, torch.zeros_like(imean)).to(im.dtype))
@@ -81,50 +82,60 @@ def fd_store(rows, lc2, imean, icount, live, lc, im, ic, live_out):
     live_out.index_copy_(0, rows, pack_bits(live) if is_packed_live(live_out) else live)
 
 
-def fused_fd_plain(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
+def fused_fd_plain(
+    tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams, owner_offset: int = 0
+):
     """The plain version of the standalone FD pass: hb0's owner diagonal
     is refreshed from ``hbv``, then the update runs in place on
-    last_change/imean/icount and writes ``live``."""
-    n = hb.shape[0]
-    eye = torch.eye(n, dtype=torch.bool, device=hb.device)
-    hb0 = torch.where(eye, hbv.to(torch.int32)[None, :], hb0.to(torch.int32))
+    last_change/imean/icount and writes ``live``. The matrices may be a
+    column block of the owners from global owner ``owner_offset``."""
+    n, n_cols = hb.shape
+    ids = torch.arange(n, device=hb.device)
+    diag = ids[:, None] == owner_offset + torch.arange(n_cols, device=hb.device)[None, :]
+    hb0 = torch.where(diag, hbv.to(torch.int32)[None, :], hb0.to(torch.int32))
     out = fd_update(
         tick, hb.to(torch.int32), hb0, lc.to(torch.int32),
         im.to(torch.float32), ic.to(torch.int32), k,
     )
-    fd_store(torch.arange(n, device=hb.device), *out, lc, im, ic, live)
+    fd_store(ids, *out, lc, im, ic, live, owner_offset)
 
 
-def fused_fd(tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams):
+def fused_fd(
+    tick: int, hb, hb0, hbv, lc, im, ic, live, k: FdParams, owner_offset: int = 0
+):
     """One standalone FD pass, in place on ``lc``/``im``/``ic``, writing
     ``live``. The kernel takes int8/int16/int32 heartbeats with int16
     sample counters and a bool live view (the reference's FD kernel has
-    no int8 counters or bitmap either). CPU tensors take the plain
-    version; CUDA tensors launch csrc/fd.cu (or raise)."""
+    no int8 counters or bitmap either). The (N, n_local) matrices may be
+    a column block of the owners: column j is global owner
+    ``owner_offset + j`` and ``hbv`` the block's (n_local,) heartbeats
+    (the reference's ``fused_fd(owner_offset=)``). CPU tensors take the
+    plain version; CUDA tensors launch csrc/fd.cu (or raise)."""
     if hb.device.type == "cpu":
         counters.plain_calls["fd"] += 1
-        return fused_fd_plain(tick, hb, hb0, hbv, lc, im, ic, live, k)
-    n, dev, hdt = hb.shape[0], hb.device, hb.dtype
+        return fused_fd_plain(tick, hb, hb0, hbv, lc, im, ic, live, k, owner_offset)
+    (n, n_cols), dev, hdt = hb.shape, hb.device, hb.dtype
     if hdt not in MATRIX_DTYPES:
         raise ValueError(f"heartbeat dtype {hdt} is not int8/int16/int32")
     if im.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"imean dtype {im.dtype} is not bfloat16/float32")
-    if n % 8:
-        raise ValueError("n must be a multiple of 8")
+    if n_cols % 8:
+        raise ValueError("the owner columns must be a multiple of 8")
     for name, t, dt, shape in (
-        ("hb", hb, hdt, (n, n)),
-        ("hb0", hb0, hdt, (n, n)),
-        ("hbv", hbv, torch.int32, (n,)),
-        ("last_change", lc, hdt, (n, n)),
-        ("imean", im, im.dtype, (n, n)),
-        ("icount", ic, torch.int16, (n, n)),
-        ("live", live, torch.bool, (n, n)),
+        ("hb", hb, hdt, (n, n_cols)),
+        ("hb0", hb0, hdt, (n, n_cols)),
+        ("hbv", hbv, torch.int32, (n_cols,)),
+        ("last_change", lc, hdt, (n, n_cols)),
+        ("imean", im, im.dtype, (n, n_cols)),
+        ("icount", ic, torch.int16, (n, n_cols)),
+        ("live", live, torch.bool, (n, n_cols)),
     ):
         expect(name, t, dt, shape, dev)
     lib = _build.load("fd")
     rc = lib.aiocluster_fd(
         hb.data_ptr(), hb0.data_ptr(), hbv.data_ptr(), lc.data_ptr(),
-        im.data_ptr(), ic.data_ptr(), live.data_ptr(), n, int(tick),
+        im.data_ptr(), ic.data_ptr(), live.data_ptr(), n, n_cols,
+        int(owner_offset), int(tick),
         k.max_interval, k.window, k.prior_weight, k.prior_wm, k.phi,
         hb.element_size(), 102 if im.dtype == torch.bfloat16 else 104,
         torch.cuda.current_stream(hb.device).cuda_stream,

@@ -47,21 +47,33 @@ the two-pass form), each lane with its own salts, fanout mask, write
 rate and FD phi; elsewhere each lane runs the plain round
 (``resolve_phases(sweep=True)``).
 
-``sim_step`` and ``sweep_step`` consume their input state, as the
-reference's donated buffers do: the matrices are updated in place where
-a phase can.
+``step_blocks`` is the round of a state held as column blocks of the
+owners (the reference's ``sim_step(axis_name="owners")``; the mesh of
+parallel/mesh.py): each phase runs block after block between the
+collectives of ``reduce_blocks`` (the deficit totals summed over the
+blocks before any block's pull, the flag's min), the kernels at each
+block's ``owner_offset``. ``sim_step`` is that round on one block of
+every owner; ``run_rounds`` queues a chunk of rounds of either (the
+chunk's draws once, no host sync), and ``block_width`` is the one rule
+for the widths a mesh's blocks may take.
+
+``sim_step``, ``step_blocks`` and ``sweep_step`` consume their input
+state, as the reference's donated buffers do: the matrices are updated
+in place where a phase can.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Sequence
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..sim.config import SimConfig, unported_reason
 from ..sim.packed import U4_MAX, is_packed_w, live_view_bool, watermarks_i32
-from ..sim.state import DTYPES, STATE_FIELDS, SimState, SweepParams, lane
+from ..sim.state import DTYPES, STATE_FIELDS, SimState, SweepParams, lane, state_n_local
 from . import counters, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from . import fd as fd_mod
 from .fd import FdParams
@@ -233,24 +245,30 @@ def packed_writes_shift(r, bump) -> torch.Tensor:
     return pack_halves(lo, hi)
 
 
-def packed_diag_zero_(r, rows) -> torch.Tensor:
+def packed_diag_zero_(r, rows, col0: int = 0) -> torch.Tensor:
     """The owner-diagonal refresh in residual space, in place: the rows
-    with global ids ``rows`` (of a matrix over every owner) get a zero
-    residual on themselves (w[j, j] = max_version[j]). Returns ``r``."""
-    at = torch.arange(rows.numel(), device=r.device)
-    keep = torch.where(rows % 2 == 0, 0xF0, 0x0F).to(torch.uint8)
-    r[at, rows // 2] &= keep
+    with global ids ``rows`` (of a matrix over the owners ``col0 ..``,
+    col0 even; every owner by default) get a zero residual on themselves
+    (w[j, j] = max_version[j]) where their own owner lies in the matrix.
+    Returns ``r``."""
+    local = rows - col0
+    hit = (local >= 0) & (local < 2 * r.shape[1])
+    at = torch.arange(rows.numel(), device=r.device)[hit]
+    local = local[hit]
+    keep = torch.where(local % 2 == 0, 0xF0, 0x0F).to(torch.uint8)
+    r[at, local // 2] &= keep
     return r
 
 
-def refreshed_packed_rows(r, rows, bump) -> torch.Tensor:
+def refreshed_packed_rows(r, rows, bump, col0: int = 0) -> torch.Tensor:
     """A copy of the packed rows ``rows`` as the round's first
     sub-exchange sees them (``bump`` given: the writes shift, then the
-    diagonal zero; the reference's ``_refresh_packed``), or as stored."""
+    diagonal zero; the reference's ``_refresh_packed``), or as stored.
+    ``r`` holds the owners ``col0 ..`` and ``bump`` their write bumps."""
     x = r[rows]
     if bump is None:
         return x
-    return packed_diag_zero_(packed_writes_shift(x, bump), rows)
+    return packed_diag_zero_(packed_writes_shift(x, bump), rows, col0)
 
 
 # -- dispatch -------------------------------------------------------------------
@@ -288,12 +306,44 @@ def fd_bookkeeping_packed(cfg: SimConfig) -> bool:
     return cfg.icount_dtype != "int16" or cfg.live_bits
 
 
-def _kernel_pull_form(cfg: SimConfig) -> str:
+# The column blocks the kernels take on a mesh: lane-aligned blocks, the
+# reference's sharded kernel domain (its pallas_pull.supported(n_local=)).
+BLOCK_ALIGN = 128
+
+
+def block_width(cfg: SimConfig, blocks: int, device) -> int:
+    """The owners of each of ``blocks`` column blocks (a mesh's
+    n_local): the blocks must be whole and their packed forms whole
+    bytes (two owners a byte of w, eight a byte of the live bitmap: a
+    multiple of 16 owners), and where the kernels are wanted (on
+    ``device``) more than one block must be lane-aligned
+    (``BLOCK_ALIGN``). Raises a ValueError naming the width otherwise."""
+    n = cfg.n_nodes
+    if n % blocks or (n // blocks) % 16:
+        raise ValueError(
+            f"a mesh of {blocks} blocks does not split n_nodes={n} into "
+            "column blocks of a multiple of 16 owners"
+        )
+    n_local = n // blocks
+    if blocks > 1 and kernels_wanted(cfg, device) and n_local % BLOCK_ALIGN:
+        raise ValueError(
+            f"column blocks of n_local={n_local} owners are off the kernels' "
+            f"domain (n_local % {BLOCK_ALIGN} == 0, the reference's "
+            "lane-aligned shard); use fewer blocks or use_pallas=False"
+        )
+    return n_local
+
+
+def _kernel_pull_form(cfg: SimConfig, n_local: int | None = None) -> str:
     """The kernel form of the sub-exchanges: staged where the two rows a
     CTA reads fit its shared memory (a packed row is n / 2 bytes), two
-    launches a sub-exchange beyond; ``pallas_variant="m8"`` pins the
-    single-pass pull."""
-    if cfg.version_dtype == "u4r":
+    launches a sub-exchange beyond, and always on column blocks of a
+    mesh (``n_local`` owners of n a block: a block's own sums are not
+    the rows' totals); ``pallas_variant="m8"`` pins the single-pass
+    pull."""
+    if n_local is not None and n_local < cfg.n_nodes:
+        staged = False
+    elif cfg.version_dtype == "u4r":
         staged = pairs_pull.pairs_supported(cfg.n_nodes // 2, 1)
     else:
         staged = pairs_pull.pairs_supported(
@@ -304,7 +354,9 @@ def _kernel_pull_form(cfg: SimConfig) -> str:
     return "pairs" if staged else "pairs_two_pass"
 
 
-def resolve_phases(cfg: SimConfig, device, sweep: bool = False) -> Phases:
+def resolve_phases(
+    cfg: SimConfig, device, sweep: bool = False, n_local: int | None = None
+) -> Phases:
     """Resolve both phases of a round once (the counterpart of the
     reference's ``pallas_fallback_reason`` / ``pallas_path_engaged`` /
     ``fd_phase_engaged``).
@@ -329,7 +381,15 @@ def resolve_phases(cfg: SimConfig, device, sweep: bool = False) -> Phases:
     pairs forms carry the lane axis, as in the reference: a sweep pinned
     to m8 runs its pull plain ("sweep_needs_pairs"), and a sweep's FD
     phase off the pairs forms runs plain (the standalone FD kernel has
-    no lane axis)."""
+    no lane axis).
+
+    ``n_local``: the owners of one column block of a mesh (``step_blocks``;
+    None is the whole width). With more than one block the kernel forms
+    are the two-pass ones ("pairs_two_pass" / "m8_two_pass": each block's
+    totals, summed over the blocks, feed every block's pull), as in the
+    reference's sharded round; one block of every owner runs the
+    unsharded forms (``block_width`` says which widths a mesh may
+    take)."""
     wanted = kernels_wanted(cfg, device)
     pull_fallback = None
     if wanted and cfg.version_dtype == "u4r" and (
@@ -338,7 +398,7 @@ def resolve_phases(cfg: SimConfig, device, sweep: bool = False) -> Phases:
         pull_fallback = "packed_dtype"
     elif wanted and cfg.fanout < 1:
         pull_fallback = "fanout"
-    pull = _kernel_pull_form(cfg) if wanted and pull_fallback is None else "plain"
+    pull = _kernel_pull_form(cfg, n_local) if wanted and pull_fallback is None else "plain"
     if sweep and pull in M8_FORMS:
         pull, pull_fallback = "plain", "sweep_needs_pairs"
     fd, fd_fallback = "off", None
@@ -358,9 +418,9 @@ def resolve_phases(cfg: SimConfig, device, sweep: bool = False) -> Phases:
     return Phases(pull, pull_fallback, fd, fd_fallback)
 
 
-def pull_phase_engaged(cfg: SimConfig, device) -> str:
+def pull_phase_engaged(cfg: SimConfig, device, n_local: int | None = None) -> str:
     """The form that serves the sub-exchanges (``resolve_phases``)."""
-    return resolve_phases(cfg, device).pull
+    return resolve_phases(cfg, device, n_local=n_local).pull
 
 
 def pull_fallback_reason(cfg: SimConfig, device) -> str | None:
@@ -406,13 +466,87 @@ def sim_step(
     new state (a bool tensor); on the pairs path it rides the round's
     last sub-exchange.
     """
+    out = step_blocks(
+        [state], key, cfg, offsets=(0,), return_converged=return_converged,
+        tick=tick, draws=draws, run_salt=run_salt,
+    )
+    if not return_converged:
+        return out[0]
+    blocks, flag = out
+    return blocks[0], flag
+
+
+# The collectives of a round over column blocks, by name.
+_REDUCE_OPS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def reduce_blocks(parts: Sequence[torch.Tensor], op: str) -> list[torch.Tensor]:
+    """Reduce one partial per column block (``op`` "sum", "min" or
+    "max") and return the result once per block, on the block's device:
+    the counterpart of the reference's psum / pmin / pmax over the
+    "owners" axis. Taken in block order 0 .. P-1 on the first block's
+    device, in the partials' dtype (float32 for the deficit totals), so
+    a sum of exact integers below 2^24 is exact and equals the whole
+    width's. One block is returned as it is. A process per card would
+    swap this for an ``all_reduce`` of its one block."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = _REDUCE_OPS[op](acc, part.to(acc.device))
+    return _replicas([p.device for p in parts])(acc)
+
+
+def _replicas(devices: Sequence[torch.device]):
+    """A function mapping a tensor to one copy per block on the block's
+    device (one copy per distinct device; the tensor itself where it
+    already lies)."""
+
+    def rep(t: torch.Tensor) -> list[torch.Tensor]:
+        copies = {t.device: t}
+        out = []
+        for d in devices:
+            if d not in copies:
+                copies[d] = t.to(d)
+            out.append(copies[d])
+        return out
+
+    return rep
+
+
+def step_blocks(
+    blocks: Sequence[SimState],
+    key: torch.Tensor,
+    cfg: SimConfig,
+    *,
+    offsets: Sequence[int],
+    return_converged: bool = False,
+    tick: int | None = None,
+    draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    run_salt: int | None = None,
+):
+    """One gossip round of a state held as column blocks of the owners
+    (the reference's ``sim_step(axis_name="owners")`` under shard_map):
+    ``blocks[k]`` holds the (N, n_local) matrices of the global owners
+    ``offsets[k] ..`` and the replicated (N,) vectors and tick. The
+    replicated work runs once, on the first block's device, and is
+    copied to the others; every phase then runs block after block
+    between the collectives (``reduce_blocks``): each sub-exchange's deficit
+    totals are summed over the blocks before any block's pull reads them
+    (the two-pass kernel forms; the plain round likewise), the FD phase
+    runs per block at its offset, and the convergence flag is the min
+    over the blocks. ``sim_step`` is this round on one block of every
+    owner. Returns the new blocks (and the flag with
+    ``return_converged``); the other arguments are ``sim_step``'s."""
     reason = unported_reason(cfg)
     if reason is not None:
         counters.refuse(reason)
+    head = blocks[0]
     n = cfg.n_nodes
-    dev = state.w.device
+    n_local = state_n_local(head)
+    dev = head.w.device
+    rep = _replicas([b.w.device for b in blocks])
+    owned = [slice(o, o + n_local) for o in offsets]
     if tick is None:
-        tick = int(state.tick)
+        tick = int(head.tick)
     new_tick = tick + 1
     if run_salt is None:
         run_salt = prng.run_salt(key)
@@ -420,160 +554,246 @@ def sim_step(
         draws = [t[0] for t in prng.round_draws(key.to(dev), new_tick, 1, n, cfg.fanout)]
     gm_all, c_all, p_all = draws
 
-    alive = state.alive
+    alive = head.alive
     alive_i32 = alive.to(torch.int32)
-    heartbeat = state.heartbeat + alive_i32
-    max_version = state.max_version + cfg.writes_per_round * alive_i32
+    heartbeat = head.heartbeat + alive_i32
+    max_version = head.max_version + cfg.writes_per_round * alive_i32
+    alive_b, hbt_b, mv_b = rep(alive), rep(heartbeat), rep(max_version)
     track_hb = cfg.track_heartbeats
-    phases = resolve_phases(cfg, dev)
+    phases = resolve_phases(cfg, dev, n_local=None if len(blocks) == 1 else n_local)
     pull, fd_phase = phases.pull, phases.fd
     for reason in (phases.pull_fallback, phases.fd_fallback):
         if reason is not None:
             counters.fallbacks[reason] += 1
     params = FdParams.from_config(cfg)
-    packed = is_packed_w(state.w)
+    packed = is_packed_w(head.w)
+    # The first sub-exchange's refresh operand per block: the packed
+    # rung's owners' write bump (the residuals shift by it, then the
+    # diagonal zeroes), the unpacked rungs' new max_version.
+    refresh_b = rep(max_version - head.max_version) if packed else mv_b
+    refresh = [r[sl] for r, sl in zip(refresh_b, owned)]
+    hbv = [h[sl] for h, sl in zip(hbt_b, owned)]
 
     def salt_of(c: int) -> int:
         return new_tick * (2 * cfg.fanout) + 2 * c
 
+    def matching(c: int):
+        """Sub-exchange ``c``'s (gm, c, p, valid) on each block's device."""
+        p = p_all[c]
+        return zip(rep(gm_all[c]), rep(c_all[c]), rep(p), rep(alive & alive[p]))
+
     flag = None
-    w, hb = state.w, state.hb_known
+    ws = [b.w for b in blocks]
+    hbs = [b.hb_known for b in blocks]
     if pull in M8_FORMS:
-        w, hb = _m8_exchanges(
-            cfg, pull, w, hb, alive, draws, max_version, heartbeat, salt_of, run_salt
-        )
         # m8 never writes its inputs: the input hb is the round-start
         # matrix the FD phase reads.
-        hb_round_start = state.hb_known
+        hb0s = list(hbs)
+        _m8_exchanges(cfg, pull, ws, hbs, offsets, matching, refresh, hbv, salt_of, run_salt)
     elif pull != "plain":
         # The FD phase reads the round-start hb after the sub-exchanges
         # unless it fuses into a fanout-1 round's only call: keep a copy
         # (its owner diagonal is refreshed where it is read).
-        hb_round_start = None
-        if cfg.track_failure_detector and not (
-            fd_phase == "fused" and cfg.fanout == 1
-        ):
-            hb_round_start = hb.clone()
+        hb0s = [None] * len(blocks)
+        if cfg.track_failure_detector and not (fd_phase == "fused" and cfg.fanout == 1):
+            hb0s = [h.clone() for h in hbs]
         for c in range(cfg.fanout):
             first, last = c == 0, c == cfg.fanout - 1
-            valid = alive & alive[p_all[c]]
-            kw = {}
-            if first:
-                # The packed rung's refresh operand is the owners' write
-                # bump (the residuals shift by it, then the diagonal
-                # zeroes), the unpacked rungs' the new max_version.
-                kw["mv"] = max_version - state.max_version if packed else max_version
-                if track_hb:
-                    kw["hbv"] = heartbeat
+            ops = list(matching(c))
+            totals = [None] * len(blocks)
             if pull == "pairs_two_pass":
                 # Pass A sees the refreshed diagonal exactly as pass B will.
-                kw["totals"] = pairs_totals.pairs_totals(
-                    w, gm_all[c], c_all[c], valid, mv=kw.get("mv")
+                totals = reduce_blocks([
+                    pairs_totals.pairs_totals(
+                        w, gm, cc, valid, mv=r if first else None, owner_offset=off,
+                    )
+                    for w, (gm, cc, _, valid), r, off in zip(ws, ops, refresh, offsets)
+                ], "sum")
+            flags = []
+            for k, (gm, cc, _, valid) in enumerate(ops):
+                kw = {}
+                if first:
+                    kw["mv"] = refresh[k]
+                    if track_hb:
+                        kw["hbv"] = hbv[k]
+                if last and return_converged:
+                    sl = owned[k]
+                    kw["check"] = (mv_b[k][sl], alive_b[k], alive_b[k][sl])
+                if last and fd_phase == "fused":
+                    b = blocks[k]
+                    kw["hbv"] = hbv[k]
+                    kw["fd"] = pairs_pull.FdOperands(
+                        new_tick, b.last_change, b.imean, b.icount, b.live_view, hb0s[k],
+                        params,
+                    )
+                out = pairs_pull.pairs_pull(
+                    ws[k], hbs[k] if track_hb else None, gm, cc, valid, salt_of(c),
+                    run_salt, cfg.budget, totals=totals[k], owner_offset=offsets[k], **kw,
                 )
-            if last and return_converged:
-                kw["check"] = (max_version, alive, alive)
-            if last and fd_phase == "fused":
-                kw["hbv"] = heartbeat
-                kw["fd"] = pairs_pull.FdOperands(
-                    new_tick, state.last_change, state.imean, state.icount,
-                    state.live_view, hb_round_start, params,
-                )
-            out = pairs_pull.pairs_pull(
-                w, hb if track_hb else None, gm_all[c], c_all[c], valid,
-                salt_of(c), run_salt, cfg.budget, **kw,
-            )
-            if out is not None:
-                flag = out
+                if out is not None:
+                    flags.append(out)
+            if flags:
+                flag = reduce_blocks(flags, "min")[0]
     else:
-        owners = torch.arange(n, device=dev)
-        diag = torch.eye(n, dtype=torch.bool, device=dev)
+        hb0s = _plain_exchanges(cfg, blocks, ws, hbs, offsets, matching, refresh, hbv,
+                                salt_of, run_salt)
+
+    for k, b in enumerate(blocks):
+        if fd_phase == "kernel":
+            fd_mod.fused_fd(
+                new_tick, hbs[k], hb0s[k], hbv[k], b.last_change, b.imean, b.icount,
+                b.live_view, params, owner_offset=offsets[k],
+            )
+        elif fd_phase == "plain":
+            # The reference's XLA block (no lifecycle); hb0's diagonal is
+            # refreshed again, idempotently.
+            fd_mod.fused_fd_plain(
+                new_tick, hbs[k], hb0s[k], hbv[k], b.last_change, b.imean, b.icount,
+                b.live_view, params, owner_offset=offsets[k],
+            )
+            counters.plain_calls["fd"] += 1
+
+    ticks = rep(head.tick + 1)
+    new_blocks = [
+        b.replace(
+            tick=ticks[k], max_version=mv_b[k], heartbeat=hbt_b[k], w=ws[k], hb_known=hbs[k],
+        )
+        for k, b in enumerate(blocks)
+    ]
+    if not return_converged:
+        return new_blocks
+    if flag is not None:
+        return new_blocks, flag[0] > 0
+    return new_blocks, blocks_converged(new_blocks, offsets)
+
+
+def run_rounds(
+    blocks: list[SimState], key: torch.Tensor, cfg: SimConfig, *, offsets, m: int,
+    tick: int, tracked: bool, run_salt: int | None = None,
+    device_key: torch.Tensor | None = None,
+):
+    """Queue ``m`` rounds of the blocks from host tick ``tick``, with no
+    host sync: the chunk's draws in one batched pass on the first block's
+    device, then each round (``step_blocks``). Returns the new
+    blocks and a device scalar holding the first converged tick among
+    the rounds (0 if none; always 0 unless ``tracked``). The draws and
+    each round are ``torch.profiler`` ranges (``aiocluster_torch.draws``
+    / ``aiocluster_torch.sim_step``)."""
+    dev = blocks[0].w.device
+    if run_salt is None:
+        run_salt = prng.run_salt(key)
+    if device_key is None:
+        device_key = key.to(dev)
+    with record_function("aiocluster_torch.draws"):
+        gm, c, p = prng.round_draws(device_key, tick + 1, m, cfg.n_nodes, cfg.fanout)
+    first = torch.zeros((), dtype=torch.int32, device=dev)
+    for r in range(m):
+        with record_function("aiocluster_torch.sim_step"):
+            out = step_blocks(
+                blocks, key, cfg, offsets=offsets, return_converged=tracked,
+                tick=tick + r, draws=(gm[r], c[r], p[r]), run_salt=run_salt,
+            )
+        if tracked:
+            blocks, conv = out
+            first = torch.where((first == 0) & conv, blocks[0].tick, first)
+        else:
+            blocks = out
+    return blocks, first
+
+
+def _m8_exchanges(cfg, pull, ws, hbs, offsets, matching, refresh, hbv, salt_of, run_salt):
+    """The round's sub-exchanges on the m8 forms, block after block, in
+    ``ws``/``hbs`` (replaced per block): each pull reads the
+    pre-exchange w/hb and writes other buffers. The buffer a
+    sub-exchange consumed takes the next one's output (``sim_step``
+    consumes its input state), so a round holds two w matrices, not
+    fanout + 1; the input hb stays intact when the FD phase reads it
+    afterwards. The first sub-exchange refreshes the owner diagonal;
+    on the two-pass form every block's totals are summed before any
+    block's pull."""
+    track_hb = cfg.track_heartbeats
+    keep_hb0 = cfg.track_failure_detector
+    hb0s = list(hbs)
+    blocks = range(len(ws))
+    w_spare = [None for _ in blocks]
+    hb_spare = [None for _ in blocks]
+    for c in range(cfg.fanout):
+        first = c == 0
+        ops = list(matching(c))
+        totals = [None for _ in blocks]
+        if pull == "m8_two_pass":
+            totals = reduce_blocks([
+                m8_totals.m8_totals(
+                    ws[k], gm, cc, valid, mv=refresh[k] if first else None,
+                    owner_offset=offsets[k],
+                )
+                for k, (gm, cc, _, valid) in enumerate(ops)
+            ], "sum")
+        for k, (gm, cc, _, valid) in enumerate(ops):
+            out = m8_pull.m8_pull(
+                ws[k], hbs[k] if track_hb else None, gm, cc, valid, salt_of(c),
+                run_salt, cfg.budget, mv=refresh[k] if first else None,
+                hbv=hbv[k] if first and track_hb else None, owner_offset=offsets[k],
+                totals=totals[k], out=(w_spare[k], hb_spare[k] if track_hb else None),
+            )
+            w_spare[k], ws[k] = ws[k], out[0] if track_hb else out
+            if track_hb:
+                hb_spare[k] = None if (keep_hb0 and hbs[k] is hb0s[k]) else hbs[k]
+                hbs[k] = out[1]
+
+
+def _plain_exchanges(cfg, blocks, ws, hbs, offsets, matching, refresh, hbv, salt_of,
+                     run_salt):
+    """The round's sub-exchanges as plain PyTorch ops, block after block,
+    in ``ws``/``hbs`` (new tensors): the owner diagonal refreshed, then
+    each sub-exchange's deficits taken per block, their row totals
+    summed over the blocks, and each block advanced with the global
+    totals (the reference's XLA round; one block is the unsharded
+    round). Returns the round-start hb of each block (refreshed)."""
+    n = cfg.n_nodes
+    track_hb, packed = cfg.track_heartbeats, is_packed_w(ws[0])
+    owners = []
+    for k, b in enumerate(blocks):
+        dev = b.w.device
+        ids = torch.arange(n, device=dev)
+        cols = offsets[k] + torch.arange(state_n_local(b), device=dev)
+        owners.append(cols)
+        diag = ids[:, None] == cols[None, :]
         if packed:
             # Owner writes raise every observer's residual (saturating),
             # then each owner's residual on itself is 0.
-            if cfg.writes_per_round != 0:
-                w = packed_writes_shift(w, max_version - state.max_version)
-            else:
-                w = w.clone()
-            w = packed_diag_zero_(w, owners)
+            w = packed_writes_shift(b.w, refresh[k]) if cfg.writes_per_round != 0 else b.w.clone()
+            ws[k] = packed_diag_zero_(w, ids, offsets[k])
         else:
-            w = torch.where(diag, max_version.to(w.dtype)[None, :], w)
+            ws[k] = torch.where(diag, refresh[k].to(b.w.dtype)[None, :], b.w)
         if track_hb:
-            hb = torch.where(diag, heartbeat.to(hb.dtype)[None, :], hb)
-        hb_round_start = hb
-        for c in range(cfg.fanout):
-            p = p_all[c]
-            valid = alive & alive[p]
+            hbs[k] = torch.where(diag, hbv[k].to(b.hb_known.dtype)[None, :], b.hb_known)
+    hb0s = list(hbs)
+    for c in range(cfg.fanout):
+        ops = list(matching(c))
+        peers = [w[p] for w, (_, _, p, _) in zip(ws, ops)]
+        if packed:
+            totals = reduce_blocks([
+                packed_totals(w, peer, valid) for w, peer, (_, _, _, valid) in zip(ws, peers, ops)
+            ], "sum")
+        else:
+            ds = [deficits(w, peer, valid) for w, peer, (_, _, _, valid) in zip(ws, peers, ops)]
+            totals = reduce_blocks([deficit_totals(d) for d in ds], "sum")
+        for k, (_, _, p, valid) in enumerate(ops):
             if packed:
                 a_lo, a_hi = packed_adv_halves(
-                    w, w[p], cfg.budget, valid, salt_of(c), owners, run_salt
+                    ws[k], peers[k], cfg.budget, valid, salt_of(c), owners[k], run_salt,
+                    totals[k],
                 )
-                w = packed_apply(w, a_lo, a_hi)
+                ws[k] = packed_apply(ws[k], a_lo, a_hi)
             else:
-                w = w + budgeted_advance(
-                    w, w[p], cfg.budget, valid, salt_of(c), owners, run_salt
-                )
+                scale = budget_scale(totals[k], cfg.budget)
+                adv = proportional_advance(ds[k], scale, salt_of(c), owners[k], run_salt)
+                ws[k] = ws[k] + adv.to(ws[k].dtype)
             if track_hb:
-                hb = torch.maximum(hb, torch.where(valid[:, None], hb[p], 0))
+                hbs[k] = torch.maximum(hbs[k], torch.where(valid[:, None], hbs[k][p], 0))
             counters.plain_calls["pull"] += 1
-
-    if fd_phase == "kernel":
-        fd_mod.fused_fd(
-            new_tick, hb, hb_round_start, heartbeat, state.last_change,
-            state.imean, state.icount, state.live_view, params,
-        )
-    elif fd_phase == "plain":
-        # The reference's XLA block (no lifecycle); hb0's diagonal is
-        # refreshed again, idempotently.
-        fd_mod.fused_fd_plain(
-            new_tick, hb, hb_round_start, heartbeat, state.last_change,
-            state.imean, state.icount, state.live_view, params,
-        )
-        counters.plain_calls["fd"] += 1
-
-    new_state = state.replace(
-        tick=state.tick + 1,
-        max_version=max_version,
-        heartbeat=heartbeat,
-        w=w,
-        hb_known=hb,
-    )
-    if not return_converged:
-        return new_state
-    if flag is not None:
-        return new_state, flag[0] > 0
-    return new_state, all_converged_flag(new_state)
-
-
-def _m8_exchanges(cfg, pull, w, hb, alive, draws, max_version, heartbeat, salt_of, run_salt):
-    """The round's sub-exchanges on the m8 forms: each reads the
-    pre-exchange w/hb and writes other buffers. The buffer a sub-exchange
-    consumed takes the next one's output (``sim_step`` consumes its input
-    state), so a round holds two w matrices, not fanout + 1; the input
-    hb stays intact when the FD phase reads it afterwards. The first
-    sub-exchange refreshes the owner diagonal."""
-    gm_all, c_all, p_all = draws
-    track_hb = cfg.track_heartbeats
-    keep_hb0 = cfg.track_failure_detector
-    hb0 = hb
-    w_spare = hb_spare = None
-    for c in range(cfg.fanout):
-        first = c == 0
-        valid = alive & alive[p_all[c]]
-        mv = max_version if first else None
-        hbv = heartbeat if first and track_hb else None
-        totals = None
-        if pull == "m8_two_pass":
-            totals = m8_totals.m8_totals(w, gm_all[c], c_all[c], valid, mv=mv)
-        out = m8_pull.m8_pull(
-            w, hb if track_hb else None, gm_all[c], c_all[c], valid, salt_of(c),
-            run_salt, cfg.budget, mv=mv, hbv=hbv, totals=totals,
-            out=(w_spare, hb_spare if track_hb else None),
-        )
-        w_spare, w = w, out[0] if track_hb else out
-        if track_hb:
-            hb_spare = None if (keep_hb0 and hb is hb0) else hb
-            hb = out[1]
-    return w, hb
+    return hb0s
 
 
 # -- the round of a sweep's lanes -----------------------------------------------------
@@ -814,44 +1034,60 @@ def refreshed_rows(
 
 
 # -- convergence ------------------------------------------------------------------
+#
+# Each reduction takes a column block of the owners (``col0`` its first
+# global owner; the whole width by default) and the ``*_blocks`` forms
+# combine the blocks' partials with ``reduce_blocks``, as the reference's
+# sharded reductions psum / pmin / pmax them over the "owners" axis.
 
 
-def _needed_in_w_dtype(state: SimState) -> torch.Tensor:
-    """max_version in w's dtype (clamped to its largest value: a need
-    beyond it is out of every row's reach, which ``_owners_caught_up``
-    accounts for), so the comparisons never widen w."""
+def _needed_in_w_dtype(state: SimState, owned: slice) -> torch.Tensor:
+    """The owners' max_version in w's dtype (clamped to its largest
+    value: a need beyond it is out of every row's reach, which
+    ``_owners_caught_up`` accounts for), so the comparisons never widen
+    w."""
     top = torch.iinfo(state.w.dtype).max
-    return torch.clamp(state.max_version, max=top).to(state.w.dtype)
+    return torch.clamp(state.max_version[owned], max=top).to(state.w.dtype)
 
 
-def _owners_caught_up(state: SimState) -> torch.Tensor:
-    """(N,) bool: every alive row's watermark on owner j has reached j's
-    max_version, or owner j is dead. Reduced over blocks of rows in w's
-    own dtype; on the packed rung a zero residual IS caught up, read
-    straight off the bytes."""
+def _owners_caught_up(state: SimState, col0: int = 0) -> torch.Tensor:
+    """(n_local,) bool over the block's owners: every alive row's
+    watermark on owner j has reached j's max_version, or owner j is dead.
+    Reduced over blocks of rows in w's own dtype; on the packed rung a
+    zero residual IS caught up, read straight off the bytes."""
     w, alive = state.w, state.alive
-    n = alive.shape[0]
+    n, n_local = alive.shape[0], state_n_local(state)
+    owned = slice(col0, col0 + n_local)
     if is_packed_w(w):
-        ok_lo = torch.ones(n // 2, dtype=torch.bool, device=w.device)
+        ok_lo = torch.ones(n_local // 2, dtype=torch.bool, device=w.device)
         ok_hi = ok_lo.clone()
-        for r0, r1 in row_blocks(n):
+        for r0, r1 in row_blocks(n, n_local):
             dead = ~alive[r0:r1, None]
             ok_lo &= (((w[r0:r1] & 0xF) == 0) | dead).all(dim=0)
             ok_hi &= (((w[r0:r1] >> 4) == 0) | dead).all(dim=0)
-        return torch.stack((ok_lo, ok_hi), dim=-1).reshape(n) | ~alive
-    need = _needed_in_w_dtype(state)
+        return torch.stack((ok_lo, ok_hi), dim=-1).reshape(n_local) | ~alive[owned]
+    need = _needed_in_w_dtype(state, owned)
     # A need that w's dtype cannot hold is reached by no row, and an alive
     # owner's own row is alive.
-    ok = state.max_version <= torch.iinfo(w.dtype).max
-    for r0, r1 in row_blocks(n):
+    ok = state.max_version[owned] <= torch.iinfo(w.dtype).max
+    for r0, r1 in row_blocks(n, n_local):
         ok &= ((w[r0:r1] >= need) | ~alive[r0:r1, None]).all(dim=0)
-    return ok | ~alive
+    return ok | ~alive[owned]
 
 
 def all_converged_flag(state: SimState) -> torch.Tensor:
     """Bool scalar: every alive node's watermark has reached every alive
     owner's max_version (dead observers and dead owners excused)."""
     return _owners_caught_up(state).all()
+
+
+def blocks_converged(blocks: Sequence[SimState], offsets: Sequence[int]) -> torch.Tensor:
+    """``all_converged_flag`` of a state held as column blocks: the min
+    over the blocks of each block's flag (the reference's pmin)."""
+    flags = [
+        _owners_caught_up(b, off).all().to(torch.int32) for b, off in zip(blocks, offsets)
+    ]
+    return reduce_blocks(flags, "min")[0] > 0
 
 
 def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
@@ -862,13 +1098,23 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
     Reduced over blocks of rows: the fraction sum in float64, the
     key-versions known exactly in int64, each rounded to float32 once.
     The packed rungs are widened a block at a time (sim/packed.py)."""
+    return convergence_metrics_blocks([state], (0,))
+
+
+def _metric_partials(state: SimState, col0: int) -> dict[str, torch.Tensor]:
+    """One column block's share of ``convergence_metrics``: its converged
+    owners, worst fraction, fraction sum (float64), key-versions known
+    (int64) and FD false positives (int64)."""
     w, alive = state.w, state.alive
-    dev, total = w.device, alive.shape[0]
+    dev, total, n_local = w.device, alive.shape[0], state_n_local(state)
+    owned = slice(col0, col0 + n_local)
+    cols = col0 + torch.arange(n_local, device=dev)
     packed = is_packed_w(w)
-    need = state.max_version if packed else _needed_in_w_dtype(state)
-    need_f = torch.clamp(state.max_version, min=1).to(torch.float32)
+    need = state.max_version[owned] if packed else _needed_in_w_dtype(state, owned)
+    need_f = torch.clamp(state.max_version[owned], min=1).to(torch.float32)
+    alive_owner = alive[owned]
+    rows_ids = torch.arange(total, device=dev)
     track_fd = state.live_view.numel() > 0
-    cols = torch.arange(total, device=dev)
     frac_min = torch.ones((), dtype=torch.float32, device=dev)
     frac_sum = torch.zeros((), dtype=torch.float64, device=dev)
     kv_known = torch.zeros((), dtype=torch.int64, device=dev)
@@ -877,14 +1123,14 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
     # its owner's max_version, an unpacked need beyond w's dtype is out
     # of reach.
     caught_up = (
-        torch.ones(total, dtype=torch.bool, device=dev)
+        torch.ones(n_local, dtype=torch.bool, device=dev)
         if packed
-        else state.max_version <= torch.iinfo(w.dtype).max
+        else state.max_version[owned] <= torch.iinfo(w.dtype).max
     )
-    for r0, r1 in row_blocks(total):
-        wb = watermarks_i32(state, rows=slice(r0, r1)) if packed else w[r0:r1]
+    for r0, r1 in row_blocks(total, n_local):
+        wb = watermarks_i32(state, cols, rows=slice(r0, r1)) if packed else w[r0:r1]
         caught_up &= ((wb >= need) | ~alive[r0:r1, None]).all(dim=0)
-        pair = alive[r0:r1, None] & alive[None, :]
+        pair = alive[r0:r1, None] & alive_owner[None, :]
         frac = torch.where(pair, wb.to(torch.float32) / need_f, 1.0)
         frac_min = torch.minimum(frac_min, frac.min())
         frac_sum += torch.where(pair, torch.clamp(frac, max=1.0), 0.0).sum(
@@ -894,22 +1140,41 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
             dtype=torch.int64
         )
         if track_fd:
-            off_diag = cols[r0:r1, None] != cols[None, :]
+            off_diag = rows_ids[r0:r1, None] != cols[None, :]
             live = live_view_bool(state, rows=slice(r0, r1))
             fp += (pair & off_diag & ~live).sum()
+    return {
+        "converged": (caught_up | ~alive_owner).sum(), "frac_min": frac_min,
+        "frac_sum": frac_sum, "kv_known": kv_known, "fp": fp,
+    }
+
+
+def convergence_metrics_blocks(
+    blocks: Sequence[SimState], offsets: Sequence[int]
+) -> dict[str, torch.Tensor]:
+    """``convergence_metrics`` of a state held as column blocks: each
+    block's partials, then their sums (the minimum of the worst
+    fractions) over the blocks, as the reference's sharded metrics."""
+    parts = [_metric_partials(b, off) for b, off in zip(blocks, offsets)]
+    ops = {"converged": "sum", "frac_min": "min", "frac_sum": "sum", "kv_known": "sum",
+           "fp": "sum"}
+    red = {k: reduce_blocks([p[k] for p in parts], op)[0] for k, op in ops.items()}
+    alive = blocks[0].alive
+    total = alive.shape[0]
     n_alive = alive.sum()
     pair_count = n_alive * n_alive
-    n_converged = (caught_up | ~alive).sum()
+    n_converged = red["converged"]
     out = {
         "converged_owners": n_converged,
         "all_converged": n_converged == total,
-        "min_fraction": torch.clamp(frac_min, max=1.0),
-        "mean_fraction": (frac_sum / torch.clamp(pair_count, min=1)).to(torch.float32),
+        "min_fraction": torch.clamp(red["frac_min"], max=1.0),
+        "mean_fraction": (red["frac_sum"] / torch.clamp(pair_count, min=1)).to(torch.float32),
         "alive_count": n_alive,
-        "kv_known": kv_known.to(torch.float32),
+        "kv_known": red["kv_known"].to(torch.float32),
     }
-    if track_fd:
+    if blocks[0].live_view.numel() > 0:
         denom = pair_count - n_alive  # alive pairs off the diagonal
+        fp = red["fp"]
         out["fd_false_positives"] = fp
         out["fd_false_positive_fraction"] = fp / torch.clamp(denom, min=1)
     return out
@@ -922,20 +1187,33 @@ def convergence_metrics(state: SimState) -> dict[str, torch.Tensor]:
 STALENESS_PCTS = (("50", 0.50), ("99", 0.99), ("100", 1.0))
 
 
-def staleness_tensor(state: SimState) -> torch.Tensor:
+def staleness_tensor(state: SimState, col0: int = 0) -> torch.Tensor:
     """(N,) int32 per-node staleness (the reference's
     ``staleness_tensor``): how many key-versions node ``i`` lags behind
-    the alive owner it is most behind on, 0 for dead observers and at
-    full convergence. Reduced over blocks of rows, the packed rung
-    widened a block at a time."""
-    alive, need = state.alive, state.max_version.to(torch.int32)
-    n = alive.shape[0]
+    the alive owner it is most behind on (of the block's owners from
+    ``col0``; all of them by default), 0 for dead observers and at full
+    convergence. Reduced over blocks of rows, the packed rung widened a
+    block at a time."""
+    alive = state.alive
+    n, n_local = alive.shape[0], state_n_local(state)
+    owned = slice(col0, col0 + n_local)
+    cols = col0 + torch.arange(n_local, device=alive.device)
+    need = state.max_version[owned].to(torch.int32)
     out = torch.empty(n, dtype=torch.int32, device=alive.device)
-    for r0, r1 in row_blocks(n):
-        pair = alive[r0:r1, None] & alive[None, :]
-        lag = torch.where(pair, need[None, :] - watermarks_i32(state, rows=slice(r0, r1)), 0)
+    for r0, r1 in row_blocks(n, n_local):
+        pair = alive[r0:r1, None] & alive[owned][None, :]
+        lag = torch.where(
+            pair, need[None, :] - watermarks_i32(state, cols, rows=slice(r0, r1)), 0
+        )
         out[r0:r1] = torch.clamp(lag.max(dim=1).values, min=0)
     return out
+
+
+def staleness_tensor_blocks(blocks: Sequence[SimState], offsets: Sequence[int]) -> torch.Tensor:
+    """``staleness_tensor`` of a state held as column blocks: each row's
+    lag over each block's owners, maxed over the blocks (the reference's
+    pmax)."""
+    return reduce_blocks([staleness_tensor(b, off) for b, off in zip(blocks, offsets)], "max")[0]
 
 
 def version_spread(state: SimState) -> torch.Tensor:
@@ -964,8 +1242,16 @@ def metrics_sample(state: SimState) -> dict[str, torch.Tensor]:
     """``convergence_metrics`` with the version spread and the staleness
     percentiles (the reference's ``_metrics_sample``, a sweep's per-lane
     bundle), one staleness pass for both."""
-    out = convergence_metrics(state)
-    per_node = staleness_tensor(state)
+    return metrics_sample_blocks([state], (0,))
+
+
+def metrics_sample_blocks(
+    blocks: Sequence[SimState], offsets: Sequence[int]
+) -> dict[str, torch.Tensor]:
+    """``metrics_sample`` of a state held as column blocks (the
+    reference's ``sharded_metrics_fn``)."""
+    out = convergence_metrics_blocks(blocks, offsets)
+    per_node = staleness_tensor_blocks(blocks, offsets)
     out["version_spread"] = per_node.max()
-    out.update(staleness_percentiles(state, per_node))
+    out.update(staleness_percentiles(blocks[0], per_node))
     return out

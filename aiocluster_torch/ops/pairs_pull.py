@@ -16,6 +16,14 @@ shared memory and so takes any width). A uint8 ``w`` is the packed u4r
 rung (sim/packed.py; lean profile only, as in the reference): ``mv`` is
 then the owners' write bump of the round.
 
+``owner_offset`` runs the sub-exchange on a column block of the owners
+(the reference's owner-sharded form): the (N, n_local) matrices hold the
+global owners ``owner_offset ..``, rows stay global, and ``mv``/``hbv``
+and the check's owner vectors are the block's (n_local,) slices. A
+block's own sums cover only its columns, so the sharded round feeds
+every block the rows' global totals (the blocks' ``pairs_totals``
+shares, summed).
+
 ``pairs_pull_lanes`` is the lane lift of a sweep (the reference's
 ``fused_pull_pairs_lanes``): every operand carries a leading lane axis S,
 each lane with its own salt and FD phi, and one launch serves all S
@@ -94,10 +102,16 @@ def compiled_static_smem(name: str = "pairs_pull") -> int:
     return out.value
 
 
+def owner_columns(w) -> int:
+    """The owners a watermark matrix (or column block) holds: its width,
+    twice its stored width on the packed u4r rung."""
+    return w.shape[-1] * (2 if is_packed_w(w) else 1)
+
+
 def pairs_pull_plain(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
-    leaders=None,
+    owner_offset: int = 0, leaders=None,
 ):
     """The plain version of ``pairs_pull`` (same operands, same in-place
     effect, same returned flag). It runs over blocks of row pairs: each
@@ -111,7 +125,8 @@ def pairs_pull_plain(
     packed = is_packed_w(w)
     _check_packed(packed, hb, fd)
     p = prng.rows_of_groups(gm.to(torch.int64), c.to(torch.int64))
-    owners = torch.arange(w.shape[0], device=dev)
+    col0 = int(owner_offset)
+    owners = col0 + torch.arange(owner_columns(w), device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     if check is not None:
         needed, alive, alive_owner = check
@@ -120,9 +135,9 @@ def pairs_pull_plain(
         v = valid[rows]
         row_totals = None if totals is None else totals[rows]
         if packed:
-            x = gossip.refreshed_packed_rows(w, rows, mv)
+            x = gossip.refreshed_packed_rows(w, rows, mv, col0)
             a_lo, a_hi = gossip.packed_adv_halves(
-                x, gossip.refreshed_packed_rows(w, partners, mv), budget, v, salt,
+                x, gossip.refreshed_packed_rows(w, partners, mv, col0), budget, v, salt,
                 owners, run_salt, row_totals, rows,
             )
             w_new = gossip.packed_apply(x, a_lo, a_hi)
@@ -132,29 +147,29 @@ def pairs_pull_plain(
                 caught = ((lo == 0) | ~alive_owner[0::2]) & ((hi == 0) | ~alive_owner[1::2])
                 ok &= (caught | ~alive[rows, None]).all()
         else:
-            x = gossip.refreshed_rows(w, rows, mv)
+            x = gossip.refreshed_rows(w, rows, mv, col0=col0)
             adv = gossip.budgeted_advance(
-                x, gossip.refreshed_rows(w, partners, mv), budget, v, salt, owners,
-                run_salt, row_totals, rows,
+                x, gossip.refreshed_rows(w, partners, mv, col0=col0), budget, v, salt,
+                owners, run_salt, row_totals, rows,
             )
             w_new = x + adv
             if check is not None:
                 ok &= ((w_new.to(torch.int32) >= need[None, :]) | ~alive[rows, None]).all()
         if hb is not None:
             hb_diag = hbv if mv is not None else None
-            h = gossip.refreshed_rows(hb, rows, hb_diag)
-            h_p = gossip.refreshed_rows(hb, partners, hb_diag)
+            h = gossip.refreshed_rows(hb, rows, hb_diag, col0=col0)
+            h_p = gossip.refreshed_rows(hb, partners, hb_diag, col0=col0)
             hb_new = torch.maximum(h, torch.where(v[:, None], h_p, 0))
             if fd is not None:
                 if fd.hb0 is not None:
-                    hb0 = gossip.refreshed_rows(fd.hb0, rows, hbv, torch.int32)
+                    hb0 = gossip.refreshed_rows(fd.hb0, rows, hbv, torch.int32, col0)
                 else:
                     hb0 = h.to(torch.int32)
                 out = fd_mod.fd_update(
                     fd.tick, hb_new.to(torch.int32), hb0, fd.lc[rows].to(torch.int32),
                     fd.im[rows].to(torch.float32), fd.ic[rows].to(torch.int32), fd.params,
                 )
-                fd_mod.fd_store(rows, *out, fd.lc, fd.im, fd.ic, fd.live)
+                fd_mod.fd_store(rows, *out, fd.lc, fd.im, fd.ic, fd.live, col0)
             hb.index_copy_(0, rows, hb_new)
         w.index_copy_(0, rows, w_new)
     return None if check is None else ok.to(torch.int32).reshape(1)
@@ -170,12 +185,16 @@ def _check_packed(packed: bool, hb, fd) -> None:
 def pairs_pull(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
+    owner_offset: int = 0,
 ):
     """One pair-fused sub-exchange, in place.
 
     ``w`` (N, N) int8/int16/int32, or (N, N/2) uint8 (the packed u4r
     rung, with ``hb`` and ``fd`` None), and ``hb`` (N, N)
-    int8/int16/int32 or None (the lean profile); ``gm``/``c`` (N/8,)
+    int8/int16/int32 or None (the lean profile); or each a column block
+    (N, n_local) of the owners ``owner_offset ..`` (packed: (N,
+    n_local/2)), with every owner vector below the block's (n_local,)
+    slice and the FD matrices blocks too; ``gm``/``c`` (N/8,)
     int32 the grouped matching; ``valid`` (N,) bool the alive-pair mask
     per row; ``salt`` the sub-exchange salt and ``run_salt`` the run's;
     ``budget`` key-versions per exchange. ``mv``/``hbv`` (N,) int32
@@ -183,7 +202,9 @@ def pairs_pull(
     hb0 diagonal; packed: ``mv`` is the owners' write bump, which raises
     every residual, saturating, before the diagonal zeroes). ``check`` =
     (needed, alive, alive_owner) asks for the all-converged flag of the
-    output, returned as a (1,) int32 tensor (None without ``check``).
+    output (of the block's columns: ``needed`` and ``alive_owner`` are
+    per owner, ``alive`` (N,) per row), returned as a (1,) int32 tensor
+    (None without ``check``).
     ``fd`` runs the FD phase on the post-exchange heartbeat rows.
     ``totals`` (N,) float32, the rows' deficit totals of this
     sub-exchange (``pairs_totals`` on the same operands), scales the
@@ -193,10 +214,11 @@ def pairs_pull(
         counters.plain_calls["pull"] += 1
         return pairs_pull_plain(
             w, hb, gm, c, valid, salt, run_salt, budget,
-            mv=mv, hbv=hbv, check=check, fd=fd, totals=totals,
+            mv=mv, hbv=hbv, check=check, fd=fd, totals=totals, owner_offset=owner_offset,
         )
     salt_mix = (int(salt) & prng.M32) ^ (int(run_salt) & prng.M32)
-    return _launch(w, hb, gm, c, valid, salt_mix, budget, (), mv, hbv, check, fd, totals)
+    return _launch(w, hb, gm, c, valid, salt_mix, budget, (), mv, hbv, check, fd, totals,
+                   int(owner_offset))
 
 
 def pairs_pull_lanes_plain(
@@ -245,26 +267,41 @@ def pairs_pull_lanes(
     return _launch(w, hb, gm, c, valid, salt_mix, budget, lanes, mv, hbv, check, fd, totals)
 
 
-def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals):
+def check_block(n: int, n_cols: int, owner_offset: int, packed: bool) -> None:
+    """A column block's contract: owners ``owner_offset .. +n_cols`` of
+    ``n``, rows of 8-element vectors (a packed block also starts on a
+    byte)."""
+    if n_cols % (16 if packed else 8):
+        raise ValueError(
+            f"a block of {n_cols} owners is not rows of 8-element vectors"
+            + (" (16 owners, packed)" if packed else "")
+        )
+    if owner_offset < 0 or owner_offset + n_cols > n or (packed and owner_offset % 2):
+        raise ValueError(f"owner_offset {owner_offset} does not place {n_cols} of {n} owners")
+
+
+def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals,
+            owner_offset=0):
     """Check the operands of a launch over ``lanes`` (``()``: one
     sub-exchange; ``(S,)``: S lanes, ``salt`` their (S,) salt_mix, else
-    the salt_mix int) and launch the kernel."""
+    the salt_mix int) on the block of owners from ``owner_offset`` and
+    launch the kernel."""
     dev = w.device
     n = w.shape[-2]
     packed = is_packed_w(w)
     _check_packed(packed, hb, fd)
     if not packed and w.dtype not in MATRIX_DTYPES:
         raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32/uint8")
-    expect("w", w, w.dtype, (*lanes, n, n // 2) if packed else (*lanes, n, n), dev)
+    n_cols = owner_columns(w)
+    check_block(n, n_cols, owner_offset, packed)
+    expect("w", w, w.dtype, (*lanes, n, w.shape[-1]), dev)
     if totals is not None:
-        if w.shape[-1] % 8:
-            raise ValueError(f"pairs kernel needs rows of 8-element vectors, got {w.shape}")
         expect("totals", totals, torch.float32, (*lanes, n), dev)
     elif not pairs_supported(w.shape[-1], w.element_size()):
         raise ValueError(
-            f"pairs kernel cannot run n={n} with {w.dtype} watermarks "
-            "(needs rows of 8-element vectors, both in shared memory; "
-            "pass totals for the two-pass form)"
+            f"pairs kernel cannot stage rows of {n_cols} owners with {w.dtype} "
+            "watermarks (both rows in shared memory; pass totals for the "
+            "two-pass form)"
         )
     expect("gm", gm, torch.int32, (*lanes, n // 8), dev)
     expect("c", c, torch.int32, (*lanes, n // 8), dev)
@@ -274,16 +311,16 @@ def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals
     if hb is not None:
         if hb.dtype not in MATRIX_DTYPES:
             raise ValueError(f"hb dtype {hb.dtype} is not int8/int16/int32")
-        expect("hb", hb, hb.dtype, (*lanes, n, n), dev)
+        expect("hb", hb, hb.dtype, (*lanes, n, n_cols), dev)
         h_code = hb.element_size()
     if mv is not None:
-        expect("mv", mv, torch.int32, (*lanes, n), dev)
+        expect("mv", mv, torch.int32, (*lanes, n_cols), dev)
         if hb is not None and hbv is None:
             raise ValueError("hbv required when mv is given and hb is tracked")
         if packed:
             mv = pack_u4(mv)  # the write bumps as nibbles, each clipped to 15
     if hbv is not None:
-        expect("hbv", hbv, torch.int32, (*lanes, n), dev)
+        expect("hbv", hbv, torch.int32, (*lanes, n_cols), dev)
     need = alive = flag = None
     if check is not None:
         needed, alive, alive_owner = check
@@ -293,6 +330,7 @@ def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals
             need = pack_u4(alive_owner.to(torch.int32))
         else:
             need = torch.where(alive_owner, needed.to(torch.int32), 0)
+        expect("need", need, need.dtype, (*lanes, w.shape[-1] if packed else n_cols), dev)
         expect("alive", alive, torch.bool, (*lanes, n), dev)
         flag = torch.ones(lanes or (1,), dtype=torch.int32, device=dev)
     fd_ptrs = [None] * 5
@@ -308,15 +346,15 @@ def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals
         if fd.ic.dtype not in (torch.int8, torch.int16):
             raise ValueError(f"icount dtype {fd.ic.dtype} is not int8/int16")
         live_bits = int(is_packed_live(fd.live))
-        expect("last_change", fd.lc, hb.dtype, (*lanes, n, n), dev)
-        expect("imean", fd.im, fd.im.dtype, (*lanes, n, n), dev)
-        expect("icount", fd.ic, fd.ic.dtype, (*lanes, n, n), dev)
+        expect("last_change", fd.lc, hb.dtype, (*lanes, n, n_cols), dev)
+        expect("imean", fd.im, fd.im.dtype, (*lanes, n, n_cols), dev)
+        expect("icount", fd.ic, fd.ic.dtype, (*lanes, n, n_cols), dev)
         if live_bits:
-            expect("live", fd.live, torch.uint8, (*lanes, n, n // 8), dev)
+            expect("live", fd.live, torch.uint8, (*lanes, n, n_cols // 8), dev)
         else:
-            expect("live", fd.live, torch.bool, (*lanes, n, n), dev)
+            expect("live", fd.live, torch.bool, (*lanes, n, n_cols), dev)
         if fd.hb0 is not None:
-            expect("hb0", fd.hb0, hb.dtype, (*lanes, n, n), dev)
+            expect("hb0", fd.hb0, hb.dtype, (*lanes, n, n_cols), dev)
         fd_ptrs = [
             fd.lc.data_ptr(), fd.im.data_ptr(), fd.ic.data_ptr(),
             fd.live.data_ptr(),
@@ -335,7 +373,7 @@ def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals
     lib = _build.load("pairs_pull")
     rc = lib.aiocluster_pairs_pull(
         w.data_ptr(), ptr(hb), gm.data_ptr(), c.data_ptr(), valid.data_ptr(),
-        n, 0 if lanes else salt, float(budget), ptr(totals), ptr(mv), ptr(hbv),
+        n, n_cols, owner_offset, 0 if lanes else salt, float(budget), ptr(totals), ptr(mv), ptr(hbv),
         ptr(need), ptr(alive), ptr(flag), tick, *fd_ptrs,
         consts.max_interval, consts.window, consts.prior_weight,
         consts.prior_wm, consts.phi, w_code, h_code, im_code, ic_code, live_bits,

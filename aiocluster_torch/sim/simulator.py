@@ -1,20 +1,27 @@
 """Host-side runner of the PyTorch gossip simulator.
 
-Keeps the SimState resident on its device and steps it in chunks of
-rounds: the draws of a whole chunk (every sub-exchange's grouped
-matching) are computed on the device in one batched pass, each round's
-kernels are queued without a host sync, and convergence is polled once
-per chunk — the counterpart of the reference's jit-compiled chunks.
+Keeps the SimState resident on its device (or, with ``mesh=``, as column
+blocks of the owners over a mesh's devices: parallel/mesh.py) and steps
+it in chunks of rounds: the draws of a whole chunk (every sub-exchange's
+grouped matching) are computed on the device in one batched pass, each
+round's kernels are queued without a host sync, and convergence is
+polled once per chunk — the counterpart of the reference's jit-compiled
+chunks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import counters, prng
-from ..ops.gossip import convergence_metrics, pull_phase_engaged, sim_step
+from ..ops.gossip import (
+    convergence_metrics,
+    metrics_sample_blocks,
+    pull_phase_engaged,
+    run_rounds,
+)
+from ..parallel.mesh import Mesh, gather_state, init_blocks, shard_state
 from .config import SimConfig
 from .state import (
     DTYPES,
@@ -29,9 +36,16 @@ from .state import (
 
 class Simulator:
     """Runs one simulated cluster to convergence (or for a fixed number
-    of rounds) on ``device`` ("cuda" unless the caller asks otherwise).
-    The trajectory depends only on (cfg, seed, tick): it equals the
-    reference's ``Simulator(cfg, seed=seed)`` round for round."""
+    of rounds) on ``device`` ("cuda" unless the caller asks otherwise),
+    or with ``mesh=`` (``parallel.make_mesh``) over the mesh's devices,
+    its state held as one column block of the owners per mesh entry
+    (the reference's owner-sharded simulator). The trajectory depends
+    only on (cfg, seed, tick): it equals the reference's
+    ``Simulator(cfg, seed=seed)`` round for round, sharded or not.
+
+    ``state`` is the whole state (with a mesh: gathered, a copy of
+    every matrix on the first device); ``blocks`` are the column blocks
+    as held (one block, the state itself, without a mesh)."""
 
     def __init__(
         self,
@@ -40,34 +54,63 @@ class Simulator:
         seed: int = 0,
         chunk: int = 8,
         state: SimState | None = None,
-        device: str | torch.device = "cuda",
-        mesh=None,
+        device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
         topology=None,
     ) -> None:
-        if mesh is not None or topology is not None:
+        if topology is not None:
             counters.refuse(
-                "meshes and topologies are not ported yet: ROADMAP.md A15 "
-                "(multi-GPU) and A7 (choice pairing over an adjacency)"
+                "topologies are not ported yet: ROADMAP.md A7 (choice pairing "
+                "over an adjacency)"
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.cfg = cfg
         self.chunk = chunk
         self.seed = seed
-        self.device = torch.device(device)
-        pull_phase_engaged(cfg, self.device)  # refuse before allocating
+        self.mesh = mesh
+        if mesh is None:
+            self.device = torch.device("cuda" if device is None else device)
+            self._offsets: tuple[int, ...] = (0,)
+            n_local = None
+        else:
+            if device is not None:
+                raise ValueError("a mesh places its blocks: list its devices, not device=")
+            self.device = mesh.devices[0]
+            self._offsets = mesh.offsets(cfg)
+            n_local = mesh.n_local(cfg)
+        pull_phase_engaged(cfg, self.device, n_local)  # refuse before allocating
         self._key = prng.key(seed)
         self._run_salt = prng.run_salt(self._key)
         self._device_key = self._key.to(self.device)
-        if state is None:
-            state = init_state(cfg, device=self.device)
+        if state is not None:
+            _check_state(state, cfg, None if mesh else self.device)
+            blocks = [state] if mesh is None else shard_state(state, mesh)
+        elif mesh is None:
+            blocks = [init_state(cfg, device=self.device)]
         else:
-            _check_state(state, cfg, self.device)
-        self.state: SimState = state
+            blocks = init_blocks(cfg, mesh)
+        self._blocks: list[SimState] = blocks
+        head = blocks[0]
         # Horizon guard inputs, read once here where a sync is free.
-        self._known_max_version = int(state.max_version.max())
-        self._host_tick = int(state.tick)
+        self._known_max_version = int(head.max_version.max())
+        self._host_tick = int(head.tick)
         self._version_base_tick = self._host_tick
+
+    @property
+    def blocks(self) -> list[SimState]:
+        """The state as held: the column blocks of a mesh, in mesh order
+        (block k holds the owners ``k * n_local ..``), or the one whole
+        state."""
+        return self._blocks
+
+    @property
+    def state(self) -> SimState:
+        """The whole state (with a mesh, gathered onto the first device:
+        a copy)."""
+        if self.mesh is None:
+            return self._blocks[0]
+        return gather_state(self._blocks)
 
     # -- stepping -------------------------------------------------------------
 
@@ -101,29 +144,15 @@ class Simulator:
                 )
 
     def _run_chunk(self, m: int, tracked: bool) -> torch.Tensor:
-        """Queue ``m`` rounds; returns the device scalar holding the first
-        converged tick among them (0 if none; always 0 untracked). The
-        chunk's draws and each round are ``torch.profiler`` ranges
-        (``aiocluster_torch.draws`` / ``aiocluster_torch.sim_step``)."""
-        with record_function("aiocluster_torch.draws"):
-            gm, c, p = prng.round_draws(
-                self._device_key, self._host_tick + 1, m, self.cfg.n_nodes,
-                self.cfg.fanout,
-            )
-        first = torch.zeros((), dtype=torch.int32, device=self.device)
-        for r in range(m):
-            with record_function("aiocluster_torch.sim_step"):
-                out = sim_step(
-                    self.state, self._key, self.cfg,
-                    return_converged=tracked, tick=self._host_tick,
-                    draws=(gm[r], c[r], p[r]), run_salt=self._run_salt,
-                )
-            self._host_tick += 1
-            if tracked:
-                self.state, conv = out
-                first = torch.where((first == 0) & conv, self.state.tick, first)
-            else:
-                self.state = out
+        """Queue ``m`` rounds (``gossip.run_rounds``); returns the
+        device scalar holding the first converged tick among them (0 if
+        none; always 0 untracked)."""
+        self._blocks, first = run_rounds(
+            self._blocks, self._key, self.cfg, offsets=self._offsets, m=m,
+            tick=self._host_tick, tracked=tracked, run_salt=self._run_salt,
+            device_key=self._device_key,
+        )
+        self._host_tick += m
         return first
 
     def run(self, rounds: int) -> None:
@@ -153,24 +182,30 @@ class Simulator:
     # -- observation ----------------------------------------------------------
 
     def metrics(self) -> dict[str, np.ndarray]:
-        return {
-            k: v.cpu().numpy() for k, v in convergence_metrics(self.state).items()
-        }
+        """``convergence_metrics`` of the state; with a mesh, the
+        reference's sharded bundle (also the version spread and the
+        staleness percentiles), reduced over the blocks."""
+        if self.mesh is None:
+            out = convergence_metrics(self._blocks[0])
+        else:
+            out = metrics_sample_blocks(self._blocks, self._offsets)
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
     @property
     def tick(self) -> int:
-        return int(self.state.tick)
+        return int(self._blocks[0].tick)
 
 
-def _check_state(state: SimState, cfg: SimConfig, device: torch.device) -> None:
+def _check_state(state: SimState, cfg: SimConfig, device: torch.device | None) -> None:
     """A provided state must hold this config's rung and live on the
-    simulator's device (nothing is moved silently)."""
+    simulator's device (nothing is moved silently; a mesh copies it into
+    its blocks, ``device`` None)."""
     want = expected_dtypes(cfg)
     for name, dt in want.items():
         t = getattr(state, name)
         if t.dtype != DTYPES[dt]:
             raise ValueError(f"state.{name} is {t.dtype}, config expects {dt}")
-        if t.device.type != device.type:
+        if device is not None and t.device.type != device.type:
             raise ValueError(f"state.{name} is on {t.device}, expected {device}")
     for name, shape in expected_shapes(cfg).items():
         got = tuple(getattr(state, name).shape)

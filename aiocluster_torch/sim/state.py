@@ -179,15 +179,25 @@ def init_state(
     initial_versions=None,
     *,
     device: str | torch.device = "cuda",
+    owner_offset: int = 0,
+    n_local: int | None = None,
 ) -> SimState:
     """Fresh cluster: every node owns ``keys_per_node`` versions (or
     per-node counts via ``initial_versions``), knows only itself, and has
-    heartbeat 1."""
+    heartbeat 1.
+
+    ``owner_offset``/``n_local`` build one column block of it: the
+    (N, N)-class matrices hold only the owners ``owner_offset ..
+    owner_offset + n_local - 1`` (the packed rungs' stored widths scale
+    with it), the (N,) vectors and the tick stay whole. The blocks of a
+    mesh (parallel/mesh.py) are made this way, so the whole state never
+    exists at once."""
     device = torch.device(device)
     n = cfg.n_nodes
-    fd_shape = (n, n) if cfg.track_failure_detector else (0, 0)
+    n_local = n if n_local is None else n_local
+    fd_shape = (n, n_local) if cfg.track_failure_detector else (0, 0)
     ds_shape = (
-        (n, n)
+        (n, n_local)
         if cfg.track_failure_detector and cfg.dead_grace_ticks is not None
         else (0, 0)
     )
@@ -203,7 +213,11 @@ def init_state(
             f"(must stay < {limit})"
         )
     hdt = DTYPES[cfg.heartbeat_dtype]
-    ids = torch.arange(n, device=device)
+    # Local column j is global owner owner_offset + j, whose own row holds
+    # the block's diagonal.
+    cols = torch.arange(n_local, device=device)
+    rows = owner_offset + cols
+    owned = initial_versions[owner_offset : owner_offset + n_local]
 
     # Each (N, N) matrix is allocated once, in its own dtype, and only its
     # diagonal written: at N = 100,352 an eye mask alone is 10 GB.
@@ -211,21 +225,23 @@ def init_state(
         # A fresh observer's residual on owner j IS j's initial version
         # count (w = 0 off the diagonal), 0 on the diagonal: one packed
         # row repeated, then each row's own nibble cleared.
-        row = pack_u4(initial_versions)
-        w = row[None, :].expand(n, n // 2).clone()
-        w[ids, ids // 2] &= torch.where(ids % 2 == 0, 0xF0, 0x0F).to(torch.uint8)
+        row = pack_u4(owned)
+        w = row[None, :].expand(n, n_local // 2).clone()
+        w[rows, cols // 2] &= torch.where(cols % 2 == 0, 0xF0, 0x0F).to(torch.uint8)
     else:
-        w = torch.zeros((n, n), dtype=DTYPES[cfg.version_dtype], device=device)
-        w.diagonal().copy_(initial_versions)
-    hb_shape = (n, n) if cfg.track_heartbeats else (0, 0)
+        w = torch.zeros((n, n_local), dtype=DTYPES[cfg.version_dtype], device=device)
+        w[rows, cols] = owned.to(w.dtype)
+    hb_shape = (n, n_local) if cfg.track_heartbeats else (0, 0)
     hb_known = torch.zeros(hb_shape, dtype=hdt, device=device)
-    hb_known.diagonal().fill_(1)
+    if cfg.track_heartbeats:
+        hb_known[rows, cols] = 1
     if cfg.track_failure_detector and cfg.live_bits:
-        live_view = torch.zeros((n, n // 8), dtype=torch.uint8, device=device)
-        live_view[ids, ids // 8] = (1 << (ids % 8)).to(torch.uint8)
+        live_view = torch.zeros((n, n_local // 8), dtype=torch.uint8, device=device)
+        live_view[rows, cols // 8] = (1 << (cols % 8)).to(torch.uint8)
     else:
         live_view = torch.zeros(fd_shape, dtype=torch.bool, device=device)
-        live_view.diagonal().fill_(True)
+        if cfg.track_failure_detector:
+            live_view[rows, cols] = True
     return SimState(
         tick=torch.zeros((), dtype=torch.int32, device=device),
         max_version=initial_versions,

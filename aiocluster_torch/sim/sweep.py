@@ -183,7 +183,8 @@ class SweepSimulator:
             )
         if mesh is not None:
             counters.refuse(
-                "sweeps over a mesh are not ported yet: ROADMAP.md A15 (multi-GPU)"
+                "sweeps over a mesh are not ported yet: ROADMAP.md A15b (the lane "
+                "launches at an owner offset)"
             )
         if metrics is not None:
             counters.refuse(

@@ -77,6 +77,21 @@ counters of a sweep pinned to m8 and of a fanout-0 round. Last (phase
 with the fused FD, one chained round held against the plain versions on
 a sample of row pairs (a second copy of the state does not fit).
 
+Then the owner-sharded round (phase 13), the reference's 8-shard mesh on
+this one card (``make_mesh(["cuda:0"] * 8)``): every column-block mode
+of the pairs pull, the pairs totals and the FD kernel held bit-equal to
+its plain version at N = 10,240 over 8 blocks of 1,280 owners, the
+blocks' totals summed equal to the whole width's and their pulls side by
+side equal to the whole-width kernel's; the headline on 8 blocks to
+convergence (round 24, field-equal to the unsharded run; its round timed
+and traced, ``build/chip_smoke_trace_mesh.json``; pinned to m8, 24 with
+the FD kernel at each block's offset); the north star on 8
+blocks of 12,544 (its w digests at ticks 1 and 2 equal to the reference's
+certified mesh run, which phase 8 also checks unsharded; its w equal to
+the unsharded run's at tick 20; round 209), timed with each block pass
+beside its bound; 4 rounds each of the int8, u4r and shrunk rungs on 8
+blocks, field-equal to their unsharded runs.
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -85,7 +100,9 @@ exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -103,6 +120,7 @@ from aiocluster_torch.ops import (
 )
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
+from aiocluster_torch.parallel import make_mesh
 from aiocluster_torch.sim.packed import pack_bits, unpack_bits, unpack_u4
 from aiocluster_torch.sim.state import STATE_FIELDS, lane
 
@@ -118,6 +136,7 @@ COLUMN_BLOCKS = 8  # the reference's certified north-star mesh: 8 shards
 TRACE_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
 NORTH_STAR_TRACE = TRACE_PATH.with_name("chip_smoke_trace_north_star.json")
 SWEEP_TRACE = TRACE_PATH.with_name("chip_smoke_trace_sweep.json")
+MESH_TRACE = TRACE_PATH.with_name("chip_smoke_trace_mesh.json")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Integer/float operations per element, counted from the kernel source:
 # per row direction the deficit (3), the hash and dither (13), the
@@ -220,6 +239,7 @@ def call_pull(fn, ops):
         ops["w"], ops["hb"], ops["gm"], ops["c"], ops["valid"], ops["salt"],
         ops["run_salt"], ops["budget"], mv=ops.get("mv"), hbv=ops.get("hbv"),
         check=ops.get("check"), fd=ops.get("fd"), totals=ops.get("totals"),
+        owner_offset=ops.get("owner_offset", 0),
     )
 
 
@@ -250,30 +270,34 @@ def max_abs_err(xs, ys) -> float:
 
 
 def pull_bytes(n, wsize, hsize, *, diag, check, fd, hb0, imsize=2, icsize=2, livesize=1,
-               totals=False):
+               totals=False, n_cols=None):
     """Bytes one pull must move: w (and hb; ``hsize`` 0 in the lean
     profile) read and written once, the FD matrices (sample counters
     ``icsize`` bytes, the live view ``livesize``: 1/8 as the bitmap),
-    the vectors."""
-    mat = n * n
+    the vectors; over ``n_cols`` owner columns (a column block) or all
+    ``n``."""
+    n_cols = n if n_cols is None else n_cols
+    mat = n * n_cols
     b = 2 * mat * wsize + 2 * mat * hsize + n * (4 + 4 + 1)
     if totals:
         b += n * 4
     if diag:
-        b += 2 * n * 4
+        b += 2 * n_cols * 4
     if check:
-        b += n * (4 + 1)
+        b += n_cols * 4 + n
     if fd:
-        b += 2 * mat * (hsize + imsize + icsize) + mat * livesize + n * 4
+        b += 2 * mat * (hsize + imsize + icsize) + mat * livesize + n_cols * 4
         if hb0:
             b += mat * hsize
     return b
 
 
-def totals_bytes(n, wsize, *, diag):
+def totals_bytes(n, wsize, *, diag, n_cols=None):
     """Bytes the totals pass must move: w read once, totals written,
-    the matching, valid and (diag) mv read."""
-    return n * n * wsize + n * (4 + 4 + 1) + (n * 4 if diag else 0)
+    the matching, valid and (diag) mv read; over ``n_cols`` owner
+    columns or all ``n``."""
+    n_cols = n if n_cols is None else n_cols
+    return n * n_cols * wsize + n * (4 + 4 + 1) + (n_cols * 4 if diag else 0)
 
 
 def trace_breakdown(path: Path, window: str, labels: tuple[str, ...]) -> dict:
@@ -529,29 +553,43 @@ def states_equal(s1, s2) -> bool:
 
 
 def north_star(dev, card_line):
-    """Phase 8: the two-pass path at full width. Runs the north star to
-    convergence (must be round 209, every sub-exchange through both
-    kernels), times 16 more rounds on the host clock, traces 4, then
+    """Phase 8: the two-pass path at full width. Runs the north star's
+    first two rounds (w's digests at ticks 1 and 2 must be the record's
+    of the reference's 8-device mesh run), then on to convergence (must
+    be round 209, every sub-exchange through both kernels), times 16
+    more rounds on the host clock, traces 4, then
     times each pass at this width with CUDA events on the converged
     state. Returns the record for the JSON line and the per-key times."""
     cfg = lean_config(NORTH_STAR_N, budget=2618)
     n = cfg.n_nodes
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # The record's w digests at ticks 1 and 2 (the reference's 8-device
+    # mesh run), on the unsharded run.
+    t0 = time.perf_counter()
+    pending = {}
+    for tick in sorted(NORTH_STAR_DIGESTS):
+        sim.run(tick - sim.tick)
+        pending[tick] = w_digest([sim.state])
+    copy_s = time.perf_counter() - t0
+    counters.reset()
     t0 = time.perf_counter()
     converged = sim.run_until_converged(max_rounds=400)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    digests = {tick: f.result() for tick, f in pending.items()}
+    log("north_star", f"w digests at ticks 1, 2: {digests} (host copies fed to sha256 "
+        f"{copy_s:.1f} s); the record's: {NORTH_STAR_DIGESTS}")
+    check(digests == NORTH_STAR_DIGESTS, "the north star's w digests differ from the record's")
     launches = dict(counters.launches)
     plain, refusals = dict(counters.plain_calls), dict(counters.refusals)
-    rounds = sim.tick
+    rounds = sim.tick - len(NORTH_STAR_DIGESTS)  # the tracked rounds
     log("north_star", f"lean_config({n}, budget=2618) seed {NORTH_STAR_SEED}: "
-        f"run_until_converged -> {converged} after {rounds} rounds in {run_s:.2f} s "
+        f"run_until_converged -> {converged} after {rounds} tracked rounds in {run_s:.2f} s "
         f"(init {init_s:.2f} s); launches {launches}; plain calls {plain}; "
         f"refusals {refusals}")
     check(converged == NORTH_STAR_ROUND,
@@ -634,6 +672,7 @@ def north_star(dev, card_line):
     record = {
         "n": n, "seed": NORTH_STAR_SEED, "converged_round": converged,
         "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
+        "digests": digests, "digest_copy_s": copy_s,
         "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
         "kernel_ms_per_round": per_round_ms, "bound_ms_per_round": per_round_bound,
         "peak_memory_gb": peak_gb, "device_busy_share": busy,
@@ -1503,16 +1542,17 @@ def check_ladder_full_width(dev, errs):
         f"path's width ({time.perf_counter() - t0:.1f} s with the rounds)")
 
 
-def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8):
-    """Run ``cfg`` to convergence through the kernels from counters at 0:
-    it must converge at round ``want`` (None: any) with no plain call,
-    fallback or refusal. Returns (simulator, round, launches, seconds,
-    peak GB)."""
+def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8, mesh=None):
+    """Run ``cfg`` to convergence through the kernels from counters at 0
+    (over ``mesh``'s column blocks when given): it must converge at round
+    ``want`` (None: any) with no plain call, fallback or refusal. Returns
+    (simulator, round, launches, seconds, peak GB)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
-    sim = Simulator(cfg, seed=seed, device=dev, chunk=chunk)
+    place = {"device": dev} if mesh is None else {"mesh": mesh}
+    sim = Simulator(cfg, seed=seed, chunk=chunk, **place)
     converged = sim.run_until_converged(max_rounds=max_rounds)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
@@ -2981,6 +3021,643 @@ def full_past_staged(dev, card_line):
             "max_abs_err": dict(errs), "sample_leaders": C2_LEADERS, "run_s": run_s}
 
 
+# -- the owner-sharded round: column blocks of the pairs and FD kernels (phase 13) ---
+
+MESH_BLOCKS = 8  # the reference's test mesh and its certified north-star mesh
+# sha256 of the north star's w as int8 (row-major, the whole N x N) after
+# ticks 1 and 2 of the reference's 8-device mesh run at seed 1
+# (benchmarks/records/r4_northstar_100k_certification.json; the digest is
+# benchmarks/records/_r4_northstar_certify.py:_digest_int8).
+NORTH_STAR_DIGESTS = {
+    1: "2d8681fa6b99c95dbdd95b33e10a4e1062f0fcc5784302a2095e10c85d900b2f",
+    2: "7b4564911975ad6d15bed267f6657ab00149d3861a05a76c57ad3781d4a6d217",
+}
+MESH_CHECK_ROUND = 20  # the mesh north star's w held against the unsharded run's here
+# The w digests' hashing: one worker thread, so each digest's blocks of
+# rows are fed to its sha256 in order.
+HASHER = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+DIGEST_ROWS_HELD = 4  # blocks of rows held on the host while a digest is fed
+# The column-block modes held on the card: (rung, ladder_case operands,
+# modes), the modes an 8-block run of each rung launches.
+BLOCK_CHECKS = (
+    ("int16", dict(wdt=torch.int16, hdt=torch.int16), ("first", "middle", "last_fd")),
+    ("lean int16", dict(wdt=torch.int16), ("first", "middle", "last")),
+    ("int8", dict(wdt=torch.int8), ("first", "middle", "last")),
+    ("u4r", dict(wdt="u4"), ("first", "middle", "last")),
+    ("shrunk", FD_RUNGS["shrunk"], ("last_fd",)),
+)
+# Each rung's run on the mesh whose launches its entries report.
+BLOCK_RUNS = {"int16": "headline_mesh", "lean int16": "north_star_mesh",
+              "int8": "int8_mesh", "u4r": "u4r_mesh", "shrunk": "shrunk_mesh"}
+
+
+def mesh_of(dev):
+    """The reference's 8-shard mesh on this one card."""
+    return make_mesh([dev] * MESH_BLOCKS)
+
+
+def column_block(ops, k, width):
+    """Block ``k`` (the owners ``k * width ..``) of whole-width pull
+    operands: each matrix's columns copied out, each owner vector's
+    slice, the rows' operands whole."""
+    packed = ops["w"].dtype == torch.uint8
+
+    def cut(t, owners_a_column=1):
+        step = width // owners_a_column
+        return t[:, k * step : (k + 1) * step].contiguous()
+
+    cols = slice(k * width, (k + 1) * width)
+    out = dict(ops, owner_offset=k * width, w=cut(ops["w"], 2 if packed else 1))
+    if ops["hb"] is not None:
+        out["hb"] = cut(ops["hb"])
+    for name in ("mv", "hbv"):
+        if name in ops:
+            out[name] = ops[name][cols]
+    if "check" in ops:
+        need, alive, alive_owner = ops["check"]
+        out["check"] = (need[cols], alive, alive_owner[cols])
+    f = ops.get("fd")
+    if f is not None:
+        out["fd"] = pairs_pull.FdOperands(
+            f.tick, cut(f.lc), cut(f.im), cut(f.ic),
+            cut(f.live, 8 if f.live.dtype == torch.uint8 else 1),
+            None if f.hb0 is None else cut(f.hb0), f.params,
+        )
+    return out
+
+
+def half_excused(ops, width):
+    """The check of a column-block case passes on the even blocks: their
+    owners' need is 0 (packed: their owners are dead), so the blocks'
+    flags differ and their min is the whole width's."""
+    if "check" not in ops:
+        return ops
+    need, alive, alive_owner = ops["check"]
+    odd = (torch.arange(need.shape[0], device=need.device) // width) % 2 == 1
+    if ops["w"].dtype == torch.uint8:
+        alive_owner = alive_owner & odd
+    else:
+        need = torch.where(odd, need, 0)
+    return dict(ops, check=(need, alive, alive_owner))
+
+
+def block_key(m, rung) -> str:
+    return f"{pairs_pull.counter_key(m['diag'], m['check'], m['fd'], True, rung == 'u4r')} cols {rung}"
+
+
+def block_totals_key(diag, rung) -> str:
+    return f"{pairs_totals.counter_key(diag, rung == 'u4r')} cols {rung}"
+
+
+def block_pull_bound(n, n_cols, rung, m):
+    """(ms, by) bound of one column-block pull fed the totals."""
+    wsize = {"int16": 2, "lean int16": 2, "int8": 1, "u4r": 0.5, "shrunk": 2}[rung]
+    hsize = {"int16": 2, "shrunk": 2}.get(rung, 0)
+    shrunk = rung == "shrunk"
+    b = pull_bytes(n, wsize, hsize, diag=m["diag"], check=m["check"], fd=m["fd"],
+                   hb0=m["hb0"], icsize=1 if shrunk else 2, livesize=1 / 8 if shrunk else 1,
+                   totals=True, n_cols=n_cols)
+    ops = (OPS_PULL if hsize else OPS_PULL_LEAN) + (2 * OPS_FD if m["fd"] else 0)
+    return bound(b, ops * n * n_cols / 2)
+
+
+def block_totals_bound(n, n_cols, rung, diag):
+    wsize = {"u4r": 0.5, "int8": 1}.get(rung, 2)
+    return bound(totals_bytes(n, wsize, diag=diag, n_cols=n_cols), OPS_TOTALS * n * n_cols / 2)
+
+
+def check_column_block_kernels(dev, fd_fresh, params):
+    """Phase 13a: every column-block mode of the pairs pull, the pairs
+    totals and the FD kernel against its plain version at N = 10,240
+    over 8 blocks of 1,280 owners (owner_offset k * 1,280). Per mode: the
+    blocks' totals (kernel, each equal to its plain version) summed in
+    float32 in block order must equal the whole width's bit for bit;
+    each block's pull fed the whole width's totals must equal its plain
+    version and, side by side, the whole-width kernel's output on its
+    columns, and the blocks' flags' min the whole width's flag (the
+    check passes on the even blocks: ``half_excused``). Block 1 of each
+    mode is timed (CUDA events) beside its plain version and its
+    bound. Returns (errs, times): key -> max_abs_err, key -> (ms,
+    plain_ms, bound). ``fd_fresh`` and ``params`` are phase 4's FD
+    operands."""
+    errs: dict[str, float] = collections.defaultdict(float)
+    times = {}
+    width = N // MESH_BLOCKS
+    seed = 400
+    t0 = time.perf_counter()
+    for rung, operands, modes in BLOCK_CHECKS:
+        wrung = {"lean int16": "int16", "shrunk": "int16"}.get(rung, rung)
+        for name in modes:
+            m = LADDER_MODES[name]
+            seed += 1
+            case = ladder_case(N, seed, dev, **operands, **m)
+
+            def fresh():
+                return half_excused(case(), width)
+
+            whole = fresh()
+            tot = pairs_totals.pairs_totals(
+                whole["w"], whole["gm"], whole["c"], whole["valid"], mv=whole.get("mv"))
+            whole["totals"] = tot
+            f_whole = call_pull(pairs_pull.pairs_pull, whole)
+            base = fresh()
+            summed = torch.zeros_like(tot)
+            key, t_key = block_key(m, rung), block_totals_key(m["diag"], wrung)
+            flags = []
+            for k in range(MESH_BLOCKS):
+                kern, plain = column_block(base, k, width), column_block(base, k, width)
+                args = (kern["gm"], kern["c"], kern["valid"])
+                part = pairs_totals.pairs_totals(kern["w"], *args, mv=kern.get("mv"),
+                                                 owner_offset=k * width)
+                part_plain = pairs_totals.pairs_totals_plain(
+                    plain["w"], *args, mv=plain.get("mv"), owner_offset=k * width)
+                errs[t_key] = max(errs[t_key], max_abs_err([part], [part_plain]))
+                summed += part
+                kern["totals"], plain["totals"] = tot, tot
+                fk = call_pull(pairs_pull.pairs_pull, kern)
+                fp = call_pull(pairs_pull.pairs_pull_plain, plain)
+                torch.cuda.synchronize()
+                errs[key] = max(errs[key], max_abs_err(outputs(kern, fk), outputs(plain, fp)),
+                                max_abs_err(outputs(kern, None),
+                                            outputs(column_block(whole, k, width), None)))
+                if fk is not None:
+                    flags.append(int(fk[0]))
+                if k == 1:
+                    ops = column_block(base, k, width)
+                    ops["totals"] = tot
+                    ms = cuda_ms(lambda: call_pull(pairs_pull.pairs_pull, ops), 20)
+                    ops = column_block(base, k, width)
+                    ops["totals"] = tot
+                    plain_ms = cuda_ms(lambda: call_pull(pairs_pull.pairs_pull_plain, ops), 3, 1)
+                    times[key] = (ms, plain_ms, block_pull_bound(N, width, rung, m))
+                    if rung in ("int16", "int8", "u4r") and t_key not in times:
+                        targs = (kern["w"], *args)
+                        mv = kern.get("mv")
+                        times[t_key] = (
+                            cuda_ms(lambda: pairs_totals.pairs_totals(
+                                *targs, mv=mv, owner_offset=width), 20),
+                            cuda_ms(lambda: pairs_totals.pairs_totals_plain(
+                                *targs, mv=mv, owner_offset=width), 3, 1),
+                            block_totals_bound(N, width, wrung, m["diag"]),
+                        )
+                del kern, plain
+            errs[t_key] = max(errs[t_key], max_abs_err([summed], [tot]))
+            if f_whole is not None:
+                check(min(flags) == int(f_whole[0]), f"{key}: the blocks' flags' min "
+                      f"{min(flags)} != the whole width's {int(f_whole[0])}")
+            log("columns", f"n={N} {rung} {name} over {MESH_BLOCKS} blocks of {width}: "
+                f"{t_key} max_abs_err={errs[t_key]} (the blocks' sum against the whole "
+                f"width's, each block against its plain version); {key} max_abs_err="
+                f"{errs[key]} (against the plain version and the whole width's columns)"
+                + ("" if f_whole is None else f"; flags {flags}, whole {int(f_whole[0])}"))
+            check(errs[key] == 0.0 and errs[t_key] == 0.0, f"{key} disagrees")
+            del whole, base
+    # The standalone FD kernel at each block's offset.
+    err_fd = 0.0
+    whole = fd_fresh()
+    fd_mod.fused_fd(40, *whole, params)
+    base = fd_fresh()
+
+    def fd_block(k):
+        cols = slice(k * width, (k + 1) * width)
+        return [t[cols].contiguous() if t.dim() == 1 else t[:, cols].contiguous() for t in base]
+
+    for k in range(MESH_BLOCKS):
+        a, b = fd_block(k), fd_block(k)
+        fd_mod.fused_fd(40, *a, params, owner_offset=k * width)
+        fd_mod.fused_fd_plain(40, *b, params, owner_offset=k * width)
+        torch.cuda.synchronize()
+        cols = slice(k * width, (k + 1) * width)
+        err_fd = max(err_fd, max_abs_err(a[3:], b[3:]),
+                     max_abs_err(a[3:], [t[:, cols] for t in whole[3:]]))
+    a = fd_block(1)
+    ms = cuda_ms(lambda: fd_mod.fused_fd(40, *a, params, owner_offset=width), 20)
+    a = fd_block(1)
+    plain_ms = cuda_ms(lambda: fd_mod.fused_fd_plain(40, *a, params, owner_offset=width), 3, 1)
+    mat = N * width
+    times["fd cols"] = (ms, plain_ms, bound(mat * (5 * 2 + 3 * 2 + 1) + width * 4, OPS_FD * mat))
+    errs["fd cols"] = err_fd
+    log("columns", f"n={N} fd over {MESH_BLOCKS} blocks at owner_offset k*{width}: "
+        f"max_abs_err={err_fd} (against the plain version and the whole width's columns)")
+    check(err_fd == 0.0, "the fd kernel at an offset disagrees")
+    del whole, base, a
+    torch.cuda.empty_cache()
+    log("columns", f"every column-block mode equals its plain version and the whole width "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return errs, times
+
+
+def mesh_launches_ok(launches, rounds, tracked, *, fd=False, p=MESH_BLOCKS):
+    """Every sub-exchange of every round on the two-pass pairs form: a
+    totals and a pull launch a block, the check on the tracked rounds'
+    last (with the FD epilogue when ``fd``)."""
+    pulls = sum(v for k, v in launches.items() if k.startswith("pairs_pull["))
+    totals = sum(v for k, v in launches.items() if k.startswith("pairs_totals["))
+    last = [k for k in launches if k.startswith("pairs_pull[") and "check" in k]
+    return (pulls == 3 * p * rounds and totals == 3 * p * rounds
+            and sum(launches[k] for k in last) == p * tracked
+            and all(("fd" in k) == fd for k in last))
+
+
+def headline_mesh(dev, card_line):
+    """Phase 13b: the headline config on 8 column blocks on this card
+    (the two-pass pairs form, the fused FD epilogue at each block's
+    offset, the check): it converges at round 24, field-equal (gathered)
+    to the unsharded headline at that round; its round rate is timed as
+    phase 7 times the headline's, and one chunk of 16 rounds is traced
+    (``build/chip_smoke_trace_mesh.json``). Then pinned to m8 (the m8 column
+    blocks, the FD kernel at each block's offset once a round): round
+    24, field-equal to the pairs mesh run."""
+    cfg = headline_config()
+    mesh = mesh_of(dev)
+    check(gossip.resolve_phases(cfg, dev, n_local=N // MESH_BLOCKS)
+          == gossip.Phases("pairs_two_pass", None, "fused", None),
+          "the headline on a mesh does not take the two-pass pairs form with the fused FD")
+    sim, converged, launches, run_s, _ = run_to(cfg, dev, 0, CONVERGED_ROUND, "headline_mesh",
+                                               max_rounds=200, mesh=mesh)
+    rounds = sim.tick
+    check(mesh_launches_ok(launches, rounds, rounds, fd=True),
+          f"the headline mesh did not run 2 launches a block a sub-exchange ({launches})")
+    ref = Simulator(cfg, seed=0, device=dev)
+    ref.run(rounds)
+    torch.cuda.synchronize()
+    check(states_equal(sim.state, ref.state),
+          f"the headline on {MESH_BLOCKS} blocks != the unsharded headline at round {rounds}")
+    m, m_ref = sim.metrics(), gossip.convergence_metrics(ref.state)
+    check(all(np.array_equal(m[k], m_ref[k].cpu().numpy()) for k in m_ref),
+          "the mesh metrics differ from the unsharded run's")
+    log("headline_mesh", f"round {rounds}: every state tensor (gathered) == the unsharded "
+        f"headline's; metrics equal; version spread {int(m['version_spread'])}")
+    del sim, ref
+    rate = Simulator(cfg, seed=0, mesh=mesh, chunk=16)
+    rate.run(8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rate.run(48)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) / 48 * 1e3
+    # Where a mesh round's time goes: one profiled chunk, as phase 7's.
+    prof_rounds = 16
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        with torch.profiler.record_function("chip_smoke.mesh"):
+            rate.run(prof_rounds)
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(MESH_TRACE))
+    del rate
+    tb = trace_breakdown(MESH_TRACE, "chip_smoke.mesh",
+                         ("aiocluster_torch.draws", "aiocluster_torch.sim_step"))
+    host = {k: v / prof_rounds for k, v in tb["host_ms"].items()}
+    dev_ms = {k: v / prof_rounds for k, v in tb["device_ms"].items()}
+    busy = tb["device_busy_ms"] / tb["window_ms"] if tb["device_events"] else None
+    if busy is None:
+        log("headline_mesh", "the profiler recorded no device activity: busy share not measured")
+    else:
+        log("headline_mesh", f"{prof_rounds} profiled rounds: {tb['window_ms'] / prof_rounds:.3f} "
+            f"ms/round under the profiler; device busy {busy:.1%} "
+            f"({tb['device_busy_ms'] / prof_rounds:.3f} ms/round); host per round: draws "
+            f"{host['aiocluster_torch.draws']:.3f} ms, sim_step "
+            f"{host['aiocluster_torch.sim_step']:.3f} ms; device per round: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(dev_ms.items())))
+    m8cfg = dataclasses.replace(cfg, pallas_variant="m8")
+    sim8, conv8, m8_launches, _, _ = run_to(m8cfg, dev, 0, CONVERGED_ROUND, "headline_mesh_m8",
+                                            max_rounds=200, mesh=mesh)
+    r8 = sim8.tick
+    check(sum(v for k, v in m8_launches.items() if k.startswith("m8_pull[")) == 3 * MESH_BLOCKS * r8
+          and sum(v for k, v in m8_launches.items() if k.startswith("m8_totals["))
+          == 3 * MESH_BLOCKS * r8
+          and m8_launches.get("fd") == MESH_BLOCKS * r8
+          and not any(k.startswith("pairs_") for k in m8_launches),
+          f"the m8 mesh did not run the m8 column blocks and one FD launch a block a round "
+          f"({m8_launches})")
+    ref = Simulator(cfg, seed=0, device=dev)
+    ref.run(r8)
+    check(states_equal(sim8.state, ref.state), "the m8 mesh run != the unsharded headline")
+    del sim8, ref
+    torch.cuda.empty_cache()
+    log("headline_mesh", f"{1e3 / round_ms:.2f} rounds/s on {MESH_BLOCKS} blocks "
+        f"({round_ms:.3f} ms/round, chunks of 16, 48 rounds); m8 on the mesh: round {conv8}, "
+        f"fd launches {m8_launches['fd']} ({MESH_BLOCKS} a round, one at each block's "
+        f"offset), field-equal; {card_line}")
+    record = {"n": N, "blocks": MESH_BLOCKS, "converged_round": converged,
+              "rounds_run": rounds, "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
+              "run_s": run_s, "m8_converged_round": conv8, "m8_rounds_run": r8,
+              "trace_round_ms": tb["window_ms"] / prof_rounds, "device_busy_share": busy,
+              "host_ms_per_round": host, "device_ms_per_round": dev_ms}
+    return record, launches, m8_launches
+
+
+def w_digest(blocks) -> concurrent.futures.Future:
+    """The sha256 of a state's w as int8, row-major over every owner (its
+    column blocks side by side), as a future: w is copied to the host a
+    block of rows at a time (about 64 MB) and each block fed to one
+    sha256 in the hashing thread (hashlib releases the GIL), with at most
+    ``DIGEST_ROWS_HELD`` blocks on the host at once: no copy of the whole
+    matrix. The card's matrix may move on as soon as this returns."""
+    n = blocks[0].w.shape[0]
+    step = max(1, (1 << 26) // sum(b.w.shape[1] for b in blocks))
+    digest = hashlib.sha256()
+    fed = collections.deque()
+    for r0 in range(0, n, step):
+        rows = torch.cat([b.w[r0 : r0 + step] for b in blocks], dim=1)
+        check(int(rows.max()) <= 127, "w does not fit int8 for the digest")
+        fed.append(HASHER.submit(digest.update, rows.to(torch.int8).cpu().numpy()))
+        while len(fed) > DIGEST_ROWS_HELD:
+            fed.popleft().result()
+    return HASHER.submit(digest.hexdigest)
+
+
+def blocks_equal_whole(blocks, w) -> bool:
+    """The blocks' w side by side equals the whole matrix ``w``, compared
+    a block of rows at a time."""
+    step = max(1, (1 << 26) // w.shape[1])
+    return all(
+        torch.equal(torch.cat([b.w[r0 : r0 + step] for b in blocks], dim=1), w[r0 : r0 + step])
+        for r0 in range(0, w.shape[0], step)
+    )
+
+
+def sampled_mesh_round_check(dev, sim, errs, leaders=NS_PAIR_LEADERS, seed=10):
+    """``sampled_round_check`` for a mesh's column blocks at their own
+    shape: one round's sub-exchanges of every block, chained as
+    ``step_blocks`` chains them (each block's totals at its offset, held
+    against ``pairs_totals_plain(owner_offset=)`` over every row, then
+    summed in block order; each block's pull fed the sum), then a fourth
+    whose check every row passes (the blocks' flags' min stays 1). Each
+    block's pull runs on the block itself and is held over a seeded
+    sample of ``leaders`` row pairs of that block
+    (``pairs_pull_plain(leaders=, owner_offset=)`` on the rows put back).
+    A seeded tenth of the nodes is dead and half the owners wrote a key.
+    The lean profile only (w is all a pull writes); the blocks' w moves
+    on. Raises each mode's max_abs_err in ``errs`` under its column-block
+    key; returns the round's (key, max_abs_err) pairs."""
+    cfg, blocks, n = sim.cfg, sim.blocks, sim.cfg.n_nodes
+    check(not cfg.track_heartbeats and not cfg.track_failure_detector,
+          "the sampled mesh round holds the lean profile")
+    width = n // len(blocks)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    wrote = torch.rand(n, generator=gen, device=dev) < 0.5
+    mv = blocks[0].max_version + wrote.to(torch.int32)
+    tick = sim.tick + 1
+    run_key = prng.key(sim.seed)
+    gm_all, c_all, p_all = (
+        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
+    )
+    steps = [("first", 0)] + [("middle", s) for s in range(1, cfg.fanout - 1)]
+    steps += [("last", cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
+    ids = torch.arange(n, device=dev)
+    found = []
+    for name, s in steps:
+        mode = LADDER_MODES["last" if name == "need 0" else name]
+        p = p_all[s].long()
+        valid = alive & alive[p]
+        args = (gm_all[s], c_all[s], valid)
+        cols = [slice(k * width, (k + 1) * width) for k in range(len(blocks))]
+        mvs = [mv[sl] if mode["diag"] else None for sl in cols]
+        t_key = block_totals_key(mode["diag"], "int16")
+        tks, tps, t_err = [], [], 0.0
+        for k, b in enumerate(blocks):
+            tks.append(pairs_totals.pairs_totals(b.w, *args, mv=mvs[k], owner_offset=k * width))
+            tps.append(pairs_totals.pairs_totals_plain(b.w, *args, mv=mvs[k],
+                                                       owner_offset=k * width))
+            t_err = max(t_err, max_abs_err(tks[-1:], tps[-1:]))
+        tk, tp = gossip.reduce_blocks(tks, "sum")[0], gossip.reduce_blocks(tps, "sum")[0]
+        t_err = max(t_err, max_abs_err([tk], [tp]))
+        errs[t_key] = max(errs[t_key], t_err)
+        del tks, tps
+        key = block_key(mode, "lean int16")
+        err, flags, sample_flags = 0.0, [], []
+        for k, b in enumerate(blocks):
+            kw = {}
+            if mode["diag"]:
+                kw["mv"] = mvs[k]
+            if mode["check"]:
+                need = torch.zeros_like(mv) if name == "need 0" else mv
+                kw["check"] = (need[cols[k]], alive, alive[cols[k]])
+            lead = ids[ids <= p]
+            lead = lead[torch.randperm(lead.numel(), generator=gen, device=dev)[:leaders]]
+            partners = p[lead]
+            rows = torch.cat((lead, partners[partners != lead]))
+            pre = b.w[rows]
+            pull_args = (b.w, None, *args, tick * 2 * cfg.fanout + 2 * s,
+                         prng.run_salt(run_key), cfg.budget)
+            fk = pairs_pull.pairs_pull(*pull_args, totals=tk, owner_offset=k * width, **kw)
+            torch.cuda.synchronize()
+            post = b.w[rows]
+            b.w[rows] = pre
+            fp = pairs_pull.pairs_pull_plain(*pull_args, totals=tp, leaders=lead,
+                                             owner_offset=k * width, **kw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([b.w[rows]], [post]))
+            if fk is not None:
+                flags.append(int(fk[0]))
+                sample_flags.append(int(fp[0]))
+        errs[key] = max(errs[key], err)
+        found.append((f"{t_key} ({name})", t_err))
+        found.append((f"{key} ({name})" + (f" flags {flags} (samples {sample_flags})"
+                                           if flags else ""), err))
+        if name == "need 0":
+            check(min(flags) == 1, "the check flag of a passing sub-exchange is 0")
+    torch.cuda.empty_cache()
+    return found
+
+
+def north_star_mesh(dev, card_line, errs):
+    """Phase 13c: the north star on 8 column blocks of 12,544 owners on
+    this card (lean_config(100_352, budget=2618), seed 1, the two-pass
+    pairs form at each block's offset). Its w digests at ticks 1 and 2
+    must be the record's; at tick 20 its w equals the unsharded run's
+    (compared a block of rows at a time), and one chained round of the
+    blocks' launches at this shape is held against the plain versions
+    (``sampled_mesh_round_check``, raising ``errs``), the blocks' w then
+    put back from the unsharded run's; it converges at round 209. Then
+    the round rate, each block pass's time on the converged state by
+    CUDA events beside its bound, launches a round and peak memory."""
+    cfg = lean_config(NORTH_STAR_N, budget=2618)
+    n = cfg.n_nodes
+    width = n // MESH_BLOCKS
+    mesh = mesh_of(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=NORTH_STAR_SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pending = {}
+    for tick in sorted(NORTH_STAR_DIGESTS):
+        sim.run(tick - sim.tick)
+        pending[tick] = w_digest(sim.blocks)
+    copy_s = time.perf_counter() - t0
+    sim.run(MESH_CHECK_ROUND - sim.tick)
+    ref = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+    ref.run(MESH_CHECK_ROUND)
+    torch.cuda.synchronize()
+    check(blocks_equal_whole(sim.blocks, ref.state.w),
+          f"the mesh north star's w != the unsharded run's at tick {MESH_CHECK_ROUND}")
+    t_check = time.perf_counter()
+    found = sampled_mesh_round_check(dev, sim, errs)
+    for k, b in enumerate(sim.blocks):  # the run's own w back (the check moved it on)
+        b.w.copy_(ref.state.w[:, k * width : (k + 1) * width])
+    check(blocks_equal_whole(sim.blocks, ref.state.w), "the mesh north star's w was not put back")
+    check_s = time.perf_counter() - t_check
+    del ref
+    torch.cuda.empty_cache()
+    log("north_star_mesh", f"tick {MESH_CHECK_ROUND}: w on {MESH_BLOCKS} blocks == the "
+        f"unsharded run's; one chained round of the blocks' launches at ({n}, {width}), "
+        f"{NS_PAIR_LEADERS} row pairs a block's pull, the totals over every row "
+        f"({check_s:.1f} s): " + ", ".join(f"{k} max_abs_err={e}" for k, e in found))
+    torch.cuda.reset_peak_memory_stats()  # the mesh run's own peak from here
+    counters.reset()
+    t0 = time.perf_counter()
+    converged = sim.run_until_converged(max_rounds=400)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(counters.launches)
+    rounds = sim.tick - MESH_CHECK_ROUND
+    log("north_star_mesh", f"run_until_converged -> {converged} ({rounds} tracked rounds in "
+        f"{run_s:.2f} s, init {init_s:.2f} s); launches {launches}; plain calls "
+        f"{dict(counters.plain_calls)}; refusals {dict(counters.refusals)}")
+    check(converged == NORTH_STAR_ROUND,
+          f"the mesh north star converged at {converged}, expected {NORTH_STAR_ROUND}")
+    check(mesh_launches_ok(launches, rounds, rounds) and not counters.plain_calls
+          and not counters.fallbacks, f"the mesh north star's launches are off ({launches})")
+    m = sim.metrics()
+    check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
+          and int(m["version_spread"]) == 0 and int(m["alive_count"]) == n,
+          "the mesh north star's metrics disagree with the converged flag")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    digests = {tick: f.result() for tick, f in pending.items()}
+    log("north_star_mesh", f"w digests at ticks 1, 2 on {MESH_BLOCKS} blocks: {digests} "
+        f"(host copies fed to sha256 {copy_s:.1f} s); the record's: "
+        f"{NORTH_STAR_DIGESTS}")
+    check(digests == NORTH_STAR_DIGESTS, "the mesh north star's w digests differ from the record's")
+    round_ms = round_rate(sim, 16)
+    # Each block pass on the converged state, block 1 (owner_offset
+    # 12,544), fed the blocks' summed totals: a round is 8 of each.
+    blocks = sim.blocks
+    gm, c, _ = prng.grouped_matching(prng.key(9), n)
+    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
+    alive, mv = blocks[0].alive, blocks[0].max_version
+    mvs = [mv[k * width : (k + 1) * width] for k in range(MESH_BLOCKS)]
+    tot = gossip.reduce_blocks([
+        pairs_totals.pairs_totals(b.w, gm, c, alive, mv=mvs[k], owner_offset=k * width)
+        for k, b in enumerate(blocks)
+    ], "sum")[0]
+    w1 = blocks[1].w
+    times = {}
+    for diag in (True, False):
+        mv1 = mvs[1] if diag else None
+        times[block_totals_key(diag, "int16")] = (
+            cuda_ms(lambda: pairs_totals.pairs_totals(w1, gm, c, alive, mv=mv1,
+                                                      owner_offset=width), 10),
+            block_totals_bound(n, width, "int16", diag),
+        )
+    for name in ("first", "middle", "last"):
+        mm = LADDER_MODES[name]
+        kw = {"mv": mvs[1]} if mm["diag"] else {}
+        if mm["check"]:
+            kw["check"] = (mvs[1], alive, alive[width : 2 * width])
+        times[block_key(mm, "lean int16")] = (
+            cuda_ms(lambda: pairs_pull.pairs_pull(
+                w1, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget, totals=tot,
+                owner_offset=width, **kw), 10),
+            block_pull_bound(n, width, "lean int16", mm),
+        )
+    torch.cuda.synchronize()
+    del sim, blocks, w1, tot
+    torch.cuda.empty_cache()
+    per_round = {k: MESH_BLOCKS * (2 if "[sum]" in k else 1) for k in times}
+    kernel_ms = sum(per_round[k] * ms for k, (ms, _) in times.items())
+    bound_ms = sum(per_round[k] * b[0] for k, (_, b) in times.items())
+    log("north_star_mesh", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round over 16 "
+        f"untracked rounds) on {MESH_BLOCKS} blocks; kernels {kernel_ms:.3f} ms/round by CUDA "
+        f"events against a {bound_ms:.3f} ms bound ({bound_ms / kernel_ms:.1%}); "
+        f"{sum(per_round.values())} launches a round; peak memory {peak_gb:.2f} GB; "
+        f"{card_line}")
+    for key, (ms, (b_ms, b_by)) in times.items():
+        log("north_star_mesh", f"{key} at n={n}, {width} owners a block: {ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by})")
+    record = {
+        "n": n, "blocks": MESH_BLOCKS, "seed": NORTH_STAR_SEED, "converged_round": converged,
+        "digests": digests, "digest_copy_s": copy_s, "rounds_run": rounds, "run_s": run_s,
+        "sampled_round_max_abs_err": dict(found), "sample_leaders": NS_PAIR_LEADERS,
+        "init_s": init_s, "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
+        "kernel_ms_per_round": kernel_ms, "bound_ms_per_round": bound_ms,
+        "launches_per_round": sum(per_round.values()), "peak_memory_gb": peak_gb,
+    }
+    return record, launches, rounds, times
+
+
+def side_meshes(dev, card_line):
+    """Phase 13d: 4 tracked rounds of each other rung on 8 blocks at
+    N = 10,240 (lean int8, lean u4r, full shrunk: the packed block
+    codec and the FD epilogue on int8 counters and the live bitmap at
+    each offset), each field-equal to its unsharded run. Returns each
+    run's (launches, rounds)."""
+    runs = {}
+    mesh = mesh_of(dev)
+    for run, cfg in (("int8_mesh", lean_config(N, "int8", budget=2618)),
+                     ("u4r_mesh", lean_config(N, "u4r", budget=2618)),
+                     ("shrunk_mesh", full_config(N, "shrunk", budget=2618))):
+        counters.reset()
+        sim = Simulator(cfg, seed=1, mesh=mesh)
+        sim.run_until_converged(max_rounds=4)
+        torch.cuda.synchronize()
+        launches = dict(counters.launches)
+        check(mesh_launches_ok(launches, 4, 4, fd=cfg.track_failure_detector)
+              and not counters.plain_calls and not counters.fallbacks,
+              f"{run} did not run 2 launches a block a sub-exchange ({launches})")
+        ref = Simulator(cfg, seed=1, device=dev)
+        ref.run(4)
+        check(states_equal(sim.state, ref.state), f"{run} != its unsharded run after 4 rounds")
+        log("side_mesh", f"{run}: 4 tracked rounds on {MESH_BLOCKS} blocks == unsharded; "
+            f"launches {launches}")
+        runs[run] = (launches, 4)
+        del sim, ref
+    torch.cuda.empty_cache()
+    return runs
+
+
+def column_block_entries(errs, times, runs):
+    """The kernel-line entries of the column-block modes: timed at
+    N = 10,240 (block 1 of 8) beside the plain versions and the bounds,
+    the north star's at its width (``times`` of phase 13c under the
+    ``main`` key), with the launches of each rung's mesh run (``runs``:
+    name -> (launches, rounds); each must be > 0)."""
+    entries = []
+    fd_line = "aiocluster_tpu/ops/pallas_fd.py:51"
+    for name, (ms, plain_ms, b) in times["blocks"].items():
+        if name == "fd cols":
+            run, launch_key, kernel, line = "headline_mesh_m8", "fd", "fd", fd_line
+        else:
+            rung = name.split(" cols ")[1]
+            launch_key = name.split(" cols ")[0]
+            kernel = launch_key.split("[")[0]
+            run = BLOCK_RUNS[rung]
+            line = "aiocluster_tpu/ops/pallas_pull.py:" + ("899" if kernel == "pairs_totals"
+                                                            else "490")
+        launches, rounds = runs[run]
+        check(launches.get(launch_key, 0) > 0, f"{name} was not launched on {run}")
+        extra = {}
+        main = times["main"].get(name)
+        msg = f"{name}: {ms:.4f} ms at n={N}, {N // MESH_BLOCKS} owners a block (bound {b[0]:.4f} ms by {b[1]}; plain {plain_ms:.3f} ms)"
+        if main is not None:
+            extra = dict(n_main=NORTH_STAR_N, ms_main=main[0], bound_ms_main=main[1][0])
+            msg += f"; {main[0]:.4f} ms at n={NORTH_STAR_N} (bound {main[1][0]:.4f} ms)"
+        log("time", msg + f"; {launches[launch_key]} launches on {run}")
+        entries.append(dict(
+            name=name, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
+            replaces=line, launches=launches[launch_key],
+            launches_per_round=launches[launch_key] / rounds, max_abs_err=errs[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+            path=run, n=N, n_cols=N // MESH_BLOCKS, owner_offset=N // MESH_BLOCKS, **extra,
+        ))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3250,6 +3927,22 @@ def main() -> int:
 
     # Phase 12 (C2): the full profile past the staged width.
     c2 = full_past_staged(dev, card_line)
+
+    # Phase 13: the owner-sharded round on 8 column blocks of this card:
+    # every column-block mode against its plain version and the whole
+    # width, then each mesh run from counters at 0 (read just after).
+    block_errs, block_times = check_column_block_kernels(dev, fd_fresh, fd_params)
+    head_mesh, head_mesh_launches, head_mesh_m8_launches = headline_mesh(dev, card_line)
+    ns_mesh, ns_mesh_launches, ns_mesh_rounds, ns_mesh_times = north_star_mesh(
+        dev, card_line, block_errs)
+    mesh_runs = side_meshes(dev, card_line)
+    mesh_runs.update(
+        headline_mesh=(head_mesh_launches, head_mesh["rounds_run"]),
+        headline_mesh_m8=(head_mesh_m8_launches, head_mesh["m8_rounds_run"]),
+        north_star_mesh=(ns_mesh_launches, ns_mesh_rounds),
+    )
+    kernels += column_block_entries(block_errs, {"blocks": block_times, "main": ns_mesh_times},
+                                    mesh_runs)
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -3263,7 +3956,10 @@ def main() -> int:
         f"sweeps: headline ladder {head_sweep['rounds_to_convergence']} at "
         f"{head_sweep['sim_sweep_lane_rounds_per_sec']:.2f} lane-rounds/s, north-star pair "
         f"{ns_pair['rounds_to_convergence']} at {ns_pair['round_ms']:.3f} ms a round; "
-        f"full_config({C2_N}) {c2['round_ms']:.3f} ms a round at {c2['peak_memory_gb']:.1f} GB")
+        f"full_config({C2_N}) {c2['round_ms']:.3f} ms a round at {c2['peak_memory_gb']:.1f} GB; "
+        f"{MESH_BLOCKS} column blocks: headline {head_mesh['converged_round']} at "
+        f"{head_mesh['round_ms']:.3f} ms a round (m8 {head_mesh['m8_converged_round']}), north "
+        f"star {ns_mesh['converged_round']} at {ns_mesh['round_ms']:.3f} ms a round")
 
     print(card_line)
     print(json.dumps({
@@ -3292,6 +3988,7 @@ def main() -> int:
             "counters": sweep_counts,
         },
         "full_past_staged": c2,
+        "mesh": {"headline": head_mesh, "north_star": ns_mesh},
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -689,3 +689,157 @@ def test_sweep_kernel_path_equals_sequential_runs(dev, two_pass, monkeypatch):
         seq.run(6)
         for f in STATE_FIELDS:
             assert torch.equal(getattr(lane(sweep.states, s), f), getattr(seq.state, f)), (s, f)
+
+
+# -- column blocks of the owners (the owner-sharded round) ------------------------
+
+BLOCK_N, BLOCK_COLS = 512, 256
+BLOCK_RUNGS = {
+    "int16": dict(wdt=torch.int16, hdt=torch.int16),
+    "lean_int16": dict(wdt=torch.int16),
+    "lean_int8": dict(wdt=torch.int8),
+    "lean_u4r": dict(wdt="u4"),
+    "shrunk": dict(wdt=torch.int16, hdt=torch.int16, icdt=torch.int8, bits=True),
+}
+
+
+def _column_block(ops, kw, k):
+    """Block k (owners k * BLOCK_COLS ..) of whole-width operands, each
+    matrix's columns copied out, and the whole width's totals."""
+    packed = ops["w"].dtype == torch.uint8
+    cols = slice(k * BLOCK_COLS, (k + 1) * BLOCK_COLS)
+
+    def cut(t, owners_a_column=1):
+        step = BLOCK_COLS // owners_a_column
+        return t[:, k * step : (k + 1) * step].contiguous()
+
+    bops = dict(ops, w=cut(ops["w"], 2 if packed else 1),
+                hb=None if ops["hb"] is None else cut(ops["hb"]))
+    bkw = dict(kw, owner_offset=k * BLOCK_COLS)
+    for name in ("mv", "hbv"):
+        if name in kw:
+            bkw[name] = kw[name][cols]
+    if "check" in kw:
+        need, alive, alive_owner = kw["check"]
+        bkw["check"] = (need[cols], alive, alive_owner[cols])
+    if "fd" in kw:
+        f = kw["fd"]
+        bkw["fd"] = dataclasses.replace(
+            f, lc=cut(f.lc), im=cut(f.im), ic=cut(f.ic),
+            live=cut(f.live, 8 if f.live.dtype == torch.uint8 else 1),
+            hb0=None if f.hb0 is None else cut(f.hb0),
+        )
+    return bops, bkw
+
+
+def _outs(ops, kw):
+    """The matrices a pull writes, in ``_run``'s order."""
+    outs = [ops["w"]] + ([] if ops["hb"] is None else [ops["hb"]])
+    if "fd" in kw:
+        f = kw["fd"]
+        outs += [f.lc, f.im, f.ic, f.live]
+    return outs
+
+
+BLOCK_CASES = [(r, m) for r in BLOCK_RUNGS if r != "shrunk" for m in ("first", "middle", "last")]
+BLOCK_CASES.append(("shrunk", "last"))
+
+
+@pytest.mark.parametrize("rung, mode", BLOCK_CASES, ids=[f"{r}-{m}" for r, m in BLOCK_CASES])
+def test_pairs_kernels_column_blocks_equal_plain(dev, rung, mode):
+    """Each column block (owner_offset 0 and 256 of 512): the totals
+    kernel's share equals its plain version and the shares sum to the
+    whole width's; the pull fed the whole width's totals equals its
+    plain version and, side by side, the whole-width kernel."""
+    m = dict(LADDER_MODES[mode])
+    if "hdt" not in BLOCK_RUNGS[rung]:
+        m.update(fd=False, hb0=False)  # the lean profile
+    ops, kw = _ladder_operands(BLOCK_N, 21, dev, **BLOCK_RUNGS[rung], **m)
+    whole = _with_totals(pairs_totals.pairs_totals, *_clone(ops, kw))
+    tot = whole[1]["totals"]
+    _run(pairs_pull.pairs_pull, *whole)
+    summed = torch.zeros_like(tot)
+    for k in range(BLOCK_N // BLOCK_COLS):
+        bops, bkw = _column_block(*_clone(ops, kw), k)
+        args = (bops["w"], bops["gm"], bops["c"], bops["valid"])
+        share = pairs_totals.pairs_totals(*args, mv=bkw.get("mv"), owner_offset=k * BLOCK_COLS)
+        share_plain = pairs_totals.pairs_totals_plain(*args, mv=bkw.get("mv"),
+                                                      owner_offset=k * BLOCK_COLS)
+        assert torch.equal(share, share_plain)
+        summed += share
+        kern, plain = _clone(bops, dict(bkw, totals=tot)), _clone(bops, dict(bkw, totals=tot))
+        got = _run(pairs_pull.pairs_pull, *kern)
+        want = _run(pairs_pull.pairs_pull_plain, *plain)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+        for a, b in zip(_outs(*kern), _outs(*_column_block(*whole, k)), strict=True):
+            assert torch.equal(a, b)
+    assert torch.equal(summed, tot)
+
+
+def test_fd_kernel_column_blocks_equal_plain(dev):
+    """The standalone FD kernel at owner_offset 0 and 256 of 512: each
+    block equals its plain version and the whole width's columns."""
+    ops, kw = _ladder_operands(BLOCK_N, 23, dev, wdt=torch.int16, hdt=torch.int16,
+                               diag=False, check=False, fd=True, hb0=True)
+    f = kw["fd"]
+    base = [ops["hb"], f.hb0, kw["hbv"], f.lc, f.im, f.ic.to(torch.int16), f.live]
+    whole = [t.clone() for t in base]
+    fd_mod.fused_fd(31, *whole, f.params)
+    for k in range(BLOCK_N // BLOCK_COLS):
+        cols = slice(k * BLOCK_COLS, (k + 1) * BLOCK_COLS)
+        a = [(t[cols] if t.dim() == 1 else t[:, cols]).contiguous() for t in base]
+        b = [t.clone() for t in a]
+        fd_mod.fused_fd(31, *a, f.params, owner_offset=k * BLOCK_COLS)
+        fd_mod.fused_fd_plain(31, *b, f.params, owner_offset=k * BLOCK_COLS)
+        torch.cuda.synchronize()
+        for x, y, z in zip(a[3:], b[3:], whole[3:], strict=True):
+            assert torch.equal(x, y) and torch.equal(x, z[:, cols])
+
+
+@pytest.mark.parametrize("profile, variant", [("full", "auto"), ("full", "m8"),
+                                              ("lean_u4r", "auto")])
+def test_two_block_mesh_round_equals_unsharded(dev, profile, variant):
+    """A 2-block mesh on the card (the two-pass kernels at each block's
+    offset; m8: the m8 column blocks and the FD kernel at each offset)
+    equals the unsharded kernel path after 6 rounds and converges at its
+    round."""
+    from aiocluster_torch.parallel import make_mesh
+
+    if profile == "full":
+        cfg = full_config(BLOCK_N, budget=64, keys_per_node=8, pallas_variant=variant)
+    else:  # the packed rung has no m8 kernel (the reference's XLA route)
+        cfg = lean_config(BLOCK_N, "u4r", budget=64)
+    mesh = make_mesh([dev] * 2)
+    counters.reset()
+    sim = Simulator(cfg, seed=5, mesh=mesh)
+    sim.run(6)
+    kernel = "m8_pull" if variant == "m8" else "pairs_pull"
+    assert counters.kernel_launches(kernel) == 2 * 3 * 6
+    assert not counters.plain_calls and not counters.fallbacks
+    one = Simulator(cfg, seed=5, device=dev)
+    one.run(6)
+    torch.cuda.synchronize()
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(sim.state, f), getattr(one.state, f)), f
+    assert Simulator(cfg, seed=5, mesh=mesh).run_until_converged(100) == Simulator(
+        cfg, seed=5, device=dev).run_until_converged(100)
+
+
+def test_mesh_over_distinct_cards_equals_one_card(dev):
+    """With two or more cards, a mesh over distinct devices (the
+    collectives copy each block's partials to the first card and back)
+    equals the one-card mesh."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from aiocluster_torch.parallel import make_mesh
+
+    cfg = full_config(BLOCK_N, budget=64, keys_per_node=8)
+    a = Simulator(cfg, seed=6, mesh=make_mesh(["cuda:0", "cuda:1"]))
+    b = Simulator(cfg, seed=6, mesh=make_mesh(["cuda:0"] * 2))
+    assert a.blocks[1].w.device == torch.device("cuda:1")
+    a.run(5)
+    b.run(5)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f

@@ -20,6 +20,7 @@ from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
 from aiocluster_torch import Simulator, SimConfig, lean_config
 from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
+from aiocluster_torch.parallel import make_mesh
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
 from aiocluster_torch.sim.state import STATE_FIELDS, init_state
 
@@ -321,8 +322,10 @@ def test_sim_step_refuses_out_of_slice_configs():
     counters.reset()
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         gossip.sim_step(state, prng.key(0), cfg)
-    with pytest.raises(NotImplementedError, match="A15"):
-        Simulator(SimConfig(n_nodes=128), mesh=object(), device="cpu")
+    # Meshes are ported (tests/test_torch_mesh.py); topologies are not.
+    Simulator(SimConfig(n_nodes=128), mesh=make_mesh(["cpu"] * 2))
+    with pytest.raises(NotImplementedError, match="A7"):
+        Simulator(SimConfig(n_nodes=128), topology=object(), device="cpu")
     assert sum(counters.refusals.values()) == 2
 
 
