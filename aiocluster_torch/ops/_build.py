@@ -43,7 +43,7 @@ SIGNATURES = {
         "aiocluster_pairs_pull",
         [_P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P, _P, _P, _P, _P, _P,
          _I, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F, _I, _I, _I, _I, _I,
-         _I, _P, _P, _P],
+         _I, _P, _P, _I, _P],
     ),
     "pairs_totals": (
         "aiocluster_pairs_totals",

@@ -24,13 +24,13 @@ __device__ __forceinline__ int partner_row(const int32_t* gm, const int32_t* c,
 // Eight elements of row `row` from local column j0 (a multiple of 8) of
 // a block whose column 0 is global owner col0 (0 for the whole width);
 // with DIAG the owner diagonal, global owner `row`, reads as mv at its
-// local column (the round's first sub-exchange refreshes it). The
+// local column (the round's first sub-exchange refreshes it):
+// refresh_row on eight loaded elements, ld8_row on a row of w. The
 // element is picked with constant indices: a computed index into x8
 // would put it in local memory.
 template <typename WT, bool DIAG>
-__device__ __forceinline__ Vec8<WT> ld8_row(const WT* w_row, int row, int j0,
-                                            const int32_t* mv, int col0 = 0) {
-  Vec8<WT> x8 = ld8(w_row + j0);
+__device__ __forceinline__ Vec8<WT> refresh_row(Vec8<WT> x8, int row, int j0,
+                                                const int32_t* mv, int col0 = 0) {
   const int g0 = col0 + j0;
   if (DIAG && row >= g0 && row < g0 + 8) {
     const WT v = static_cast<WT>(mv[row - col0]);
@@ -40,6 +40,12 @@ __device__ __forceinline__ Vec8<WT> ld8_row(const WT* w_row, int row, int j0,
     }
   }
   return x8;
+}
+
+template <typename WT, bool DIAG>
+__device__ __forceinline__ Vec8<WT> ld8_row(const WT* w_row, int row, int j0,
+                                            const int32_t* mv, int col0 = 0) {
+  return refresh_row<WT, DIAG>(ld8(w_row + j0), row, j0, mv, col0);
 }
 
 // Adds eight columns' deficits of both directions: row i (x) pulling from
@@ -70,13 +76,12 @@ __device__ __forceinline__ void add_deficits(const Vec8<WT>& x8,
 // refresh (the reference's _refresh_packed): every residual rises by its
 // owner's write bump (`bump`: the block's bumps as packed nibbles, each
 // clipped to [0, 15], which keeps the saturating sum exact), saturating
-// at 15, then the row's own owner, global owner `row`, reads 0.
+// at 15, then the row's own owner, global owner `row`, reads 0:
+// refresh_packed_row on eight loaded bytes, ld8_packed_row on a row.
 template <bool DIAG>
-__device__ __forceinline__ Vec8<uint8_t> ld8_packed_row(const uint8_t* w_row,
-                                                        int row, int k0,
-                                                        const uint8_t* bump,
-                                                        int col0 = 0) {
-  Vec8<uint8_t> x8 = ld8(w_row + k0);
+__device__ __forceinline__ Vec8<uint8_t> refresh_packed_row(Vec8<uint8_t> x8, int row,
+                                                            int k0, const uint8_t* bump,
+                                                            int col0 = 0) {
   if (DIAG) {
     const Vec8<uint8_t> b8 = ld8(bump + k0);
 #pragma unroll
@@ -92,6 +97,14 @@ __device__ __forceinline__ Vec8<uint8_t> ld8_packed_row(const uint8_t* w_row,
     }
   }
   return x8;
+}
+
+template <bool DIAG>
+__device__ __forceinline__ Vec8<uint8_t> ld8_packed_row(const uint8_t* w_row,
+                                                        int row, int k0,
+                                                        const uint8_t* bump,
+                                                        int col0 = 0) {
+  return refresh_packed_row<DIAG>(ld8(w_row + k0), row, k0, bump, col0);
 }
 
 // add_deficits on sixteen packed owners: row i (residuals x) pulling from

@@ -8,7 +8,8 @@
 // phi-accrual FD epilogue (FD, last; with the round-start hb0 streamed
 // when fanout > 1; int16 or int8 sample counters, a bool live view or the
 // live bitmap), the totals input (TOTALS: the rows' deficit totals come
-// from pairs_totals.cu, the two-pass form for rows too wide to stage) and
+// from pairs_totals.cu: the two-pass form of column blocks and of rows
+// too wide for a cluster to stage) and
 // the packed u4r rung (pairs_packed_kernel: the reference's nibble codec,
 // lean profile only, as there), each also over S sweep lanes in one launch
 // (LANES below: the reference's fused_pull_pairs_lanes) and each on a
@@ -19,34 +20,69 @@
 // read and write every row of w and hb once (4 bytes per pair per int16
 // matrix); the FD epilogue adds last_change/imean/icount in and out, hb0
 // in and live out. On the narrow rungs (int8, packed u4r: 2 and 1 bytes
-// per pair of w), the ~40 integer/float instructions a logical element
-// (deficit, hash, dither, advance) bound it instead: the pull body runs
-// at about the same rate per element on every rung.
+// per pair of w) the per-element instructions (deficit, hash, dither,
+// advance) bound it instead. Three things set how close a launch comes:
+// whether the rows' deficit totals need a pass of their own (the
+// two-pass form reads w twice), how many bytes are in flight while a
+// pair is staged (the kernel's registers let two CTAs of 256 threads
+// share an SM), and how many instructions a column pair costs.
 //
-// Design: the matching is an involution p (p[p[i]] == i), so one CTA per
-// LEADER row i (i <= p[i]) owns both rows i and p[i]: no other CTA reads
-// or writes them, which makes the update in place safe. On a GPU any row
-// gather is legal, so the TPU's 8-row grouping and in-VMEM rotation
-// reduce to the row involution p = 8 * gm[g] + (r - c[g]) mod 8; the
-// draws (gm, c), and so the trajectory, are the reference's. The CTA
-// stages both rows of w in shared memory (2 * N * sizeof(w) bytes: 40 KB
-// at N = 10,240 int16), takes both rows' deficit totals in one exact
-// integer block reduction (converted to f32 once: exact while a row's
-// total stays below 2^24, which the headline config's 16 * N keeps),
-// then streams hb (and the FD matrices) 8 elements per thread with
-// vector loads and writes every row once. A self-matched row (p == i)
-// still gets the refresh, the check and the FD epilogue; its exchange is
-// a no-op (d = 0, hb = max(hb, hb)).
+// Design: the matching is an involution p (p[p[i]] == i), so the CTAs of
+// one LEADER row i (i <= p[i]) own both rows i and p[i]: no other CTA
+// reads or writes them, which makes the update in place safe. On a GPU
+// any row gather is legal, so the TPU's 8-row grouping and in-VMEM
+// rotation reduce to the row involution p = 8 * gm[g] + (r - c[g]) mod 8;
+// the draws (gm, c), and so the trajectory, are the reference's.
 //
-// TOTALS mode: the staging takes 2 * N * sizeof(w) bytes of shared
-// memory, which caps the staged form at N = 57,984 for int16 (116,096
-// int8, 232,192 packed). With the totals given, the kernel skips the
-// staging and the totals pass, takes both scales from the totals and
-// streams both rows of w from global memory in the apply pass (diagonal
-// refreshed on load, pairs.cuh), with no dynamic shared memory: any
-// width that is a multiple of 8 (16 packed) runs. Each thread reads and
-// writes only its own 8-column chunks of the CTA's two rows, so the
-// update stays in place without a barrier.
+// THE CLUSTER FRAME (the staged form, staged_frame): a pair is staged by
+// a thread-block cluster of k CTAs (k = a.cluster, a launch value in {1,
+// 2, 4, 8}; pairs_pull.pull_form picks the smallest k that lets two CTAs
+// share an SM). CTA rank r stages chunks [r * per, (r + 1) * per) of
+// both rows (per = ceil(chunks / k), whole 8-element chunks: 16 owners
+// when packed) in 2 * per * 8 * sizeof(w) bytes of shared memory. Each
+// thread copies its own chunks with cp.async (every byte in flight at
+// once, no register held) and reads back only the chunks it copied, so
+// its own wait publishes them. Pass 1 sums the slice's deficits
+// (diagonal refreshed on read) exactly in int64 in one block reduction.
+// With k > 1 each CTA writes its two partials to its shared memory, the
+// cluster syncs, and every CTA reads the k partials through distributed
+// shared memory and sums them: the sum is exact, so the rows' totals,
+// rounded to f32 once, equal a single CTA's (and the reference's, while
+// a row's total stays below 2^24, which the configs' budgets and widths
+// keep). A second cluster barrier, arrived on after the reads and waited
+// on before the CTA exits, keeps every CTA's partials readable until all
+// have read them. Pass 2 applies the slice from shared memory and
+// streams hb (and the FD matrices) 8 elements per thread with vector
+// loads, writing every row once. k = 1 launches without the cluster
+// attribute and never touches the cluster barriers. The leader test
+// depends on the row alone, so a whole cluster returns together. The
+// check, the FD epilogue, the diagonal refresh, the packed codec and the
+// lane axis work per element or per CTA and carry over unchanged. A
+// self-matched row (p == i) still gets the refresh, the check and the FD
+// epilogue; its exchange is a no-op (d = 0, hb = max(hb, hb)). (A
+// persistent grid that staged the next pair while applying this one, two
+// buffers a CTA, was measured and dropped: its loop cost registers the
+// FD instances spilled, and it ran slower; PERF.md.)
+//
+// ONE ADVANCE PER COLUMN PAIR: a column's deficit is positive in at most
+// one direction (y > x for row i, x > y for row p; the packed residuals
+// the other way round), and the advance of a zero deficit is 0 for any
+// dither. So the body decides the receiving row first, masks the deficit
+// by that row's valid flag, and computes one hash, one dither and one
+// advance for the receiver only: half the two-direction body's work, the
+// same bits. (A skip of the chunks whose deficits are all 0 was measured
+// and dropped: a run leaves too few such chunks for it to pay for its
+// test; PERF.md.)
+//
+// TOTALS mode (the two-pass form's pass B, one CTA a pair): the column
+// blocks of a mesh, whose own sums are not the rows' totals, and rows
+// wider than a cluster of 8 stages. With the totals given, the kernel
+// skips the staging and the totals pass, takes both scales from the
+// totals and streams both rows of w from global memory in the apply pass
+// (diagonal refreshed on load, pairs.cuh), with no dynamic shared
+// memory: any width that is a multiple of 8 (16 packed) runs. Each
+// thread reads and writes only its own 8-column chunks of the CTA's two
+// rows, so the update stays in place without a barrier.
 //
 // FD bookkeeping: the sample counters' dtype and the live view's form are
 // runtime flags of the epilogue (a uniform branch per 8-column chunk), not
@@ -66,8 +102,8 @@
 // (saturating at 15), then zeroes the row's own owner; the check row
 // holds one owner-alive bit per nibble (a zero residual is caught up).
 // The packed kernel shares the unpacked one's frame (pair_frame: the
-// leader row, the staging and totals, the check) and differs only in the
-// row codec and the apply step.
+// leader row, the cluster's staging and totals, the check) and differs
+// only in the row codec and the apply step.
 //
 // LANES (the lane lift of a sweep): the grid's second dimension is the
 // lane, gridDim.y = S, and every operand carries a leading lane axis.
@@ -101,6 +137,7 @@
 // divide, bf16 stores round to nearest even (common.cuh), and the dither
 // is hash.cuh's integer hash of global indices.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,9 +147,12 @@
 #include "hash.cuh"
 #include "pairs.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxCluster = 8;  // the portable maximum of a thread-block cluster
 
 struct PairsArgs {
   void* w;                  // (n, n_cols) WT, updated in place
@@ -145,6 +185,7 @@ struct PairsArgs {
   int32_t lanes;            // LANES: sweep lanes (gridDim.y), 1 outside sweeps
   const uint32_t* lane_salt;  // LANES: (lanes,) salt_mix of each lane, or null
   const float* lane_phi;    // LANES + FD: (lanes,) phi of each lane, or null
+  int32_t cluster;          // CTAs staging a pair (gridDim.x = n * cluster); 1 with TOTALS
 };
 
 template <typename T>
@@ -226,8 +267,7 @@ __device__ __forceinline__ void store_counts(const PairsArgs& a, size_t off,
 // round-start matrix at fanout == 1).
 template <typename HT, typename IMT>
 __device__ __forceinline__ void fd_chunk(const PairsArgs& a, int row, int j0,
-                                         const int32_t (&hb_new)[8],
-                                         const int32_t (&hb_old)[8]) {
+                                         const Vec8<HT>& hb_new, const Vec8<HT>& hb_old) {
   const size_t off = static_cast<size_t>(row) * a.n_cols + j0;
   HT* lcm = static_cast<HT*>(a.lc) + off;
   IMT* imm = static_cast<IMT*>(a.im) + off;
@@ -243,12 +283,12 @@ __device__ __forceinline__ void fd_chunk(const PairsArgs& a, int row, int j0,
   for (int e = 0; e < 8; ++e) {
     const int j = j0 + e;
     const bool self = a.col0 + j == row;  // the global self diagonal
-    int32_t h0 = hb_old[e];
+    int32_t h0 = hb_old.v[e];
     if (a.hb0 != nullptr) {
       h0 = self ? a.hbv[j] : static_cast<int32_t>(h08.v[e]);
     }
     const FdResult r =
-        fd_update(a.tick, hb_new[e], h0, static_cast<int32_t>(lc8.v[e]),
+        fd_update(a.tick, hb_new.v[e], h0, static_cast<int32_t>(lc8.v[e]),
                   to_f32(im8.v[e]), ic[e], a.fd);
     const bool live = r.live || self;
     lc8.v[e] = static_cast<HT>(r.last_change);
@@ -279,6 +319,11 @@ struct UnpackedRows {
                                                  int j0) {
     return ld8_row<WT, DIAG>(row_ptr, row, j0, a.mv, a.col0);
   }
+  template <bool DIAG>
+  static __device__ __forceinline__ Vec8<T> refresh(const PairsArgs& a, Vec8<T> x8,
+                                                    int row, int j0) {
+    return refresh_row<WT, DIAG>(x8, row, j0, a.mv, a.col0);
+  }
   static __device__ __forceinline__ void sums(const Vec8<T>& x8,
                                               const Vec8<T>& y8, bool vi,
                                               bool vp, long long& ti,
@@ -295,6 +340,11 @@ struct PackedRows {
                                                  int k0) {
     return ld8_packed_row<DIAG>(row_ptr, row, k0, a.bump, a.col0);
   }
+  template <bool DIAG>
+  static __device__ __forceinline__ Vec8<T> refresh(const PairsArgs& a, Vec8<T> x8,
+                                                    int row, int k0) {
+    return refresh_packed_row<DIAG>(x8, row, k0, a.bump, a.col0);
+  }
   static __device__ __forceinline__ void sums(const Vec8<T>& x8,
                                               const Vec8<T>& y8, bool vi,
                                               bool vp, long long& ti,
@@ -303,72 +353,79 @@ struct PackedRows {
   }
 };
 
-// The pair a CTA owns, as its apply step sees it.
+// Copies eight elements (one 8-element chunk, 8 to 32 bytes) from global
+// to shared memory asynchronously (cp.async; the 16-byte copies bypass
+// L1); cp_async_wait_all waits for every copy the thread started.
+template <typename T>
+__device__ __forceinline__ void cp_async8(T* smem_dst, const T* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if constexpr (sizeof(T) == 1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem_src)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int h = 0; h < static_cast<int>(sizeof(T)) / 2; ++h) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst + 16 * h),
+                   "l"(gmem_src + h * (16 / static_cast<int>(sizeof(T))))
+                   : "memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The cluster's deficit totals: every CTA's exact partials (ti, tp) are
+// written to `part` in its shared memory, and after a cluster barrier each
+// CTA sums the k partials in rank order through distributed shared
+// memory. Then each thread arrives on a second cluster barrier, which
+// cluster_wait() completes before the CTA exits: no CTA's shared memory
+// goes while another may still read it.
+__device__ __forceinline__ void cluster_totals(long long* part, int k, long long& ti,
+                                               long long& tp) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) {
+    part[0] = ti;
+    part[1] = tp;
+  }
+  cluster.sync();
+  long long si = 0, sp = 0;
+  for (int q = 0; q < k; ++q) {
+    const long long* rp = cluster.map_shared_rank(part, q);
+    si += rp[0];
+    sp += rp[1];
+  }
+  ti = si;
+  tp = sp;
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The pair a CTA works on, as its apply step sees it.
 struct Pair {
   int i, p;
   bool self, vi, vp;
   float scale_i, scale_p;
 };
 
-// The frame both pull kernels share, over rows of `row_len` stored
-// elements (Rows::T). One CTA per leader row i (i <= p[i]) owns rows i
-// and p; other CTAs return. Both directions' deficit totals are given
-// (TOTALS), or pass 1 stages both rows (diagonal refreshed) in shared
-// memory and sums them. Pass 2 hands each thread's 8-element chunks of
-// both rows, pre-exchange, to `apply(pair, j0, x8, y8, ok_i, ok_p)`,
-// which writes them back (and what rides them) and, with CHECK, clears
-// ok_i / ok_p where a row falls short. A row that fails the check
-// clears the flag.
-template <typename Rows, bool DIAG, bool CHECK, bool TOTALS, typename Apply>
-__device__ __forceinline__ void pair_frame(const PairsArgs& a, int row_len,
-                                           Apply apply) {
-  using T = typename Rows::T;
+__device__ __forceinline__ Pair pair_of(const PairsArgs& a, int i) {
   Pair r;
-  r.i = blockIdx.x;
-  r.p = partner_row(a.gm, a.c, r.i);
-  if (r.p < r.i) return;  // row p leads this pair
-  r.self = r.p == r.i;
-  r.vi = a.valid[r.i] != 0;
+  r.i = i;
+  r.p = partner_row(a.gm, a.c, i);
+  r.self = r.p == i;
+  r.vi = a.valid[i] != 0;
   r.vp = a.valid[r.p] != 0;
+  return r;
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* si = reinterpret_cast<T*>(smem);
-  T* sp = si + row_len;
-  const T* wi = static_cast<const T*>(a.w) + static_cast<size_t>(r.i) * row_len;
-  const T* wp = static_cast<const T*>(a.w) + static_cast<size_t>(r.p) * row_len;
-  const int chunks = row_len >> 3;
-
-  float tot_i, tot_p;
-  if constexpr (TOTALS) {
-    tot_i = a.totals[r.i];
-    tot_p = a.totals[r.p];
-  } else {
-    long long ti = 0, tp = 0;
-    for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-      const int j0 = k << 3;
-      const Vec8<T> x8 = Rows::template load<DIAG>(a, wi, r.i, j0);
-      const Vec8<T> y8 = Rows::template load<DIAG>(a, wp, r.p, j0);
-      st8(si + j0, x8);
-      st8(sp + j0, y8);
-      Rows::sums(x8, y8, r.vi, r.vp, ti, tp);
-    }
-    ti = block_sum(ti);  // its barriers also publish the staged rows
-    tp = block_sum(tp);
-    tot_i = static_cast<float>(ti);
-    tot_p = static_cast<float>(tp);
-  }
-  r.scale_i = budget_scale(a.budget, tot_i);
-  r.scale_p = budget_scale(a.budget, tot_p);
-
-  bool ok_i = true, ok_p = true;
-  for (int k = threadIdx.x; k < chunks; k += blockDim.x) {
-    const int j0 = k << 3;
-    const Vec8<T> x8 =
-        TOTALS ? Rows::template load<DIAG>(a, wi, r.i, j0) : ld8(si + j0);
-    const Vec8<T> y8 =
-        TOTALS ? Rows::template load<DIAG>(a, wp, r.p, j0) : ld8(sp + j0);
-    apply(r, j0, x8, y8, ok_i, ok_p);
-  }
+// With CHECK, a CTA whose chunks of a pair fall short clears the flag.
+template <bool CHECK>
+__device__ __forceinline__ void check_pair(const PairsArgs& a, const Pair& r, bool ok_i,
+                                           bool ok_p) {
   if (CHECK) {
     const bool row_ok = (ok_i || a.alive[r.i] == 0) &&
                         (r.self || ok_p || a.alive[r.p] == 0);
@@ -376,119 +433,235 @@ __device__ __forceinline__ void pair_frame(const PairsArgs& a, int row_len,
   }
 }
 
-// The unpacked rungs: apply both directions' advances, absorb
-// heartbeats, and run the check and the FD epilogue on the fresh values.
+// The two-pass form's pass B: one CTA per LEADER row i (i <= p[i]) owns
+// rows i and p (other CTAs return), both directions' deficit totals
+// given. Each thread streams its 8-element chunks of both rows from
+// global memory (diagonal refreshed on load) to `Body::apply(a, pair, j0,
+// x8, y8, ok_i, ok_p)`, which writes them back (and what rides them) and,
+// with CHECK, clears ok_i / ok_p where a row falls short.
+template <typename Rows, typename Body, bool DIAG, bool CHECK>
+__device__ __forceinline__ void totals_frame(const PairsArgs& a, int row_len) {
+  using T = typename Rows::T;
+  if (partner_row(a.gm, a.c, blockIdx.x) < static_cast<int>(blockIdx.x)) return;
+  Pair r = pair_of(a, blockIdx.x);
+  r.scale_i = budget_scale(a.budget, a.totals[r.i]);
+  r.scale_p = budget_scale(a.budget, a.totals[r.p]);
+  const T* wi = static_cast<const T*>(a.w) + static_cast<size_t>(r.i) * row_len;
+  const T* wp = static_cast<const T*>(a.w) + static_cast<size_t>(r.p) * row_len;
+  bool ok_i = true, ok_p = true;
+  for (int q = threadIdx.x; q < (row_len >> 3); q += blockDim.x) {
+    const int j0 = q << 3;
+    Body::apply(a, r, j0, Rows::template load<DIAG>(a, wi, r.i, j0),
+                Rows::template load<DIAG>(a, wp, r.p, j0), ok_i, ok_p);
+  }
+  check_pair<CHECK>(a, r, ok_i, ok_p);
+}
+
+// Copies the thread's chunks of rows i and p[i] (chunks [q0, q1) of the
+// CTA's slice, `per` a row) into `dst`, [row i | row p], with cp.async.
+template <typename T>
+__device__ __forceinline__ void stage_slice(const PairsArgs& a, int i, int row_len, int q0,
+                                            int q1, int per, T* dst) {
+  const T* wi = static_cast<const T*>(a.w) + static_cast<size_t>(i) * row_len;
+  const T* wp =
+      static_cast<const T*>(a.w) + static_cast<size_t>(partner_row(a.gm, a.c, i)) * row_len;
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+    const int off = (q - q0) << 3;
+    cp_async8(dst + off, wi + (q << 3));
+    cp_async8(dst + (per << 3) + off, wp + (q << 3));
+  }
+}
+
+// The cluster frame (the staged form): the k = a.cluster CTAs of a
+// leader row i (i <= p[i]) own rows i and p (other CTAs return; the test
+// depends on the row alone, so a whole cluster returns together). CTA
+// rank r stages chunks [r * per, (r + 1) * per) of both rows in its
+// shared memory: each thread copies its own chunks with cp.async (every
+// byte in flight, no register held) and reads back only those, so its own
+// wait publishes them. Pass 1 sums the slice's deficits (diagonal
+// refreshed on read) exactly in int64, the cluster adds the k slices'
+// sums (cluster_totals), and pass 2 applies the slice through
+// Body::apply as the totals frame does.
+template <typename Rows, typename Body, bool DIAG, bool CHECK>
+__device__ __forceinline__ void staged_frame(const PairsArgs& a, int row_len) {
+  using T = typename Rows::T;
+  const int k = a.cluster;
+  const int i = blockIdx.x / k;
+  if (partner_row(a.gm, a.c, i) < i) return;
+  Pair r = pair_of(a, i);
+  const int chunks = row_len >> 3;
+  const int per = (chunks + k - 1) / k;
+  const int q0 = (blockIdx.x - i * k) * per;
+  const int q1 = min(chunks, q0 + per);
+  const int base = q0 << 3;  // the slice's first stored column
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* si = reinterpret_cast<T*>(smem);
+  T* sp = si + (per << 3);
+  stage_slice(a, i, row_len, q0, q1, per, si);
+  cp_async_wait_all();
+  long long ti = 0, tp = 0;
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+    const int j0 = q << 3;
+    Rows::sums(Rows::template refresh<DIAG>(a, ld8(si + (j0 - base)), r.i, j0),
+               Rows::template refresh<DIAG>(a, ld8(sp + (j0 - base)), r.p, j0),
+               r.vi, r.vp, ti, tp);
+  }
+  ti = block_sum(ti);
+  tp = block_sum(tp);
+  if (k > 1) cluster_totals(reinterpret_cast<long long*>(sp + (per << 3)), k, ti, tp);
+  r.scale_i = budget_scale(a.budget, static_cast<float>(ti));
+  r.scale_p = budget_scale(a.budget, static_cast<float>(tp));
+  bool ok_i = true, ok_p = true;
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+    const int j0 = q << 3;
+    Body::apply(a, r, j0, Rows::template refresh<DIAG>(a, ld8(si + (j0 - base)), r.i, j0),
+                Rows::template refresh<DIAG>(a, ld8(sp + (j0 - base)), r.p, j0), ok_i, ok_p);
+  }
+  check_pair<CHECK>(a, r, ok_i, ok_p);
+  if (k > 1) cluster_wait();
+}
+
+// The unpacked rungs' body: one advance per column pair (to whichever row
+// is behind), absorb heartbeats, and run the check and the FD epilogue on
+// the fresh values.
+template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK, bool FD>
+struct UnpackedBody {
+  static __device__ __forceinline__ void apply(const PairsArgs& a, const Pair& r, int j0,
+                                               const Vec8<WT>& x8, const Vec8<WT>& y8,
+                                               bool& ok_i, bool& ok_p) {
+    const int n = a.n_cols;  // elements a row
+    const int i = r.i, p = r.p;
+    Vec8<WT> nx8, ny8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // The receiving row first: row i gains where y > x, row p where
+      // x > y; the deficit is masked by the receiver's valid.
+      const int32_t x = x8.v[e], y = y8.v[e];
+      const bool in = y > x;
+      const int32_t d = in ? (r.vi ? y - x : 0) : (r.vp ? x - y : 0);
+      const uint32_t owner = a.col0 + j0 + e;  // the dither's global owner
+      const int32_t adv = advance(
+          d, in ? r.scale_i : r.scale_p,
+          dither24(hash_mix_u32(in ? i : p, owner, a.salt_mix)));
+      nx8.v[e] = static_cast<WT>(in ? x + adv : x);
+      ny8.v[e] = static_cast<WT>(in ? y : y + adv);
+    }
+    if (CHECK) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        ok_i = ok_i && static_cast<int32_t>(nx8.v[e]) >= a.need[j0 + e];
+        ok_p = ok_p && static_cast<int32_t>(ny8.v[e]) >= a.need[j0 + e];
+      }
+    }
+    WT* w = static_cast<WT*>(a.w);
+    st8(w + static_cast<size_t>(i) * n + j0, nx8);
+    if (!r.self) st8(w + static_cast<size_t>(p) * n + j0, ny8);
+    HT* hbm = static_cast<HT*>(a.hb);
+    if (hbm == nullptr) return;
+    HT* hi_row = hbm + static_cast<size_t>(i) * n + j0;
+    HT* hp_row = hbm + static_cast<size_t>(p) * n + j0;
+    // The pre-exchange tiles (diagonal refreshed, in the stored dtype, as
+    // the plain version refreshes them) and the absorbed ones.
+    Vec8<HT> hi8 = ld8(hi_row), hp8 = ld8(hp_row), ni8, np8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = j0 + e;
+      if (DIAG) {
+        if (a.col0 + j == i) hi8.v[e] = static_cast<HT>(a.hbv[j]);
+        if (a.col0 + j == p) hp8.v[e] = static_cast<HT>(a.hbv[j]);
+      }
+      const int32_t hi = hi8.v[e], hp = hp8.v[e];
+      const int32_t from_p = r.vi ? hp : 0;
+      const int32_t from_i = r.vp ? hi : 0;
+      ni8.v[e] = static_cast<HT>(hi > from_p ? hi : from_p);
+      np8.v[e] = static_cast<HT>(hp > from_i ? hp : from_i);
+    }
+    st8(hi_row, ni8);
+    if (!r.self) st8(hp_row, np8);
+    if (FD) {
+      fd_chunk<HT, IMT>(a, i, j0, ni8, hi8);
+      if (!r.self) fd_chunk<HT, IMT>(a, p, j0, np8, hp8);
+    }
+  }
+};
+
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
           bool FD, bool TOTALS>
 __global__ void __launch_bounds__(kThreads) pairs_kernel(PairsArgs args) {
-  const int n = args.n_cols;  // elements a row
-  const PairsArgs a = at_lane<WT, HT, IMT, false>(args, n);
-  pair_frame<UnpackedRows<WT>, DIAG, CHECK, TOTALS>(
-      a, n,
-      [&](const Pair& r, int j0, const Vec8<WT>& x8, const Vec8<WT>& y8,
-          bool& ok_i, bool& ok_p) {
-        const int i = r.i, p = r.p;
-        Vec8<WT> nx8, ny8;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int j = j0 + e;
-          const uint32_t owner = a.col0 + j;  // the dither's global owner
-          const int32_t x = x8.v[e], y = y8.v[e];
-          const int32_t di = (r.vi && y > x) ? y - x : 0;
-          const int32_t dp = (r.vp && x > y) ? x - y : 0;
-          const int32_t nx = x + advance(di, r.scale_i,
-                                         dither24(hash_mix_u32(i, owner, a.salt_mix)));
-          const int32_t ny = y + advance(dp, r.scale_p,
-                                         dither24(hash_mix_u32(p, owner, a.salt_mix)));
-          nx8.v[e] = static_cast<WT>(nx);
-          ny8.v[e] = static_cast<WT>(ny);
-          if (CHECK) {
-            ok_i = ok_i && nx >= a.need[j];
-            ok_p = ok_p && ny >= a.need[j];
-          }
-        }
-        WT* w = static_cast<WT*>(a.w);
-        st8(w + static_cast<size_t>(i) * n + j0, nx8);
-        if (!r.self) st8(w + static_cast<size_t>(p) * n + j0, ny8);
-        HT* hbm = static_cast<HT*>(a.hb);
-        if (hbm == nullptr) return;
-        HT* hi_row = hbm + static_cast<size_t>(i) * n + j0;
-        HT* hp_row = hbm + static_cast<size_t>(p) * n + j0;
-        const Vec8<HT> hi8 = ld8(hi_row);
-        const Vec8<HT> hp8 = ld8(hp_row);
-        int32_t hi[8], hp[8], nhi[8], nhp[8];
-        Vec8<HT> out_i, out_p;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int j = j0 + e;
-          hi[e] = hi8.v[e];
-          hp[e] = hp8.v[e];
-          if (DIAG) {
-            if (a.col0 + j == i) hi[e] = a.hbv[j];
-            if (a.col0 + j == p) hp[e] = a.hbv[j];
-          }
-          const int32_t from_p = r.vi ? hp[e] : 0;
-          const int32_t from_i = r.vp ? hi[e] : 0;
-          nhi[e] = hi[e] > from_p ? hi[e] : from_p;
-          nhp[e] = hp[e] > from_i ? hp[e] : from_i;
-          out_i.v[e] = static_cast<HT>(nhi[e]);
-          out_p.v[e] = static_cast<HT>(nhp[e]);
-        }
-        st8(hi_row, out_i);
-        if (!r.self) st8(hp_row, out_p);
-        if (FD) {
-          fd_chunk<HT, IMT>(a, i, j0, nhi, hi);
-          if (!r.self) fd_chunk<HT, IMT>(a, p, j0, nhp, hp);
-        }
-      });
+  const PairsArgs a = at_lane<WT, HT, IMT, false>(args, args.n_cols);
+  using Body = UnpackedBody<WT, HT, IMT, DIAG, CHECK, FD>;
+  if constexpr (TOTALS) {
+    totals_frame<UnpackedRows<WT>, Body, DIAG, CHECK>(a, a.n_cols);
+  } else {
+    staged_frame<UnpackedRows<WT>, Body, DIAG, CHECK>(a, a.n_cols);
+  }
 }
 
-// The packed u4r rung (lean profile: no hb, no FD): w is (n, n/2) uint8
-// and each 8-byte vector holds sixteen owners' residuals; the check
-// reads the packed owner-alive row (a residual of 0 is caught up).
+// The packed u4r rung's body (lean profile: no hb, no FD): w is (n, n/2)
+// uint8 and each 8-byte vector holds sixteen owners' residuals; one
+// advance per column pair shrinks the larger residual; the check reads
+// the packed owner-alive row (a residual of 0 is caught up).
+template <bool CHECK>
+struct PackedBody {
+  static __device__ __forceinline__ void apply(const PairsArgs& a, const Pair& r, int k0,
+                                               const Vec8<uint8_t>& x8,
+                                               const Vec8<uint8_t>& y8, bool& ok_i,
+                                               bool& ok_p) {
+    const int nb = a.n_cols >> 1;  // bytes a row
+    Vec8<uint8_t> nx8, ny8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      uint32_t bx = 0, by = 0;
+#pragma unroll
+      for (int h = 0; h < 8; h += 4) {
+        // Row i gains where its residual is the larger (x > y), row p
+        // where y > x: the receiver's residual shrinks.
+        const int32_t x = (x8.v[e] >> h) & 0xF, y = (y8.v[e] >> h) & 0xF;
+        const bool in = x > y;
+        const int32_t d = in ? (r.vi ? x - y : 0) : (r.vp ? y - x : 0);
+        const uint32_t j = a.col0 + 2 * (k0 + e) + (h >> 2);  // global
+        const int32_t adv = advance(
+            d, in ? r.scale_i : r.scale_p,
+            dither24(hash_mix_u32(in ? r.i : r.p, j, a.salt_mix)));
+        bx |= static_cast<uint32_t>(in ? x - adv : x) << h;
+        by |= static_cast<uint32_t>(in ? y : y - adv) << h;
+      }
+      nx8.v[e] = static_cast<uint8_t>(bx);
+      ny8.v[e] = static_cast<uint8_t>(by);
+    }
+    if (CHECK) {
+      const Vec8<uint8_t> ok8 = ld8(a.owner_ok + k0);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+#pragma unroll
+        for (int h = 0; h < 8; h += 4) {
+          // A residual of 0 is caught up; a dead owner is excused.
+          const bool owner_alive = ((ok8.v[e] >> h) & 0xF) != 0;
+          ok_i = ok_i && (((nx8.v[e] >> h) & 0xF) == 0 || !owner_alive);
+          ok_p = ok_p && (((ny8.v[e] >> h) & 0xF) == 0 || !owner_alive);
+        }
+      }
+    }
+    uint8_t* w = static_cast<uint8_t*>(a.w);
+    st8(w + static_cast<size_t>(r.i) * nb + k0, nx8);
+    if (!r.self) st8(w + static_cast<size_t>(r.p) * nb + k0, ny8);
+  }
+};
+
 template <bool DIAG, bool CHECK, bool TOTALS>
 __global__ void __launch_bounds__(kThreads) pairs_packed_kernel(PairsArgs args) {
-  const int nb = args.n_cols >> 1;  // bytes a row
-  const PairsArgs a = at_lane<uint8_t, uint8_t, float, true>(args, nb);
-  pair_frame<PackedRows, DIAG, CHECK, TOTALS>(
-      a, nb,
-      [&](const Pair& r, int k0, const Vec8<uint8_t>& x8,
-          const Vec8<uint8_t>& y8, bool& ok_i, bool& ok_p) {
-        Vec8<uint8_t> ok8;
-        if (CHECK) ok8 = ld8(a.owner_ok + k0);
-        Vec8<uint8_t> nx8, ny8;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          uint32_t bx = 0, by = 0;
-#pragma unroll
-          for (int h = 0; h < 8; h += 4) {
-            const uint32_t j = a.col0 + 2 * (k0 + e) + (h >> 2);  // global
-            const int32_t x = (x8.v[e] >> h) & 0xF, y = (y8.v[e] >> h) & 0xF;
-            const int32_t di = (r.vi && x > y) ? x - y : 0;
-            const int32_t dp = (r.vp && y > x) ? y - x : 0;
-            const int32_t nx = x - advance(di, r.scale_i,
-                                           dither24(hash_mix_u32(r.i, j, a.salt_mix)));
-            const int32_t ny = y - advance(dp, r.scale_p,
-                                           dither24(hash_mix_u32(r.p, j, a.salt_mix)));
-            bx |= static_cast<uint32_t>(nx) << h;
-            by |= static_cast<uint32_t>(ny) << h;
-            if (CHECK) {
-              const bool owner_alive = ((ok8.v[e] >> h) & 0xF) != 0;
-              ok_i = ok_i && (nx == 0 || !owner_alive);
-              ok_p = ok_p && (ny == 0 || !owner_alive);
-            }
-          }
-          nx8.v[e] = static_cast<uint8_t>(bx);
-          ny8.v[e] = static_cast<uint8_t>(by);
-        }
-        uint8_t* w = static_cast<uint8_t*>(a.w);
-        st8(w + static_cast<size_t>(r.i) * nb + k0, nx8);
-        if (!r.self) st8(w + static_cast<size_t>(r.p) * nb + k0, ny8);
-      });
+  const PairsArgs a = at_lane<uint8_t, uint8_t, float, true>(args, args.n_cols >> 1);
+  if constexpr (TOTALS) {
+    totals_frame<PackedRows, PackedBody<CHECK>, DIAG, CHECK>(a, a.n_cols >> 1);
+  } else {
+    staged_frame<PackedRows, PackedBody<CHECK>, DIAG, CHECK>(a, a.n_cols >> 1);
+  }
 }
 
-// Launches a kernel instance over one CTA per row and lane with `smem`
-// bytes of dynamic shared memory (opted in above 48 KB).
+// Launches a kernel instance over a.cluster CTAs a row (1 with TOTALS)
+// and one grid row per lane, with `smem` bytes of dynamic shared memory
+// (opted in above 48 KB); a cluster of k > 1 CTAs rides the launch's
+// cluster attribute.
 template <typename Kernel>
 cudaError_t launch_rows(Kernel kernel, const PairsArgs& a, size_t smem,
                         cudaStream_t stream) {
@@ -498,8 +671,29 @@ cudaError_t launch_rows(Kernel kernel, const PairsArgs& a, size_t smem,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(a.n, a.lanes), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.n) * a.cluster, a.lanes);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Dynamic shared memory of one staged CTA over rows of `row_len` stored
+// elements of `elem` bytes: its slice of both rows (whole 8-element
+// chunks) and, in a cluster, the two partial sums the others read.
+size_t staged_smem(const PairsArgs& a, int row_len, size_t elem) {
+  const int chunks = row_len >> 3;
+  const size_t per = static_cast<size_t>((chunks + a.cluster - 1) / a.cluster);
+  return 2 * per * 8 * elem + (a.cluster > 1 ? 2 * sizeof(long long) : 0);
 }
 
 template <bool DIAG, bool CHECK>
@@ -507,15 +701,14 @@ cudaError_t launch_packed(const PairsArgs& a, cudaStream_t s) {
   if (a.totals != nullptr) {
     return launch_rows(pairs_packed_kernel<DIAG, CHECK, true>, a, 0, s);
   }
-  // Both packed rows staged: 2 * (n_cols / 2) bytes.
   return launch_rows(pairs_packed_kernel<DIAG, CHECK, false>, a,
-                     static_cast<size_t>(a.n_cols), s);
+                     staged_smem(a, a.n_cols >> 1, 1), s);
 }
 
 template <typename WT, typename HT, typename IMT, bool DIAG, bool CHECK,
           bool FD, bool TOTALS>
 cudaError_t launch_one(const PairsArgs& a, cudaStream_t stream) {
-  const size_t smem = TOTALS ? 0 : 2 * static_cast<size_t>(a.n_cols) * sizeof(WT);
+  const size_t smem = TOTALS ? 0 : staged_smem(a, a.n_cols, sizeof(WT));
   return launch_rows(pairs_kernel<WT, HT, IMT, DIAG, CHECK, FD, TOTALS>, a,
                      smem, stream);
 }
@@ -578,7 +771,8 @@ cudaError_t launch_hb(const PairsArgs& a, int h_code, int im_code, bool diag,
 // otherwise). `lanes` > 1 is the lane lift: every operand carries a
 // leading lane axis, `flag` holds one flag a lane, and `lane_salt`
 // ((lanes,) uint32 salt_mix) and `lane_phi` ((lanes,) float) replace
-// `salt_mix` and `phi` where given.
+// `salt_mix` and `phi` where given. `cluster` is the CTAs that stage a
+// pair (1, 2, 4 or 8; 1 with `totals`).
 extern "C" int aiocluster_pairs_pull(
     void* w, void* hb, const void* gm, const void* c, const void* valid,
     int n, int n_cols, int col0, unsigned int salt_mix, float budget, const void* totals,
@@ -587,8 +781,12 @@ extern "C" int aiocluster_pairs_pull(
     const void* hb0, float max_interval, int window, float prior_weight,
     float prior_wm, float phi, int w_code, int h_code, int im_code,
     int ic_code, int live_bits, int lanes, const void* lane_salt,
-    const void* lane_phi, void* stream) {
+    const void* lane_phi, int cluster, void* stream) {
   if (lanes < 1 || lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+      (totals != nullptr && cluster != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   PairsArgs a;
   a.w = w;
   a.hb = hb;
@@ -624,6 +822,7 @@ extern "C" int aiocluster_pairs_pull(
   a.lanes = lanes;
   a.lane_salt = static_cast<const uint32_t*>(lane_salt);
   a.lane_phi = static_cast<const float*>(lane_phi);
+  a.cluster = cluster;
   const bool diag = mv != nullptr;
   const bool check = need != nullptr;
   const bool fd = lc != nullptr;

@@ -15,11 +15,15 @@ Two implementations serve a round, resolved once per call by
 - on a CUDA device (``use_pallas="auto"``): every sub-exchange is one
   launch of the pair-fused pull kernel (ops/pairs_pull.py); the first
   also refreshes the owner diagonal, the last also runs the FD phase
-  ("fused") and the convergence check. Where a row pair does not fit one
-  block's shared memory, each sub-exchange is two launches instead: the
-  deficit totals (ops/pairs_totals.py), then the pull fed those totals
-  ("pairs_two_pass", the reference's sharded two-pass form on one
-  device). A config the kernels cannot take is refused, never run plain,
+  ("fused") and the convergence check. A row pair is staged by one CTA
+  ("pairs") or, where two such CTAs would not share an SM, by a
+  thread-block cluster of CTAs ("pairs_cluster"). On the column blocks
+  of a mesh, on wide rows of 1-byte elements (int8, packed u4r: there it
+  ran faster) and past what a cluster of 8 stages, each sub-exchange is
+  two launches instead: the deficit totals (ops/pairs_totals.py), then
+  the pull fed those totals ("pairs_two_pass", the reference's sharded
+  two-pass form). ``pairs_pull.pull_form`` is the rule. A config the
+  kernels cannot take is refused, never run plain,
   except on the routes the reference itself serves with XLA for want of
   a kernel: "packed_dtype" (u4r with heartbeats, or pinned to m8) and
   "fanout" (fanout 0: no sub-exchange carries the refresh and the FD
@@ -115,7 +119,12 @@ def hash_uniform(
         row_ids = torch.arange(n_rows, device=dev)
     i = row_ids.to(torch.int64)[:, None]
     j = owner_ids.to(torch.int64)[None, :]
-    h = hash_mix_u32(i, j, s)
+    return dither24(hash_mix_u32(i, j, s))
+
+
+def dither24(h: torch.Tensor) -> torch.Tensor:
+    """The [0, 1) dither of hash words: the top 24 bits through int32 to
+    float32, clipped to [1e-12, 1 - 2^-24] (csrc/hash.cuh ``dither24``)."""
     u = (h >> 8).to(torch.int32).to(torch.float32) * (1.0 / 16777216.0)
     return torch.clamp(u, min=1e-12, max=1.0 - 2.0**-24)
 
@@ -282,7 +291,7 @@ def kernels_wanted(cfg: SimConfig, device) -> bool:
     )
 
 
-PAIRS_FORMS = ("pairs", "pairs_two_pass")
+PAIRS_FORMS = ("pairs", "pairs_cluster", "pairs_two_pass")
 M8_FORMS = ("m8", "m8_two_pass")
 
 
@@ -334,24 +343,22 @@ def block_width(cfg: SimConfig, blocks: int, device) -> int:
     return n_local
 
 
-def _kernel_pull_form(cfg: SimConfig, n_local: int | None = None) -> str:
-    """The kernel form of the sub-exchanges: staged where the two rows a
-    CTA reads fit its shared memory (a packed row is n / 2 bytes), two
-    launches a sub-exchange beyond, and always on column blocks of a
-    mesh (``n_local`` owners of n a block: a block's own sums are not
-    the rows' totals); ``pallas_variant="m8"`` pins the single-pass
-    pull."""
-    if n_local is not None and n_local < cfg.n_nodes:
-        staged = False
-    elif cfg.version_dtype == "u4r":
-        staged = pairs_pull.pairs_supported(cfg.n_nodes // 2, 1)
-    else:
-        staged = pairs_pull.pairs_supported(
-            cfg.n_nodes, DTYPES[cfg.version_dtype].itemsize
-        )
+def kernel_pull_form(cfg: SimConfig, n_local: int | None = None) -> tuple[str, int]:
+    """The kernel form of a config's sub-exchanges and the CTAs that
+    stage a row pair (1 where none or one does): the pairs pull's from
+    ``pairs_pull.pull_form`` (staged by one CTA or a cluster, or two
+    launches a sub-exchange; always two on column blocks of a mesh,
+    ``n_local`` owners of n a block); ``pallas_variant="m8"`` pins the
+    single-pass pull, staged where one CTA holds both rows (a packed row
+    is n / 2 bytes)."""
+    n = cfg.n_nodes
+    blocks = 1 if n_local is None else n // n_local
+    row_len, itemsize = (n // 2, 1) if cfg.version_dtype == "u4r" else (
+        n, DTYPES[cfg.version_dtype].itemsize)
     if cfg.pallas_variant == "m8":
-        return "m8" if staged else "m8_two_pass"
-    return "pairs" if staged else "pairs_two_pass"
+        staged = blocks == 1 and pairs_pull.pairs_supported(row_len, itemsize)
+        return ("m8" if staged else "m8_two_pass"), 1
+    return pairs_pull.pull_form(row_len, itemsize, blocks)
 
 
 def resolve_phases(
@@ -361,8 +368,10 @@ def resolve_phases(
     reference's ``pallas_fallback_reason`` / ``pallas_path_engaged`` /
     ``fd_phase_engaged``).
 
-    The pull is "pairs" or "pairs_two_pass" (the pair-fused pull, one or
-    two launches a sub-exchange), "m8" or "m8_two_pass" (pinned by
+    The pull is "pairs", "pairs_cluster" or "pairs_two_pass" (the
+    pair-fused pull: one launch a sub-exchange staged by one CTA or by a
+    cluster of CTAs, or two launches; ``pairs_pull.pull_form``), "m8" or
+    "m8_two_pass" (pinned by
     ``pallas_variant="m8"``), or "plain": no kernels wanted, or a route
     the reference serves with XLA for want of a kernel, "packed_dtype"
     (the u4r rung with heartbeats, or pinned to m8: only the pairs
@@ -398,7 +407,7 @@ def resolve_phases(
         pull_fallback = "packed_dtype"
     elif wanted and cfg.fanout < 1:
         pull_fallback = "fanout"
-    pull = _kernel_pull_form(cfg, n_local) if wanted and pull_fallback is None else "plain"
+    pull = kernel_pull_form(cfg, n_local)[0] if wanted and pull_fallback is None else "plain"
     if sweep and pull in M8_FORMS:
         pull, pull_fallback = "plain", "sweep_needs_pairs"
     fd, fd_fallback = "off", None

@@ -16,6 +16,11 @@ shared memory and so takes any width). A uint8 ``w`` is the packed u4r
 rung (sim/packed.py; lean profile only, as in the reference): ``mv`` is
 then the owners' write bump of the round.
 
+Without ``totals`` a row pair is staged in shared memory by a
+thread-block cluster of ``cluster`` CTAs, each holding its slice of both
+rows (the cluster frame of csrc/pairs_pull.cu). ``pull_form`` is the one
+rule for the form a round takes and the cluster size it stages with.
+
 ``owner_offset`` runs the sub-exchange on a column block of the owners
 (the reference's owner-sharded form): the (N, n_local) matrices hold the
 global owners ``owner_offset ..``, rows stay global, and ``mv``/``hbv``
@@ -52,6 +57,23 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 STATIC_SMEM = 32 * 8
 U4_CODE = 100  # the packed u4r rung's dtype code (csrc/common.cuh kU4)
 
+# The cluster frame. A cluster holds 1, 2, 4 or 8 CTAs (8: the portable
+# maximum); an H100 SM has 228 KB of shared memory, of which the runtime
+# keeps 1 KB per resident CTA. The kernel's registers (<= 128 a thread of
+# 256) let 2 CTAs share an SM, and the rule asks for that: at one CTA per
+# SM a staged pair's loads leave the SM idle while they land.
+CLUSTER_SIZES = (1, 2, 4, 8)
+SM_SMEM = 233_472
+CTA_SMEM_RESERVED = 1_024
+CTAS_PER_SM = 2
+# Rows of 1-byte elements (int8, packed u4r) stage only up to this many
+# bytes a row. Their pulls are bound by instructions, not bytes, and on
+# one H100 the two-pass form ran them faster than the staged one at every
+# wider row measured (int8 and u4r at 100,352 owners, u4r at 262,144, the
+# deep rung at 49,152: rows of 48 to 131 KB); at 10,240 owners (rows of
+# 5 and 10 KB) the two forms ran the same (PERF.md).
+NARROW_STAGED_BYTES = 16 * 1024
+
 
 @dataclasses.dataclass(frozen=True)
 class FdOperands:
@@ -83,12 +105,55 @@ class FdOperands:
 
 
 def pairs_supported(n_cols: int, itemsize: int) -> bool:
-    """Whether the staged kernel takes rows of ``n_cols`` stored elements
-    of ``itemsize`` bytes (a packed u4r row stores n / 2 bytes): both
-    rows staged in one block's shared memory (beside its static shared
-    memory), rows in 8-element vectors. The totals mode only needs the
-    vectors."""
+    """Whether one CTA stages both rows of ``n_cols`` stored elements of
+    ``itemsize`` bytes (a packed u4r row stores n / 2 bytes) in its shared
+    memory beside its static shared memory, rows in 8-element vectors:
+    the m8 pull's staged form, and the pairs pull's cluster of 1. The
+    totals mode only needs the vectors."""
     return n_cols % 8 == 0 and 2 * n_cols * itemsize + STATIC_SMEM <= SMEM_LIMIT
+
+
+def staged_smem(row_len: int, itemsize: int, k: int) -> int:
+    """Dynamic shared memory of one CTA of a ``k``-CTA cluster staging
+    rows of ``row_len`` stored elements of ``itemsize`` bytes: its slice
+    of both rows in whole 8-element chunks and, for k > 1, the two
+    partial sums the cluster reads (csrc/pairs_pull.cu ``staged_smem``)."""
+    per = -(-(row_len // 8) // k)
+    return 2 * per * 8 * itemsize + (16 if k > 1 else 0)
+
+
+def cluster_fits(row_len: int, itemsize: int, k: int, ctas: int = 1) -> bool:
+    """Whether ``ctas`` CTAs of a ``k``-CTA cluster over such rows share
+    one SM's shared memory, each within a block's limit."""
+    smem = staged_smem(row_len, itemsize, k) + STATIC_SMEM
+    return (
+        row_len % 8 == 0 and k in CLUSTER_SIZES and smem <= SMEM_LIMIT
+        and ctas * (smem + CTA_SMEM_RESERVED) <= SM_SMEM
+    )
+
+
+def cluster_size(row_len: int, itemsize: int, ctas: int = CTAS_PER_SM) -> int | None:
+    """The smallest cluster whose CTAs stage a pair of such rows with
+    ``ctas`` CTAs to an SM, or None."""
+    return next((k for k in CLUSTER_SIZES if cluster_fits(row_len, itemsize, k, ctas)), None)
+
+
+def pull_form(row_len: int, itemsize: int, blocks: int = 1) -> tuple[str, int]:
+    """The one rule for the pairs kernels' form of a round's
+    sub-exchanges over rows of ``row_len`` stored elements of
+    ``itemsize`` bytes (a packed u4r row stores n / 2 bytes), held as
+    ``blocks`` column blocks of the owners, with the CTAs that stage a
+    pair: ("pairs", 1) where one CTA stages a pair and another fits
+    beside it on its SM; ("pairs_cluster", k) where a cluster of the
+    smallest k > 1 does (one launch a sub-exchange either way);
+    ("pairs_two_pass", 1), the totals pass then the pull fed them, on the
+    column blocks of a mesh (a block's own sums are not the rows' totals),
+    for rows of 1-byte elements wider than ``NARROW_STAGED_BYTES``, and
+    where no cluster of 8 lets two CTAs share an SM."""
+    k = cluster_size(row_len, itemsize) if blocks == 1 else None
+    if k is None or (itemsize == 1 and row_len > NARROW_STAGED_BYTES):
+        return "pairs_two_pass", 1
+    return ("pairs" if k == 1 else "pairs_cluster"), k
 
 
 def compiled_static_smem(name: str = "pairs_pull") -> int:
@@ -175,6 +240,49 @@ def pairs_pull_plain(
     return None if check is None else ok.to(torch.int32).reshape(1)
 
 
+def exchange_once(x, y, vi, vp, rows_i, rows_p, owners, salt_mix, budget, *, packed=False):
+    """The kernel's exchange body (csrc/pairs_pull.cu, ONE ADVANCE PER
+    COLUMN PAIR) on row pairs: ``x`` (R, C) the rows i and ``y`` their
+    partner rows p, pre-exchange and refreshed (int8/int16/int32
+    watermarks, or packed u4r bytes with ``packed``), ``vi``/``vp`` (R,)
+    their valid flags, ``rows_i``/``rows_p`` (R,) their global row ids,
+    ``owners`` the global owners of the logical columns, ``salt_mix`` the
+    sub-exchange salt xor the run's. Each column pair's receiving row is
+    decided first (the one behind: y > x takes row i; packed residuals
+    the other way round), its deficit masked by that row's valid flag,
+    and one hash, one dither and one advance serve it; the rows' totals
+    are summed exactly over the C columns. Returns (nx, ny) in x's dtype.
+    The plain versions advance both directions (``gossip.budgeted_advance``,
+    ``packed_adv_halves``); the tests hold the two equal."""
+    if packed:
+        def logical(r):
+            lo, hi = gossip.nibbles(r)
+            return torch.stack((lo, hi), dim=-1).flatten(-2)
+
+        xs, ys = logical(x), logical(y)
+        lag = xs - ys
+    else:
+        xs, ys = x.to(torch.int32), y.to(torch.int32)
+        lag = ys - xs
+    to_i = lag > 0
+    d = torch.where(to_i, lag * vi[:, None], -lag * vp[:, None])
+    tot_i = torch.where(to_i, d, 0).sum(dim=1, dtype=torch.int64).to(torch.float32)
+    tot_p = torch.where(to_i, 0, d).sum(dim=1, dtype=torch.int64).to(torch.float32)
+    scale = torch.where(to_i, gossip.budget_scale(tot_i, budget)[:, None],
+                        gossip.budget_scale(tot_p, budget)[:, None])
+    recv = torch.where(to_i, rows_i.to(torch.int64)[:, None], rows_p.to(torch.int64)[:, None])
+    u = gossip.dither24(gossip.hash_mix_u32(recv, owners.to(torch.int64)[None, :], salt_mix))
+    share = d.to(torch.float32) * scale
+    floor = torch.floor(share)
+    adv = torch.minimum(floor.to(torch.int32) + (u < share - floor).to(torch.int32), d)
+    step = -adv if packed else adv
+    nx = xs + torch.where(to_i, step, 0)
+    ny = ys + torch.where(to_i, 0, step)
+    if packed:
+        return tuple(gossip.pack_halves(r[:, 0::2], r[:, 1::2]) for r in (nx, ny))
+    return nx.to(x.dtype), ny.to(y.dtype)
+
+
 def _check_packed(packed: bool, hb, fd) -> None:
     """The packed rung is lean-only in the pairs kernel, as in the
     reference (its nibble codec carries no hb or FD tiles)."""
@@ -185,7 +293,7 @@ def _check_packed(packed: bool, hb, fd) -> None:
 def pairs_pull(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
-    owner_offset: int = 0,
+    owner_offset: int = 0, cluster: int | None = None,
 ):
     """One pair-fused sub-exchange, in place.
 
@@ -209,7 +317,9 @@ def pairs_pull(
     ``totals`` (N,) float32, the rows' deficit totals of this
     sub-exchange (``pairs_totals`` on the same operands), scales the
     advance instead of the kernel's own sums: no row is staged, so any
-    width runs."""
+    width runs. Without ``totals``, ``cluster`` CTAs (1, 2, 4 or 8) stage
+    each row pair; None takes ``cluster_size``'s. The plain version has
+    no clusters: the result is the same bits for every size."""
     if w.device.type == "cpu":
         counters.plain_calls["pull"] += 1
         return pairs_pull_plain(
@@ -218,7 +328,7 @@ def pairs_pull(
         )
     salt_mix = (int(salt) & prng.M32) ^ (int(run_salt) & prng.M32)
     return _launch(w, hb, gm, c, valid, salt_mix, budget, (), mv, hbv, check, fd, totals,
-                   int(owner_offset))
+                   int(owner_offset), cluster)
 
 
 def pairs_pull_lanes_plain(
@@ -246,14 +356,16 @@ def pairs_pull_lanes_plain(
 def pairs_pull_lanes(
     w, hb, gm, c, valid, salt_mix, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
+    cluster: int | None = None,
 ):
     """One pair-fused sub-exchange of S sweep lanes in one launch, in
     place: ``pairs_pull`` with a leading lane axis on every operand —
     (S, N, N) matrices, (S, N/8) matchings, (S, N) vectors — and
     ``salt_mix`` an (S,) int32 tensor of each lane's sub-exchange salt
     xor its run salt (the bits as uint32). ``fd.phi`` (S,) float32 gives
-    each lane's threshold (``fd.params.phi`` for all when None).
-    Returns the (S,) int32 flags with ``check``, else None."""
+    each lane's threshold (``fd.params.phi`` for all when None);
+    ``cluster`` as in ``pairs_pull``. Returns the (S,) int32 flags with
+    ``check``, else None."""
     if w.device.type == "cpu":
         counters.plain_calls["pull"] += 1
         return pairs_pull_lanes_plain(
@@ -264,7 +376,8 @@ def pairs_pull_lanes(
     expect("salt_mix", salt_mix, torch.int32, lanes, w.device, align=4)
     if fd is not None and fd.phi is not None:
         expect("phi", fd.phi, torch.float32, lanes, w.device, align=4)
-    return _launch(w, hb, gm, c, valid, salt_mix, budget, lanes, mv, hbv, check, fd, totals)
+    return _launch(w, hb, gm, c, valid, salt_mix, budget, lanes, mv, hbv, check, fd, totals,
+                   cluster=cluster)
 
 
 def check_block(n: int, n_cols: int, owner_offset: int, packed: bool) -> None:
@@ -281,11 +394,11 @@ def check_block(n: int, n_cols: int, owner_offset: int, packed: bool) -> None:
 
 
 def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals,
-            owner_offset=0):
+            owner_offset=0, cluster=None):
     """Check the operands of a launch over ``lanes`` (``()``: one
     sub-exchange; ``(S,)``: S lanes, ``salt`` their (S,) salt_mix, else
-    the salt_mix int) on the block of owners from ``owner_offset`` and
-    launch the kernel."""
+    the salt_mix int) on the block of owners from ``owner_offset``, with
+    ``cluster`` CTAs a staged pair, and launch the kernel."""
     dev = w.device
     n = w.shape[-2]
     packed = is_packed_w(w)
@@ -295,14 +408,22 @@ def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals
     n_cols = owner_columns(w)
     check_block(n, n_cols, owner_offset, packed)
     expect("w", w, w.dtype, (*lanes, n, w.shape[-1]), dev)
+    row_len, itemsize = w.shape[-1], w.element_size()
     if totals is not None:
         expect("totals", totals, torch.float32, (*lanes, n), dev)
-    elif not pairs_supported(w.shape[-1], w.element_size()):
-        raise ValueError(
-            f"pairs kernel cannot stage rows of {n_cols} owners with {w.dtype} "
-            "watermarks (both rows in shared memory; pass totals for the "
-            "two-pass form)"
-        )
+        if cluster not in (None, 1):
+            raise ValueError("the totals-fed pull stages nothing: it takes no cluster")
+        cluster = 1
+    else:
+        if cluster is None:
+            cluster = cluster_size(row_len, itemsize) or cluster_size(row_len, itemsize, 1)
+        if cluster is None or not cluster_fits(row_len, itemsize, cluster):
+            raise ValueError(
+                f"pairs kernel cannot stage rows of {n_cols} owners with {w.dtype} "
+                f"watermarks on a cluster of {cluster} (the slices of both rows in "
+                "shared memory, a cluster of 1, 2, 4 or 8; pass totals for the "
+                "two-pass form)"
+            )
     expect("gm", gm, torch.int32, (*lanes, n // 8), dev)
     expect("c", c, torch.int32, (*lanes, n // 8), dev)
     expect("valid", valid, torch.bool, (*lanes, n), dev)
@@ -377,27 +498,28 @@ def _launch(w, hb, gm, c, valid, salt, budget, lanes, mv, hbv, check, fd, totals
         ptr(need), ptr(alive), ptr(flag), tick, *fd_ptrs,
         consts.max_interval, consts.window, consts.prior_weight,
         consts.prior_wm, consts.phi, w_code, h_code, im_code, ic_code, live_bits,
-        lanes[0] if lanes else 1, ptr(lane_salt), ptr(phi),
+        lanes[0] if lanes else 1, ptr(lane_salt), ptr(phi), cluster,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "pairs_pull kernel launch")
     counters.launches[
         counter_key(mv is not None, check is not None, fd is not None, totals is not None,
-                    packed, lanes=bool(lanes))
+                    packed, lanes=bool(lanes), cluster=cluster > 1)
     ] += 1
     return flag
 
 
 def counter_key(
     diag: bool, check: bool, fd: bool, totals: bool = False, packed: bool = False,
-    lanes: bool = False,
+    lanes: bool = False, cluster: bool = False,
 ) -> str:
     """The ``counters.launches`` key of a launch in this mode (``lanes``:
-    a lane launch of a sweep)."""
+    a lane launch of a sweep; ``cluster``: staged by a cluster of more
+    than one CTA)."""
     flags = [
         f for f, on in (
-            ("packed", packed), ("totals", totals), ("diag", diag), ("check", check),
-            ("fd", fd),
+            ("cluster", cluster), ("packed", packed), ("totals", totals), ("diag", diag),
+            ("check", check), ("fd", fd),
         )
         if on
     ]

@@ -17,12 +17,17 @@ mode are held bit-equal to their plain versions and to the staged pull
 at N = 10,240, and the staged pulls are timed beside the two-pass form
 of the same sub-exchanges. At the north star's width,
 ``lean_config(100_352, budget=2618)`` (int16 watermarks, 20.1 GB
-resident), each two-pass mode is held bit-equal to its plain version on
-the north star's state 100 rounds in; then the north star runs to
-convergence at seed 1 through the kernels: it must converge at round
-209, the round the reference's 8-device mesh run certified. Its passes
-are timed at that width and one trace of a few rounds is taken
-(``build/chip_smoke_trace_north_star.json``).
+resident), each two-pass mode and one chained round of its own form
+(each row pair staged by a cluster of CTAs) are held bit-equal to their
+plain versions on the north star's state 100 rounds in; then the north
+star runs to convergence at seed 1 through the kernels: it must
+converge at round 209, the round the reference's 8-device mesh run
+certified, one launch a sub-exchange. Its sub-exchanges are timed at
+that width in both forms, one trace of a few rounds is taken
+(``build/chip_smoke_trace_north_star.json``) and the run is repeated in
+the two-pass form. Every full-width run below likewise holds and times
+the form the dispatch does not take beside its own (``other_form``);
+``RUN_FORMS`` is the dispatch rule's expected form of each run.
 
 Then the single-pass m8 path (``pallas_variant="m8"``): the m8 pull and
 the m8 totals pass are held bit-equal to their plain versions (and to
@@ -101,7 +106,9 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import subprocess
@@ -121,7 +128,7 @@ from aiocluster_torch.ops import (
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
 from aiocluster_torch.parallel import make_mesh
-from aiocluster_torch.sim.packed import pack_bits, unpack_bits, unpack_u4
+from aiocluster_torch.sim.packed import is_packed_w, pack_bits, unpack_bits, unpack_u4
 from aiocluster_torch.sim.state import STATE_FIELDS, lane
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -132,6 +139,27 @@ CONVERGED_ROUND = 24  # the reference's headline trajectory at seed 0
 # round 209 (benchmarks/records/r4_northstar_100k_convergence.json).
 NORTH_STAR_N, NORTH_STAR_SEED, NORTH_STAR_ROUND = 100_352, 1, 209
 FULL_WIDTH_ROUNDS = 100  # the north star's rounds before its parity check
+# The form of each run's sub-exchanges and the CTAs that stage a row
+# pair, by the dispatch rule (pairs_pull.pull_form through
+# gossip.kernel_pull_form), held before each run: a change of the rule
+# shows here first.
+RUN_FORMS = {
+    "north_star": ("pairs_cluster", 4),
+    "north_star_pair": ("pairs_cluster", 4),
+    "north_star_int8": ("pairs_two_pass", 1),
+    "north_star_int8_other": ("pairs_cluster", 2),
+    "north_star_u4r": ("pairs_two_pass", 1),
+    "north_star_u4r_other": ("pairs", 1),
+    "widest_u4r": ("pairs_two_pass", 1),
+    "widest_u4r_other": ("pairs_cluster", 4),
+    "full_past_staged": ("pairs_cluster", 4),
+    "full_deep": ("pairs_two_pass", 1),
+    "full_shrunk": ("pairs_cluster", 2),
+    "lean_int8_staged": ("pairs", 1),
+    "lean_u4r_staged": ("pairs", 1),
+    "deep_staged": ("pairs", 1),
+    "shrunk_staged": ("pairs", 1),
+}
 COLUMN_BLOCKS = 8  # the reference's certified north-star mesh: 8 shards
 TRACE_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
 NORTH_STAR_TRACE = TRACE_PATH.with_name("chip_smoke_trace_north_star.json")
@@ -141,13 +169,67 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Integer/float operations per element, counted from the kernel source:
 # per row direction the deficit (3), the hash and dither (13), the
 # advance (7) and the heartbeat absorb (3); per FD element ~22. The
-# totals pass: per column of a pair 2 compares, 2 subtracts, 2 adds.
+# totals pass: per column of a pair 2 compares, 2 subtracts, 2 adds. The
+# pairs pull takes one advance per column pair (the receiving direction
+# and its deficit, 3; one hash and dither, 13; one advance, 7; each
+# row's absorb, 3); the m8 pull, a row a CTA, one per row direction.
 OPS_PULL, OPS_FD, OPS_TOTALS = 2 * 26, 22, 6
 OPS_PULL_LEAN = OPS_PULL - 2 * 3
+OPS_PAIR = 3 + 13 + 7 + 2 * 3
+OPS_PAIR_LEAN = OPS_PAIR - 2 * 3
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def two_pass_forced():
+    """No row pair staged: the block's shared-memory limit set to the
+    kernel's static shared memory, so every sub-exchange takes the
+    two-pass form (the totals pass, then the pull fed them), as past what
+    a cluster of 8 stages. For timing the old form beside the new."""
+    saved = pairs_pull.SMEM_LIMIT
+    pairs_pull.SMEM_LIMIT = pairs_pull.STATIC_SMEM
+    try:
+        yield
+    finally:
+        pairs_pull.SMEM_LIMIT = saved
+
+
+@contextlib.contextmanager
+def other_form(cfg):
+    """The form the dispatch rule does not take for ``cfg``: the two-pass
+    form where it stages (``two_pass_forced``), else the staged form (the
+    narrow rows' limit lifted, so the smallest cluster that lets two CTAs
+    share an SM stages them). Yields that form and its cluster size. For
+    timing the two forms side by side."""
+    if gossip.kernel_pull_form(cfg)[0] != "pairs_two_pass":
+        with two_pass_forced():
+            yield gossip.kernel_pull_form(cfg)
+        return
+    saved = pairs_pull.NARROW_STAGED_BYTES
+    pairs_pull.NARROW_STAGED_BYTES = 1 << 40
+    try:
+        yield gossip.kernel_pull_form(cfg)
+    finally:
+        pairs_pull.NARROW_STAGED_BYTES = saved
+
+
+def form_key(form, k, diag=False, check=False, fd=False, packed=False, lanes=False):
+    """The launch key of a pull in ``form`` on clusters of ``k``."""
+    two_pass = form == "pairs_two_pass"
+    return pairs_pull.counter_key(diag, check, fd, two_pass, packed, lanes=lanes,
+                                  cluster=not two_pass and k > 1)
+
+
+def expect_form(cfg, dev, name, n_local=None):
+    """The run ``name``'s form and cluster size by the dispatch rule
+    (``gossip.kernel_pull_form``), which must be ``RUN_FORMS[name]``."""
+    got = gossip.kernel_pull_form(cfg, n_local)
+    check(got == RUN_FORMS[name] and gossip.pull_phase_engaged(cfg, dev, n_local) == got[0],
+          f"{name}: the dispatch gives {got}, expected {RUN_FORMS[name]}")
+    return got
 
 
 def check(ok: bool, what: str) -> None:
@@ -511,11 +593,20 @@ def check_two_pass_full_width(dev, errs):
             f"{float(tk.max()):.0f}); {p_key} max_abs_err={p_err}{flag}")
         if name == "need 0":
             check(int(fk[0]) == 1, "the check flag of a passing sub-exchange is 0")
-    del sim, w_plain, w_kern
+    del w_plain, w_kern
     torch.cuda.empty_cache()
     log("two_pass", f"n={n}: every two-pass mode equals its plain version on the "
         f"north star's state {FULL_WIDTH_ROUNDS} rounds in "
         f"({time.perf_counter() - t0:.1f} s with the rounds)")
+    # The run's own form (the cluster frame), one round chained on the
+    # same state.
+    found = chained_round_check(dev, sim, "lean16", errs)
+    del sim
+    torch.cuda.empty_cache()
+    log("north_star", f"n={n}, {RUN_FORMS['north_star']}: one chained round on the north "
+        f"star's state {FULL_WIDTH_ROUNDS} rounds in: "
+        + ", ".join(f"{k} max_abs_err={e}" for k, e in found))
+    check(all(e == 0.0 for _, e in found), "the north star's cluster launches disagree")
 
 
 def check_fd_kernel(dev):
@@ -552,16 +643,79 @@ def states_equal(s1, s2) -> bool:
     )
 
 
+LEAN_MODES = {
+    "lean first": dict(diag=True, check=False),
+    "lean middle": dict(diag=False, check=False),
+    "lean last": dict(diag=False, check=True),
+}
+
+
+def lean_form_times(w, alive, mv, budget, k, rung, wsize):
+    """A lean round's sub-exchanges at ``w``'s width by CUDA events, on
+    the same state (updated in place; no time depends on the values), in
+    the staged form on clusters of ``k`` CTAs and in the two-pass form:
+    the totals pass (with and without the refresh) and the pull fed
+    them. ``mv`` is the refresh operand (packed: the write bumps). Returns
+    name -> (ms, (bound ms, bound by)), names the launch keys and the
+    rung; and each form's ms and bound a round (3 sub-exchanges)."""
+    n = w.shape[0]
+    packed = rung == "u4r"
+    gm, c, _ = prng.grouped_matching(prng.key(9), n)
+    gm, c = gm.to(w.device, torch.int32), c.to(w.device, torch.int32)
+    tot = pairs_totals.pairs_totals(w, gm, c, alive, mv=mv)
+    ops = OPS_PAIR_LEAN * n * n / 2
+    times = {}
+    for diag in (True, False):
+        key = f"{pairs_totals.counter_key(diag, packed)} {rung}"
+        times[key] = (
+            cuda_ms(lambda: pairs_totals.pairs_totals(w, gm, c, alive, mv=mv if diag else None),
+                    5),
+            bound(totals_bytes(n, wsize, diag=diag), OPS_TOTALS * n * n / 2),
+        )
+    for m in LEAN_MODES.values():
+        kw = {"mv": mv} if m["diag"] else {}
+        if m["check"]:
+            kw["check"] = (torch.zeros_like(alive, dtype=torch.int32), alive, alive)
+        for totals in (False, True):
+            mode = dict(m, fd=False, hb0=False)
+            key = ladder_key(mode, rung, totals=totals, cluster=not totals and k > 1)
+            extra = {"totals": tot} if totals else {"cluster": k}
+            times[key] = (
+                cuda_ms(lambda: pairs_pull.pairs_pull(
+                    w, None, gm, c, alive, 1, 0x9E3779B9, budget, **kw, **extra), 5),
+                bound(pull_bytes(n, wsize, 0, diag=m["diag"], check=m["check"], fd=False,
+                                 hb0=False, totals=totals), ops),
+            )
+    torch.cuda.synchronize()
+    rounds = {}
+    for form in ("staged", "two_pass"):
+        per = {}
+        for key in times:
+            if key.startswith("pairs_totals"):
+                per[key] = (0 if form == "staged" else 1 if "diag" in key else 2)
+            else:
+                per[key] = int(("totals" in key) == (form == "two_pass"))
+        rounds[form] = (sum(per[kk] * t[0] for kk, t in times.items()),
+                        sum(per[kk] * t[1][0] for kk, t in times.items()))
+    return times, rounds
+
+
 def north_star(dev, card_line):
-    """Phase 8: the two-pass path at full width. Runs the north star's
-    first two rounds (w's digests at ticks 1 and 2 must be the record's
-    of the reference's 8-device mesh run), then on to convergence (must
-    be round 209, every sub-exchange through both kernels), times 16
-    more rounds on the host clock, traces 4, then
-    times each pass at this width with CUDA events on the converged
-    state. Returns the record for the JSON line and the per-key times."""
+    """Phase 8: the north star at full width in its form (``RUN_FORMS``:
+    one launch a sub-exchange, each row pair staged by a cluster of CTAs).
+    Runs its first two rounds (w's digests at ticks 1 and 2 must be the
+    record's of the reference's 8-device mesh run), then on to
+    convergence (must be round 209, one pull launch a sub-exchange and no
+    totals pass), times 16 more rounds on the host clock, traces 4, then
+    times each sub-exchange at this width in the run's form and in the
+    two-pass form on the same state. Last, the same run in the two-pass
+    form (forced, from counters at 0; its launches are the two-pass
+    entries' path), to 209, its wall time a round beside the run's.
+    Returns the record, the run's launches, the times, and the two-pass
+    run's (launches, rounds)."""
     cfg = lean_config(NORTH_STAR_N, budget=2618)
     n = cfg.n_nodes
+    form, k = expect_form(cfg, dev, "north_star")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -588,17 +742,17 @@ def north_star(dev, card_line):
     launches = dict(counters.launches)
     plain, refusals = dict(counters.plain_calls), dict(counters.refusals)
     rounds = sim.tick - len(NORTH_STAR_DIGESTS)  # the tracked rounds
-    log("north_star", f"lean_config({n}, budget=2618) seed {NORTH_STAR_SEED}: "
-        f"run_until_converged -> {converged} after {rounds} tracked rounds in {run_s:.2f} s "
-        f"(init {init_s:.2f} s); launches {launches}; plain calls {plain}; "
-        f"refusals {refusals}")
+    log("north_star", f"lean_config({n}, budget=2618) seed {NORTH_STAR_SEED}, {form} on "
+        f"clusters of {k}: run_until_converged -> {converged} after {rounds} tracked rounds "
+        f"in {run_s:.2f} s ({run_s / rounds * 1e3:.3f} ms a round; init {init_s:.2f} s); "
+        f"launches {launches}; plain calls {plain}; refusals {refusals}")
     check(converged == NORTH_STAR_ROUND,
           f"north star converged at {converged}, expected {NORTH_STAR_ROUND}")
-    check(counters.kernel_launches("pairs_totals") == 3 * rounds
+    check_key = pairs_pull.counter_key(False, True, False, cluster=k > 1)
+    check(counters.kernel_launches("pairs_totals") == 0
           and counters.kernel_launches("pairs_pull") == 3 * rounds
-          and launches.get("pairs_pull[totals+check]") == rounds
-          and not plain and not refusals,
-          "the north star did not run every sub-exchange through both kernels")
+          and launches.get(check_key) == rounds and not plain and not refusals,
+          "the north star did not run every sub-exchange as one staged pull launch")
     m = sim.metrics()
     check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
           and np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == n,
@@ -606,12 +760,7 @@ def north_star(dev, card_line):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     win = 16
-    sim.run(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run(win)
-    torch.cuda.synchronize()
-    round_ms = (time.perf_counter() - t0) / win * 1e3
+    round_ms = round_rate(sim, win)
     with torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ]) as prof:
@@ -621,88 +770,81 @@ def north_star(dev, card_line):
     prof.export_chrome_trace(str(NORTH_STAR_TRACE))
     tb = trace_breakdown(NORTH_STAR_TRACE, "chip_smoke.north_star",
                          ("aiocluster_torch.draws", "aiocluster_torch.sim_step"))
-    dev_per_round = {k: v / 4 for k, v in tb["device_ms"].items()}
+    dev_per_round = {kk: v / 4 for kk, v in tb["device_ms"].items()}
     busy = tb["device_busy_ms"] / tb["window_ms"] if tb["device_events"] else None
 
-    # Each pass at this width, on the converged state (updated in place).
-    w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
-    gm, c, _ = prng.grouped_matching(prng.key(9), n)
-    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
-    tot = pairs_totals.pairs_totals(w, gm, c, alive, mv=mv)
-    times = {}
-    for diag in (True, False):
-        key = pairs_totals.counter_key(diag)
-        times[key] = (
-            cuda_ms(lambda: pairs_totals.pairs_totals(w, gm, c, alive, mv=mv if diag else None), 10),
-            bound(totals_bytes(n, 2, diag=diag), OPS_TOTALS * n * n / 2),
-        )
-    for name in ("lean first", "lean middle", "lean last"):
-        mm = TWO_PASS_MODES[name]
-        kw = {"mv": mv} if mm["diag"] else {}
-        if mm["check"]:
-            kw["check"] = (mv, alive, alive)
-        times[two_pass_key(mm)] = (
-            cuda_ms(lambda: pairs_pull.pairs_pull(
-                w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget, totals=tot, **kw), 10),
-            bound(pull_bytes(n, 2, 0, diag=mm["diag"], check=mm["check"], fd=False,
-                             hb0=False, totals=True), OPS_PULL_LEAN * n * n / 2),
-        )
-    torch.cuda.synchronize()
-    del sim, w, tot
+    # Each sub-exchange at this width in both forms, on the same state.
+    times, form_rounds = lean_form_times(sim.state.w, sim.state.alive, sim.state.max_version,
+                                         cfg.budget, k, "lean16", 2)
+    del sim
     torch.cuda.empty_cache()
-    # A tracked round: one totals pass with the refresh, two without, and
-    # one pull in each mode.
-    per_round = {k: (2 if k == "pairs_totals[sum]" else 1) for k in times}
-    per_round_ms = sum(per_round[k] * ms for k, (ms, _) in times.items())
-    per_round_bound = sum(per_round[k] * b[0] for k, (_, b) in times.items())
+    # The same run in the two-pass form (the old form), from counters at 0.
+    timed = {}
+    with two_pass_forced():
+        check(gossip.pull_phase_engaged(cfg, dev) == "pairs_two_pass", "not forced two-pass")
+        sim, conv2, launches2, _, _ = run_to(cfg, dev, NORTH_STAR_SEED, NORTH_STAR_ROUND,
+                                             "north_star_two_pass", timed=timed)
+    rounds2 = sim.tick
+    check(counters.kernel_launches("pairs_totals") == 3 * rounds2
+          and counters.kernel_launches("pairs_pull") == 3 * rounds2,
+          "the forced north star did not take both passes a sub-exchange")
+    del sim
+    torch.cuda.empty_cache()
+    (k_ms, k_bound), (t_ms, t_bound) = form_rounds["staged"], form_rounds["two_pass"]
     log("north_star", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round over {win} "
-        f"untracked rounds); tracked run {rounds / run_s:.3f} rounds/s; kernels "
-        f"{per_round_ms:.3f} ms/round by CUDA events against a {per_round_bound:.3f} ms "
-        f"bound ({per_round_bound / per_round_ms:.1%}); peak memory {peak_gb:.2f} GB; "
-        f"{card_line}")
+        f"untracked rounds); whole run {run_s / rounds * 1e3:.3f} ms a round, the two-pass "
+        f"form's {timed['round_ms']:.3f}; kernels by CUDA events: {k_ms:.3f} ms a round "
+        f"against a {k_bound:.3f} ms bound ({k_bound / k_ms:.1%}), the two-pass form "
+        f"{t_ms:.3f} against {t_bound:.3f} ({t_bound / t_ms:.1%}); peak memory "
+        f"{peak_gb:.2f} GB; {card_line}")
     if tb["device_events"]:
         log("north_star", f"trace of 4 rounds: {tb['window_ms'] / 4:.3f} ms/round under the "
             f"profiler, device busy {busy:.1%} of the window and "
             f"{tb['busy_share_after_first_kernel']:.1%} after the first pass starts at "
             f"{tb['first_kernel_ms']:.3f} ms (the chunk's draws come first, "
             f"{tb['device_events']} device events in all); device per round: "
-            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(dev_per_round.items())))
+            + ", ".join(f"{kk} {v:.3f} ms" for kk, v in sorted(dev_per_round.items())))
     for key, (ms, (b_ms, b_by)) in times.items():
         log("north_star", f"{key} at n={n}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
     record = {
-        "n": n, "seed": NORTH_STAR_SEED, "converged_round": converged,
-        "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
-        "digests": digests, "digest_copy_s": copy_s,
+        "n": n, "seed": NORTH_STAR_SEED, "form": form, "cluster": k,
+        "converged_round": converged, "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
+        "run_round_ms": run_s / rounds * 1e3, "digests": digests, "digest_copy_s": copy_s,
         "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
-        "kernel_ms_per_round": per_round_ms, "bound_ms_per_round": per_round_bound,
+        "kernel_ms_per_round": k_ms, "bound_ms_per_round": k_bound,
+        "two_pass": {"run_round_ms": timed["round_ms"], "converged_round": conv2,
+                     "kernel_ms_per_round": t_ms, "bound_ms_per_round": t_bound},
         "peak_memory_gb": peak_gb, "device_busy_share": busy,
         "first_kernel_ms": tb["first_kernel_ms"],
         "busy_share_after_first_kernel": tb["busy_share_after_first_kernel"],
         "device_ms_per_round": dev_per_round,
     }
-    return record, launches, times
+    return record, launches, times, (launches2, rounds2)
 
 
 def two_pass_kernel_entries(dev, errs, ns_launches, ns_rounds, ns_times):
     """The kernel-line entries of the two-pass modes on the north star's
-    path: times at N = 10,240 beside the plain versions' and the bounds,
-    the times at the north star's width (``ns_times``), and the launches
-    of its run (each must be > 0)."""
+    two-pass run (``ns_launches``, ``ns_rounds``): times at N = 10,240
+    beside the plain versions' and the bounds, the times at the north
+    star's width (``ns_times``, the lean16 names), and the launches of
+    that run (each must be > 0)."""
     entries = []
 
     def two_pass_entry(key, kernel, line, ms, plain_ms, b):
-        check(ns_launches.get(key, 0) > 0, f"{key} was not launched on the north star's path")
+        check(ns_launches.get(key, 0) > 0,
+              f"{key} was not launched on the north star's two-pass run")
+        main = ns_times[f"{key} lean16"]
         log("time", f"{key}: {ms:.4f} ms at n={N} (bound {b[0]:.4f} ms by {b[1]}; plain "
-            f"{plain_ms:.3f} ms); {ns_times[key][0]:.4f} ms at n={NORTH_STAR_N} (bound "
-            f"{ns_times[key][1][0]:.4f} ms)")
+            f"{plain_ms:.3f} ms); {main[0]:.4f} ms at n={NORTH_STAR_N} (bound "
+            f"{main[1][0]:.4f} ms)")
         return dict(
             name=key, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
             replaces=f"aiocluster_tpu/ops/pallas_pull.py:{line}",
             launches=ns_launches[key], launches_per_round=ns_launches[key] / ns_rounds,
             max_abs_err=errs[key], ms=ms,
             plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None,
-            path="north_star", n=N, n_main=NORTH_STAR_N, ms_main=ns_times[key][0],
-            bound_ms_main=ns_times[key][1][0], parity_n=[N, NORTH_STAR_N],
+            path="north_star_two_pass", n=N, n_main=NORTH_STAR_N, ms_main=main[0],
+            bound_ms_main=main[1][0], parity_n=[N, NORTH_STAR_N],
         )
 
     for diag in (True, False):
@@ -735,7 +877,7 @@ def two_pass_kernel_entries(dev, errs, ns_launches, ns_rounds, ns_times):
         del ops
         entries.append(two_pass_entry(
             two_pass_key(m), "pairs_pull", 490, ms, plain_ms,
-            bound(pull_bytes(N, 2, 0, totals=True, **m), OPS_PULL_LEAN * N * N / 2),
+            bound(pull_bytes(N, 2, 0, totals=True, **m), OPS_PAIR_LEAN * N * N / 2),
         ))
     return entries
 
@@ -1333,9 +1475,10 @@ def ladder_case(n, seed, dev, *, wdt, hdt=None, imdt=torch.bfloat16, icdt=torch.
     return fresh
 
 
-def ladder_key(m, rung, totals=False) -> str:
+def ladder_key(m, rung, totals=False, cluster=False) -> str:
     """The name of a ladder mode's entry: its launch key and its rung."""
-    key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], totals, rung == "u4r")
+    key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], totals, rung == "u4r",
+                                 cluster=cluster)
     return f"{key} {rung}"
 
 
@@ -1428,17 +1571,22 @@ def check_ladder_kernels(dev):
 
 
 def chained_round_check(dev, sim, rung, errs, seed=8):
-    """One round's sub-exchanges at the simulator's width, chained as
-    ``sim_step`` chains them (the first refreshes the diagonal, the last
-    carries the check and, with the FD, the fused epilogue reading the
-    round-start hb), then a fourth whose check every row passes (need 0:
-    the flag must stay 1 across every CTA). The kernel runs on copies of
-    every matrix it writes, the plain version (over blocks of row pairs)
-    on the state itself. A seeded tenth of the nodes is dead and a seeded
-    half of the owners wrote a key, so the masks and the refresh change
+    """One round's sub-exchanges at the simulator's width in its form
+    (``gossip.kernel_pull_form``: staged on its clusters, or the two-pass
+    form, the totals of both sides held too), chained as ``sim_step``
+    chains them (the first refreshes the diagonal, the last carries the
+    check and, with the FD, the fused epilogue reading the round-start
+    hb), then a fourth whose check every row passes (need 0: the flag
+    must stay 1 across every CTA). The kernel runs on copies of every
+    matrix it writes, the plain version (over blocks of row pairs) on the
+    state itself. A seeded tenth of the nodes is dead and a seeded half
+    of the owners wrote a key, so the masks and the refresh change
     values. Raises each mode's max_abs_err in ``errs``; returns the
     round's (key, max_abs_err) pairs."""
     st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    form, k = gossip.kernel_pull_form(cfg)
+    two_pass = form == "pairs_two_pass"
+    packed = rung == "u4r"
     gen = torch.Generator(device=dev).manual_seed(seed)
     alive = torch.rand(n, generator=gen, device=dev) < 0.9
     wrote = torch.rand(n, generator=gen, device=dev) < 0.5
@@ -1472,21 +1620,39 @@ def chained_round_check(dev, sim, rung, errs, seed=8):
             if cfg.track_heartbeats:
                 kw["hbv"] = heartbeat
         if mode["check"]:
-            kw["check"] = (torch.zeros_like(mv) if name == "need 0" else mv, alive, alive)
+            # need 0 and every owner excused: the flag must stay 1 (a packed row
+            # passes only where its owners are caught up or excused).
+            kw["check"] = ((torch.zeros_like(mv), alive, torch.zeros_like(alive))
+                           if name == "need 0" else (mv, alive, alive))
+        if packed and "mv" in kw:
+            kw["mv"] = mv - st.max_version  # the packed refresh takes the write bumps
         args = (gm_all[s], c_all[s], valid, tick * 2 * cfg.fanout + 2 * s,
                 prng.run_salt(run_key), cfg.budget)
         outs = []
+        t_err = None
+        if two_pass:
+            tk = pairs_totals.pairs_totals(kern["w"], gm_all[s], c_all[s], valid,
+                                           mv=kw.get("mv"))
+            tp = pairs_totals.pairs_totals_plain(plain["w"], gm_all[s], c_all[s], valid,
+                                                 mv=kw.get("mv"))
+            t_err = max_abs_err([tk], [tp])
+            t_key = f"{pairs_totals.counter_key(mode['diag'], packed)} {rung}"
+            errs[t_key] = max(errs[t_key], t_err)
         for ops, fd in ((kern, fds and fds[0]), (plain, fds and fds[1])):
             fn = pairs_pull.pairs_pull if ops is kern else pairs_pull.pairs_pull_plain
             extra = dict(hbv=heartbeat, fd=fd) if mode["fd"] else {}
+            if two_pass:
+                extra["totals"] = tk if ops is kern else tp
             flag = fn(ops["w"], ops["hb"], *args, **kw, **extra)
             outs.append([ops["w"]] + ([] if ops["hb"] is None else [ops["hb"]])
                         + ([fd.lc, fd.im, fd.ic, fd.live] if mode["fd"] else [])
                         + ([] if flag is None else [flag]))
         torch.cuda.synchronize()
-        key = ladder_key(mode, rung)
+        key = ladder_key(mode, rung, totals=two_pass, cluster=not two_pass and k > 1)
         err = max_abs_err(*outs)
         errs[key] = max(errs[key], err)
+        if t_err is not None:
+            found.append((f"{t_key} ({name})", t_err))
         found.append((f"{key} ({name})", err))
         if name == "need 0":
             check(int(outs[0][-1][0]) == 1, f"{rung}: the check flag of a passing "
@@ -1497,16 +1663,17 @@ def chained_round_check(dev, sim, rung, errs, seed=8):
 
 
 def check_ladder_full_width(dev, errs):
-    """Phase 10a': the staged modes at the width of their paths' runs,
-    against the plain versions, on an early state (at convergence every
-    deficit is 0, which would prove little): the lean int8 north star's
-    state ``FULL_WIDTH_ROUNDS`` rounds in (rows of 100,352 bytes, two
-    staged in 200 KB of opt-in shared memory): the m8 pull in both modes
-    from that state, then one round of pairs pulls chained; the full deep
-    and shrunk rungs at N = 49,152, ``FULL_CHECK_ROUNDS`` rounds in: one
-    round chained, the last with the fused FD epilogue on the int8
-    counters and the live bitmap (last_change, imean, icount and the
-    bitmap compared). Raises each mode's max_abs_err in ``errs``."""
+    """Phase 10a': the pairs modes at the width of their paths' runs, in
+    both forms (the run's and ``other_form``), against the plain versions,
+    on an early state (at convergence every deficit is 0, which would
+    prove little): the lean int8 north star's state ``FULL_WIDTH_ROUNDS``
+    rounds in (rows of 100,352 bytes): the m8 pull in both modes from that
+    state, then one round of pairs pulls chained in each form; the full
+    deep and shrunk rungs at N = 49,152, ``FULL_CHECK_ROUNDS`` rounds in:
+    one round chained in each form, the last with the fused FD epilogue
+    on the int8 counters and the live bitmap (last_change, imean, icount
+    and the bitmap compared). Raises each mode's max_abs_err in
+    ``errs``."""
     t0 = time.perf_counter()
     cfg = lean_config(NORTH_STAR_N, "int8", budget=2618)
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
@@ -1525,6 +1692,8 @@ def check_ladder_full_width(dev, errs):
         del wk, wp
     torch.cuda.empty_cache()
     found += chained_round_check(dev, sim, "int8", errs)
+    with other_form(cfg):  # the other form's launches at this width too
+        found += chained_round_check(dev, sim, "int8", errs, seed=9)
     del sim
     torch.cuda.empty_cache()
     log("ladder_full_width", f"n={NORTH_STAR_N} int8, the north star's state "
@@ -1534,6 +1703,8 @@ def check_ladder_full_width(dev, errs):
                         device=dev)
         sim.run(FULL_CHECK_ROUNDS)
         found = chained_round_check(dev, sim, rung, errs)
+        with other_form(sim.cfg):
+            found += chained_round_check(dev, sim, rung, errs, seed=9)
         del sim
         torch.cuda.empty_cache()
         log("ladder_full_width", f"n={FULL_N} {rung}, {FULL_CHECK_ROUNDS} rounds in: "
@@ -1542,20 +1713,26 @@ def check_ladder_full_width(dev, errs):
         f"path's width ({time.perf_counter() - t0:.1f} s with the rounds)")
 
 
-def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8, mesh=None):
+def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8, mesh=None, timed=None):
     """Run ``cfg`` to convergence through the kernels from counters at 0
     (over ``mesh``'s column blocks when given): it must converge at round
-    ``want`` (None: any) with no plain call, fallback or refusal. Returns
-    (simulator, round, launches, seconds, peak GB)."""
+    ``want`` (None: any) with no plain call, fallback or refusal. With
+    ``timed`` (a dict), its "round_ms" is set to the run's wall time a
+    round, the state's set-up left out. Returns (simulator, round,
+    launches, seconds with the set-up, peak GB)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
     place = {"device": dev} if mesh is None else {"mesh": mesh}
     sim = Simulator(cfg, seed=seed, chunk=chunk, **place)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     converged = sim.run_until_converged(max_rounds=max_rounds)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    if timed is not None:
+        timed["round_ms"] = (time.perf_counter() - t1) / max(sim.tick, 1) * 1e3
     launches = dict(counters.launches)
     log(what, f"converged at round {converged} after {sim.tick} rounds in {run_s:.2f} s "
         f"(with init); launches {launches}; plain calls {dict(counters.plain_calls)}; "
@@ -1581,77 +1758,109 @@ def round_rate(sim, rounds=16, warmup=2):
     return (time.perf_counter() - t0) / rounds * 1e3
 
 
+ZERO_SHARE_EVERY, ZERO_SHARE_ROWS = 20, 4096
+
+
+def zero_deficit_shares(sim, gen, rows=ZERO_SHARE_ROWS):
+    """The share of zero deficits in the state's next sub-exchange, on a
+    seeded sample of ``rows`` leader rows and their partners (all alive
+    on this run): of the column pairs, of the 8-column chunks a thread
+    takes, and of the 256-column spans a warp takes (a chunk or span
+    counts where all its deficits are 0, both ways)."""
+    n = sim.cfg.n_nodes
+    dev = sim.state.w.device
+    _, _, p = (t[0][0] for t in prng.round_draws(prng.key(sim.seed).to(dev), sim.tick + 1, 1,
+                                                  n, sim.cfg.fanout))
+    p = p.long()
+    ids = torch.arange(n, device=dev)
+    lead = ids[ids < p]
+    lead = lead[torch.randperm(lead.numel(), generator=gen, device=dev)[:rows]]
+    diff = sim.state.w[lead] != sim.state.w[p[lead]]
+    return {span: 1.0 - float(diff.view(diff.shape[0], -1, span).any(-1).float().mean())
+            for span in (1, 8, 256)}
+
+
 def lean_int8_north_star(dev, card_line):
-    """Phase 10b: lean_config(100_352, "int8", budget=2618) at seed 1
-    through the staged pairs kernel (int8 rows stage up to 116,096):
-    round 209, 3 launches a round; then pinned to m8 (staged m8 pulls and
+    """Phase 10b: lean_config(100_352, "int8", budget=2618) at seed 1 in
+    its form (``RUN_FORMS``): round 209, its launches a sub-exchange; then
+    the same run in the other form (``other_form``, from counters at 0),
+    stepped 20 rounds at a time with the share of zero deficits counted
+    on a sample of row pairs at each step (how much a skip of zero
+    deficits could save), to 209; then pinned to m8 (staged m8 pulls and
     the plain flag, as in the reference): round 209 again. Each path's
     pulls are timed at this width on the converged state, the pairs path
-    also in the two-pass form (each pass, and the round with no row
-    staged)."""
+    in both forms."""
     cfg = lean_config(NORTH_STAR_N, "int8", budget=2618)
-    check(gossip.pull_phase_engaged(cfg, dev) == "pairs", "int8 north star is not staged")
+    form, k = expect_form(cfg, dev, "north_star_int8")
+    two_pass = form == "pairs_two_pass"
+    timed = {}
     sim, conv, launches, run_s, peak = run_to(cfg, dev, NORTH_STAR_SEED, LADDER_NS_ROUND,
-                                              "north_star_int8")
+                                              "north_star_int8", timed=timed)
     rounds = sim.tick
     check(counters.kernel_launches("pairs_pull") == 3 * rounds
-          and counters.kernel_launches("pairs_totals") == 0
-          and launches.get("pairs_pull[check]") == rounds,
-          "the int8 north star did not run 3 staged pulls a round")
+          and counters.kernel_launches("pairs_totals") == (3 * rounds if two_pass else 0)
+          and launches.get(form_key(form, k, check=True)) == rounds,
+          "the int8 north star did not run its form's launches a sub-exchange")
     round_ms = round_rate(sim)
     w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
+    k_staged = pairs_pull.cluster_size(NORTH_STAR_N, 1)
+    times, form_rounds = lean_form_times(w, alive, mv, cfg.budget, k_staged, "int8", 1)
+    times = {key: (NORTH_STAR_N, *t) for key, t in times.items()}
+    del sim, w
+    torch.cuda.empty_cache()
+    # The other form, whole run, with the zero-deficit shares.
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shares = {}
+    with other_form(cfg) as (other, k_other):
+        expect_form(cfg, dev, "north_star_int8_other")
+        counters.reset()
+        sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+        torch.cuda.synchronize()
+        shares[0] = zero_deficit_shares(sim, gen)
+        steps_s = 0.0
+        while sim.tick + ZERO_SHARE_EVERY <= LADDER_NS_ROUND:
+            t1 = time.perf_counter()
+            sim.run(ZERO_SHARE_EVERY)
+            torch.cuda.synchronize()
+            steps_s += time.perf_counter() - t1
+            shares[sim.tick] = zero_deficit_shares(sim, gen)
+        t1 = time.perf_counter()
+        conv2 = sim.run_until_converged(max_rounds=LADDER_NS_ROUND + 20)
+        torch.cuda.synchronize()
+        steps_s += time.perf_counter() - t1
+        other_launches, other_rounds = dict(counters.launches), sim.tick
+        check(conv2 == LADDER_NS_ROUND and counters.kernel_launches("pairs_pull") == 3 * sim.tick
+              and other_launches.get(form_key(other, k_other, check=True), 0) > 0,
+              f"the int8 north star in the other form converged at {conv2} or did not take "
+              "its launches")
+        other_round_ms = steps_s / sim.tick * 1e3
+    del sim
+    torch.cuda.empty_cache()
+    log("north_star_int8", "zero-deficit shares (column pairs, 8-column chunks, 256-column "
+        "spans) by round: " + "; ".join(
+            f"{r}: {v[1]:.4f}, {v[8]:.4f}, {v[256]:.4f}" for r, v in shares.items()))
+    staged, two = form_rounds["staged"], form_rounds["two_pass"]
+    mine, theirs = (two, staged) if two_pass else (staged, two)
+    record = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, form=form, cluster=k,
+                  converged_round=conv, rounds_run=rounds, run_s=run_s,
+                  run_round_ms=timed["round_ms"], round_ms=round_ms,
+                  rounds_per_s=1e3 / round_ms, peak_memory_gb=peak,
+                  kernel_ms_per_round=mine[0], bound_ms_per_round=mine[1],
+                  other=dict(form=other, cluster=k_other, converged_round=conv2,
+                             run_round_ms=other_round_ms, kernel_ms_per_round=theirs[0],
+                             bound_ms_per_round=theirs[1]),
+                  zero_deficit_shares={r: {str(s_): v for s_, v in sh.items()}
+                                       for r, sh in shares.items()})
+    log("north_star_int8", f"{form}: {1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round "
+        f"over 16 untracked rounds); whole run {timed['round_ms']:.3f} ms a round, in the "
+        f"other form ({other} on clusters of {k_other}) {other_round_ms:.3f}; kernels a round "
+        f"by CUDA events: staged on clusters of {k_staged} {staged[0]:.3f} ms (bound "
+        f"{staged[1]:.3f}), two-pass {two[0]:.3f} (bound {two[1]:.3f}); peak memory "
+        f"{peak:.2f} GB; passes at n={NORTH_STAR_N}: "
+        + ", ".join(f"{kk} {v[1]:.4f} ms" for kk, v in times.items()) + f"; {card_line}")
+
     gm, c, _ = prng.grouped_matching(prng.key(9), NORTH_STAR_N)
     gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
-    times = {}
-    for name in ("first", "middle", "last"):
-        m = LADDER_MODES[name]
-        kw = {"mv": mv} if m["diag"] else {}
-        if m["check"]:
-            kw["check"] = (mv, alive, alive)
-        times[ladder_key(m, "int8")] = (NORTH_STAR_N, cuda_ms(lambda: pairs_pull.pairs_pull(
-            w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget, **kw), 10),
-            ladder_pull_bound(NORTH_STAR_N, "int8", m, False))
-    # The same rounds and pulls in the two-pass form (no row staged, as
-    # beyond 116,096 int8), on the same state, for the dispatch's width
-    # rule: each pass alone, then the round.
-    tot = pairs_totals.pairs_totals(w, gm, c, alive)
-    for diag in (True, False):
-        times[f"{pairs_totals.counter_key(diag)} int8"] = (NORTH_STAR_N, cuda_ms(
-            lambda: pairs_totals.pairs_totals(w, gm, c, alive, mv=mv if diag else None), 10),
-            bound(totals_bytes(NORTH_STAR_N, 1, diag=diag),
-                  OPS_TOTALS * NORTH_STAR_N * NORTH_STAR_N / 2))
-    for name in ("first", "middle", "last"):
-        m = LADDER_MODES[name]
-        kw = {"mv": mv} if m["diag"] else {}
-        if m["check"]:
-            kw["check"] = (mv, alive, alive)
-        times[ladder_key(m, "int8", totals=True)] = (NORTH_STAR_N, cuda_ms(
-            lambda: pairs_pull.pairs_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
-                                          totals=tot, **kw), 10),
-            ladder_pull_bound(NORTH_STAR_N, "int8", m, True))
-    del tot
-    saved = pairs_pull.SMEM_LIMIT
-    pairs_pull.SMEM_LIMIT = pairs_pull.STATIC_SMEM
-    try:
-        check(gossip.pull_phase_engaged(cfg, dev) == "pairs_two_pass",
-              "the forced int8 north star is staged")
-        counters.reset()
-        two_pass_round_ms = round_rate(sim)
-        check(counters.kernel_launches("pairs_totals") == 3 * 18
-              and counters.kernel_launches("pairs_pull") == 3 * 18,
-              "the forced int8 north star did not take both passes a sub-exchange")
-    finally:
-        pairs_pull.SMEM_LIMIT = saved
-    del sim, w
-    record = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, converged_round=conv,
-                  rounds_run=rounds, run_s=run_s, round_ms=round_ms,
-                  rounds_per_s=1e3 / round_ms, peak_memory_gb=peak,
-                  two_pass_round_ms=two_pass_round_ms)
-    log("north_star_int8", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round over 16 "
-        f"untracked rounds; forced two-pass {two_pass_round_ms:.3f} ms/round); peak memory "
-        f"{peak:.2f} GB; passes at n={NORTH_STAR_N}: "
-        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items()) + f"; {card_line}")
-
     m8_cfg = dataclasses.replace(cfg, pallas_variant="m8")
     check(gossip.pull_phase_engaged(m8_cfg, dev) == "m8", "int8 north star m8 is not staged")
     sim, conv8, launches8, run8_s, peak8 = run_to(m8_cfg, dev, NORTH_STAR_SEED,
@@ -1660,7 +1869,7 @@ def lean_int8_north_star(dev, card_line):
           and launches8.get("m8_pull[diag]") == sim.tick,
           "the int8 north star m8 did not run 3 m8 pulls a round")
     round8_ms = round_rate(sim)
-    w = sim.state.w
+    w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
     for diag in (True, False):
         times[f"{m8_pull.counter_key(diag)} int8"] = (NORTH_STAR_N, cuda_ms(
             lambda: m8_pull.m8_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
@@ -1677,7 +1886,8 @@ def lean_int8_north_star(dev, card_line):
         f"peak memory {peak8:.2f} GB; m8 pulls at n={NORTH_STAR_N}: "
         + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items() if k.startswith("m8"))
         + f"; {card_line}")
-    return (record, launches, rounds), (record_m8, launches8, rounds8), times
+    return ((record, launches, rounds), (record_m8, launches8, rounds8), times,
+            (other_launches, other_rounds))
 
 
 def residual_errs(w16, mv, w_u4) -> float:
@@ -1699,10 +1909,13 @@ def lean_u4r_north_star(dev, card_line):
     lean_config(100_352, budget=2618, keys_per_node=15), stepped side by
     side: the u4r residuals equal clip(max_version - w, 0, 15) of the
     int16 run at rounds 1 and 2 and at the converged round, and both
-    converge at the same round (the reference's u4r contract)."""
+    converge at the same round (the reference's u4r contract). The u4r
+    run's pulls are timed at this width in both forms, and the run again
+    in the other form (``other_form``, from counters at 0), its wall time
+    a round beside the run's."""
     cfg = lean_config(NORTH_STAR_N, "u4r", budget=2618)
     ref_cfg = lean_config(NORTH_STAR_N, budget=2618, keys_per_node=15)
-    check(gossip.pull_phase_engaged(cfg, dev) == "pairs", "u4r north star is not staged")
+    form, k = expect_form(cfg, dev, "north_star_u4r")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
@@ -1714,7 +1927,11 @@ def lean_u4r_north_star(dev, card_line):
         u4.run(1)
         i16.run(1)
         errs.append(residual_errs(i16.state.w, i16.state.max_version, u4.state.w))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     conv_u4 = u4.run_until_converged(max_rounds=400)
+    torch.cuda.synchronize()
+    u4_run_ms = (time.perf_counter() - t1) / (u4.tick - 2) * 1e3
     u4_launches = {k: v for k, v in counters.launches.items() if "packed" in k}
     u4_rounds = u4.tick
     conv_16 = i16.run_until_converged(max_rounds=400)
@@ -1729,50 +1946,65 @@ def lean_u4r_north_star(dev, card_line):
     check(conv_u4 == conv_16 and conv_u4 is not None, "u4r and int16 keys-15 rounds differ")
     check(max(errs) == 0.0, "the u4r residuals differ from the int16 run's")
     check(not counters.plain_calls and not counters.fallbacks
-          and sum(u4_launches.values()) == 3 * u4_rounds,
-          "the u4r north star did not run 3 packed pulls a round")
+          and sum(v for kk, v in u4_launches.items() if kk.startswith("pairs_pull"))
+          == 3 * u4_rounds and u4_launches.get(form_key(form, k, check=True, packed=True)),
+          "the u4r north star did not run 3 packed pulls a round in its form")
     both_peak = torch.cuda.max_memory_allocated() / 1e9
     del i16
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     round_ms = round_rate(u4)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    w, alive, mv = u4.state.w, u4.state.alive, u4.state.max_version
-    gm, c, _ = prng.grouped_matching(prng.key(9), NORTH_STAR_N)
-    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
-    bump = torch.ones_like(mv)
-    times = {}
-    for name in ("first", "middle", "last"):
-        m = LADDER_MODES[name]
-        kw = {"mv": bump} if m["diag"] else {}
-        if m["check"]:
-            kw["check"] = (mv, alive, alive)
-        times[ladder_key(m, "u4r")] = (NORTH_STAR_N, cuda_ms(lambda: pairs_pull.pairs_pull(
-            w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget, **kw), 10),
-            ladder_pull_bound(NORTH_STAR_N, "u4r", m, False))
+    w, alive = u4.state.w, u4.state.alive
+    k_staged = pairs_pull.cluster_size(NORTH_STAR_N // 2, 1)
+    times, form_rounds = lean_form_times(w, alive, torch.ones_like(u4.state.max_version),
+                                         cfg.budget, k_staged, "u4r", 0.5)
+    times = {key: (NORTH_STAR_N, *t) for key, t in times.items()}
     del u4, w
     torch.cuda.empty_cache()
-    record = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, converged_round=conv_u4,
+    timed = {}
+    with other_form(cfg) as (other, k_other):
+        expect_form(cfg, dev, "north_star_u4r_other")
+        sim, _, other_launches, _, _ = run_to(cfg, dev, NORTH_STAR_SEED, conv_u4,
+                                              "north_star_u4r_other", chunk=1, timed=timed)
+    other_rounds = sim.tick
+    del sim
+    torch.cuda.empty_cache()
+    staged, two = form_rounds["staged"], form_rounds["two_pass"]
+    mine, theirs = (two, staged) if form == "pairs_two_pass" else (staged, two)
+    record = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, form=form, cluster=k,
+                  converged_round=conv_u4,
                   int16_keys15_round=conv_16, residual_max_abs_err=errs,
-                  rounds_run=u4_rounds, round_ms=round_ms, rounds_per_s=1e3 / round_ms,
+                  rounds_run=u4_rounds, run_round_ms=u4_run_ms, round_ms=round_ms,
+                  rounds_per_s=1e3 / round_ms,
+                  kernel_ms_per_round=mine[0], bound_ms_per_round=mine[1],
+                  other=dict(form=other, cluster=k_other, run_round_ms=timed["round_ms"],
+                             kernel_ms_per_round=theirs[0], bound_ms_per_round=theirs[1]),
                   peak_memory_gb_u4r_alone=peak, peak_memory_gb_with_int16_run=both_peak)
-    log("north_star_u4r", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round, u4r "
-        f"alone); peak {peak:.2f} GB alone, {both_peak:.2f} GB beside the int16 run; pulls at "
-        f"n={NORTH_STAR_N}: "
-        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items()) + f"; {card_line}")
-    return record, u4_launches, u4_rounds, times
+    log("north_star_u4r", f"{form}: {1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round, "
+        f"u4r alone); whole run {u4_run_ms:.3f} ms a round, in the other form ({other} on "
+        f"clusters of {k_other}) {timed['round_ms']:.3f}; kernels a round by CUDA events: "
+        f"staged on clusters of {k_staged} {staged[0]:.3f} ms (bound {staged[1]:.3f}), "
+        f"two-pass {two[0]:.3f} (bound {two[1]:.3f}); peak {peak:.2f} GB alone, "
+        f"{both_peak:.2f} GB beside the int16 run; pulls at n={NORTH_STAR_N}: "
+        + ", ".join(f"{kk} {v[1]:.4f} ms" for kk, v in times.items()) + f"; {card_line}")
+    return record, u4_launches, u4_rounds, times, (other_launches, other_rounds)
 
 
 def widest_u4r(dev, card_line, errs):
     """Phase 10d: lean_config(262_144, "u4r", budget=2618) at seed 1, 34.4
-    GB: rows too wide to stage, so every sub-exchange is the packed totals
-    pass and the packed pull fed its totals. 8 untracked rounds (rounds/s,
-    peak memory), then one sub-exchange held against the plain versions
-    over blocks of row pairs (the kernel on a copy of w), then 2 tracked
-    rounds (the packed check). Each pass is timed at this width."""
+    GB, in its form (``RUN_FORMS``): ``WIDEST_U4R_ROUNDS`` untracked rounds
+    (rounds/s, peak memory), then one round's sub-exchanges held against
+    the plain versions on sampled row pairs (``sampled_round_check``),
+    then 2 tracked rounds (the packed check). Each
+    sub-exchange is timed at this width in both forms, and the round in
+    the other form (``other_form``, from counters at 0: one tracked round,
+    then 4; its launches are that form's entries' path); the sampled
+    round check runs in both forms."""
     cfg = lean_config(WIDEST_U4R_N, "u4r", budget=2618)
     n = cfg.n_nodes
-    check(gossip.pull_phase_engaged(cfg, dev) == "pairs_two_pass", "widest u4r is staged")
+    form, k = expect_form(cfg, dev, "widest_u4r")
+    two_pass = form == "pairs_two_pass"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
@@ -1786,81 +2018,73 @@ def widest_u4r(dev, card_line, errs):
     round_ms = (time.perf_counter() - t0) / WIDEST_U4R_ROUNDS * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = collections.Counter(counters.launches)
-    check(counters.kernel_launches("pairs_totals") == 3 * WIDEST_U4R_ROUNDS
+    check(counters.kernel_launches("pairs_totals") == (3 * WIDEST_U4R_ROUNDS if two_pass else 0)
           and counters.kernel_launches("pairs_pull") == 3 * WIDEST_U4R_ROUNDS
           and not counters.plain_calls and not counters.fallbacks,
-          "the widest u4r run did not take both packed passes a sub-exchange")
+          "the widest u4r run did not take its form's launches a sub-exchange")
     m = sim.metrics()
     frac = float(m["mean_fraction"])
     check(np.isfinite(frac) and 0.0 < frac <= 1.0, "widest u4r metrics are not finite")
-    log("widest_u4r", f"lean_config({n}, 'u4r', budget=2618): init {init_s:.2f} s, "
-        f"{WIDEST_U4R_ROUNDS} rounds at {round_ms:.3f} ms/round ({1e3 / round_ms:.3f} "
-        f"rounds/s); peak memory {peak:.2f} GB; mean fraction {frac:.6f}; {card_line}")
-
-    # One sub-exchange (the round's first: write bumps of a seeded half of
-    # the owners, a tenth of the nodes dead) against the plain versions.
+    log("widest_u4r", f"lean_config({n}, 'u4r', budget=2618), {form} on clusters of {k}: init "
+        f"{init_s:.2f} s, {WIDEST_U4R_ROUNDS} rounds at {round_ms:.3f} ms/round "
+        f"({1e3 / round_ms:.3f} rounds/s); peak memory {peak:.2f} GB; mean fraction "
+        f"{frac:.6f}; {card_line}")
     t0 = time.perf_counter()
-    gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 8, 0)
-    bump = mv - sim.state.max_version
-    w_plain = sim.state.w
-    w_kern = w_plain.clone()
-    tk = pairs_totals.pairs_totals(w_kern, gm, c, valid, mv=bump)
-    tp = pairs_totals.pairs_totals_plain(w_plain, gm, c, valid, mv=bump)
-    t_err = max_abs_err([tk], [tp])
-    args = (gm, c, valid, salt, run_salt, cfg.budget)
-    pairs_pull.pairs_pull(w_kern, None, *args, mv=bump, totals=tk)
-    pairs_pull.pairs_pull_plain(w_plain, None, *args, mv=bump, totals=tp)
-    torch.cuda.synchronize()
-    p_err = max_abs_err([w_kern], [w_plain])
-    del w_kern
-    torch.cuda.empty_cache()
-    for key, err in ((f"{pairs_totals.counter_key(True, True)} u4r", t_err),
-                     (ladder_key(LADDER_MODES["first"], "u4r", totals=True), p_err)):
-        errs[key] = max(errs[key], err)
-    log("widest_u4r", f"one sub-exchange at n={n}: packed totals max_abs_err={t_err} (sum "
-        f"{float(tk.double().sum()):.0f}), packed pull max_abs_err={p_err} against the plain "
-        f"versions ({time.perf_counter() - t0:.1f} s)")
-    check(t_err == 0.0 and p_err == 0.0, "the widest u4r sub-exchange disagrees")
+    found = sampled_round_check(dev, sim, errs, "u4r")
+    with other_form(cfg):  # the other form's launches at this width too
+        found += sampled_round_check(dev, sim, errs, "u4r", seed=9)
+    log("widest_u4r", f"one chained round at n={n} in each form, {C2_LEADERS} sampled row "
+        "pairs a pull: " + ", ".join(f"{kk} max_abs_err={e}" for kk, e in found)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    check(all(e == 0.0 for _, e in found), "the widest u4r round disagrees")
     counters.reset()
     sim.run_until_converged(max_rounds=sim.tick + 2)  # two tracked rounds
     torch.cuda.synchronize()
     launches.update(counters.launches)
     launches = dict(launches)
-    check(launches.get("pairs_pull[packed+totals+check]", 0) == 2,
+    check(launches.get(form_key(form, k, check=True, packed=True), 0) == 2,
           "the tracked widest u4r rounds did not carry the packed check")
-    w, alive = sim.state.w, sim.state.alive
-    gm, c, _ = prng.grouped_matching(prng.key(9), n)
-    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
-    tot = pairs_totals.pairs_totals(w, gm, c, alive)
-    times = {}
-    for diag in (True, False):
-        times[f"{pairs_totals.counter_key(diag, True)} u4r"] = (n, cuda_ms(
-            lambda: pairs_totals.pairs_totals(w, gm, c, alive, mv=bump if diag else None), 5),
-            bound(totals_bytes(n, 0.5, diag=diag), OPS_TOTALS * n * n / 2))
-    for name in ("first", "middle", "last"):
-        mm = LADDER_MODES[name]
-        kw = {"mv": bump} if mm["diag"] else {}
-        if mm["check"]:
-            kw["check"] = (sim.state.max_version, alive, alive)
-        times[ladder_key(mm, "u4r", totals=True)] = (n, cuda_ms(
-            lambda: pairs_pull.pairs_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
-                                          totals=tot, **kw), 5),
-            ladder_pull_bound(n, "u4r", mm, True))
-    del sim, w, tot, w_plain
+    k_staged = pairs_pull.cluster_size(n // 2, 1)
+    times, form_rounds = lean_form_times(sim.state.w, sim.state.alive,
+                                         torch.ones_like(sim.state.max_version), cfg.budget,
+                                         k_staged, "u4r", 0.5)
+    times = {key: (n, *t) for key, t in times.items()}
+    with other_form(cfg) as (other, k_other):
+        expect_form(cfg, dev, "widest_u4r_other")
+        counters.reset()
+        sim.run_until_converged(max_rounds=sim.tick + 1)  # a tracked round: every mode
+        other_round_ms = round_rate(sim, 4, 0)
+        other_launches = dict(counters.launches)
+        check(counters.kernel_launches("pairs_pull") == 3 * 5
+              and counters.kernel_launches("pairs_totals")
+              == (15 if other == "pairs_two_pass" else 0),
+              "the widest u4r rounds in the other form did not take its launches")
+    del sim
     torch.cuda.empty_cache()
-    record = dict(n=n, seed=NORTH_STAR_SEED, rounds=WIDEST_U4R_ROUNDS, init_s=init_s,
-                  round_ms=round_ms, rounds_per_s=1e3 / round_ms, peak_memory_gb=peak)
-    log("widest_u4r", "passes at this width: "
-        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items()))
-    return record, launches, WIDEST_U4R_ROUNDS + 2, times
+    staged, two = form_rounds["staged"], form_rounds["two_pass"]
+    mine, theirs = (two, staged) if two_pass else (staged, two)
+    record = dict(n=n, seed=NORTH_STAR_SEED, form=form, cluster=k, rounds=WIDEST_U4R_ROUNDS,
+                  init_s=init_s, round_ms=round_ms, rounds_per_s=1e3 / round_ms,
+                  peak_memory_gb=peak, kernel_ms_per_round=mine[0], bound_ms_per_round=mine[1],
+                  other=dict(form=other, cluster=k_other, round_ms=other_round_ms,
+                             kernel_ms_per_round=theirs[0], bound_ms_per_round=theirs[1]))
+    log("widest_u4r", f"rounds {round_ms:.3f} ms (in the other form, {other} on clusters of "
+        f"{k_other}, {other_round_ms:.3f} ms over 4 rounds on the later state); kernels a round "
+        f"by CUDA events: staged on clusters of {k_staged} {staged[0]:.3f} ms (bound "
+        f"{staged[1]:.3f}), two-pass {two[0]:.3f} (bound {two[1]:.3f}); passes at this width: "
+        + ", ".join(f"{kk} {v[1]:.4f} ms" for kk, v in times.items()))
+    return record, launches, WIDEST_U4R_ROUNDS + 2, times, (other_launches, 5)
 
 
 def full_pull_times(sim, rung, dev):
     """The full rung's pulls timed at its width on ``sim``'s converged
-    state (updated in place): the first and a middle sub-exchange (deep
-    only: the shrunk rung's are int16, the headline's instances) and the
-    last, with the FD epilogue and the round-start hb0 stream."""
+    state (updated in place), staged (on the rule's cluster for the width)
+    and fed the totals (the two-pass form's pull): the first and a middle
+    sub-exchange (deep only: the shrunk rung's are int16, the headline's
+    instances) and the last, with the FD epilogue and the round-start hb0
+    stream."""
     st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    k = pairs_pull.cluster_size(n, st.w.element_size())
     gm, c, _ = prng.grouped_matching(prng.key(9), n)
     gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
     fd = pairs_pull.FdOperands(sim.tick + 1, st.last_change, st.imean, st.icount,
@@ -1877,15 +2101,20 @@ def full_pull_times(sim, rung, dev):
             kw["check"] = (st.max_version, st.alive, st.alive)
         if mm["fd"]:
             kw.update(hbv=st.heartbeat, fd=fd)
-        times[ladder_key(mm, rung)] = (n, cuda_ms(lambda: pairs_pull.pairs_pull(
-            st.w, st.hb_known, gm, c, st.alive, 1, 0x9E3779B9, cfg.budget, **kw), 10),
-            ladder_pull_bound(n, rung, mm, False))
+        tot = pairs_totals.pairs_totals(st.w, gm, c, st.alive, mv=kw.get("mv"))
+        for totals in (False, True):
+            extra = {"totals": tot} if totals else {"cluster": k}
+            times[ladder_key(mm, rung, totals, cluster=not totals and k > 1)] = (
+                n, cuda_ms(lambda: pairs_pull.pairs_pull(
+                    st.w, st.hb_known, gm, c, st.alive, 1, 0x9E3779B9, cfg.budget, **kw,
+                    **extra), 10),
+                ladder_pull_bound(n, rung, mm, totals))
     return times
 
 
 def full_ladder(dev, card_line):
     """Phase 10e: full_config(49_152, "deep" and "shrunk", budget=2618) at
-    seed 1, staged pairs with the fused FD epilogue on int8 sample
+    seed 1 in their forms (``RUN_FORMS``), with the fused FD epilogue on int8 sample
     counters and the live bitmap: both converge at round 103, the
     reference's full-profile round at this width (the FD does not feed
     back into w without the lifecycle). Each run's round rate, peak
@@ -1893,25 +2122,32 @@ def full_ladder(dev, card_line):
     records, all_launches, times = {}, {}, {}
     for rung in ("deep", "shrunk"):
         cfg = full_config(FULL_N, rung, budget=2618)
-        check(gossip.pull_phase_engaged(cfg, dev) == "pairs"
-              and gossip.fd_phase_engaged(cfg, dev) == "fused",
-              f"full {rung} is not staged with the fused FD")
         what = f"full_{rung}"
+        form, k = expect_form(cfg, dev, what)
+        check(gossip.fd_phase_engaged(cfg, dev) == "fused", f"full {rung}'s FD is not fused")
         sim, conv, launches, run_s, peak = run_to(cfg, dev, NORTH_STAR_SEED, FULL_ROUND, what)
         rounds = sim.tick
         check(counters.kernel_launches("pairs_pull") == 3 * rounds
-              and launches.get("pairs_pull[check+fd]") == rounds,
+              and launches.get(form_key(form, k, check=True, fd=True)) == rounds,
               f"full {rung} did not run 3 pulls a round, the last with the FD")
-        round_ms = round_rate(sim)
+        # 8 rounds each after one: the deep rung's int8 heartbeats hold
+        # ticks below 128.
+        round_ms = round_rate(sim, 8, 1)
+        with other_form(cfg) as (other, k_other):
+            other_round_ms = round_rate(sim, 8, 1)
         fp = int(sim.metrics()["fd_false_positives"])
         rung_times = full_pull_times(sim, rung, dev)
         times.update(rung_times)
-        records[rung] = dict(n=FULL_N, seed=NORTH_STAR_SEED, converged_round=conv,
+        records[rung] = dict(n=FULL_N, seed=NORTH_STAR_SEED, form=form, cluster=k,
+                             converged_round=conv,
                              rounds_run=rounds, run_s=run_s, round_ms=round_ms,
                              rounds_per_s=1e3 / round_ms, peak_memory_gb=peak,
-                             fd_false_positives=fp)
+                             fd_false_positives=fp,
+                             other=dict(form=other, cluster=k_other, round_ms=other_round_ms))
         all_launches[rung] = (launches, rounds)
-        log(what, f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round); peak memory "
+        log(what, f"{form} on clusters of {k}: {1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} "
+            f"ms/round; the other form, {other} on clusters of {k_other}, {other_round_ms:.3f}); "
+            "peak memory "
             f"{peak:.2f} GB; FD false positives {fp}; pulls at n={FULL_N}: "
             + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in rung_times.items())
             + f"; {card_line}")
@@ -1967,7 +2203,9 @@ def int8_side_paths(dev, card_line):
     the pairs and the m8 totals passes (the staged run's round), and the
     deep and shrunk rungs through the pairs totals pass and the pull's
     totals mode with the fused FD (round 24; fanout 1: as staged).
-    Returns each run's (launches, rounds) by name."""
+    Each rung's run staged by one CTA a pair at this width first (lean
+    int8 and u4r, deep and shrunk). Returns each run's (launches, rounds)
+    by name."""
     runs = {}
     cfg = full_config(N, "deep", budget=2618, icount_dtype="int16", live_bits=False,
                       pallas_variant="m8")
@@ -1979,10 +2217,20 @@ def int8_side_paths(dev, card_line):
           "the int8 m8 headline did not run 3 m8 pulls and 1 FD kernel a round")
     runs["headline_int8_m8"] = (launches, sim.tick)
     del sim
-    lean = lean_config(N, "int8", budget=2618)
-    staged = Simulator(lean, seed=0, device=dev)
-    lean_round = staged.run_until_converged(max_rounds=200)
-    del staged
+    # Each rung at this width staged by one CTA a pair: the one-CTA staged
+    # modes' path (their full-width runs take other forms).
+    for name, c0, want in (
+        ("lean_int8_staged", lean_config(N, "int8", budget=2618), None),
+        ("lean_u4r_staged", lean_config(N, "u4r", budget=2618), None),
+        ("deep_staged", full_config(N, "deep", budget=2618), CONVERGED_ROUND),
+        ("shrunk_staged", full_config(N, "shrunk", budget=2618), CONVERGED_ROUND),
+    ):
+        expect_form(c0, dev, name)
+        sim, got, launches, _, _ = run_to(c0, dev, 0, want, name)
+        runs[name] = (launches, sim.tick)
+        if name == "lean_int8_staged":
+            lean, lean_round = c0, got
+        del sim
     # Fanout 1: the round's only sub-exchange refreshes, checks and runs
     # the FD, on the int16/window-100 profile's round.
     one = Simulator(full_config(N, "int16", budget=2618, window_ticks=100, fanout=1), seed=0,
@@ -1994,9 +2242,7 @@ def int8_side_paths(dev, card_line):
         sim, _, launches, _, _ = run_to(c1, dev, 0, one_round, f"fanout1_{rung}")
         runs[f"fanout1_{rung}"] = (launches, sim.tick)
         del sim
-    saved = pairs_pull.SMEM_LIMIT
-    pairs_pull.SMEM_LIMIT = pairs_pull.STATIC_SMEM
-    try:
+    with two_pass_forced():
         for name, c2, form, want in (
             ("two_pass_int8", lean, "pairs_two_pass", lean_round),
             ("two_pass_int8_m8", dataclasses.replace(lean, pallas_variant="m8"),
@@ -2014,8 +2260,6 @@ def int8_side_paths(dev, card_line):
             sim, _, launches, _, _ = run_to(c2, dev, 0, want, name)
             runs[name] = (launches, sim.tick)
             del sim
-    finally:
-        pairs_pull.SMEM_LIMIT = saved
     log("int8_side_paths", f"the lean int8 rung at n={N} converges at {lean_round} staged and "
         f"in both two-pass forms; the deep and shrunk rungs at fanout 1 at {one_round}, the "
         f"int16 profile's, staged and two-pass; {card_line}")
@@ -2025,20 +2269,22 @@ def int8_side_paths(dev, card_line):
 def ladder_pull_bound(n, rung, m, totals):
     """(bytes, operations) of one ladder pull at width ``n``: w (and hb)
     read and written once, the FD bookkeeping at the rung's sizes."""
-    wsize = {"u4r": 0.5, "int8": 1, "deep": 1, "shrunk": 2}[rung]
-    hsize = {"deep": 1, "shrunk": 2}.get(rung, 0)
+    wsize = {"u4r": 0.5, "int8": 1, "deep": 1, "shrunk": 2, "lean16": 2, "full int16": 2}[rung]
+    hsize = {"deep": 1, "shrunk": 2, "full int16": 2}.get(rung, 0)
+    icsize, livesize = (2, 1) if rung == "full int16" else (1, 1 / 8)
     b = pull_bytes(n, wsize, hsize, diag=m["diag"], check=m["check"], fd=m["fd"],
-                   hb0=m["hb0"], icsize=1, livesize=1 / 8, totals=totals)
-    ops = (OPS_PULL if hsize else OPS_PULL_LEAN) + (2 * OPS_FD if m["fd"] else 0)
+                   hb0=m["hb0"], icsize=icsize, livesize=livesize, totals=totals)
+    ops = (OPS_PAIR if hsize else OPS_PAIR_LEAN) + (2 * OPS_FD if m["fd"] else 0)
     return bound(b, ops * n * n / 2)
 
 
 def ladder_entries(dev, errs, runs, main_times):
-    """The kernel-line entries of the ladder's modes: each timed at
-    N = 10,240 by CUDA events beside its plain version and its bound,
-    and (``main_times``, (n, ms)) at its path's width, with the launches
-    of its path's run (``runs``: name -> (launches, rounds); each must
-    be > 0)."""
+    """The kernel-line entries of the ladder's modes, staged by one CTA a
+    pair and two-pass: each timed at N = 10,240 by CUDA events beside its
+    plain version and its bound, and (``main_times``, (n, ms)) at its
+    path's width, with the launches of its path's run (``runs``: name ->
+    (launches, rounds); each must be > 0). The cluster-staged modes are
+    ``cluster_entries``'."""
     entries = []
 
     def entry(name, kernel, line, run, launch_key, ms, plain_ms, b, **extra):
@@ -2059,9 +2305,9 @@ def ladder_entries(dev, errs, runs, main_times):
         )
 
     pull_line = "aiocluster_tpu/ops/pallas_pull.py:490"
-    staged_runs = {"int8": "north_star_int8", "u4r": "north_star_u4r",
-                   "deep": "full_deep", "shrunk": "full_shrunk"}
-    two_pass_runs = {"int8": "two_pass_int8", "u4r": "widest_u4r",
+    staged_runs = {"int8": "lean_int8_staged", "u4r": "lean_u4r_staged",
+                   "deep": "deep_staged", "shrunk": "shrunk_staged"}
+    two_pass_runs = {"int8": "two_pass_int8", "u4r": "north_star_u4r",
                      "deep": "two_pass_deep", "shrunk": "two_pass_shrunk"}
     seed = 300
     for rung, operands, modes in LADDER_CHECKS:
@@ -2269,9 +2515,9 @@ def lane_of(ops, s):
     return out
 
 
-def lane_key(m, rung, totals=False) -> str:
+def lane_key(m, rung, totals=False, cluster=False) -> str:
     key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], totals, rung == "u4r",
-                                 lanes=True)
+                                 lanes=True, cluster=cluster)
     return f"{key} {rung}"
 
 
@@ -2534,17 +2780,19 @@ def rows_equal(a, b) -> bool:
 
 def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, seed=9):
     """``sampled_round_check`` for a sweep's lane launches: one round's
-    sub-exchanges of every lane, chained as ``sweep_step`` chains them in
-    the two-pass form (the lanes' own draws and salts), then a fourth
-    whose check every row passes. Each totals lane launch is held against
-    ``pairs_totals_lanes_plain`` over every row of every lane; each pull
-    lane launch runs on the lanes' state itself and is held lane by lane
-    over a seeded sample of ``leaders`` row pairs of that lane
-    (``pairs_pull_plain(leaders=)`` on the rows put back). A seeded
-    tenth of each lane's nodes is dead and half its owners wrote a key.
-    Raises each mode's max_abs_err in ``errs`` under its lane key;
-    returns the round's (key, max_abs_err) pairs."""
+    sub-exchanges of every lane in the sweep's form, chained as
+    ``sweep_step`` chains them (the lanes' own draws and salts), then a
+    fourth whose check every row passes. In the two-pass form each totals
+    lane launch is held against ``pairs_totals_lanes_plain`` over every
+    row of every lane; each pull lane launch runs on the lanes' state
+    itself and is held lane by lane over a seeded sample of ``leaders``
+    row pairs of that lane (``pairs_pull_plain(leaders=)`` on the rows
+    put back). A seeded tenth of each lane's nodes is dead and half its
+    owners wrote a key. Raises each mode's max_abs_err in ``errs`` under
+    its lane key; returns the round's (key, max_abs_err) pairs."""
     st, cfg = sweep.states, sweep.cfg
+    form, k = gossip.kernel_pull_form(cfg)
+    two_pass = form == "pairs_two_pass"
     n, lanes = cfg.n_nodes, sweep.lanes
     gen = torch.Generator(device=dev).manual_seed(seed)
     alive = torch.rand(lanes, n, generator=gen, device=dev) < 0.9
@@ -2574,12 +2822,16 @@ def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, se
                 kw["hbv"] = heartbeat
         if mode["check"]:
             kw["check"] = (torch.zeros_like(mv) if name == "need 0" else mv, alive, alive)
-        tk = pairs_totals.pairs_totals_lanes(st.w, gm_all[c], c_all[c], valid, mv=kw.get("mv"))
-        tp = pairs_totals.pairs_totals_lanes_plain(st.w, gm_all[c], c_all[c], valid,
-                                                   mv=kw.get("mv"))
-        t_key = lane_totals_key(mode["diag"], rung)
-        t_err = max_abs_err([tk], [tp])
-        errs[t_key] = max(errs[t_key], t_err)
+        tk = tp = None
+        if two_pass:
+            tk = pairs_totals.pairs_totals_lanes(st.w, gm_all[c], c_all[c], valid,
+                                                 mv=kw.get("mv"))
+            tp = pairs_totals.pairs_totals_lanes_plain(st.w, gm_all[c], c_all[c], valid,
+                                                       mv=kw.get("mv"))
+            t_key = lane_totals_key(mode["diag"], rung)
+            t_err = max_abs_err([tk], [tp])
+            errs[t_key] = max(errs[t_key], t_err)
+            found.append((f"{t_key} ({name})", t_err))
         mats = [st.w] + ([] if hb is None else [hb])
         rows, leads, pre = [], [], []
         for s in range(lanes):
@@ -2592,7 +2844,7 @@ def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, se
         fk = pairs_pull.pairs_pull_lanes(st.w, hb, gm_all[c], c_all[c], valid, salts[c],
                                          cfg.budget, totals=tk, **kw)
         torch.cuda.synchronize()
-        key = lane_key(mode, rung, totals=True)
+        key = lane_key(mode, rung, totals=two_pass, cluster=not two_pass and k > 1)
         err, flags = 0.0, []
         for s in range(lanes):
             post = [m[s][rows[s]] for m in mats]
@@ -2604,7 +2856,7 @@ def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, se
 
             fp = pairs_pull.pairs_pull_plain(
                 st.w[s], at(hb), gm_all[c][s], c_all[c][s], valid[s], int(salts[c][s]), 0,
-                cfg.budget, totals=tp[s], leaders=leads[s], mv=at(kw.get("mv")),
+                cfg.budget, totals=at(tp), leaders=leads[s], mv=at(kw.get("mv")),
                 hbv=at(kw.get("hbv")),
                 check=None if "check" not in kw else tuple(t[s] for t in kw["check"]),
             )
@@ -2613,7 +2865,6 @@ def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, se
             if fp is not None:
                 flags.append(int(fp[0]))
         errs[key] = max(errs[key], err)
-        found.append((f"{t_key} ({name})", t_err))
         found.append((f"{key} ({name})" + ("" if fk is None else
                       f" flags {fk.tolist()} (samples {flags})"), err))
         if name == "need 0":
@@ -2625,18 +2876,21 @@ def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, se
 
 def north_star_pair(dev, card_line, errs):
     """Phase 11d: the north star's lean_config(100_352, budget=2618) as
-    a 2-lane sweep (seeds 1 and 2, 40.3 GB): each sub-exchange is a
-    totals lane launch and a pull lane launch. At round 20 lane 1's w
+    a 2-lane sweep (seeds 1 and 2, 40.3 GB) in its form (``RUN_FORMS``:
+    one lane launch a sub-exchange, each lane's row pairs staged by
+    clusters of CTAs). At round 20 lane 1's w
     equals a sequential seed-2 run's (both held: about 60 GB); that run
     goes on to convergence, then the sweep: lane 0 at 209, lane 1 at
     the sequential run's round. Then ms a round, the lane launches' times
     at this width on the converged lanes beside their bounds, and the
-    peak memory. Last, a new pair at round 20 holds one chained round of
-    lane launches against the plain versions
+    peak memory, and the round and the lane launches in the two-pass
+    form (forced). Last, a new pair at round 20 holds one chained round
+    of lane launches against the plain versions
     (``sampled_lane_round_check``, raising ``errs``): the only lane
     launches whose lane offsets pass 2**31 elements."""
     cfg = lean_config(NORTH_STAR_N, budget=2618)
     n = cfg.n_nodes
+    form, k = expect_form(cfg, dev, "north_star_pair")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
@@ -2670,11 +2924,16 @@ def north_star_pair(dev, card_line, errs):
     subs = 3 * (ticks - NS_PAIR_CHECK_ROUND)
     check(not counters.plain_calls and not counters.fallbacks
           and counters.kernel_launches("pairs_pull") == subs
-          and counters.kernel_launches("pairs_totals") == subs
-          and all("[lanes+" in k for k in launches),
-          "the north-star pair did not take two lane launches a sub-exchange")
+          and counters.kernel_launches("pairs_totals") == 0
+          and all("[lanes+" in kk for kk in launches),
+          "the north-star pair did not take one lane launch a sub-exchange")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     round_ms = round_rate(sweep, 8)
+    with two_pass_forced():
+        counters.reset()
+        two_pass_round_ms = round_rate(sweep, 8)
+        check(counters.kernel_launches("pairs_totals") == 3 * 10,
+              "the forced north-star pair did not take the totals lane launch")
     # Each lane launch at this width, on the converged lanes.
     st, lanes = sweep.states, len(NS_PAIR_SEEDS)
     w, alive, mv = st.w, st.alive, st.max_version
@@ -2695,22 +2954,31 @@ def north_star_pair(dev, card_line, errs):
         kw = {"mv": mv} if mm["diag"] else {}
         if mm["check"]:
             kw["check"] = (mv, alive, alive)
-        times[lane_key(mm, "lean16", totals=True)] = (
-            cuda_ms(lambda: pairs_pull.pairs_pull_lanes(
-                w, None, gm, c, alive, salt, cfg.budget, totals=tot, **kw), 10),
-            bound(lanes * pull_bytes(n, 2, 0, diag=mm["diag"], check=mm["check"], fd=False,
-                                     hb0=False, totals=True),
-                  lanes * OPS_PULL_LEAN * n * n / 2),
-        )
+        for totals in (True, False):
+            extra = {"totals": tot} if totals else {"cluster": k}
+            times[lane_key(mm, "lean16", totals=totals, cluster=not totals and k > 1)] = (
+                cuda_ms(lambda: pairs_pull.pairs_pull_lanes(
+                    w, None, gm, c, alive, salt, cfg.budget, **extra, **kw), 10),
+                bound(lanes * pull_bytes(n, 2, 0, diag=mm["diag"], check=mm["check"],
+                                         fd=False, hb0=False, totals=totals),
+                      lanes * OPS_PAIR_LEAN * n * n / 2),
+            )
     torch.cuda.synchronize()
     for key, (ms, (b_ms, b_by)) in times.items():
         log("sweep", f"{key} at n={n} S={lanes}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
-    per_round = {k: (2 if "[lanes+sum]" in k else 1) for k in times}
-    kern_ms = sum(per_round[k] * ms for k, (ms, _) in times.items())
-    bound_ms = sum(per_round[k] * b[0] for k, (_, b) in times.items())
+    form_round = {}
+    for f in ("staged", "two_pass"):
+        per = {kk: (2 if "[lanes+sum]" in kk else 1) if kk.startswith("pairs_totals")
+               else 1 for kk in times
+               if (f == "two_pass") == ("totals" in kk or kk.startswith("pairs_totals"))}
+        form_round[f] = (sum(per[kk] * times[kk][0] for kk in per),
+                         sum(per[kk] * times[kk][1][0] for kk in per))
+    kern_ms, bound_ms = form_round["staged"]
     log("sweep", f"north-star pair: {round_ms:.3f} ms a round ({2e3 / round_ms:.3f} "
-        f"lane-rounds/s); lane launches {kern_ms:.3f} ms a round by CUDA events against a "
-        f"{bound_ms:.3f} ms bound ({bound_ms / kern_ms:.1%}); peak {peak_gb:.2f} GB; {card_line}")
+        f"lane-rounds/s; the two-pass form {two_pass_round_ms:.3f}); lane launches "
+        f"{kern_ms:.3f} ms a round by CUDA events against a {bound_ms:.3f} ms bound "
+        f"({bound_ms / kern_ms:.1%}), the two-pass form's {form_round['two_pass'][0]:.3f} "
+        f"against {form_round['two_pass'][1]:.3f}; peak {peak_gb:.2f} GB; {card_line}")
     del sweep, st, w, tot
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2729,10 +2997,15 @@ def north_star_pair(dev, card_line, errs):
     del sweep
     torch.cuda.empty_cache()
     return {
-        "n": n, "seeds": NS_PAIR_SEEDS, "rounds_to_convergence": rounds,
+        "n": n, "seeds": NS_PAIR_SEEDS, "form": form, "cluster": k,
+        "rounds_to_convergence": rounds,
         "sequential_seed2_round": seq_round, "rounds_run": ticks, "run_s": run_s,
+        "run_round_ms": run_s / (ticks - NS_PAIR_CHECK_ROUND) * 1e3,
         "round_ms": round_ms, "lane_rounds_per_s": 2e3 / round_ms,
         "kernel_ms_per_round": kern_ms, "bound_ms_per_round": bound_ms,
+        "two_pass": {"round_ms": two_pass_round_ms,
+                     "kernel_ms_per_round": form_round["two_pass"][0],
+                     "bound_ms_per_round": form_round["two_pass"][1]},
         "peak_memory_gb": peak_gb, "both_held_gb": both_gb,
         "round_check_max_abs_err": dict(round_errs), "round_check_leaders": NS_PAIR_LEADERS,
     }, launches, times
@@ -2785,7 +3058,7 @@ def lane_bound(n, lanes, rung, m, totals):
     wsize, hsize, imsize, icsize, livesize = LANE_SIZES[rung]
     b = pull_bytes(n, wsize, hsize, diag=m["diag"], check=m["check"], fd=m["fd"], hb0=m["hb0"],
                    imsize=imsize, icsize=icsize, livesize=livesize, totals=totals)
-    ops = (OPS_PULL if hsize else OPS_PULL_LEAN) + (2 * OPS_FD if m["fd"] else 0)
+    ops = (OPS_PAIR if hsize else OPS_PAIR_LEAN) + (2 * OPS_FD if m["fd"] else 0)
     return bound(lanes * b, lanes * ops * n * n / 2)
 
 
@@ -2825,8 +3098,6 @@ def lane_entries(dev, errs, runs, head_times, ns_times):
             if mode == "only_fd":
                 return "sweep_fanout1" + ("_two_pass" if totals else "")
             return "sweep_headline_two_pass" if totals else "sweep_headline"
-        if rung == "lean16" and totals:
-            return "sweep_north_star"
         return f"sweep_{rung}" + ("_two_pass" if totals else "")
 
     def entry(name, kernel, line, run, ms, plain_ms, b):
@@ -2894,81 +3165,175 @@ def lane_entries(dev, errs, runs, head_times, ns_times):
     return entries
 
 
+# The cluster-staged modes on the full-width paths (the runs in their
+# form, or in the other form beside them): (rung, ladder_case operands,
+# modes, run, lanes). Each run's cluster size is RUN_FORMS's.
+CLUSTER_PATHS = (
+    ("lean16", dict(wdt=torch.int16), ("first", "middle", "last"), "north_star", 0),
+    ("int8", dict(wdt=torch.int8), ("first", "middle", "last"), "north_star_int8_other", 0),
+    ("u4r", dict(wdt="u4"), ("first", "middle", "last"), "widest_u4r_other", 0),
+    ("shrunk", FD_RUNGS["shrunk"], ("first", "middle", "last_fd"), "full_shrunk", 0),
+    ("full int16", dict(wdt=torch.int16, hdt=torch.int16), ("first", "middle", "last_fd"),
+     "full_past_staged", 0),
+    ("lean16", dict(wdt=torch.int16), ("first", "middle", "last"), "north_star_pair", LANE_S),
+)
+
+
+def cluster_entries(dev, errs, runs, main_times):
+    """The kernel-line entries of the cluster-staged modes on the paths
+    whose form is the cluster frame: each held bit-equal to its plain
+    version at N = 10,240 on clusters of its path's size (raising
+    ``errs``), timed there by CUDA events beside the plain version and
+    its bound, with its time at its path's width (``main_times``: name ->
+    (ms, bound)) and its path's launches (``runs``: run -> (launches,
+    rounds); each must be > 0). Lane modes run S = ``LANE_S`` lanes."""
+    entries = []
+    line = "aiocluster_tpu/ops/pallas_pull.py:490"
+    seed = 900
+    for rung, operands, modes, run, lanes in CLUSTER_PATHS:
+        form, k = RUN_FORMS[run]
+        if form != "pairs_cluster":
+            continue
+        launches, rounds = runs[run]
+        for mode in modes:
+            m = LADDER_MODES[mode]
+            seed += 1
+            if lanes:
+                fresh = lane_case(N, lanes, seed, dev, void=False, **operands, **m)
+                kernel = functools.partial(pairs_pull.pairs_pull_lanes, cluster=k)
+                name = lane_key(m, rung, cluster=True)
+
+                def call(fn, ops):
+                    return call_lanes(fn, ops)
+                plain_fn = pairs_pull.pairs_pull_lanes_plain
+                b = lane_bound(N, lanes, rung, m, False)
+            else:
+                fresh = ladder_case(N, seed, dev, **operands, **m)
+                kernel = functools.partial(pairs_pull.pairs_pull, cluster=k)
+                name = ladder_key(m, rung, cluster=True)
+                call = call_pull
+                plain_fn = pairs_pull.pairs_pull_plain
+                b = ladder_pull_bound(N, rung, m, False)
+            kern, plain = fresh(), fresh()
+            fk, fp = call(kernel, kern), call(plain_fn, plain)
+            torch.cuda.synchronize()
+            err = max_abs_err(outputs(kern, fk), outputs(plain, fp))
+            errs[name] = max(errs[name], err)
+            check(err == 0.0, f"{name} on clusters of {k} disagrees with its plain version")
+            ms = cuda_ms(lambda: call(kernel, kern), 20)
+            plain_ms = cuda_ms(lambda: call(plain_fn, plain), 1 if lanes else 3, 1)
+            del kern, plain
+            key = name.rsplit(" ", 1)[0] if rung != "full int16" else name[:-len(" full int16")]
+            check(launches.get(key, 0) > 0, f"{name} was not launched on {run}")
+            extra = {}
+            msg = ""
+            if name in main_times:
+                ms_main, b_main = main_times[name]
+                extra = dict(ms_main=ms_main, bound_ms_main=b_main[0])
+                msg = f"; {ms_main:.4f} ms at the path's width (bound {b_main[0]:.4f} ms)"
+            log("time", f"{name} (clusters of {k}): {ms:.4f} ms at n={N} (bound {b[0]:.4f} ms "
+                f"by {b[1]}; plain {plain_ms:.3f} ms){msg}; {launches[key]} launches on {run}")
+            entries.append(dict(
+                name=name, route="cuda", source="aiocluster_torch/ops/csrc/pairs_pull.cu",
+                replaces=line + (" (lanes: fused_pull_pairs_lanes :1803)" if lanes else ""),
+                launches=launches[key], launches_per_round=launches[key] / rounds,
+                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=None, path=run, n=N, cluster=k,
+                **({"lanes": lanes} if lanes else {}), **extra,
+            ))
+    torch.cuda.empty_cache()
+    return entries
+
+
 # -- the full profile past the staged width (C2) ---------------------------------
 
 C2_N, C2_ROUNDS, C2_LEADERS = 65_536, 10, 2048
 
 
-def sampled_round_check(dev, sim, errs, leaders=C2_LEADERS, seed=8):
-    """One round's sub-exchanges at the simulator's width, chained as
-    ``sim_step`` chains them in the two-pass form (each totals pass held
-    against its plain version over every row; the first pull refreshes
-    the diagonal, the last carries the check and the fused FD epilogue
-    reading the round-start hb), then a fourth whose check every row
-    passes (need 0: the flag stays 1 over every CTA). A second copy of
-    every matrix does not fit beside a full profile at this width, so
-    the kernel runs on the state itself and each pull is held over a
-    seeded sample of ``leaders`` row pairs: their pre-exchange rows are
-    kept, the kernel's outputs on them read, the rows put back and the
-    plain version run over those pairs alone. A seeded tenth of the
-    nodes is dead and half the owners wrote a key. Raises each mode's
-    max_abs_err in ``errs``; returns the round's (key, max_abs_err)
-    pairs."""
+def sampled_round_check(dev, sim, errs, rung="full int16", leaders=C2_LEADERS, seed=8):
+    """One round's sub-exchanges at the simulator's width in its form
+    (``gossip.kernel_pull_form``), chained as ``sim_step`` chains them (in
+    the two-pass form each totals pass held against its plain version
+    over every row; the first pull refreshes the diagonal, the last
+    carries the check and, with the FD, the fused epilogue reading the
+    round-start hb), then a fourth whose check every row passes (need 0:
+    the flag stays 1 over every CTA). A second copy of every matrix does
+    not fit beside a full profile at this width, so the kernel runs on
+    the state itself and each pull is held over a seeded sample of
+    ``leaders`` row pairs: their pre-exchange rows are kept, the kernel's
+    outputs on them read, the rows put back and the plain version run
+    over those pairs alone. A seeded tenth of the nodes is dead and half
+    the owners wrote a key. Raises each mode's max_abs_err in ``errs``
+    (names with ``rung``); returns the round's (key, max_abs_err) pairs."""
     st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    form, k = gossip.kernel_pull_form(cfg)
+    two_pass = form == "pairs_two_pass"
+    packed = is_packed_w(st.w)
     gen = torch.Generator(device=dev).manual_seed(seed)
     alive = torch.rand(n, generator=gen, device=dev) < 0.9
     wrote = torch.rand(n, generator=gen, device=dev) < 0.5
     mv = st.max_version + wrote.to(torch.int32)
     heartbeat = st.heartbeat + alive.to(torch.int32)
+    hb = st.hb_known if cfg.track_heartbeats else None
     tick = sim.tick + 1
     run_key = prng.key(sim.seed)
     gm_all, c_all, p_all = (
         t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
     )
-    fd = pairs_pull.FdOperands(tick, st.last_change, st.imean, st.icount, st.live_view,
-                               st.hb_known.clone(), FdParams.from_config(cfg))
+    fd = None
+    if cfg.track_failure_detector:
+        fd = pairs_pull.FdOperands(tick, st.last_change, st.imean, st.icount, st.live_view,
+                                   st.hb_known.clone(), FdParams.from_config(cfg))
+    last = "last_fd" if fd is not None else "last"
     steps = [("first", 0)] + [("middle", s) for s in range(1, cfg.fanout - 1)]
-    steps += [("last_fd", cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
+    steps += [(last, cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
     ids = torch.arange(n, device=dev)
     found = []
     for name, s in steps:
-        mode = LADDER_MODES["last" if name == "need 0" else name]
+        mode = LADDER_MODES[last if name == "need 0" else name]
         p = p_all[s].long()
         valid = alive & alive[p]
         kw = {}
         if mode["diag"]:
-            kw.update(mv=mv, hbv=heartbeat)
+            kw["mv"] = mv - st.max_version if packed else mv
+            if hb is not None:
+                kw["hbv"] = heartbeat
         if mode["check"]:
-            kw["check"] = (torch.zeros_like(mv) if name == "need 0" else mv, alive, alive)
+            # need 0 and every owner excused: the flag must stay 1 (a packed row
+            # passes only where its owners are caught up or excused).
+            kw["check"] = ((torch.zeros_like(mv), alive, torch.zeros_like(alive))
+                           if name == "need 0" else (mv, alive, alive))
         if mode["fd"]:
             kw.update(hbv=heartbeat, fd=fd)
-        tk = pairs_totals.pairs_totals(st.w, gm_all[s], c_all[s], valid, mv=kw.get("mv"))
-        tp = pairs_totals.pairs_totals_plain(st.w, gm_all[s], c_all[s], valid, mv=kw.get("mv"))
-        t_key = f"{pairs_totals.counter_key(mode['diag'])} full int16"
-        t_err = max_abs_err([tk], [tp])
-        errs[t_key] = max(errs[t_key], t_err)
+        tk = tp = None
+        if two_pass:
+            tk = pairs_totals.pairs_totals(st.w, gm_all[s], c_all[s], valid, mv=kw.get("mv"))
+            tp = pairs_totals.pairs_totals_plain(st.w, gm_all[s], c_all[s], valid,
+                                                 mv=kw.get("mv"))
+            t_key = f"{pairs_totals.counter_key(mode['diag'], packed)} {rung}"
+            t_err = max_abs_err([tk], [tp])
+            errs[t_key] = max(errs[t_key], t_err)
+            found.append((f"{t_key} ({name})", t_err))
         lead = ids[ids <= p]
         lead = lead[torch.randperm(lead.numel(), generator=gen, device=dev)[:leaders]]
         partners = p[lead]
         rows = torch.cat((lead, partners[partners != lead]))
-        mats = [st.w, st.hb_known] + (
+        mats = [st.w] + ([] if hb is None else [hb]) + (
             [st.last_change, st.imean, st.icount, st.live_view] if mode["fd"] else [])
         pre = [m[rows] for m in mats]
         args = (gm_all[s], c_all[s], valid, tick * 2 * cfg.fanout + 2 * s,
                 prng.run_salt(run_key), cfg.budget)
-        fk = pairs_pull.pairs_pull(st.w, st.hb_known, *args, totals=tk, **kw)
+        fk = pairs_pull.pairs_pull(st.w, hb, *args, totals=tk, **kw)
         torch.cuda.synchronize()
         post = [m[rows] for m in mats]
         for m, x in zip(mats, pre):
             m[rows] = x
-        fp = pairs_pull.pairs_pull_plain(st.w, st.hb_known, *args, totals=tp, leaders=lead, **kw)
+        fp = pairs_pull.pairs_pull_plain(st.w, hb, *args, totals=tp, leaders=lead, **kw)
         torch.cuda.synchronize()
-        key = (f"{pairs_pull.counter_key(mode['diag'], mode['check'], mode['fd'], True)} "
-               "full int16")
+        key = ladder_key(mode, rung, totals=two_pass, cluster=not two_pass and k > 1)
         err = max_abs_err([m[rows] for m in mats], post)
         errs[key] = max(errs[key], err)
         flags = "" if fk is None else f" flag {int(fk[0])} (sample {int(fp[0])})"
-        found.append((f"{t_key} ({name})", t_err))
         found.append((f"{key} ({name}){flags}", err))
         if name == "need 0":
             check(int(fk[0]) == 1, "the check flag of a passing sub-exchange is 0")
@@ -2978,47 +3343,57 @@ def sampled_round_check(dev, sim, errs, leaders=C2_LEADERS, seed=8):
     return found
 
 
-def full_past_staged(dev, card_line):
-    """Phase 12 (C2): the full profile beyond the staged width,
+def full_past_staged(dev, card_line, errs):
+    """Phase 12 (C2): the full profile past the one-CTA staged width,
     full_config(65_536) (int16, about 56 GB with the round-start hb
-    copy): the two-pass pairs form with the fused FD epilogue, a totals
-    and a pull launch a sub-exchange. ``C2_ROUNDS`` rounds from counters
-    at 0, one chained round held against the plain versions
-    (``sampled_round_check``), then its round time and peak memory."""
+    copy), in its form (``RUN_FORMS``) with the fused FD epilogue.
+    ``C2_ROUNDS`` tracked rounds from counters at 0, one chained round held
+    against the plain versions (``sampled_round_check``, raising
+    ``errs``), then its round time and peak memory, and the round time in
+    the two-pass form (forced) on the same state."""
     cfg = full_config(C2_N, budget=2618)
-    check(gossip.resolve_phases(cfg, dev) == gossip.Phases("pairs_two_pass", None, "fused", None),
-          "full_config(65_536) does not take the two-pass pairs form with the fused FD")
+    form, k = expect_form(cfg, dev, "full_past_staged")
+    check(gossip.fd_phase_engaged(cfg, dev) == "fused",
+          f"full_config({C2_N}) does not fuse the FD phase")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
-    sim.run(C2_ROUNDS)
+    sim.run_until_converged(max_rounds=C2_ROUNDS)  # tracked rounds: the check rides the last
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(counters.launches)
     check(counters.kernel_launches("pairs_pull") == 3 * C2_ROUNDS
-          and counters.kernel_launches("pairs_totals") == 3 * C2_ROUNDS
-          and launches.get("pairs_pull[totals+fd]") == C2_ROUNDS
+          and counters.kernel_launches("pairs_totals") == 0
+          and launches.get(pairs_pull.counter_key(False, True, True, cluster=k > 1)) == C2_ROUNDS
           and not counters.plain_calls and not counters.fallbacks,
-          f"full_config({C2_N}) did not run two launches a sub-exchange ({launches})")
-    errs = collections.defaultdict(float)
-    found = sampled_round_check(dev, sim, errs)
-    check(all(e == 0.0 for e in errs.values()), f"the C2 round disagrees: {found}")
+          f"full_config({C2_N}) did not run one launch a sub-exchange ({launches})")
+    round_errs = collections.defaultdict(float)
+    found = sampled_round_check(dev, sim, round_errs)
+    check(all(e == 0.0 for e in round_errs.values()), f"the C2 round disagrees: {found}")
+    for key, e in round_errs.items():
+        errs[key] = max(errs[key], e)
     round_ms = round_rate(sim, 8)
+    with two_pass_forced():
+        two_pass_round_ms = round_rate(sim, 8)
     m = sim.metrics()
     check(np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == C2_N,
           f"full_config({C2_N}) metrics are not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log("c2", f"full_config({C2_N}) int16 two-pass with the fused FD: {C2_ROUNDS} rounds in "
-        f"{run_s:.2f} s with init; launches {launches}; one chained round {C2_ROUNDS} rounds "
-        f"in, {C2_LEADERS} row pairs a pull: " + ", ".join(f"{k} max_abs_err={e}" for k, e in found)
-        + f"; {round_ms:.3f} ms a round; peak {peak_gb:.2f} GB; mean fraction "
+    log("c2", f"full_config({C2_N}) int16, {form} on clusters of {k}, with the fused FD: "
+        f"{C2_ROUNDS} rounds in {run_s:.2f} s with init; launches {launches}; one chained "
+        f"round {C2_ROUNDS} rounds in, {C2_LEADERS} row pairs a pull: "
+        + ", ".join(f"{kk} max_abs_err={e}" for kk, e in found)
+        + f"; {round_ms:.3f} ms a round (two-pass form {two_pass_round_ms:.3f} ms on the "
+        f"later state); peak {peak_gb:.2f} GB; mean fraction "
         f"{float(m['mean_fraction']):.4f}; {card_line}")
     del sim
     torch.cuda.empty_cache()
-    return {"n": C2_N, "round_ms": round_ms, "peak_memory_gb": peak_gb,
-            "max_abs_err": dict(errs), "sample_leaders": C2_LEADERS, "run_s": run_s}
+    return {"n": C2_N, "form": form, "cluster": k, "round_ms": round_ms,
+            "two_pass_round_ms": two_pass_round_ms, "peak_memory_gb": peak_gb,
+            "max_abs_err": dict(round_errs), "sample_leaders": C2_LEADERS, "run_s": run_s}, (
+        launches, C2_ROUNDS)
 
 
 # -- the owner-sharded round: column blocks of the pairs and FD kernels (phase 13) ---
@@ -3117,7 +3492,7 @@ def block_pull_bound(n, n_cols, rung, m):
     b = pull_bytes(n, wsize, hsize, diag=m["diag"], check=m["check"], fd=m["fd"],
                    hb0=m["hb0"], icsize=1 if shrunk else 2, livesize=1 / 8 if shrunk else 1,
                    totals=True, n_cols=n_cols)
-    ops = (OPS_PULL if hsize else OPS_PULL_LEAN) + (2 * OPS_FD if m["fd"] else 0)
+    ops = (OPS_PAIR if hsize else OPS_PAIR_LEAN) + (2 * OPS_FD if m["fd"] else 0)
     return bound(b, ops * n * n_cols / 2)
 
 
@@ -3841,7 +4216,7 @@ def main() -> int:
         del ops
         b_ms, b_by = bound(
             pull_bytes(N, 2, 2, **m),
-            (OPS_PULL + (OPS_FD * 2 if m["fd"] else 0)) * N * N / 2,
+            (OPS_PAIR + (OPS_FD * 2 if m["fd"] else 0)) * N * N / 2,
         )
         kernels.append(dict(
             name=f"pairs_pull[{name}]", route="cuda",
@@ -3878,10 +4253,11 @@ def main() -> int:
     # their plain versions at its width, its run, then its kernels' times
     # at N = 10,240 (beside their plain versions) and at its own width.
     check_two_pass_full_width(dev, two_pass_errs)
-    ns, ns_launches, ns_times = north_star(dev, card_line)
+    ns, ns_launches, ns_times, ns_two_pass = north_star(dev, card_line)
 
-    kernels += two_pass_kernel_entries(dev, two_pass_errs, ns_launches, ns["rounds_run"],
-                                       ns_times)
+    kernels += two_pass_kernel_entries(dev, two_pass_errs, *ns_two_pass, ns_times)
+    cluster_runs = {"north_star": (ns_launches, ns["rounds_run"])}
+    cluster_times = dict(ns_times)
 
     # Phase 9c-e: the north star pinned to m8, then the int16 experiment.
     ns_m8, ns_m8_launches, ns_m8_times = north_star_m8(dev, card_line, m8_errs)
@@ -3896,15 +4272,18 @@ def main() -> int:
     # before each, read just after), then their times.
     ladder_errs = check_ladder_kernels(dev)
     check_ladder_full_width(dev, ladder_errs)
-    ns8, ns8_m8, ns8_times = lean_int8_north_star(dev, card_line)
-    u4, u4_launches, u4_rounds, u4_times = lean_u4r_north_star(dev, card_line)
-    wide, wide_launches, wide_rounds, wide_times = widest_u4r(dev, card_line, ladder_errs)
+    ns8, ns8_m8, ns8_times, ns8_other = lean_int8_north_star(dev, card_line)
+    u4, u4_launches, u4_rounds, u4_times, u4_other = lean_u4r_north_star(dev, card_line)
+    wide, wide_launches, wide_rounds, wide_times, wide_other = widest_u4r(
+        dev, card_line, ladder_errs)
     full, full_runs, full_times = full_ladder(dev, card_line)
     head_deep = headline_deep_parity(dev)
     runs = int8_side_paths(dev, card_line)
     runs.update(
         north_star_int8=ns8[1:], north_star_int8_m8=ns8_m8[1:],
         north_star_u4r=(u4_launches, u4_rounds), widest_u4r=(wide_launches, wide_rounds),
+        north_star_int8_other=ns8_other, north_star_u4r_other=u4_other,
+        widest_u4r_other=wide_other,
         full_deep=full_runs["deep"], full_shrunk=full_runs["shrunk"],
     )
     kernels += ladder_entries(dev, ladder_errs, runs,
@@ -3921,12 +4300,28 @@ def main() -> int:
     sweep_runs.update(
         sweep_headline=(head_sweep_launches, head_sweep["rounds_run"]),
         sweep_north_star=(ns_pair_launches, ns_pair["rounds_run"] - NS_PAIR_CHECK_ROUND),
+
     )
     sweep_counts = sweep_counters(dev, card_line)
     kernels += lane_entries(dev, lane_errs, sweep_runs, headline_lane_times(dev), ns_pair_times)
 
     # Phase 12 (C2): the full profile past the staged width.
-    c2 = full_past_staged(dev, card_line)
+    c2, c2_run = full_past_staged(dev, card_line, ladder_errs)
+
+    # The cluster-staged modes of every run whose form is the cluster frame.
+    cluster_runs.update(
+        north_star_int8_other=ns8_other, widest_u4r_other=wide_other,
+        full_shrunk=runs["full_shrunk"], full_past_staged=c2_run,
+        north_star_pair=(ns_pair_launches, ns_pair["rounds_run"] - NS_PAIR_CHECK_ROUND),
+    )
+    for t in (ns8_times, u4_times, wide_times, full_times):
+        cluster_times.update({kk: v[1:] for kk, v in t.items()})
+    cluster_times.update(ns_pair_times)
+    cluster_errs = collections.defaultdict(float)
+    for src in (two_pass_errs, ladder_errs, lane_errs):
+        for kk, e in src.items():
+            cluster_errs[kk] = max(cluster_errs[kk], e)
+    kernels += cluster_entries(dev, cluster_errs, cluster_runs, cluster_times)
 
     # Phase 13: the owner-sharded round on 8 column blocks of this card:
     # every column-block mode against its plain version and the whole

@@ -843,3 +843,108 @@ def test_mesh_over_distinct_cards_equals_one_card(dev):
     b.run(5)
     for f in STATE_FIELDS:
         assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+# -- the cluster frame: a row pair staged by a cluster of CTAs -----------------
+
+# 2,192 owners: 274 int16 chunks a row (more than the 256 threads of a
+# CTA at k = 1) and 137 packed ones, which no cluster size divides evenly.
+CLUSTER_N = 2192
+CLUSTER_CASES = {
+    "first": dict(wdt=torch.int16, hdt=torch.int16, diag=True, check=False, fd=False, hb0=False),
+    "middle": dict(wdt=torch.int16, hdt=torch.int16, diag=False, check=False, fd=False,
+                   hb0=False),
+    "check": dict(wdt=torch.int16, diag=False, check=True, fd=False, hb0=False),
+    "fd_hb0": dict(wdt=torch.int16, hdt=torch.int16, diag=False, check=True, fd=True,
+                   hb0=True),
+    "int8": dict(wdt=torch.int8, hdt=torch.int8, diag=True, check=True, fd=True, hb0=False),
+    "int16_lean": dict(wdt=torch.int16, diag=True, check=True, fd=False, hb0=False),
+    "int32": dict(wdt=torch.int32, hdt=torch.int32, imdt=torch.float32, diag=True, check=True,
+                  fd=True, hb0=True),
+    "packed": dict(wdt="u4", diag=True, check=True, fd=False, hb0=False),
+    "shrunk": dict(wdt=torch.int16, hdt=torch.int16, icdt=torch.int8, bits=True, diag=False,
+                   check=True, fd=True, hb0=True),
+}
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_pairs_cluster_form_equals_plain(dev, case, k):
+    """The staged pull on a cluster of k CTAs (forced) against its plain
+    version, counted under its cluster key; with the check, a converged
+    pair (need 0) keeps the flag at 1 across every CTA of the clusters."""
+    m = dict(CLUSTER_CASES[case])
+    ops, kw = _ladder_operands(CLUSTER_N, 40 + k, dev, **m)
+    packed = m["wdt"] == "u4"
+    key = pairs_pull.counter_key(m["diag"], m["check"], m["fd"], packed=packed,
+                                 cluster=k > 1)
+    before = counters.launches[key]
+    got = _run(lambda *a, **o: pairs_pull.pairs_pull(*a, cluster=k, **o), *_clone(ops, kw))
+    assert counters.launches[key] == before + 1
+    want = _run(pairs_pull.pairs_pull_plain, *_clone(ops, kw))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    if m["check"]:
+        need, alive, alive_owner = kw.pop("check")
+        kw = {k: v for k, v in kw.items() if k not in ("mv", "fd")}
+        kw["check"] = (torch.zeros_like(need), alive, alive_owner)
+        if packed:  # a packed row passes where every residual is 0
+            ops["w"].zero_()
+        flag = _run(lambda *a, **o: pairs_pull.pairs_pull(*a, cluster=k, **o), ops, kw)[-1]
+        assert int(flag[0]) == 1
+
+
+@pytest.mark.parametrize("k", [2, 8])
+@pytest.mark.parametrize("case", ["check_fd", "int8_lean", "u4r"])
+def test_pairs_lanes_cluster_form_equals_plain(dev, case, k):
+    """The lane launch (S = 3, lane 1 voided) on clusters of k CTAs
+    against the plain lane version."""
+    ops, kw, salt = _lane_operands(CLUSTER_N, 51, dev, **LANE_CASES[case])
+    counters.reset()
+    got = _run_lanes(lambda *a, **o: pairs_pull.pairs_pull_lanes(*a, cluster=k, **o),
+                     *_clone(ops, kw), salt)
+    assert counters.kernel_launches("pairs_pull") == 1
+    assert all(key.startswith("pairs_pull[lanes+cluster") for key in counters.launches)
+    want = _run_lanes(pairs_pull.pairs_pull_lanes_plain, *_clone(ops, kw), salt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rung", ["full", "lean_u4r", "sweep"])
+def test_simulator_cluster_path_equals_plain_path(dev, rung, monkeypatch):
+    """A block limit small enough that one CTA cannot stage a pair at 512
+    owners sends the round through the cluster form (one launch a
+    sub-exchange, no totals pass), equal to the plain path after 6
+    rounds."""
+    from aiocluster_torch import SweepSimulator
+    from aiocluster_torch.sim.state import lane
+
+    monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM + 300)
+    if rung == "lean_u4r":
+        cfg = lean_config(512, "u4r", budget=64, keys_per_node=8)
+    else:
+        cfg = full_config(512, budget=64, keys_per_node=8)
+    assert gossip.pull_phase_engaged(cfg, dev) == "pairs_cluster"
+    counters.reset()
+    if rung == "sweep":
+        sim = SweepSimulator(cfg, [1, 2], device=dev, phi_threshold=[7.0, 9.0])
+        sim.run(6)
+        states = [lane(sim.states, s) for s in range(2)]
+    else:
+        sim = Simulator(cfg, seed=4, device=dev)
+        sim.run(6)
+        states = [sim.state]
+    assert counters.kernel_launches("pairs_pull") == 18
+    assert all("cluster" in key for key in counters.launches)
+    assert not counters.plain_calls and not counters.fallbacks
+    for s, state in enumerate(states):
+        plain_cfg = dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False)
+        if rung == "sweep":
+            plain_cfg = dataclasses.replace(plain_cfg, phi_threshold=[7.0, 9.0][s])
+        plain = Simulator(plain_cfg, seed=s + 1 if rung == "sweep" else 4, device=dev)
+        plain.run(6)
+        torch.cuda.synchronize()
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(state, f), getattr(plain.state, f)), (s, f)

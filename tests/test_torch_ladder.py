@@ -19,7 +19,7 @@ from aiocluster_tpu.sim.memory import full_config as ref_full_config
 from aiocluster_tpu.sim.memory import lean_config as ref_lean_config
 from aiocluster_tpu.sim.state import init_state as ref_init
 from aiocluster_torch import Simulator, SimConfig, full_config, lean_config
-from aiocluster_torch.ops import counters, gossip, pairs_pull
+from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
 from aiocluster_torch.sim.packed import watermarks_i32
 from aiocluster_torch.sim.state import STATE_FIELDS, init_state, state_n_local
@@ -40,15 +40,19 @@ SHRUNK = dict(icount_dtype="int8", live_bits=True)
 DEEP = dict(version_dtype="int8", heartbeat_dtype="int8", **SHRUNK)
 
 # The port's routes: its plain round, its kernel wrappers with the rows
-# staged, and the two-pass form (no row staged).
-ROUTES = ["plain", "kernels", "two_pass"]
+# staged by one CTA, by a cluster of CTAs (a block limit too small for one
+# CTA's rows), and the two-pass form (no row staged).
+ROUTES = ["plain", "kernels", "cluster", "two_pass"]
 
 
 def _port_sim(kw, route, seed, monkeypatch, chunk=4):
     if route == "two_pass":
         monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    if route == "cluster":
+        monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM + 200)
     cfg = SimConfig(**kw, use_pallas=route != "plain")
-    want = {"plain": "plain", "kernels": "pairs", "two_pass": "pairs_two_pass"}[route]
+    want = {"plain": "plain", "kernels": "pairs", "cluster": "pairs_cluster",
+            "two_pass": "pairs_two_pass"}[route]
     assert gossip.pull_phase_engaged(cfg, "cpu") == want
     return Simulator(cfg, seed=seed, chunk=chunk, device="cpu")
 
@@ -258,3 +262,66 @@ def test_u4r_version_horizon_guard():
         sim.run(1)
     with pytest.raises(ValueError, match="overflow"):
         init_state(dataclasses.replace(cfg, keys_per_node=16), device="cpu")
+
+
+# -- the kernel's one-advance body on the packed rung ----------------------------
+
+
+def _packed_operands(n, seed, saturated):
+    """A packed u4r row matrix with every nibble value (``saturated``: a
+    third of the bytes 0xFF, both residuals 15), the write bumps (some
+    15, which saturate), a grouped matching and a valid mask flipped on
+    a fifth of the rows (a row valid where its partner is not)."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 256, (n, n // 2)).astype(np.uint8)
+    if saturated:
+        w[rng.random(w.shape) < 1 / 3] = 0xFF
+    gm, c, p = prng.grouped_matching(prng.key(seed), n)
+    alive = torch.from_numpy(rng.random(n) < 0.85)
+    valid = (alive & alive[p]) ^ torch.from_numpy(rng.random(n) < 0.2)
+    bump = torch.from_numpy(rng.choice([0, 1, 3, 15], n).astype(np.int32))
+    return torch.from_numpy(w), gm.to(torch.int32), c.to(torch.int32), valid, bump
+
+
+@pytest.mark.parametrize("col0", [0, 64], ids=["whole", "block"])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("saturated", [False, True], ids=["mixed", "saturated"])
+def test_packed_one_advance_body_equals_plain_pull(saturated, diag, col0):
+    """The kernel's one-advance body on packed rows (the larger residual
+    shrinks) equals the plain packed pull: saturated nibbles, the write
+    bumps' saturating refresh and the diagonal zero, a column block."""
+    from test_torch_pairs_pull import _one_advance_round
+
+    n = 128
+    w, gm, c, valid, bump = _packed_operands(n, 5 + diag + 2 * saturated, saturated)
+    w, bump = w[:, col0 // 2:].contiguous(), bump[col0:].contiguous()
+    mv = bump if diag else None
+    for budget in (10, 4096):
+        got = _one_advance_round(w, gm, c, valid, 0x5A5A ^ 77, budget, mv=mv, col0=col0)
+        want = w.clone()
+        pairs_pull.pairs_pull_plain(want, None, gm, c, valid, 0x5A5A, 77, budget, mv=mv,
+                                    owner_offset=col0)
+        assert torch.equal(got, want), budget
+
+
+def test_packed_one_advance_body_equals_reference_halves():
+    """On the whole width, the one-advance body equals the reference's
+    two-direction ``_packed_adv_halves`` of every row toward its partner."""
+    import jax.numpy as jnp
+
+    from aiocluster_tpu.ops import gossip as ref_gossip
+    from test_torch_pairs_pull import _one_advance_round
+
+    n = 128
+    w, gm, c, valid, _ = _packed_operands(n, 3, saturated=True)
+    p = prng.rows_of_groups(gm.long(), c.long())
+    a_lo, a_hi = ref_gossip._packed_adv_halves(
+        jnp.asarray(w.numpy()), jnp.asarray(w[p].numpy()), 10, jnp.asarray(valid.numpy()),
+        None, jnp.asarray(0x5A5A, jnp.int32), jnp.arange(n, dtype=jnp.int32),
+        jnp.asarray(77, jnp.uint32),
+    )
+    lo, hi = gossip.nibbles(w)
+    want = gossip.pack_halves(lo - torch.from_numpy(np.array(a_lo)),
+                              hi - torch.from_numpy(np.array(a_hi)))
+    got = _one_advance_round(w, gm, c, valid, 0x5A5A ^ 77, 10)
+    assert torch.equal(got, want)

@@ -241,3 +241,117 @@ def test_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         pairs_pull.pairs_pull(w, None, gm, gm, valid, 0, 0, 8)
     assert counters.plain_calls["pull"] == before
+
+
+# -- the kernel's one-advance body (exchange_once) ------------------------------
+
+
+def _one_advance_round(w, gm, c, valid, salt_mix, budget, *, mv=None, col0=0):
+    """A lean sub-exchange through ``exchange_once``, as the kernel runs
+    it: every leader pair's refreshed rows (packed: shifted by the write
+    bumps ``mv``), one advance per column pair, both rows written back
+    (a self-matched row once)."""
+    packed = w.dtype == torch.uint8
+    p = prng.rows_of_groups(gm.long(), c.long())
+    rows = torch.arange(w.shape[0])
+    lead = rows[rows <= p]
+    part = p[lead]
+    if packed:
+        x = gossip.refreshed_packed_rows(w, lead, mv, col0)
+        y = gossip.refreshed_packed_rows(w, part, mv, col0)
+    else:
+        x = gossip.refreshed_rows(w, lead, mv, col0=col0)
+        y = gossip.refreshed_rows(w, part, mv, col0=col0)
+    owners = col0 + torch.arange(pairs_pull.owner_columns(w))
+    nx, ny = pairs_pull.exchange_once(
+        x, y, valid[lead], valid[part], lead, part, owners, salt_mix, budget, packed=packed,
+    )
+    out = w.clone()
+    out[part] = ny
+    out[lead] = nx
+    return out
+
+
+def _salt_mix(salt, run_salt):
+    return (salt & prng.M32) ^ (run_salt & prng.M32)
+
+
+ONE_ADVANCE_CASES = ["random", "equal_rows", "asymmetric_valid", "self_matched", "diag",
+                     "column_block"]
+
+
+def _one_advance_operands(name, n=128, seed=0):
+    """Operands of a lean int16 sub-exchange for one named case."""
+    case = _case(n, seed, "int16", "int16", "bfloat16", self_match=name == "self_matched")
+    t = {k: torch.from_numpy(np.array(v)) for k, v in case.items() if k != "imdt"}
+    p = prng.rows_of_groups(t["gm"].long(), t["c"].long())
+    w, valid, mv, col0 = t["w"], t["valid"], None, 0
+    if name == "equal_rows":
+        # Half the pairs hold equal rows (every deficit 0 both ways), and
+        # a third of every other pair's columns agree.
+        lead = torch.arange(n)[torch.arange(n) < p]
+        w[p[lead[::2]]] = w[lead[::2]]
+        cols = torch.arange(n) % 3 == 0
+        w[p[lead[1::2]].unsqueeze(1), cols] = w[lead[1::2].unsqueeze(1), cols]
+    if name == "asymmetric_valid":
+        rng = np.random.default_rng(seed + 100)
+        valid = valid ^ torch.from_numpy(rng.random(n) < 0.25)
+        assert (valid != valid[p]).any()
+    if name == "diag":
+        mv = t["mv"]
+    if name == "column_block":
+        col0 = n // 2
+        w, mv = w[:, col0:].contiguous(), t["mv"][col0:].contiguous()
+    return w, t["gm"], t["c"], valid, mv, col0
+
+
+@pytest.mark.parametrize("budget", [12, 4096])
+@pytest.mark.parametrize("name", ONE_ADVANCE_CASES)
+def test_one_advance_body_equals_plain_pull(name, budget):
+    """The kernel's one-advance body equals the plain version (both
+    directions' advances) on every row pair: equal columns, a row invalid
+    where its partner is valid, self-matched rows, the owner diagonal,
+    a column block of the owners."""
+    w, gm, c, valid, mv, col0 = _one_advance_operands(name, seed=len(name))
+    got = _one_advance_round(w, gm, c, valid, _salt_mix(SALT, RUN_SALT), budget, mv=mv,
+                             col0=col0)
+    want = w.clone()
+    pairs_pull.pairs_pull_plain(want, None, gm, c, valid, SALT, RUN_SALT, budget, mv=mv,
+                                owner_offset=col0)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, w)  # the sub-exchange moved something
+
+
+def test_one_advance_body_equals_reference_advance():
+    """On the whole width, rows i and p advanced once per column pair
+    equal the reference's two-direction ``_budgeted_advance`` of every
+    row toward its partner."""
+    w, gm, c, valid, _, _ = _one_advance_operands("asymmetric_valid", seed=9)
+    p = prng.rows_of_groups(gm.long(), c.long())
+    n = w.shape[0]
+    adv = ref_gossip._budgeted_advance(
+        jnp.asarray(w.numpy()), jnp.asarray(w[p].numpy()), 12, jnp.asarray(valid.numpy()),
+        None, "proportional", jnp.asarray(SALT, jnp.int32), jnp.arange(n, dtype=jnp.int32),
+        jnp.asarray(RUN_SALT, jnp.uint32),
+    )
+    want = w.numpy() + np.asarray(adv)
+    got = _one_advance_round(w, gm, c, valid, _salt_mix(SALT, RUN_SALT), 12)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_one_advance_body_equals_plain_lanes():
+    """Three lanes, each with its own salt and matching (lane 1 voided):
+    the one-advance body lane by lane equals the plain lane version."""
+    lanes = [_one_advance_operands("random", seed=20 + s) for s in range(3)]
+    w = torch.stack([x[0] for x in lanes])
+    gm, c = torch.stack([x[1] for x in lanes]), torch.stack([x[2] for x in lanes])
+    valid = torch.stack([x[3] for x in lanes])
+    valid[1] = False
+    salt_mix = prng.salt_mix(torch.tensor([7, 2**31 + 5, 123]),
+                             torch.tensor([0x12345678, 0, 0xFFFFFFFF]))
+    want = w.clone()
+    pairs_pull.pairs_pull_lanes_plain(want, None, gm, c, valid, salt_mix, 12)
+    for s in range(3):
+        got = _one_advance_round(w[s], gm[s], c[s], valid[s], int(salt_mix[s]) & prng.M32, 12)
+        assert torch.equal(got, want[s]), s
+    assert torch.equal(want[1], w[1])

@@ -18,11 +18,11 @@ from aiocluster_tpu.ops.gossip import sim_step as ref_step
 from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
-from aiocluster_torch import Simulator, SimConfig, lean_config
+from aiocluster_torch import Simulator, SimConfig, full_config, lean_config
 from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
 from aiocluster_torch.parallel import make_mesh
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
-from aiocluster_torch.sim.state import STATE_FIELDS, init_state
+from aiocluster_torch.sim.state import DTYPES, STATE_FIELDS, init_state
 
 # Tiny tensors: one thread each, leaving the cores to the suite's
 # wall-clock tests running in other workers.
@@ -123,6 +123,51 @@ def test_carried_state_continues_identically():
     _assert_states_equal(rs, sim.state, "after carry")
 
 
+# The configurations the port runs on one card, with the form of their
+# sub-exchanges and the CTAs that stage a row pair (pairs_pull.pull_form,
+# through gossip.kernel_pull_form).
+FORM_CASES = {
+    "headline": (SimConfig(n_nodes=10_240, keys_per_node=16, fanout=3, budget=2618, **NARROW),
+                 None, ("pairs", 1)),
+    "north_star": (lean_config(100_352, budget=2618), None, ("pairs_cluster", 4)),
+    "north_star_int8": (lean_config(100_352, "int8", budget=2618), None, ("pairs_two_pass", 1)),
+    "north_star_u4r": (lean_config(100_352, "u4r", budget=2618), None, ("pairs_two_pass", 1)),
+    "widest_u4r": (lean_config(262_144, "u4r", budget=2618), None, ("pairs_two_pass", 1)),
+    "full_65536": (full_config(65_536), None, ("pairs_cluster", 4)),
+    "full_deep_49152": (full_config(49_152, "deep"), None, ("pairs_two_pass", 1)),
+    "full_shrunk_49152": (full_config(49_152, "shrunk"), None, ("pairs_cluster", 2)),
+    "headline_int8": (lean_config(10_240, "int8"), None, ("pairs", 1)),
+    "headline_u4r": (lean_config(10_240, "u4r"), None, ("pairs", 1)),
+    "north_star_mesh": (lean_config(100_352, budget=2618), 12_544, ("pairs_two_pass", 1)),
+    "headline_mesh": (SimConfig(n_nodes=10_240, keys_per_node=16, fanout=3, budget=2618,
+                                **NARROW), 1_280, ("pairs_two_pass", 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(FORM_CASES))
+def test_kernel_pull_form_rule(name):
+    """Each configuration's form and cluster size, the same for a sweep's
+    lanes (the north-star pair, S = 2, stages as the north star does):
+    staged on the smallest cluster that lets two CTAs share an SM, except
+    rows of 1-byte elements past NARROW_STAGED_BYTES (two-pass, as
+    measured faster); 8 column blocks keep the two-pass form."""
+    cfg, n_local, want = FORM_CASES[name]
+    assert gossip.kernel_pull_form(cfg, n_local) == want
+    cuda = torch.device("cuda")
+    assert gossip.resolve_phases(cfg, cuda, n_local=n_local).pull == want[0]
+    if n_local is None:
+        assert gossip.resolve_phases(cfg, cuda, sweep=True).pull == want[0]
+        n = cfg.n_nodes
+        row_len, itemsize = (n // 2, 1) if cfg.version_dtype == "u4r" else (
+            n, DTYPES[cfg.version_dtype].itemsize)
+        k = pairs_pull.cluster_size(row_len, itemsize)
+        assert pairs_pull.cluster_fits(row_len, itemsize, k, ctas=2)
+        assert k == 1 or not pairs_pull.cluster_fits(row_len, itemsize, k // 2, ctas=2)
+        narrow = itemsize == 1 and row_len > pairs_pull.NARROW_STAGED_BYTES
+        assert want == (("pairs_two_pass", 1) if narrow else
+                        ("pairs" if k == 1 else "pairs_cluster", k))
+
+
 def test_dispatch_resolution():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     head = SimConfig(n_nodes=10_240, keys_per_node=16, fanout=3, budget=2618, **NARROW)
@@ -162,21 +207,22 @@ def test_dispatch_resolution():
                                  window_ticks=100)
     assert gossip.resolve_phases(shrunk, cuda) == gossip.Phases(
         "plain", "fanout", "plain", "fd_packed_bookkeeping")
-    # Rows too wide for one block's shared memory take the two-pass form
-    # (the totals pass, then the pull fed the totals), FD still fused.
-    assert gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "pairs_two_pass"
+    # Rows too wide for two CTAs of one SM to stage take a cluster of
+    # CTAs a pair (one launch a sub-exchange), FD still fused.
+    assert gossip.pull_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "pairs_cluster"
     assert gossip.fd_phase_engaged(SimConfig(n_nodes=65_536), cuda) == "fused"
     north_star = lean_config(100_352, budget=2618)
-    assert gossip.pull_phase_engaged(north_star, cuda) == "pairs_two_pass"
+    assert gossip.pull_phase_engaged(north_star, cuda) == "pairs_cluster"
     assert gossip.fd_phase_engaged(north_star, cuda) == "off"
-    # The width bound counts the kernel's static shared memory too: two
-    # int16 rows of 58,112 fill the dynamic limit alone, not with it.
-    assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=57_984), cuda) == "pairs"
-    assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=58_112), cuda) == "pairs_two_pass"
-    # A pinned "pairs" that cannot stage takes the two-pass pairs form
-    # (the reference takes m8 there: the same bits).
+    # The width bound counts the kernel's static shared memory and the
+    # runtime's 1 KB a CTA: two CTAs of 28,800 int16 owners share an SM,
+    # two of 28,928 do not.
+    assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=28_800), cuda) == "pairs"
+    assert gossip.pull_phase_engaged(dataclasses.replace(head, n_nodes=28_928), cuda) == "pairs_cluster"
+    # A pinned "pairs" takes the same rule (the reference takes m8 past
+    # its staged width: the same bits).
     pinned = dataclasses.replace(head, n_nodes=58_112, pallas_variant="pairs")
-    assert gossip.pull_phase_engaged(pinned, cuda) == "pairs_two_pass"
+    assert gossip.pull_phase_engaged(pinned, cuda) == "pairs_cluster"
     # A pinned m8 stages its rows by the same width rule, else it takes
     # the m8 two-pass form (the m8 totals, then the pull fed them).
     assert gossip.pull_phase_engaged(dataclasses.replace(m8, n_nodes=57_984), cuda) == "m8"

@@ -230,7 +230,7 @@ def test_sweep_dispatch_resolution():
     assert gossip.resolve_phases(head, cuda, sweep=True) == gossip.Phases(
         "pairs", None, "fused", None)
     assert gossip.resolve_phases(lean_config(100_352, budget=2618), cuda, sweep=True) == (
-        gossip.Phases("pairs_two_pass", None, "off", None))
+        gossip.Phases("pairs_cluster", None, "off", None))
     m8 = dataclasses.replace(head, pallas_variant="m8")
     assert gossip.resolve_phases(m8, cuda, sweep=True) == gossip.Phases(
         "plain", "sweep_needs_pairs", "plain", None)
