@@ -51,7 +51,7 @@ SIGNATURES = {
     ),
     "m8_pull": (
         "aiocluster_m8_pull",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P, _P, _P, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
     "m8_totals": (
         "aiocluster_m8_totals",

@@ -30,12 +30,14 @@ Two implementations serve a round, resolved once per call by
   epilogue; its FD phase is the standalone kernel) run the plain pull,
   "fd_packed_bookkeeping" (the shrunk FD bookkeeping off the pairs path)
   the plain FD phase, each counted in ``counters.fallbacks``;
-- ``pallas_variant="m8"`` on a CUDA device: every sub-exchange is one
-  launch of the single-pass pull (ops/m8_pull.py, out of place; "m8"),
-  or, where its rows do not stage, the m8 deficit totals
-  (ops/m8_totals.py) and then the pull fed those totals
-  ("m8_two_pass"); the FD phase is the standalone kernel ("kernel")
-  and the convergence flag the plain reduction, as in the reference;
+- ``pallas_variant="m8"`` on a CUDA device: the single-pass pull
+  (ops/m8_pull.py, out of place), which runs the pairs pull's frame and
+  takes its forms by the same rule under its own names: one launch a
+  sub-exchange staged by one CTA a pair ("m8") or by a cluster of CTAs
+  ("m8_cluster"), or the m8 deficit totals (ops/m8_totals.py) and then
+  the pull fed those totals ("m8_two_pass"); the FD phase is the
+  standalone kernel ("kernel") and the convergence flag the plain
+  reduction, as in the reference;
 - ``use_pallas=False, use_pallas_fd=True`` on a CUDA device: the pull
   runs as plain PyTorch ops and the FD phase as the standalone kernel
   (ops/fd.py, "kernel") — the reference's A/B seam;
@@ -292,7 +294,7 @@ def kernels_wanted(cfg: SimConfig, device) -> bool:
 
 
 PAIRS_FORMS = ("pairs", "pairs_cluster", "pairs_two_pass")
-M8_FORMS = ("m8", "m8_two_pass")
+M8_FORMS = ("m8", "m8_cluster", "m8_two_pass")
 
 
 class Phases(NamedTuple):
@@ -348,17 +350,18 @@ def kernel_pull_form(cfg: SimConfig, n_local: int | None = None) -> tuple[str, i
     stage a row pair (1 where none or one does): the pairs pull's from
     ``pairs_pull.pull_form`` (staged by one CTA or a cluster, or two
     launches a sub-exchange; always two on column blocks of a mesh,
-    ``n_local`` owners of n a block); ``pallas_variant="m8"`` pins the
-    single-pass pull, staged where one CTA holds both rows (a packed row
-    is n / 2 bytes)."""
+    ``n_local`` owners of n a block; a packed row is n / 2 bytes);
+    ``pallas_variant="m8"`` pins the single-pass pull, which runs the same
+    frame and takes the same form and cluster size under its own name
+    ("m8", "m8_cluster", "m8_two_pass")."""
     n = cfg.n_nodes
     blocks = 1 if n_local is None else n // n_local
     row_len, itemsize = (n // 2, 1) if cfg.version_dtype == "u4r" else (
         n, DTYPES[cfg.version_dtype].itemsize)
+    form, k = pairs_pull.pull_form(row_len, itemsize, blocks)
     if cfg.pallas_variant == "m8":
-        staged = blocks == 1 and pairs_pull.pairs_supported(row_len, itemsize)
-        return ("m8" if staged else "m8_two_pass"), 1
-    return pairs_pull.pull_form(row_len, itemsize, blocks)
+        return form.replace("pairs", "m8"), k
+    return form, k
 
 
 def resolve_phases(
@@ -370,10 +373,11 @@ def resolve_phases(
 
     The pull is "pairs", "pairs_cluster" or "pairs_two_pass" (the
     pair-fused pull: one launch a sub-exchange staged by one CTA or by a
-    cluster of CTAs, or two launches; ``pairs_pull.pull_form``), "m8" or
-    "m8_two_pass" (pinned by
-    ``pallas_variant="m8"``), or "plain": no kernels wanted, or a route
-    the reference serves with XLA for want of a kernel, "packed_dtype"
+    cluster of CTAs, or two launches; ``pairs_pull.pull_form``), "m8",
+    "m8_cluster" or "m8_two_pass" (the same forms of the single-pass
+    pull, pinned by ``pallas_variant="m8"``), or "plain": no kernels
+    wanted, or a route the reference serves with XLA for want of a
+    kernel, "packed_dtype"
     (the u4r rung with heartbeats, or pinned to m8: only the pairs
     kernels carry the nibble codec, and only in the lean profile) or
     "fanout" (fanout 0: no sub-exchange exists to carry the diagonal

@@ -6,7 +6,7 @@ The same sub-exchange as ops/pairs_pull.py (and the same bits: row ``i``
 pulls from its partner ``p[i]`` under the per-exchange budget and
 absorbs the partner's heartbeats, both computed from the pre-exchange
 rows), served the way the reference's ``pallas_variant="m8"`` serves it:
-each output row is computed from two input rows into new tensors, and
+the output rows are computed from the input rows into new tensors, and
 the inputs are never written. Optional modes, as on the TPU: the
 owner-diagonal refresh (``mv``/``hbv``, the round's first
 sub-exchange), the rows' deficit totals given as an input (``totals``,
@@ -14,9 +14,16 @@ from ops/m8_totals.py: the two-pass form, which stages nothing and so
 takes any width), and a column block of the owners (``owner_offset``,
 the reference's sharded form, here a block of one device's matrix).
 
+The kernel runs in the pairs pull's frame (csrc/pair_frame.cuh): one
+group of CTAs a row pair reads both rows once and writes both output
+rows. Without ``totals`` the pair is staged in shared memory by a
+thread-block cluster of ``cluster`` CTAs (``pairs_pull.cluster_size``
+picks it, as for the pairs pull); ``gossip.kernel_pull_form`` is the one
+rule for the form a round takes ("m8", "m8_cluster", "m8_two_pass").
+
 ``arith`` selects the arithmetic of the reference's int16 experiment
 (benchmarks/records/_i16_kernel_experiment.py): "i16" computes the
-deficit and the heartbeat absorb in int16, "i16_f32" also feeds the
+deficits and the heartbeat absorb in int16, "i16_f32" also feeds the
 advance from int16 in float32. Both compute the same function as the
 default "i32", so their plain version is this module's, and the kernel
 takes them only in the experiment's mode (int16 w and hb, no refresh,
@@ -30,7 +37,7 @@ import torch
 
 from . import _build, counters, gossip, prng
 from .fd import MATRIX_DTYPES, expect
-from .pairs_pull import pairs_supported
+from .pairs_pull import cluster_fits, cluster_size
 
 ARITH_CODES = {"i32": 0, "i16": 1, "i16_f32": 2}
 
@@ -100,6 +107,7 @@ def m8_pull_plain(
 def m8_pull(
     w, hb, gm, c, valid, salt, run_salt, budget, *,
     mv=None, hbv=None, owner_offset: int = 0, totals=None, out=None, arith: str = "i32",
+    cluster: int | None = None,
 ):
     """One single-pass sub-exchange into new tensors: returns (w', hb'),
     or w' alone when ``hb`` is None (the lean profile).
@@ -113,7 +121,10 @@ def m8_pull(
     the owner diagonal first. ``totals`` (N,) float32, the rows' deficit
     totals over every owner (``m8_totals`` on the same operands, summed
     over the blocks), scales the advance instead of the kernel's own
-    sums: no row is staged, so any width runs. ``out`` = (w_out, hb_out)
+    sums: no row is staged, so any width runs. Without ``totals``,
+    ``cluster`` CTAs (1, 2, 4 or 8) stage each row pair; None takes
+    ``pairs_pull.cluster_size``'s (the plain version has no clusters: the
+    result is the same bits for every size). ``out`` = (w_out, hb_out)
     are written instead of new tensors (either may be None)."""
     if w.device.type == "cpu":
         counters.plain_calls["m8_pull"] += 1
@@ -127,18 +138,26 @@ def m8_pull(
         raise ValueError(f"w dtype {w.dtype} is not int8/int16/int32")
     if n % 8:
         raise ValueError(f"m8 kernel needs N % 8 == 0, got N={n}")
+    itemsize = w.element_size()
     if totals is not None:
         if n_local % 8:
             raise ValueError(f"m8 kernel needs n_local % 8 == 0, got {n_local}")
         expect("totals", totals, torch.float32, (n,), dev)
-    elif not pairs_supported(n_local, w.element_size()):
-        # The pairs kernel's rule: both stage the two rows a CTA reads
+        if cluster not in (None, 1):
+            raise ValueError("the totals-fed m8 pull stages nothing: it takes no cluster")
+        cluster = 1
+    else:
+        # The pairs kernel's rule: the frame stages both rows' slices
         # beside the same static shared memory.
-        raise ValueError(
-            f"m8 kernel cannot stage rows of {n_local} {w.dtype} watermarks "
-            "(needs n_local % 8 == 0 and both rows in shared memory; pass "
-            "totals for the two-pass form)"
-        )
+        if cluster is None:
+            cluster = cluster_size(n_local, itemsize) or cluster_size(n_local, itemsize, 1)
+        if cluster is None or not cluster_fits(n_local, itemsize, cluster):
+            raise ValueError(
+                f"m8 kernel cannot stage rows of {n_local} {w.dtype} watermarks on a "
+                f"cluster of {cluster} (needs n_local % 8 == 0 and the slices of both "
+                "rows in shared memory, a cluster of 1, 2, 4 or 8; pass totals for "
+                "the two-pass form)"
+            )
     expect("w", w, w.dtype, (n, n_local), dev)
     expect("gm", gm, torch.int32, (n // 8,), dev)
     expect("c", c, torch.int32, (n // 8,), dev)
@@ -166,17 +185,22 @@ def m8_pull(
         w.data_ptr(), ptr(hb), w_out.data_ptr(), ptr(hb_out), gm.data_ptr(),
         c.data_ptr(), valid.data_ptr(), n, n_local, int(owner_offset), salt_mix,
         float(budget), ptr(totals), ptr(mv), ptr(hbv), w.element_size(), h_code,
-        ARITH_CODES[arith], torch.cuda.current_stream(dev).cuda_stream,
+        ARITH_CODES[arith], cluster, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "m8_pull kernel launch")
-    counters.launches[counter_key(mv is not None, totals is not None, arith)] += 1
+    counters.launches[counter_key(mv is not None, totals is not None, arith, cluster > 1)] += 1
     return w_out if hb is None else (w_out, hb_out)
 
 
-def counter_key(diag: bool, totals: bool = False, arith: str = "i32") -> str:
-    """The ``counters.launches`` key of a launch in this mode."""
+def counter_key(
+    diag: bool, totals: bool = False, arith: str = "i32", cluster: bool = False
+) -> str:
+    """The ``counters.launches`` key of a launch in this mode (``cluster``:
+    staged by a cluster of more than one CTA)."""
     flags = [
-        f for f, on in (("totals", totals), ("diag", diag), (arith, arith != "i32"))
+        f for f, on in (
+            ("cluster", cluster), ("totals", totals), ("diag", diag), (arith, arith != "i32"),
+        )
         if on
     ]
     return f"m8_pull[{'+'.join(flags) or 'pull'}]"

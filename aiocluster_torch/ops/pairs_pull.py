@@ -104,15 +104,6 @@ class FdOperands:
         )
 
 
-def pairs_supported(n_cols: int, itemsize: int) -> bool:
-    """Whether one CTA stages both rows of ``n_cols`` stored elements of
-    ``itemsize`` bytes (a packed u4r row stores n / 2 bytes) in its shared
-    memory beside its static shared memory, rows in 8-element vectors:
-    the m8 pull's staged form, and the pairs pull's cluster of 1. The
-    totals mode only needs the vectors."""
-    return n_cols % 8 == 0 and 2 * n_cols * itemsize + STATIC_SMEM <= SMEM_LIMIT
-
-
 def staged_smem(row_len: int, itemsize: int, k: int) -> int:
     """Dynamic shared memory of one CTA of a ``k``-CTA cluster staging
     rows of ``row_len`` stored elements of ``itemsize`` bytes: its slice
@@ -139,7 +130,7 @@ def cluster_size(row_len: int, itemsize: int, ctas: int = CTAS_PER_SM) -> int | 
 
 
 def pull_form(row_len: int, itemsize: int, blocks: int = 1) -> tuple[str, int]:
-    """The one rule for the pairs kernels' form of a round's
+    """The one rule for the pull kernels' form of a round's
     sub-exchanges over rows of ``row_len`` stored elements of
     ``itemsize`` bytes (a packed u4r row stores n / 2 bytes), held as
     ``blocks`` column blocks of the owners, with the CTAs that stage a
@@ -149,7 +140,9 @@ def pull_form(row_len: int, itemsize: int, blocks: int = 1) -> tuple[str, int]:
     ("pairs_two_pass", 1), the totals pass then the pull fed them, on the
     column blocks of a mesh (a block's own sums are not the rows' totals),
     for rows of 1-byte elements wider than ``NARROW_STAGED_BYTES``, and
-    where no cluster of 8 lets two CTAs share an SM."""
+    where no cluster of 8 lets two CTAs share an SM. The m8 pull, which
+    runs the same frame out of place, takes the same forms under its own
+    names (``gossip.kernel_pull_form``)."""
     k = cluster_size(row_len, itemsize) if blocks == 1 else None
     if k is None or (itemsize == 1 and row_len > NARROW_STAGED_BYTES):
         return "pairs_two_pass", 1

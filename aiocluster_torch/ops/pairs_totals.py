@@ -122,3 +122,94 @@ def counter_key(diag: bool, packed: bool = False, lanes: bool = False) -> str:
     a lane launch of a sweep)."""
     flags = ("lanes+" if lanes else "") + ("packed+" if packed else "")
     return f"pairs_totals[{flags}{'diag' if diag else 'sum'}]"
+
+
+# -- the kernel's arithmetic on 1-byte rows, mirrored ---------------------------
+#
+# csrc/pairs.cuh sums the rows of 1-byte elements (int8, packed u4r) on
+# 32-bit words of four bytes: the packed write-bump refresh as saturating
+# adds of nibble lanes, each direction's deficit sum as (A +- D) / 2 with
+# A = sum |y - x| and D = sum (y - x). The kernel runs only on a card, so
+# these plain mirrors of that word arithmetic are what the CPU tests hold
+# against the plain versions, bit for bit.
+
+NIBBLES, BYTE_ONES = 0x0F0F0F0F, 0x01010101
+
+
+def _words(b: torch.Tensor) -> torch.Tensor:
+    """(..., B) uint8 or int8 bytes, B a multiple of 4, as (..., B/4)
+    int64 holding the little-endian 32-bit words."""
+    k = torch.arange(4, device=b.device) * 8
+    by = (b.to(torch.int64) & 0xFF).reshape(*b.shape[:-1], -1, 4)
+    return (by << k).sum(dim=-1)
+
+
+def _word_bytes(words: torch.Tensor) -> torch.Tensor:
+    """(..., W) int64 words as their (..., 4 W) bytes (0..255, int64)."""
+    k = torch.arange(4, device=words.device) * 8
+    return ((words[..., None] >> k) & 0xFF).flatten(-2)
+
+
+def sat_nibbles(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """min(a + b, 15) in every byte of words of nibble lanes (bytes
+    0..15): a byte's sum is at most 30, so bit 4 marks the ones to clamp
+    (pairs.cuh ``sat_nibbles``)."""
+    s = a + b
+    return (s | (((s >> 4) & BYTE_ONES) * 15)) & NIBBLES
+
+
+def packed_lanes_swar(x: torch.Tensor, bump, rows, col0: int = 0):
+    """The kernel's packed refresh of rows ``x`` ((R, B) uint8, global
+    rows ``rows``) on words of nibble lanes: (lo, hi) int64 words, lo
+    holding owners 2k and hi owners 2k + 1 of byte k one to a byte, each
+    plus its owner's bump (``bump`` (B,) uint8, packed nibbles)
+    saturating at 15, then the row's own owner zeroed (pairs.cuh
+    ``packed_step_lanes``). ``bump`` None: the lanes as stored."""
+    w = _words(x)
+    lo, hi = w & NIBBLES, (w >> 4) & NIBBLES
+    if bump is None:
+        return lo, hi
+    b = _words(bump)[None, :]
+    lo = sat_nibbles(lo, b & NIBBLES)
+    hi = sat_nibbles(hi, (b >> 4) & NIBBLES)
+    t = rows.to(torch.int64) - col0  # the own owner's nibble in the row
+    hit = (t >= 0) & (t < 2 * x.shape[1])
+    at, t = torch.arange(x.shape[0], device=x.device)[hit], t[hit]
+    keep = ~(0xFF << (8 * ((t & 7) >> 1))) & 0xFFFFFFFF
+    for lanes, odd in ((lo, False), (hi, True)):
+        sel = (t & 1) == int(odd)
+        lanes[at[sel], t[sel] >> 3] &= keep[sel]
+    return lo, hi
+
+
+def packed_refresh_swar(x: torch.Tensor, bump, rows, col0: int = 0) -> torch.Tensor:
+    """``packed_lanes_swar`` packed back into bytes: the refreshed rows
+    as ``gossip.refreshed_packed_rows`` gives them."""
+    lo, hi = packed_lanes_swar(x, bump, rows, col0)
+    return _word_bytes(lo | (hi << 4)).to(torch.uint8)
+
+
+def narrow_pair_sums(x, y, vi, vp, *, bump=None, rows_i=None, rows_p=None, col0: int = 0):
+    """Both directions' exact deficit sums (int64 (R,)) of 1-byte row
+    pairs as the kernel takes them: A = sum |y - x| and D = sum (y - x)
+    over the words' bytes (packed: over the nibble lanes, refreshed with
+    ``bump``, and D = sum (x - y), the residuals' direction), row i's sum
+    (A + D) / 2 where ``vi``, row p's (A - D) / 2 where ``vp``. int8 rows
+    read their bytes as signed."""
+    if x.dtype == torch.uint8:
+        xl, xh = packed_lanes_swar(x, bump, rows_i, col0)
+        yl, yh = packed_lanes_swar(y, bump, rows_p, col0)
+        xs = _word_bytes(xl) + _word_bytes(xh)
+        ys = _word_bytes(yl) + _word_bytes(yh)
+        a = ((_word_bytes(xl) - _word_bytes(yl)).abs()
+             + (_word_bytes(xh) - _word_bytes(yh)).abs()).sum(dim=1)
+        d = (xs - ys).sum(dim=1)
+    else:
+        def signed(r):
+            by = _word_bytes(_words(r))
+            return torch.where(by > 127, by - 256, by)
+
+        xs, ys = signed(x), signed(y)
+        a = (ys - xs).abs().sum(dim=1)
+        d = (ys - xs).sum(dim=1)
+    return torch.where(vi, (a + d) >> 1, 0), torch.where(vp, (a - d) >> 1, 0)

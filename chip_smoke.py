@@ -29,22 +29,27 @@ the two-pass form. Every full-width run below likewise holds and times
 the form the dispatch does not take beside its own (``other_form``);
 ``RUN_FORMS`` is the dispatch rule's expected form of each run.
 
-Then the single-pass m8 path (``pallas_variant="m8"``): the m8 pull and
-the m8 totals pass are held bit-equal to their plain versions (and to
-the staged pairs kernel and the pairs totals, the same functions) at
-N = 10,240 in every mode, int16 and int32 (the totals also where a row
-is valid and its partner is not); the headline config pinned to
-m8 runs to convergence (round 24, one pull launch a sub-exchange and the
-standalone FD kernel once a round) and equals the pairs path after 4
-rounds; the north star pinned to m8 runs 100 rounds, its two-pass m8
-modes are held against their plain versions at that width, the
-reference's 8-shard computation is done block by block on the card (8
-column blocks of 12,544 owners: their totals sum to the whole width's
-and their outputs side by side are the whole width's), and the run goes
-on to convergence (round 209). Last, the reference's int16 experiment
-(benchmarks/records/_i16_kernel_experiment.py) on Hopper: the m8 pull's
-int16 variants bit-exact against the int32 kernel and timed as the
-experiment times them.
+Then the single-pass m8 path (``pallas_variant="m8"``), whose pull runs
+the pairs pull's frame out of place and takes its forms by the same rule
+("m8" staged by one CTA, "m8_cluster" on a cluster of CTAs, "m8_two_pass"
+fed the m8 totals): the m8 pull and the m8 totals pass are held
+bit-equal to their plain versions (and to the pairs kernel and the pairs
+totals, the same functions) at N = 10,240 in every mode, int16 and
+int32, staged on clusters of 1, 2, 4 and 8 CTAs and fed the totals
+(also where a row is valid and its partner is not, and on self-matched
+rows), with the inputs left untouched; the headline config pinned to m8
+runs to convergence (round 24, one pull launch a sub-exchange and the
+standalone FD kernel once a round), equals the pairs path after 4
+rounds, and runs 4 rounds again in the other form; the north star pinned
+to m8 (on 4-CTA clusters) runs 100 rounds, its pulls in both forms are
+held against their plain versions at that width, the reference's
+8-shard computation is done block by block on the card (8 column blocks
+of 12,544 owners: their totals sum to the whole width's and their
+outputs side by side are the whole width's), the run goes on to
+convergence (round 209) and runs again in the two-pass form. Last, the
+reference's int16 experiment (benchmarks/records/_i16_kernel_experiment.py)
+on Hopper: the m8 pull's int16 variants bit-exact against the int32
+kernel on every cluster size and timed as the experiment times them.
 
 Then the memory ladder's rungs (phase 10): every new kernel mode (int8
 matrices, the packed u4r codec, the FD epilogue on int8 sample counters
@@ -159,6 +164,14 @@ RUN_FORMS = {
     "lean_u4r_staged": ("pairs", 1),
     "deep_staged": ("pairs", 1),
     "shrunk_staged": ("pairs", 1),
+    "headline_m8": ("m8", 1),
+    "headline_m8_other": ("m8_two_pass", 1),
+    "north_star_m8": ("m8_cluster", 4),
+    "north_star_m8_other": ("m8_two_pass", 1),
+    "north_star_int8_m8": ("m8_two_pass", 1),
+    "north_star_int8_m8_other": ("m8_cluster", 2),
+    "headline_int8_m8": ("m8", 1),
+    "lean_int8_m8_staged": ("m8", 1),
 }
 COLUMN_BLOCKS = 8  # the reference's certified north-star mesh: 8 shards
 TRACE_PATH = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
@@ -167,14 +180,12 @@ SWEEP_TRACE = TRACE_PATH.with_name("chip_smoke_trace_sweep.json")
 MESH_TRACE = TRACE_PATH.with_name("chip_smoke_trace_mesh.json")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # Integer/float operations per element, counted from the kernel source:
-# per row direction the deficit (3), the hash and dither (13), the
-# advance (7) and the heartbeat absorb (3); per FD element ~22. The
-# totals pass: per column of a pair 2 compares, 2 subtracts, 2 adds. The
-# pairs pull takes one advance per column pair (the receiving direction
-# and its deficit, 3; one hash and dither, 13; one advance, 7; each
-# row's absorb, 3); the m8 pull, a row a CTA, one per row direction.
-OPS_PULL, OPS_FD, OPS_TOTALS = 2 * 26, 22, 6
-OPS_PULL_LEAN = OPS_PULL - 2 * 3
+# per FD element ~22. The totals pass: per column of a pair 2 compares, 2
+# subtracts, 2 adds. Both pulls (the pairs pull, and since its redesign
+# the m8 pull in the same frame) take one advance per column pair: the
+# receiving direction and its deficit (3), one hash and dither (13), one
+# advance (7), and each row's heartbeat absorb (3).
+OPS_FD, OPS_TOTALS = 22, 6
 OPS_PAIR = 3 + 13 + 7 + 2 * 3
 OPS_PAIR_LEAN = OPS_PAIR - 2 * 3
 
@@ -204,7 +215,7 @@ def other_form(cfg):
     narrow rows' limit lifted, so the smallest cluster that lets two CTAs
     share an SM stages them). Yields that form and its cluster size. For
     timing the two forms side by side."""
-    if gossip.kernel_pull_form(cfg)[0] != "pairs_two_pass":
+    if not gossip.kernel_pull_form(cfg)[0].endswith("two_pass"):
         with two_pass_forced():
             yield gossip.kernel_pull_form(cfg)
         return
@@ -217,8 +228,11 @@ def other_form(cfg):
 
 
 def form_key(form, k, diag=False, check=False, fd=False, packed=False, lanes=False):
-    """The launch key of a pull in ``form`` on clusters of ``k``."""
-    two_pass = form == "pairs_two_pass"
+    """The launch key of a pull in ``form`` on clusters of ``k`` (an m8
+    form's: the m8 pull's)."""
+    two_pass = form.endswith("two_pass")
+    if form in gossip.M8_FORMS:
+        return m8_pull.counter_key(diag, two_pass, cluster=not two_pass and k > 1)
     return pairs_pull.counter_key(diag, check, fd, two_pass, packed, lanes=lanes,
                                   cluster=not two_pass and k > 1)
 
@@ -885,18 +899,27 @@ def two_pass_kernel_entries(dev, errs, ns_launches, ns_rounds, ns_times):
 # -- the single-pass m8 path ---------------------------------------------------
 
 
-def m8_bytes(n, n_local, wsize, hsize, *, diag, totals, reads=1):
-    """Bytes one m8 pull moves: w (and hb; ``hsize`` 0 when lean) read
-    ``reads`` times and written once, and the vectors. ``reads=1`` is
-    what the function must move (its bound); ``reads=2`` is this design's
-    traffic (each row read as itself and as its partner's peer)."""
+M8_CLUSTERS = (1, 2, 4, 8)
+
+
+def m8_bytes(n, n_local, wsize, hsize, *, diag, totals):
+    """Bytes one m8 pull must move, which this design moves (each row
+    pair read once and both output rows written once): w (and hb;
+    ``hsize`` 0 when lean) read and written once, and the vectors."""
     mat = n * n_local
-    b = (reads + 1) * mat * (wsize + hsize) + n * (4 + 4 + 1)
+    b = 2 * mat * (wsize + hsize) + n * (4 + 4 + 1)
     if totals:
         b += n * 4
     if diag:
         b += n_local * 4 * (2 if hsize else 1)
     return b
+
+
+def m8_pull_bound(n, n_local, wsize, hsize, *, diag, totals):
+    """(ms, bound by) of one m8 pull: its bytes (``m8_bytes``) and one
+    advance per column pair."""
+    return bound(m8_bytes(n, n_local, wsize, hsize, diag=diag, totals=totals),
+                 (OPS_PAIR if hsize else OPS_PAIR_LEAN) * n * n_local / 2)
 
 
 def m8_totals_bytes(n, n_local, wsize, *, diag):
@@ -906,13 +929,27 @@ def m8_totals_bytes(n, n_local, wsize, *, diag):
     return n * n_local * wsize + n * (4 + 4 + 1) + (n_local * 4 if diag else 0)
 
 
+def self_matched(gm, c):
+    """The grouped matching (gm, c) with groups 0 and 1 matched to
+    themselves (group 0's rows each to itself, group 1's rows r <-> r + 4)
+    and their old partners to each other."""
+    gm, c = gm.clone(), c.clone()
+    a, b = int(gm[0]), int(gm[1])
+    if a != 1:
+        gm[a], gm[b] = b, a
+        c[min(a, b)], c[max(a, b)] = 3, 5
+    gm[0], gm[1] = 0, 1
+    c[0], c[1] = 0, 4
+    return gm, c
+
+
 def m8_case(n, wdt, seed, dev, *, diag, lean, asymmetric=False):
     """Random operands of one m8 sub-exchange in the ranges a run sees,
     drawn on the card from ``seed``, with a tenth of the nodes dead
     (``lean``: no heartbeat matrix; ``asymmetric``: a tenth of the rows'
     valid flipped, so that some rows are valid where their partner is
-    not). Returns a factory of fresh copies of w and hb, so every version
-    starts from the same inputs."""
+    not, and groups 0 and 1 self-matched). Returns a factory of fresh
+    copies of w and hb, so every version starts from the same inputs."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def draw(lo, hi, shape):
@@ -921,7 +958,10 @@ def m8_case(n, wdt, seed, dev, *, diag, lean, asymmetric=False):
     w = draw(0, 17, (n, n)).to(wdt)
     hb = None if lean else draw(0, 40, (n, n)).to(wdt)
     alive = torch.rand(n, generator=gen, device=dev) < 0.9
-    gm, c, p = prng.grouped_matching(prng.key(seed), n)
+    gm, c, _ = prng.grouped_matching(prng.key(seed), n)
+    if asymmetric:
+        gm, c = self_matched(gm, c)
+    p = prng.rows_of_groups(gm.long(), c.long())
     shared = dict(
         gm=gm.to(dev, torch.int32), c=c.to(dev, torch.int32),
         valid=alive & alive[p.to(dev)], salt=2 * seed + 1, run_salt=0x9E3779B9,
@@ -957,9 +997,11 @@ def check_m8_kernels(dev):
     pair and per row (asymmetric: the kernel visits each pair once and
     masks each direction by its own row), also against the pairs totals,
     the same function; the pull lean and with hb, refresh on and off,
-    totals given and not (also against the staged pairs kernel on a copy
-    of the same operands, and with its inputs left untouched). Returns
-    the max_abs_err of each launch key."""
+    staged on clusters of 1, 2, 4 and 8 CTAs and fed the totals, half the
+    cases with asymmetric valid and self-matched rows, each against the
+    plain version (itself held against the pairs kernel on a copy of the
+    same operands) and with its inputs left untouched. Returns the
+    max_abs_err of each launch key."""
     errs: dict[str, float] = collections.defaultdict(float)
     for wdt in (torch.int16, torch.int32):
         for diag, asym in ((d, a) for d in (True, False) for a in (False, True)):
@@ -977,44 +1019,51 @@ def check_m8_kernels(dev):
                 f"max_abs_err={err} against the plain version and the pairs totals "
                 f"(sum {float(got.double().sum()):.0f})")
             check(err == 0.0, f"{key} disagrees")
-        for i, (lean, diag, given) in enumerate(
-            (lean, diag, given) for lean in (False, True) for diag in (True, False)
-            for given in (False, True)
-        ):
-            fresh = m8_case(N, wdt, 90 + i, dev, diag=diag, lean=lean)
-            ops = fresh()
-            tot = None
-            if given:
-                tot = m8_totals.m8_totals(ops["w"], ops["gm"], ops["c"], ops["valid"],
-                                          mv=ops.get("mv"))
-            got = call_m8(m8_pull.m8_pull, ops, totals=tot)
-            want = call_m8(m8_pull.m8_pull_plain, ops, totals=tot)
-            staged = fresh()
+        for i, (lean, diag) in enumerate((l, d) for l in (False, True) for d in (True, False)):
+            asym = i % 2 == 1
+            fresh = m8_case(N, wdt, 90 + i, dev, diag=diag, lean=lean, asymmetric=asym)
+            ops, untouched, staged = fresh(), fresh(), fresh()
+            want = call_m8(m8_pull.m8_pull_plain, ops)
             call_pull(pairs_pull.pairs_pull, staged)
-            untouched = fresh()
             torch.cuda.synchronize()
-            err = max(max_abs_err(got, want),
-                      max_abs_err(got, [staged["w"]] + ([] if lean else [staged["hb"]])))
+            check(max_abs_err(want, [staged["w"]] + ([] if lean else [staged["hb"]])) == 0.0,
+                  "the m8 plain version disagrees with the pairs kernel")
+            del staged
+            tot = m8_totals.m8_totals(ops["w"], ops["gm"], ops["c"], ops["valid"],
+                                      mv=ops.get("mv"))
+            found = []
+            for k in (*M8_CLUSTERS, None):  # None: fed the totals
+                kw = {"totals": tot} if k is None else {"cluster": k}
+                got = call_m8(m8_pull.m8_pull, ops, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                key = m8_pull.counter_key(diag, k is None, cluster=k is not None and k > 1)
+                errs[key] = max(errs[key], err)
+                found.append(f"k={k or 'totals'} {err}")
+                check(err == 0.0, f"{key} on clusters of {k} disagrees")
+                del got
             check(torch.equal(ops["w"], untouched["w"])
                   and (lean or torch.equal(ops["hb"], untouched["hb"])),
                   "the m8 pull wrote its inputs")
-            key = m8_pull.counter_key(diag, given)
-            errs[key] = max(errs[key], err)
-            log("m8", f"n={N} {wdt} {'lean' if lean else 'hb'} {key}: max_abs_err={err} "
-                "against the plain version and the staged pairs kernel")
-            check(err == 0.0, f"{key} disagrees")
-            del ops, staged, untouched, got, want
+            log("m8", f"n={N} {wdt} {'lean' if lean else 'hb'} diag={diag}"
+                f"{' asymmetric valid, self-matched rows' if asym else ''}: max_abs_err "
+                f"against the plain version (= the pairs kernel) " + ", ".join(found))
+            del ops, untouched, want, tot
     return errs
 
 
 def headline_m8(dev, card_line):
-    """Phase 9b: the headline config pinned to m8 runs to convergence
-    through the m8 pull (one launch a sub-exchange, the diagonal refresh
-    on the first) and the standalone FD kernel (one launch a round), with
-    no plain call: round 24, the pairs path's. Then 4 rounds of it equal
-    4 rounds of the pairs path on every state tensor, and the round rate
-    is timed as the pairs path's is."""
+    """Phase 9b: the headline config pinned to m8 runs to convergence in
+    its form (``RUN_FORMS``: staged by one CTA a pair, one launch a
+    sub-exchange, the diagonal refresh on the first) and the standalone
+    FD kernel (one launch a round), with no plain call: round 24, the
+    pairs path's. Then 4 rounds of it equal 4 rounds of the pairs path on
+    every state tensor, and the round rate is timed as the pairs path's
+    is. Then the same in the other form (``other_form``: two-pass, from
+    counters at 0): to convergence (24), 4 rounds equal to the pairs
+    path's, the round rate."""
     cfg = dataclasses.replace(headline_config(), pallas_variant="m8")
+    form, k = expect_form(cfg, dev, "headline_m8")
     counters.reset()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=0, device=dev)
@@ -1023,13 +1072,13 @@ def headline_m8(dev, card_line):
     run_s = time.perf_counter() - t0
     launches, plain = dict(counters.launches), dict(counters.plain_calls)
     rounds = sim.tick
-    log("headline_m8", f"pallas_variant='m8': run_until_converged -> {converged} after "
-        f"{rounds} rounds ({run_s:.2f} s incl. setup); launches {launches}; plain calls "
-        f"{plain}")
+    log("headline_m8", f"pallas_variant='m8', {form} on clusters of {k}: run_until_converged "
+        f"-> {converged} after {rounds} rounds ({run_s:.2f} s incl. setup); launches "
+        f"{launches}; plain calls {plain}")
     check(converged == CONVERGED_ROUND,
           f"headline m8 converged at {converged}, expected {CONVERGED_ROUND}")
     check(counters.kernel_launches("m8_pull") == 3 * rounds
-          and launches.get("m8_pull[diag]") == rounds and launches.get("fd") == rounds
+          and launches.get(form_key(form, k, diag=True)) == rounds and launches.get("fd") == rounds
           and counters.kernel_launches("pairs_pull") == 0 and not plain,
           "headline m8 did not run 3 m8 pulls and 1 FD kernel a round")
     m = sim.metrics()
@@ -1037,27 +1086,45 @@ def headline_m8(dev, card_line):
           and np.isfinite(float(m["mean_fraction"])) and int(m["fd_false_positives"]) >= 0,
           "headline m8 metrics disagree with the converged flag")
     del sim
-    a = Simulator(cfg, seed=0, device=dev)
-    a.run(4)
     b = Simulator(headline_config(), seed=0, device=dev)
     b.run(4)
-    torch.cuda.synchronize()
-    check(states_equal(a.state, b.state), "4 rounds of the m8 path != the pairs path")
+
+    def four_rounds_and_rate(what):
+        a = Simulator(cfg, seed=0, device=dev)
+        a.run(4)
+        torch.cuda.synchronize()
+        check(states_equal(a.state, b.state), f"4 rounds of the {what} path != the pairs path")
+        del a
+        sim = Simulator(cfg, seed=0, device=dev, chunk=16)
+        sim.run(8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(48)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 48 * 1e3
+
+    round_ms = four_rounds_and_rate("m8")
     log("headline_m8", "4 rounds: m8 path == pairs path on every state tensor")
-    del a, b
-    sim = Simulator(cfg, seed=0, device=dev, chunk=16)
-    sim.run(8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run(48)
-    torch.cuda.synchronize()
-    round_ms = (time.perf_counter() - t0) / 48 * 1e3
-    del sim
-    log("headline_m8", f"{1e3 / round_ms:.2f} rounds/s at N={N} ({round_ms:.3f} ms/round; "
-        f"{card_line})")
-    record = {"n": N, "seed": 0, "converged_round": converged, "rounds_run": rounds,
-              "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms}
-    return record, launches
+    with other_form(cfg) as (other, k_other):
+        expect_form(cfg, dev, "headline_m8_other")
+        timed = {}
+        sim, conv2, other_launches, _, _ = run_to(cfg, dev, 0, CONVERGED_ROUND,
+                                                  "headline_m8_other", timed=timed)
+        other_rounds = sim.tick
+        check(counters.kernel_launches("m8_totals") == 3 * other_rounds
+              and other_launches.get(form_key(other, k_other, diag=True)) == other_rounds,
+              "headline m8 in the other form did not take both passes a sub-exchange")
+        del sim
+        other_round_ms = four_rounds_and_rate("m8 two-pass")
+    del b
+    log("headline_m8", f"{1e3 / round_ms:.2f} rounds/s at N={N} ({round_ms:.3f} ms/round); "
+        f"the other form ({other}) converged at {conv2}, 4 rounds == the pairs path, "
+        f"{other_round_ms:.3f} ms/round; {card_line}")
+    record = {"n": N, "seed": 0, "form": form, "cluster": k, "converged_round": converged,
+              "rounds_run": rounds, "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
+              "other": {"form": other, "cluster": k_other, "converged_round": conv2,
+                        "round_ms": other_round_ms, "run_round_ms": timed["round_ms"]}}
+    return record, launches, (other_launches, other_rounds)
 
 
 def m8_subexchange(dev, sim, seed, s):
@@ -1077,36 +1144,43 @@ def m8_subexchange(dev, sim, seed, s):
     return gm, c, alive & alive[p], mv, salt, prng.run_salt(run_key)
 
 
-def check_m8_full_width(dev, sim, errs):
-    """Phase 9c: the two-pass m8 modes against their plain versions at the
-    north star's width, on its state ``FULL_WIDTH_ROUNDS`` rounds in: the
-    first sub-exchange's (refresh) and a later one's, each from the
-    state's w (the kernels never write it). Raises each launch key's
-    max_abs_err in ``errs``."""
+def check_m8_forms_full_width(dev, sim, errs, rung=""):
+    """The m8 pulls at the simulator's width in both forms, on its state:
+    the first sub-exchange of the next round (refresh) and a later one's,
+    each from the state's w (the kernels never write it) against the plain
+    version: staged on the cluster the rule takes for the width (its own
+    or its other form), and the two-pass form (the m8 totals held too).
+    Raises each launch key's max_abs_err in ``errs`` (names suffixed with
+    `` {rung}`` where given); returns the (key, max_abs_err) pairs."""
     w, budget = sim.state.w, sim.cfg.budget
-    t0 = time.perf_counter()
+    k = pairs_pull.cluster_size(w.shape[1], w.element_size())
+    sfx = f" {rung}" if rung else ""
+    found = []
     for s, diag in ((0, True), (1, False)):
         gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 8, s)
         mv = mv if diag else None
+        args = (gm, c, valid, salt, run_salt, budget)
+        wp = m8_pull.m8_pull_plain(w, None, *args, mv=mv)
+        wk = m8_pull.m8_pull(w, None, *args, mv=mv, cluster=k)
+        torch.cuda.synchronize()
+        c_key = m8_pull.counter_key(diag, cluster=k > 1) + sfx
+        found.append((c_key, max_abs_err([wk], [wp])))
+        del wk
         tk = m8_totals.m8_totals(w, gm, c, valid, mv=mv)
         tp = m8_totals.m8_totals_plain(w, gm, c, valid, mv=mv)
-        t_key = m8_totals.counter_key(diag)
-        t_err = max_abs_err([tk], [tp])
-        errs[t_key] = max(errs[t_key], t_err)
-        args = (gm, c, valid, salt, run_salt, budget)
+        found.append((m8_totals.counter_key(diag) + sfx, max_abs_err([tk], [tp])))
         wk = m8_pull.m8_pull(w, None, *args, mv=mv, totals=tk)
-        wp = m8_pull.m8_pull_plain(w, None, *args, mv=mv, totals=tp)
         torch.cuda.synchronize()
-        p_key = m8_pull.counter_key(diag, True)
-        p_err = max_abs_err([wk], [wp])
-        errs[p_key] = max(errs[p_key], p_err)
-        log("north_star_m8", f"n={w.shape[0]} sub-exchange {s}: {t_key} max_abs_err={t_err} "
-            f"(totals sum {float(tk.double().sum()):.0f}, max {float(tk.max()):.0f}); "
-            f"{p_key} max_abs_err={p_err}")
-        del wk, wp
+        found.append((m8_pull.counter_key(diag, True) + sfx, max_abs_err([wk], [wp])))
+        log("m8_full_width", f"n={w.shape[0]}{sfx} sub-exchange {s}: "
+            + ", ".join(f"{kk} max_abs_err={e}" for kk, e in found[-3:])
+            + f" (totals sum {float(tk.double().sum()):.0f}, max {float(tk.max()):.0f})")
+        del wk, wp, tk, tp
     torch.cuda.empty_cache()
-    log("north_star_m8", f"every two-pass m8 mode equals its plain version on the north "
-        f"star's state {sim.tick} rounds in ({time.perf_counter() - t0:.1f} s)")
+    for key, e in found:
+        errs[key] = max(errs[key], e)
+    check(all(e == 0.0 for _, e in found), f"an m8 pull at n={w.shape[0]}{sfx} disagrees")
+    return found
 
 
 def check_column_blocks(dev, sim, errs):
@@ -1144,21 +1218,64 @@ def check_column_blocks(dev, sim, errs):
     log("north_star_m8", f"{COLUMN_BLOCKS} column blocks of {width} owners (owner_offset "
         f"k*{width}): summed totals max_abs_err={t_err} against the whole width's; pulls "
         f"side by side max_abs_err={err} ({time.perf_counter() - t0:.1f} s)")
+    check(t_err == 0.0 and err == 0.0, "the m8 column blocks disagree with the whole width")
     del whole
     torch.cuda.empty_cache()
 
 
+def m8_form_times(w, alive, mv, budget, k, wsize, rung=""):
+    """A lean m8 round's passes at ``w``'s width by CUDA events, on the
+    same state (read only): the pull staged on clusters of ``k`` CTAs, and
+    the two-pass form's totals pass and pull fed them, each with and
+    without the refresh. Returns name -> (ms, (bound ms, bound by)) (names
+    the launch keys, suffixed with `` {rung}`` where given) and each
+    form's (ms, bound) a round (3 sub-exchanges: one with the refresh)."""
+    n = w.shape[0]
+    sfx = f" {rung}" if rung else ""
+    gm, c, _ = prng.grouped_matching(prng.key(9), n)
+    gm, c = gm.to(w.device, torch.int32), c.to(w.device, torch.int32)
+    tot = m8_totals.m8_totals(w, gm, c, alive, mv=mv)
+    args = (gm, c, alive, 1, 0x9E3779B9, budget)
+    times, per = {}, {}
+    for diag in (True, False):
+        mvk = mv if diag else None
+        for key, fn, b, form in (
+            (m8_totals.counter_key(diag),
+             lambda: m8_totals.m8_totals(w, gm, c, alive, mv=mvk),
+             bound(m8_totals_bytes(n, n, wsize, diag=diag), OPS_TOTALS * n * n / 2), "two_pass"),
+            (m8_pull.counter_key(diag, True),
+             lambda: m8_pull.m8_pull(w, None, *args, mv=mvk, totals=tot),
+             m8_pull_bound(n, n, wsize, 0, diag=diag, totals=True), "two_pass"),
+            (m8_pull.counter_key(diag, cluster=k > 1),
+             lambda: m8_pull.m8_pull(w, None, *args, mv=mvk, cluster=k),
+             m8_pull_bound(n, n, wsize, 0, diag=diag, totals=False), "staged"),
+        ):
+            times[key + sfx] = (cuda_ms(fn, 5), b)
+            per[key + sfx] = (form, 1 if diag else 2)
+    torch.cuda.synchronize()
+    rounds = {}
+    for form in ("staged", "two_pass"):
+        rounds[form] = (sum(t[0] * per[kk][1] for kk, t in times.items() if per[kk][0] == form),
+                        sum(t[1][0] * per[kk][1] for kk, t in times.items()
+                            if per[kk][0] == form))
+    return times, rounds
+
+
 def north_star_m8(dev, card_line, errs):
-    """Phase 9c-d: the north star pinned to m8, through the two-pass m8
-    form (3 m8 totals and 3 m8 pull launches a round, no plain call). It
-    runs ``FULL_WIDTH_ROUNDS`` rounds; the full-width parity and the
-    column-block checks read that state (their launches are not the
-    run's); then it runs on to convergence, which must be round 209. The
-    round rate is timed over 16 more rounds and each pass at this width
-    with CUDA events. Returns the record, the run's launches and the
-    per-key times."""
+    """Phase 9c-d: the north star pinned to m8 in its form (``RUN_FORMS``:
+    each row pair staged by a cluster of CTAs, 3 m8 pull launches a round,
+    no totals pass, no plain call). It runs ``FULL_WIDTH_ROUNDS`` rounds;
+    the m8 pulls in both forms are held against their plain versions on
+    that state and the column-block checks read it (their launches are
+    not the run's); then it runs on to convergence, which must be round
+    209. The round rate is timed over 16 more rounds and each pass at this
+    width in both forms with CUDA events. Last, the same run in the other
+    form (two-pass, from counters at 0) to 209, its wall time a round
+    beside the run's. Returns the record, the run's launches, the
+    per-key times and the other form's (launches, rounds)."""
     cfg = lean_config(NORTH_STAR_N, budget=2618, pallas_variant="m8")
     n = cfg.n_nodes
+    form, k = expect_form(cfg, dev, "north_star_m8")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
@@ -1173,7 +1290,11 @@ def north_star_m8(dev, card_line, errs):
     launches = collections.Counter(counters.launches)
     plain = collections.Counter(counters.plain_calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_m8_full_width(dev, sim, errs)
+    t1 = time.perf_counter()
+    found = check_m8_forms_full_width(dev, sim, errs)
+    log("north_star_m8", f"both forms' m8 pulls equal their plain versions on the north "
+        f"star's state {sim.tick} rounds in ({time.perf_counter() - t1:.1f} s): "
+        + ", ".join(f"{kk} {e}" for kk, e in found))
     check_column_blocks(dev, sim, errs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1188,32 +1309,26 @@ def north_star_m8(dev, card_line, errs):
     peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
     rounds = sim.tick
     log("north_star_m8", f"lean_config({n}, budget=2618, pallas_variant='m8') seed "
-        f"{NORTH_STAR_SEED}: converged at round {converged} after {rounds} rounds in "
-        f"{run_s:.2f} s of rounds (init {init_s:.2f} s); launches {launches}; plain calls "
-        f"{plain}; refusals {dict(counters.refusals)}")
+        f"{NORTH_STAR_SEED}, {form} on clusters of {k}: converged at round {converged} after "
+        f"{rounds} rounds in {run_s:.2f} s of rounds (init {init_s:.2f} s); launches "
+        f"{launches}; plain calls {plain}; refusals {dict(counters.refusals)}")
     check(converged == NORTH_STAR_ROUND,
           f"north star m8 converged at {converged}, expected {NORTH_STAR_ROUND}")
 
     def total(kernel):
-        return sum(v for k, v in launches.items() if k.startswith(kernel + "["))
+        return sum(v for kk, v in launches.items() if kk.startswith(kernel + "["))
 
-    check(total("m8_totals") == 3 * rounds and total("m8_pull") == 3 * rounds
-          and launches.get("m8_totals[diag]") == rounds
-          and launches.get("m8_pull[totals+diag]") == rounds
+    check(total("m8_totals") == 0 and total("m8_pull") == 3 * rounds
+          and launches.get(form_key(form, k, diag=True)) == rounds
           and total("pairs_pull") == 0 and not plain and not counters.refusals,
-          "the north star m8 did not run every sub-exchange through both m8 kernels")
+          "the north star m8 did not run every sub-exchange as one m8 pull launch")
     m = sim.metrics()
     check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
           and np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == n,
           "north-star m8 metrics disagree with the converged flag")
 
     win = 16
-    sim.run(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run(win)
-    torch.cuda.synchronize()
-    round_ms = (time.perf_counter() - t0) / win * 1e3
+    round_ms = round_rate(sim, win)
     # A tracked round on this path also takes the plain convergence flag
     # (the reference's m8 path does too): its cost, and a chunk's.
     flag_ms = cuda_ms(lambda: gossip.all_converged_flag(sim.state), 3, 1)
@@ -1225,61 +1340,73 @@ def north_star_m8(dev, card_line, errs):
         f"round's flag on this path); the converged check at a run's start "
         f"(convergence_metrics) {metrics_ms:.1f} ms")
 
-    # Each pass at this width, on the converged state (read only).
-    w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
-    gm, c, _ = prng.grouped_matching(prng.key(9), n)
-    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
-    tot = m8_totals.m8_totals(w, gm, c, alive, mv=mv)
-    times = {}
-    for diag in (True, False):
-        mvk = mv if diag else None
-        t_bound = bound(m8_totals_bytes(n, n, 2, diag=diag), OPS_TOTALS * n * n / 2)
-        times[m8_totals.counter_key(diag)] = (  # its traffic is its bound
-            cuda_ms(lambda: m8_totals.m8_totals(w, gm, c, alive, mv=mvk), 10),
-            t_bound, t_bound,
-        )
-        times[m8_pull.counter_key(diag, True)] = (
-            cuda_ms(lambda: m8_pull.m8_pull(w, None, gm, c, alive, 1, 0x9E3779B9,
-                                            cfg.budget, mv=mvk, totals=tot), 10),
-            bound(m8_bytes(n, n, 2, 0, diag=diag, totals=True), OPS_PULL_LEAN * n * n / 2),
-            bound(m8_bytes(n, n, 2, 0, diag=diag, totals=True, reads=2),
-                  OPS_PULL_LEAN * n * n / 2),
-        )
-    torch.cuda.synchronize()
-    del sim, w, tot
+    # Each pass at this width in both forms, on the converged state.
+    times, form_rounds = m8_form_times(sim.state.w, sim.state.alive, sim.state.max_version,
+                                       cfg.budget, k, 2)
+    del sim
     torch.cuda.empty_cache()
-    # A round: one totals pass and one pull with the refresh, two of each
-    # without.
-    per_round = {k: (1 if "diag" in k else 2) for k in times}
-    per_round_ms = sum(per_round[k] * t[0] for k, t in times.items())
-    per_round_bound = sum(per_round[k] * t[1][0] for k, t in times.items())
-    per_round_design = sum(per_round[k] * t[2][0] for k, t in times.items())
+    # The same run in the other form, from counters at 0, stepped as the
+    # run above is (``FULL_WIDTH_ROUNDS`` untracked rounds, then tracked
+    # ones), so that the two whole runs' ms a round compare.
+    with other_form(cfg) as (other, k_other):
+        expect_form(cfg, dev, "north_star_m8_other")
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(FULL_WIDTH_ROUNDS)
+        conv2 = sim.run_until_converged(max_rounds=400)
+        torch.cuda.synchronize()
+        run2_s = time.perf_counter() - t0
+        rounds2 = sim.tick
+        other_launches = dict(counters.launches)
+        check(conv2 == NORTH_STAR_ROUND and not counters.plain_calls
+              and counters.kernel_launches("m8_totals") == 3 * rounds2
+              and counters.kernel_launches("m8_pull") == 3 * rounds2
+              and other_launches.get(form_key(other, k_other, diag=True)) == rounds2,
+              f"the north star m8 in the other form converged at {conv2} or did not take "
+              "both passes a sub-exchange")
+        other_round_ms = round_rate(sim, win)
+        peak2 = torch.cuda.max_memory_allocated() / 1e9
+    log("north_star_m8_other", f"{other}: converged at round {conv2} after {rounds2} rounds in "
+        f"{run2_s:.2f} s of rounds; launches {other_launches}")
+    del sim
+    torch.cuda.empty_cache()
+    (k_ms, k_bound), (t_ms, t_bound) = form_rounds["staged"], form_rounds["two_pass"]
     log("north_star_m8", f"{1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} ms/round over {win} "
-        f"untracked rounds); run {rounds / run_s:.3f} rounds/s; kernels "
-        f"{per_round_ms:.3f} ms/round by CUDA events against the function's "
-        f"{per_round_bound:.3f} ms bound ({per_round_bound / per_round_ms:.1%}) and this "
-        f"design's {per_round_design:.3f} ms of traffic ({per_round_design / per_round_ms:.1%})"
-        f"; peak memory {peak_gb:.2f} GB while running; {card_line}")
-    for key, (ms, (b_ms, b_by), (d_ms, _)) in times.items():
-        log("north_star_m8", f"{key} at n={n}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-            f"this design's traffic {d_ms:.4f} ms)")
+        f"untracked rounds; the other form, {other}, {other_round_ms:.3f}); whole run "
+        f"{run_s / rounds * 1e3:.3f} ms a round ({FULL_WIDTH_ROUNDS} untracked rounds, then "
+        f"tracked ones taking the plain flag), the other form's {run2_s / rounds2 * 1e3:.3f}; "
+        "kernels by CUDA "
+        f"events: {k_ms:.3f} ms a round on clusters of {k} against a {k_bound:.3f} ms bound "
+        f"({k_bound / k_ms:.1%}), the two-pass form {t_ms:.3f} against {t_bound:.3f} "
+        f"({t_bound / t_ms:.1%}); peak memory {peak_gb:.2f} GB (the two-pass run "
+        f"{peak2:.2f}); {card_line}")
+    for key, (ms, (b_ms, b_by)) in times.items():
+        log("north_star_m8", f"{key} at n={n}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by})")
     record = {
-        "n": n, "seed": NORTH_STAR_SEED, "converged_round": converged,
-        "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
-        "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
-        "kernel_ms_per_round": per_round_ms, "bound_ms_per_round": per_round_bound,
-        "design_bound_ms_per_round": per_round_design, "peak_memory_gb": peak_gb,
+        "n": n, "seed": NORTH_STAR_SEED, "form": form, "cluster": k,
+        "converged_round": converged, "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
+        "run_round_ms": run_s / rounds * 1e3, "round_ms": round_ms,
+        "rounds_per_s": 1e3 / round_ms,
+        "kernel_ms_per_round": k_ms, "bound_ms_per_round": k_bound, "peak_memory_gb": peak_gb,
         "flag_ms": flag_ms, "metrics_ms": metrics_ms,
+        "other": {"form": other, "cluster": k_other, "converged_round": conv2,
+                  "run_round_ms": run2_s / rounds2 * 1e3, "round_ms": other_round_ms,
+                  "kernel_ms_per_round": t_ms, "bound_ms_per_round": t_bound,
+                  "peak_memory_gb": peak2},
     }
-    return record, launches, times
+    return record, launches, times, (other_launches, rounds2)
 
 
 def i16_experiment(dev):
     """Phase 9e: the reference's int16 experiment on Hopper. Its inputs
     (N = 10,240, w in [0, 2000), hb in [0, 500), everyone alive, budget
     2618; from a numpy seed), the m8 pull's int16 variants against the
-    int32 kernel (bit-exact) and its plain version, then each timed as
-    the experiment's ``main()`` times them: 64 chained calls, best of 2,
+    int32 kernel (bit-exact) and its plain version, on clusters of 1, 2,
+    4 and 8 CTAs, then each timed as the experiment's ``main()`` times
+    them (in the rule's form at this width): 64 chained calls, best of 2,
     the variants in turns. Returns {arith: (ms, max_abs_err)}."""
     rng = np.random.default_rng(0)
     w0 = torch.from_numpy(rng.integers(0, 2000, (N, N), dtype=np.int16)).to(dev)
@@ -1292,12 +1419,15 @@ def i16_experiment(dev):
     torch.cuda.synchronize()
     errs = {"i32": max_abs_err(list(ref), list(plain))}
     for arith in ("i16", "i16_f32"):
-        out = m8_pull.m8_pull(w0, hb0, *args, arith=arith)
-        torch.cuda.synchronize()
-        errs[arith] = max_abs_err(list(out), list(ref))
-        log("i16", f"variant {arith}: max_abs_err={errs[arith]} against the int32 kernel")
+        errs[arith] = 0.0
+        for k in M8_CLUSTERS:
+            out = m8_pull.m8_pull(w0, hb0, *args, arith=arith, cluster=k)
+            torch.cuda.synchronize()
+            errs[arith] = max(errs[arith], max_abs_err(list(out), list(ref)))
+            del out
+        log("i16", f"variant {arith} on clusters of {M8_CLUSTERS}: max_abs_err={errs[arith]} "
+            "against the int32 kernel")
         check(errs[arith] == 0.0, f"the {arith} variant is not bit-exact")
-        del out
     del ref, plain
 
     def chained(arith):
@@ -1317,30 +1447,32 @@ def i16_experiment(dev):
     return {a: (best[a], errs[a]) for a in best}
 
 
-def m8_kernel_entries(dev, errs, head_launches, head_rounds, ns_launches, ns_rounds,
-                      ns_times, experiment):
+def m8_kernel_entries(dev, errs, head, ns, ns_times, experiment):
     """The kernel-line entries of the m8 path: the headline's staged modes
-    (with hb) and the north star's two-pass modes (lean), each timed at
-    N = 10,240 beside its plain version, its bound (the bytes the
-    function must move) and this design's traffic; the north star's modes
-    also at its width (``ns_times``); launches and launches a round from
-    the runs (each must be > 0). The int16 variants ride the entry of the
-    mode they run in."""
+    (with hb; one CTA a pair), the north star's cluster modes (lean, on
+    its clusters) and the two-pass modes (lean; the north star's other
+    form), each timed at N = 10,240 beside its plain version and its
+    bound (the bytes the function must move, which this design moves);
+    the north star's modes also at its width (``ns_times``); launches and
+    launches a round from the runs (``head`` and ``ns``: name ->
+    (launches, rounds); each must be > 0). The int16 variants ride the
+    entry of the mode they run in."""
     entries = []
 
-    def entry(key, kernel, line, launches, rounds, ms, plain_ms, b, d, **extra):
-        check(launches.get(key, 0) > 0, f"{key} was not launched on its path")
-        log("time", f"{key}: {ms:.4f} ms at n={N} (bound {b[0]:.4f} ms by {b[1]}; this "
-            f"design's traffic {d[0]:.4f} ms; plain {plain_ms:.3f} ms)"
+    def entry(key, kernel, line, run, ms, plain_ms, b, **extra):
+        launches, rounds = (head if run.startswith("headline") else ns)[run]
+        check(launches.get(key, 0) > 0, f"{key} was not launched on {run}")
+        log("time", f"{key}: {ms:.4f} ms at n={N} (bound {b[0]:.4f} ms by {b[1]}; plain "
+            f"{plain_ms:.3f} ms)"
             + ("" if "ms_main" not in extra else
                f"; {extra['ms_main']:.4f} ms at n={NORTH_STAR_N} (bound "
-               f"{extra['bound_ms_main']:.4f} ms)"))
+               f"{extra['bound_ms_main']:.4f} ms)") + f"; {launches[key]} launches on {run}")
         return dict(
             name=key, route="cuda", source=f"aiocluster_torch/ops/csrc/{kernel}.cu",
             replaces=f"aiocluster_tpu/ops/pallas_pull.py:{line}",
             launches=launches[key], launches_per_round=launches[key] / rounds,
             max_abs_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-            bound_by=b[1], library_ms=None, design_bound_ms=d[0], n=N, **extra,
+            bound_by=b[1], library_ms=None, path=run, n=N, **extra,
         )
 
     for i, diag in enumerate((True, False)):
@@ -1349,7 +1481,7 @@ def m8_kernel_entries(dev, errs, head_launches, head_rounds, ns_launches, ns_rou
         plain_ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull_plain, ops), 3, 1)
         del ops
         key = m8_pull.counter_key(diag)
-        extra = dict(path="headline_m8")
+        extra = {}
         if not diag:  # the experiment's mode
             extra["ms_chained"] = experiment["i32"][0]
             extra["variants"] = {
@@ -1357,40 +1489,36 @@ def m8_kernel_entries(dev, errs, head_launches, head_rounds, ns_launches, ns_rou
                         replaces="benchmarks/records/_i16_kernel_experiment.py:43")
                 for a, (t, e) in experiment.items() if a != "i32"
             }
-        entries.append(entry(
-            key, "m8_pull", 263, head_launches, head_rounds, ms, plain_ms,
-            bound(m8_bytes(N, N, 2, 2, diag=diag, totals=False), OPS_PULL * N * N / 2),
-            bound(m8_bytes(N, N, 2, 2, diag=diag, totals=False, reads=2),
-                  OPS_PULL * N * N / 2),
-            **extra,
-        ))
+        entries.append(entry(key, "m8_pull", 263, "headline_m8", ms, plain_ms,
+                             m8_pull_bound(N, N, 2, 2, diag=diag, totals=False), **extra))
+    k = RUN_FORMS["north_star_m8"][1]
     for i, diag in enumerate((True, False)):
         ops = m8_case(N, torch.int16, 110 + i, dev, diag=diag, lean=True)()
         targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
         mv = ops.get("mv")
         tot = m8_totals.m8_totals(*targs, mv=mv)
-        t_bound = bound(m8_totals_bytes(N, N, 2, diag=diag), OPS_TOTALS * N * N / 2)
-        for key, kernel, line, fn, plain_fn, b, d in (
-            (m8_totals.counter_key(diag), "m8_totals", 374,
+        for key, kernel, line, run, fn, plain_fn, b in (
+            (m8_pull.counter_key(diag, cluster=k > 1), "m8_pull", 263, "north_star_m8",
+             lambda: call_m8(m8_pull.m8_pull, ops, cluster=k),
+             lambda: call_m8(m8_pull.m8_pull_plain, ops),
+             m8_pull_bound(N, N, 2, 0, diag=diag, totals=False)),
+            (m8_totals.counter_key(diag), "m8_totals", 374, "north_star_m8_other",
              lambda: m8_totals.m8_totals(*targs, mv=mv),
              lambda: m8_totals.m8_totals_plain(*targs, mv=mv),
-             t_bound, t_bound),
-            (m8_pull.counter_key(diag, True), "m8_pull", 263,
+             bound(m8_totals_bytes(N, N, 2, diag=diag), OPS_TOTALS * N * N / 2)),
+            (m8_pull.counter_key(diag, True), "m8_pull", 263, "north_star_m8_other",
              lambda: call_m8(m8_pull.m8_pull, ops, totals=tot),
              lambda: call_m8(m8_pull.m8_pull_plain, ops, totals=tot),
-             bound(m8_bytes(N, N, 2, 0, diag=diag, totals=True), OPS_PULL_LEAN * N * N / 2),
-             bound(m8_bytes(N, N, 2, 0, diag=diag, totals=True, reads=2),
-                   OPS_PULL_LEAN * N * N / 2)),
+             m8_pull_bound(N, N, 2, 0, diag=diag, totals=True)),
         ):
             ms = cuda_ms(fn, 20)
             plain_ms = cuda_ms(plain_fn, 3, 1)
-            ms_main, b_main, d_main = ns_times[key]
-            entries.append(entry(
-                key, kernel, line, ns_launches, ns_rounds, ms, plain_ms, b, d,
-                path="north_star_m8", n_main=NORTH_STAR_N, ms_main=ms_main,
-                bound_ms_main=b_main[0], design_bound_ms_main=d_main[0],
-                parity_n=[N, NORTH_STAR_N],
-            ))
+            ms_main, b_main = ns_times[key]
+            extra = dict(n_main=NORTH_STAR_N, ms_main=ms_main, bound_ms_main=b_main[0],
+                         parity_n=[N, NORTH_STAR_N])
+            if run == "north_star_m8":
+                extra["cluster"] = k
+            entries.append(entry(key, kernel, line, run, ms, plain_ms, b, **extra))
         del ops, tot
     return entries
 
@@ -1533,24 +1661,27 @@ def check_ladder_kernels(dev):
             log("ladder", f"n={N} {key}: max_abs_err={errs[key]} "
                 f"(sum {float(got.double().sum()):.0f})")
             check(errs[key] == 0.0, f"{key} disagrees")
-    for hdt, diag, given in ((h, d, g) for h in (None, torch.int8) for d in (True, False)
-                             for g in (False, True)):
-        ops = ladder_case(N, 240 + diag + 2 * given, dev, wdt=torch.int8, hdt=hdt, diag=diag,
-                          check=False, fd=False, hb0=False)()
-        tot = None
-        if given:
-            targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
-            tot = m8_totals.m8_totals(*targs, mv=ops.get("mv"))
-            t_want = m8_totals.m8_totals_plain(*targs, mv=ops.get("mv"))
-            t_key = f"{m8_totals.counter_key(diag)} int8"
-            errs[t_key] = max(errs[t_key], max_abs_err([tot], [t_want]))
-        got = call_m8(m8_pull.m8_pull, ops, totals=tot)
-        want = call_m8(m8_pull.m8_pull_plain, ops, totals=tot)
-        torch.cuda.synchronize()
-        key = f"{m8_pull.counter_key(diag, given)} int8{'' if hdt is None else '+hb'}"
-        errs[key] = max(errs[key], max_abs_err(got, want))
-        log("ladder", f"n={N} {key}: max_abs_err={errs[key]}")
-        check(errs[key] == 0.0, f"{key} disagrees")
+    for hdt, diag in ((h, d) for h in (None, torch.int8) for d in (True, False)):
+        ops = ladder_case(N, 240 + diag + 2 * (hdt is None), dev, wdt=torch.int8, hdt=hdt,
+                          diag=diag, check=False, fd=False, hb0=False)()
+        targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
+        tot = m8_totals.m8_totals(*targs, mv=ops.get("mv"))
+        t_want = m8_totals.m8_totals_plain(*targs, mv=ops.get("mv"))
+        t_key = f"{m8_totals.counter_key(diag)} int8"
+        errs[t_key] = max(errs[t_key], max_abs_err([tot], [t_want]))
+        want = call_m8(m8_pull.m8_pull_plain, ops)
+        # Staged by one CTA (the 10,240-wide rule's), on the int8 north
+        # star's cluster (its other form's), and fed the totals.
+        for k in (1, pairs_pull.cluster_size(NORTH_STAR_N, 1), None):
+            got = call_m8(m8_pull.m8_pull, ops, **({"totals": tot} if k is None else
+                                                    {"cluster": k}))
+            torch.cuda.synchronize()
+            key = (f"{m8_pull.counter_key(diag, k is None, cluster=k is not None and k > 1)} "
+                   f"int8{'' if hdt is None else '+hb'}")
+            errs[key] = max(errs[key], max_abs_err(got, want))
+            log("ladder", f"n={N} {key}: max_abs_err={errs[key]}")
+            check(errs[key] == 0.0, f"{key} disagrees")
+            del got
     ops = ladder_case(N, 250, dev, wdt=torch.int8, hdt=torch.int8, diag=False, check=False,
                       fd=True, hb0=True)()
     f = ops["fd"]
@@ -1667,8 +1798,9 @@ def check_ladder_full_width(dev, errs):
     both forms (the run's and ``other_form``), against the plain versions,
     on an early state (at convergence every deficit is 0, which would
     prove little): the lean int8 north star's state ``FULL_WIDTH_ROUNDS``
-    rounds in (rows of 100,352 bytes): the m8 pull in both modes from that
-    state, then one round of pairs pulls chained in each form; the full
+    rounds in (rows of 100,352 bytes): the m8 pulls in both forms and
+    modes from that state, then one round of pairs pulls chained in each
+    form; the full
     deep and shrunk rungs at N = 49,152, ``FULL_CHECK_ROUNDS`` rounds in:
     one round chained in each form, the last with the fused FD epilogue
     on the int8 counters and the live bitmap (last_change, imean, icount
@@ -1678,19 +1810,7 @@ def check_ladder_full_width(dev, errs):
     cfg = lean_config(NORTH_STAR_N, "int8", budget=2618)
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
     sim.run(FULL_WIDTH_ROUNDS)
-    found = []
-    for s, diag in ((0, True), (1, False)):
-        gm, c, valid, mv, salt, run_salt = m8_subexchange(dev, sim, 8, s)
-        args = (sim.state.w, None, gm, c, valid, salt, run_salt, cfg.budget)
-        wk = m8_pull.m8_pull(*args, mv=mv if diag else None)
-        wp = m8_pull.m8_pull_plain(*args, mv=mv if diag else None)
-        torch.cuda.synchronize()
-        key = f"{m8_pull.counter_key(diag)} int8"
-        err = max_abs_err([wk], [wp])
-        errs[key] = max(errs[key], err)
-        found.append((key, err))
-        del wk, wp
-    torch.cuda.empty_cache()
+    found = check_m8_forms_full_width(dev, sim, errs, "int8")
     found += chained_round_check(dev, sim, "int8", errs)
     with other_form(cfg):  # the other form's launches at this width too
         found += chained_round_check(dev, sim, "int8", errs, seed=9)
@@ -1786,10 +1906,11 @@ def lean_int8_north_star(dev, card_line):
     the same run in the other form (``other_form``, from counters at 0),
     stepped 20 rounds at a time with the share of zero deficits counted
     on a sample of row pairs at each step (how much a skip of zero
-    deficits could save), to 209; then pinned to m8 (staged m8 pulls and
-    the plain flag, as in the reference): round 209 again. Each path's
-    pulls are timed at this width on the converged state, the pairs path
-    in both forms."""
+    deficits could save), to 209; then pinned to m8 in its form (the m8
+    totals and the pull fed them, and the plain flag, as in the
+    reference): round 209 again, and again in the other form (a cluster
+    of CTAs a pair). Each path's passes are timed at this width on the
+    converged state in both forms."""
     cfg = lean_config(NORTH_STAR_N, "int8", budget=2618)
     form, k = expect_form(cfg, dev, "north_star_int8")
     two_pass = form == "pairs_two_pass"
@@ -1859,35 +1980,59 @@ def lean_int8_north_star(dev, card_line):
         f"{peak:.2f} GB; passes at n={NORTH_STAR_N}: "
         + ", ".join(f"{kk} {v[1]:.4f} ms" for kk, v in times.items()) + f"; {card_line}")
 
-    gm, c, _ = prng.grouped_matching(prng.key(9), NORTH_STAR_N)
-    gm, c = gm.to(dev, torch.int32), c.to(dev, torch.int32)
     m8_cfg = dataclasses.replace(cfg, pallas_variant="m8")
-    check(gossip.pull_phase_engaged(m8_cfg, dev) == "m8", "int8 north star m8 is not staged")
+    form8, k8 = expect_form(m8_cfg, dev, "north_star_int8_m8")
+    timed8 = {}
     sim, conv8, launches8, run8_s, peak8 = run_to(m8_cfg, dev, NORTH_STAR_SEED,
-                                                  LADDER_NS_ROUND, "north_star_int8_m8")
-    check(counters.kernel_launches("m8_pull") == 3 * sim.tick
-          and launches8.get("m8_pull[diag]") == sim.tick,
-          "the int8 north star m8 did not run 3 m8 pulls a round")
-    round8_ms = round_rate(sim)
-    w, alive, mv = sim.state.w, sim.state.alive, sim.state.max_version
-    for diag in (True, False):
-        times[f"{m8_pull.counter_key(diag)} int8"] = (NORTH_STAR_N, cuda_ms(
-            lambda: m8_pull.m8_pull(w, None, gm, c, alive, 1, 0x9E3779B9, cfg.budget,
-                                    mv=mv if diag else None), 10),
-            bound(m8_bytes(NORTH_STAR_N, NORTH_STAR_N, 1, 0, diag=diag, totals=False),
-                  OPS_PULL_LEAN * NORTH_STAR_N * NORTH_STAR_N / 2))
+                                                  LADDER_NS_ROUND, "north_star_int8_m8",
+                                                  timed=timed8)
     rounds8 = sim.tick
-    del sim, w
+    two8 = form8 == "m8_two_pass"
+    check(counters.kernel_launches("m8_pull") == 3 * rounds8
+          and counters.kernel_launches("m8_totals") == (3 * rounds8 if two8 else 0)
+          and launches8.get(form_key(form8, k8, diag=True)) == rounds8,
+          "the int8 north star m8 did not run its form's launches a sub-exchange")
+    round8_ms = round_rate(sim)
+    k8_staged = pairs_pull.cluster_size(NORTH_STAR_N, 1)
+    m8_times, m8_rounds = m8_form_times(sim.state.w, sim.state.alive, sim.state.max_version,
+                                        cfg.budget, k8_staged, 1, "int8")
+    times.update({key: (NORTH_STAR_N, *t) for key, t in m8_times.items()})
+    del sim
     torch.cuda.empty_cache()
-    record_m8 = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, converged_round=conv8,
-                     rounds_run=rounds8, run_s=run8_s, round_ms=round8_ms,
-                     rounds_per_s=1e3 / round8_ms, peak_memory_gb=peak8)
-    log("north_star_int8_m8", f"{1e3 / round8_ms:.3f} rounds/s ({round8_ms:.3f} ms/round); "
-        f"peak memory {peak8:.2f} GB; m8 pulls at n={NORTH_STAR_N}: "
-        + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in times.items() if k.startswith("m8"))
+    with other_form(m8_cfg) as (other8, k_other8):
+        expect_form(m8_cfg, dev, "north_star_int8_m8_other")
+        timed8o = {}
+        sim, conv8o, launches8o, _, _ = run_to(m8_cfg, dev, NORTH_STAR_SEED, LADDER_NS_ROUND,
+                                               "north_star_int8_m8_other", timed=timed8o)
+        rounds8o = sim.tick
+        check(counters.kernel_launches("m8_pull") == 3 * rounds8o
+              and launches8o.get(form_key(other8, k_other8, diag=True)) == rounds8o,
+              "the int8 north star m8 in the other form did not take its launches")
+        round8o_ms = round_rate(sim)
+    del sim
+    torch.cuda.empty_cache()
+    staged8, two8r = m8_rounds["staged"], m8_rounds["two_pass"]
+    mine8, theirs8 = (two8r, staged8) if two8 else (staged8, two8r)
+    record_m8 = dict(n=NORTH_STAR_N, seed=NORTH_STAR_SEED, form=form8, cluster=k8,
+                     converged_round=conv8, rounds_run=rounds8, run_s=run8_s,
+                     run_round_ms=timed8["round_ms"], round_ms=round8_ms,
+                     rounds_per_s=1e3 / round8_ms, peak_memory_gb=peak8,
+                     kernel_ms_per_round=mine8[0], bound_ms_per_round=mine8[1],
+                     other=dict(form=other8, cluster=k_other8, converged_round=conv8o,
+                                run_round_ms=timed8o["round_ms"], round_ms=round8o_ms,
+                                kernel_ms_per_round=theirs8[0], bound_ms_per_round=theirs8[1]))
+    log("north_star_int8_m8", f"{form8}: {1e3 / round8_ms:.3f} rounds/s ({round8_ms:.3f} "
+        f"ms/round over 16 untracked rounds; in the other form, {other8} on clusters of "
+        f"{k_other8}, {round8o_ms:.3f}); whole run {timed8['round_ms']:.3f} ms a round (every "
+        f"round tracked, taking the plain flag), in the other form {timed8o['round_ms']:.3f}; "
+        "kernels a round by "
+        f"CUDA events: two-pass {two8r[0]:.3f} ms (bound {two8r[1]:.3f}), on clusters of "
+        f"{k8_staged} {staged8[0]:.3f} (bound {staged8[1]:.3f}); peak memory {peak8:.2f} GB; "
+        f"m8 passes at n={NORTH_STAR_N}: "
+        + ", ".join(f"{kk} {v[0]:.4f} ms (bound {v[1][0]:.4f})" for kk, v in m8_times.items())
         + f"; {card_line}")
     return ((record, launches, rounds), (record_m8, launches8, rounds8), times,
-            (other_launches, other_rounds))
+            (other_launches, other_rounds), (launches8o, rounds8o))
 
 
 def residual_errs(w16, mv, w_u4) -> float:
@@ -2138,16 +2283,21 @@ def full_ladder(dev, card_line):
         fp = int(sim.metrics()["fd_false_positives"])
         rung_times = full_pull_times(sim, rung, dev)
         times.update(rung_times)
+        staged_bound, two_pass_bound = full_round_bounds(FULL_N, rung)
+        bounds = {"pairs_two_pass": two_pass_bound}
         records[rung] = dict(n=FULL_N, seed=NORTH_STAR_SEED, form=form, cluster=k,
                              converged_round=conv,
                              rounds_run=rounds, run_s=run_s, round_ms=round_ms,
                              rounds_per_s=1e3 / round_ms, peak_memory_gb=peak,
                              fd_false_positives=fp,
-                             other=dict(form=other, cluster=k_other, round_ms=other_round_ms))
+                             bound_ms_per_round=bounds.get(form, staged_bound),
+                             other=dict(form=other, cluster=k_other, round_ms=other_round_ms,
+                                        bound_ms_per_round=bounds.get(other, staged_bound)))
         all_launches[rung] = (launches, rounds)
         log(what, f"{form} on clusters of {k}: {1e3 / round_ms:.3f} rounds/s ({round_ms:.3f} "
-            f"ms/round; the other form, {other} on clusters of {k_other}, {other_round_ms:.3f}); "
-            "peak memory "
+            f"ms/round; the other form, {other} on clusters of {k_other}, {other_round_ms:.3f}; "
+            f"the kernels' bound a round {staged_bound:.3f} ms staged, {two_pass_bound:.3f} "
+            "two-pass); peak memory "
             f"{peak:.2f} GB; FD false positives {fp}; pulls at n={FULL_N}: "
             + ", ".join(f"{k} {v[1]:.4f} ms" for k, v in rung_times.items())
             + f"; {card_line}")
@@ -2204,14 +2354,14 @@ def int8_side_paths(dev, card_line):
     deep and shrunk rungs through the pairs totals pass and the pull's
     totals mode with the fused FD (round 24; fanout 1: as staged).
     Each rung's run staged by one CTA a pair at this width first (lean
-    int8 and u4r, deep and shrunk). Returns each run's (launches, rounds)
-    by name."""
+    int8 and u4r, pinned to m8 the lean int8, deep and shrunk). Returns
+    each run's (launches, rounds) by name."""
     runs = {}
     cfg = full_config(N, "deep", budget=2618, icount_dtype="int16", live_bits=False,
                       pallas_variant="m8")
-    check(gossip.pull_phase_engaged(cfg, dev) == "m8"
-          and gossip.fd_phase_engaged(cfg, dev) == "kernel",
-          "the int8 m8 headline does not take the m8 and FD kernels")
+    expect_form(cfg, dev, "headline_int8_m8")
+    check(gossip.fd_phase_engaged(cfg, dev) == "kernel",
+          "the int8 m8 headline does not take the FD kernel")
     sim, _, launches, _, _ = run_to(cfg, dev, 0, CONVERGED_ROUND, "headline_int8_m8")
     check(launches.get("fd") == sim.tick and counters.kernel_launches("m8_pull") == 3 * sim.tick,
           "the int8 m8 headline did not run 3 m8 pulls and 1 FD kernel a round")
@@ -2221,6 +2371,7 @@ def int8_side_paths(dev, card_line):
     # modes' path (their full-width runs take other forms).
     for name, c0, want in (
         ("lean_int8_staged", lean_config(N, "int8", budget=2618), None),
+        ("lean_int8_m8_staged", lean_config(N, "int8", budget=2618, pallas_variant="m8"), None),
         ("lean_u4r_staged", lean_config(N, "u4r", budget=2618), None),
         ("deep_staged", full_config(N, "deep", budget=2618), CONVERGED_ROUND),
         ("shrunk_staged", full_config(N, "shrunk", budget=2618), CONVERGED_ROUND),
@@ -2276,6 +2427,19 @@ def ladder_pull_bound(n, rung, m, totals):
                    hb0=m["hb0"], icsize=icsize, livesize=livesize, totals=totals)
     ops = (OPS_PAIR if hsize else OPS_PAIR_LEAN) + (2 * OPS_FD if m["fd"] else 0)
     return bound(b, ops * n * n / 2)
+
+
+def full_round_bounds(n, rung):
+    """The bound of a full-profile round's kernels (3 sub-exchanges: the
+    refresh, a middle one, the check with the fused FD reading hb0) in
+    ms, computed from the shapes: (staged, two-pass), the two-pass form
+    adding its totals passes (one with the refresh)."""
+    wsize = {"deep": 1, "shrunk": 2, "full int16": 2}[rung]
+    modes = [LADDER_MODES[m] for m in ("first", "middle", "last_fd")]
+    totals = sum(bound(totals_bytes(n, wsize, diag=diag), OPS_TOTALS * n * n / 2)[0]
+                 for diag in (True, False, False))
+    return (sum(ladder_pull_bound(n, rung, m, False)[0] for m in modes),
+            totals + sum(ladder_pull_bound(n, rung, m, True)[0] for m in modes))
 
 
 def ladder_entries(dev, errs, runs, main_times):
@@ -2354,27 +2518,26 @@ def ladder_entries(dev, errs, runs, main_times):
                       OPS_TOTALS * N * N / 2),
             ))
     m8_line = "aiocluster_tpu/ops/pallas_pull.py:263"
-    for hdt, given, diag in ((h, g, d) for h in (None, torch.int8) for g in (False, True)
-                             for d in (True, False)):
-        if hdt is not None and given:
-            continue  # the two-pass m8 form runs the lean profile here
+    k_int8 = RUN_FORMS["north_star_int8_m8_other"][1]
+    # (hb dtype, form: a cluster size or None fed the totals, run of its path)
+    m8_modes = ((torch.int8, 1, "headline_int8_m8"), (None, 1, "lean_int8_m8_staged"),
+                (None, k_int8, "north_star_int8_m8_other"), (None, None, "north_star_int8_m8"))
+    for (hdt, k, run), diag in ((m, d) for m in m8_modes for d in (True, False)):
+        given = k is None
         ops = ladder_case(N, 330 + diag + 2 * given, dev, wdt=torch.int8, hdt=hdt, diag=diag,
                           check=False, fd=False, hb0=False)()
         targs = (ops["w"], ops["gm"], ops["c"], ops["valid"])
         tot = m8_totals.m8_totals(*targs, mv=ops.get("mv")) if given else None
-        ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull, ops, totals=tot), 20)
+        kw = {"totals": tot} if given else {"cluster": k}
+        ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull, ops, **kw), 20)
         plain_ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull_plain, ops, totals=tot), 3, 1)
-        key = m8_pull.counter_key(diag, given)
+        key = m8_pull.counter_key(diag, given, cluster=not given and k > 1)
         name = f"{key} int8{'' if hdt is None else '+hb'}"
-        run = ("two_pass_int8_m8" if given else "north_star_int8_m8") if hdt is None else (
-            "headline_int8_m8")
         hsize = 0 if hdt is None else 1
         entries.append(entry(
             name, "m8_pull", m8_line, run, key, ms, plain_ms,
-            bound(m8_bytes(N, N, 1, hsize, diag=diag, totals=given),
-                  (OPS_PULL if hsize else OPS_PULL_LEAN) * N * N / 2),
-            design_bound_ms=bound(m8_bytes(N, N, 1, hsize, diag=diag, totals=given, reads=2),
-                                  OPS_PULL_LEAN * N * N / 2)[0],
+            m8_pull_bound(N, N, 1, hsize, diag=diag, totals=given),
+            **({"cluster": k} if not given and k > 1 else {}),
         ))
         if given:
             tkey = m8_totals.counter_key(diag)
@@ -2382,7 +2545,7 @@ def ladder_entries(dev, errs, runs, main_times):
             t_plain = cuda_ms(lambda: m8_totals.m8_totals_plain(*targs, mv=ops.get("mv")), 3, 1)
             entries.append(entry(
                 f"{tkey} int8", "m8_totals", "aiocluster_tpu/ops/pallas_pull.py:374",
-                "two_pass_int8_m8", tkey, t_ms, t_plain,
+                run, tkey, t_ms, t_plain,
                 bound(m8_totals_bytes(N, N, 1, diag=diag), OPS_TOTALS * N * N / 2),
             ))
         del ops, tot
@@ -3381,17 +3544,20 @@ def full_past_staged(dev, card_line, errs):
     check(np.isfinite(float(m["mean_fraction"])) and int(m["alive_count"]) == C2_N,
           f"full_config({C2_N}) metrics are not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    staged_bound, two_pass_bound = full_round_bounds(C2_N, "full int16")
     log("c2", f"full_config({C2_N}) int16, {form} on clusters of {k}, with the fused FD: "
         f"{C2_ROUNDS} rounds in {run_s:.2f} s with init; launches {launches}; one chained "
         f"round {C2_ROUNDS} rounds in, {C2_LEADERS} row pairs a pull: "
         + ", ".join(f"{kk} max_abs_err={e}" for kk, e in found)
         + f"; {round_ms:.3f} ms a round (two-pass form {two_pass_round_ms:.3f} ms on the "
-        f"later state); peak {peak_gb:.2f} GB; mean fraction "
+        f"later state; the kernels' bound a round {staged_bound:.3f} ms staged, "
+        f"{two_pass_bound:.3f} two-pass); peak {peak_gb:.2f} GB; mean fraction "
         f"{float(m['mean_fraction']):.4f}; {card_line}")
     del sim
     torch.cuda.empty_cache()
     return {"n": C2_N, "form": form, "cluster": k, "round_ms": round_ms,
             "two_pass_round_ms": two_pass_round_ms, "peak_memory_gb": peak_gb,
+            "bound_ms_per_round": staged_bound, "two_pass_bound_ms_per_round": two_pass_bound,
             "max_abs_err": dict(round_errs), "sample_leaders": C2_LEADERS, "run_s": run_s}, (
         launches, C2_ROUNDS)
 
@@ -4071,6 +4237,9 @@ def main() -> int:
         if name.startswith(("m8_", "pairs_")):
             check(regs and spills == 0 and stacks == 0,
                   f"{name}.cu built with a spill or a stack frame")
+        if name in ("pairs_pull", "m8_pull"):
+            # The frame's rule lets two CTAs of 256 threads share an SM.
+            check(max(regs) <= 128, f"{name}.cu takes more than 128 registers a thread")
 
     pull_err = check_pull_kernel(dev)
     two_pass_errs = check_two_pass_kernels(dev)
@@ -4140,7 +4309,7 @@ def main() -> int:
     log("draws", f"16 rounds x {cfg.fanout} matchings at N={N}: device == host")
 
     # Phase 9b: the headline config pinned to m8.
-    head_m8, head_m8_launches = headline_m8(dev, card_line)
+    head_m8, head_m8_launches, head_m8_other = headline_m8(dev, card_line)
 
     # Phase 7: times. The round rate on the host clock, then one profiled
     # chunk for where a round's time goes.
@@ -4260,11 +4429,14 @@ def main() -> int:
     cluster_times = dict(ns_times)
 
     # Phase 9c-e: the north star pinned to m8, then the int16 experiment.
-    ns_m8, ns_m8_launches, ns_m8_times = north_star_m8(dev, card_line, m8_errs)
+    ns_m8, ns_m8_launches, ns_m8_times, ns_m8_other = north_star_m8(dev, card_line, m8_errs)
     experiment = i16_experiment(dev)
     kernels += m8_kernel_entries(
-        dev, m8_errs, head_m8_launches, head_m8["rounds_run"], ns_m8_launches,
-        ns_m8["rounds_run"], ns_m8_times, experiment,
+        dev, m8_errs, {"headline_m8": (head_m8_launches, head_m8["rounds_run"]),
+                       "headline_m8_other": head_m8_other},
+        {"north_star_m8": (ns_m8_launches, ns_m8["rounds_run"]),
+         "north_star_m8_other": ns_m8_other},
+        ns_m8_times, experiment,
     )
 
     # Phase 10: the memory ladder's rungs: their kernels against the plain
@@ -4272,7 +4444,7 @@ def main() -> int:
     # before each, read just after), then their times.
     ladder_errs = check_ladder_kernels(dev)
     check_ladder_full_width(dev, ladder_errs)
-    ns8, ns8_m8, ns8_times, ns8_other = lean_int8_north_star(dev, card_line)
+    ns8, ns8_m8, ns8_times, ns8_other, ns8_m8_other = lean_int8_north_star(dev, card_line)
     u4, u4_launches, u4_rounds, u4_times, u4_other = lean_u4r_north_star(dev, card_line)
     wide, wide_launches, wide_rounds, wide_times, wide_other = widest_u4r(
         dev, card_line, ladder_errs)
@@ -4281,6 +4453,7 @@ def main() -> int:
     runs = int8_side_paths(dev, card_line)
     runs.update(
         north_star_int8=ns8[1:], north_star_int8_m8=ns8_m8[1:],
+        north_star_int8_m8_other=ns8_m8_other,
         north_star_u4r=(u4_launches, u4_rounds), widest_u4r=(wide_launches, wide_rounds),
         north_star_int8_other=ns8_other, north_star_u4r_other=u4_other,
         widest_u4r_other=wide_other,

@@ -324,35 +324,44 @@ def test_m8_totals_kernel_equals_plain(dev, wdt, diag, valid, self_match):
     assert torch.equal(summed, got)
 
 
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
 @pytest.mark.parametrize("arith", ["i16", "i16_f32"])
-def test_m8_int16_variants_equal_the_kernel(dev, arith):
-    n = 256
+def test_m8_int16_variants_equal_the_kernel(dev, arith, k):
+    """The int16 variants on clusters of k CTAs against the int32 kernel
+    and the plain version, on the experiment's ranges with a tenth of the
+    rows invalid (some apart from their partner) and a self-matched
+    group."""
+    n = CLUSTER_N
+    w, gm, c, valid, _ = _totals_operands(n, 2, torch.int16, dev, self_match=True,
+                                          asymmetric=True)
     rng = np.random.default_rng(2)
-    gm, c, _ = prng.grouped_matching(prng.key(2), n)
     w = torch.from_numpy(rng.integers(0, 2000, (n, n))).to(dev, torch.int16)
     hb = torch.from_numpy(rng.integers(0, 500, (n, n))).to(dev, torch.int16)
-    args = (gm.to(dev, torch.int32), c.to(dev, torch.int32),
-            torch.ones(n, dtype=torch.bool, device=dev), 3, 0xDEAD, 2618)
-    want = m8_pull.m8_pull(w, hb, *args)
-    before = counters.launches[m8_pull.counter_key(False, arith=arith)]
-    got = m8_pull.m8_pull(w, hb, *args, arith=arith)
-    assert counters.launches[m8_pull.counter_key(False, arith=arith)] == before + 1
+    args = (gm, c, valid, 3, 0xDEAD, 2618)
+    want = m8_pull.m8_pull(w, hb, *args, cluster=k)
+    plain = m8_pull.m8_pull_plain(w, hb, *args)
+    key = m8_pull.counter_key(False, arith=arith, cluster=k > 1)
+    before = counters.launches[key]
+    got = m8_pull.m8_pull(w, hb, *args, arith=arith, cluster=k)
+    assert counters.launches[key] == before + 1
     torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b, p in zip(got, want, plain, strict=True):
+        assert torch.equal(a, b) and torch.equal(a, p)
 
 
 def test_simulator_m8_paths_equal_plain_path(dev, monkeypatch):
-    """The pinned m8 forms on the card: 1 (staged) or 2 (two-pass) launches
-    per sub-exchange, the FD phase through the standalone kernel, the
-    plain path's states."""
+    """The pinned m8 forms on the card: 1 (staged by one CTA or a
+    cluster) or 2 (two-pass) launches per sub-exchange, the FD phase
+    through the standalone kernel, the plain path's states."""
     cfg = SimConfig(n_nodes=512, keys_per_node=4, fanout=3, budget=64, pallas_variant="m8",
                     **NARROW)
     plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False),
                       seed=3, device=dev)
     plain.run(5)
-    for form in ("m8", "m8_two_pass"):
-        if form == "m8_two_pass":
-            monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    for form, limit in (("m8", None), ("m8_cluster", pairs_pull.STATIC_SMEM + 300),
+                        ("m8_two_pass", pairs_pull.STATIC_SMEM)):
+        if limit is not None:
+            monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", limit)
         assert gossip.pull_phase_engaged(cfg, dev) == form
         counters.reset()
         kern = Simulator(cfg, seed=3, device=dev)
@@ -360,6 +369,8 @@ def test_simulator_m8_paths_equal_plain_path(dev, monkeypatch):
         torch.cuda.synchronize()
         assert counters.kernel_launches("m8_pull") == 15 and counters.launches["fd"] == 5
         assert counters.kernel_launches("m8_totals") == (15 if form == "m8_two_pass" else 0)
+        assert all(("cluster" in key) == (form == "m8_cluster")
+                   for key in counters.launches if key.startswith("m8_pull"))
         assert not counters.plain_calls
         for f in STATE_FIELDS:
             assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
@@ -948,3 +959,143 @@ def test_simulator_cluster_path_equals_plain_path(dev, rung, monkeypatch):
         torch.cuda.synchronize()
         for f in STATE_FIELDS:
             assert torch.equal(getattr(state, f), getattr(plain.state, f)), (s, f)
+
+
+# -- the m8 pull in the pair frame, and the 1-byte totals ----------------------
+
+M8_CLUSTER_CASES = {
+    # name: (w dtype, hb dtype or None, diag)
+    "i16 hb diag": (torch.int16, torch.int16, True),
+    "i16 hb": (torch.int16, torch.int16, False),
+    "i16 lean diag": (torch.int16, None, True),
+    "i32 hb diag": (torch.int32, torch.int32, True),
+    "i32 lean": (torch.int32, None, False),
+    "i8 hb diag": (torch.int8, torch.int8, True),
+    "i8 lean": (torch.int8, None, False),
+}
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(M8_CLUSTER_CASES))
+def test_m8_cluster_form_equals_plain(dev, case, k):
+    """The staged m8 pull on a cluster of k CTAs (forced) against its
+    plain version and the pairs pull on a copy of the same operands, with
+    a self-matched group and valid flipped on a tenth of the rows (so some
+    rows are valid apart from their partner, and some pairs have no valid
+    row): every output row written, the inputs untouched, counted under
+    its cluster key. 2,192 owners: no cluster size divides a row's chunks
+    evenly."""
+    wdt, hdt, diag = M8_CLUSTER_CASES[case]
+    n = CLUSTER_N
+    w, gm, c, valid, mv = _totals_operands(n, 60 + k, wdt, dev, self_match=True,
+                                           asymmetric=True)
+    rng = np.random.default_rng(61 + k)
+    hb = None if hdt is None else torch.from_numpy(rng.integers(0, 30, (n, n))).to(dev, hdt)
+    kw = {}
+    if diag:
+        kw["mv"] = mv if wdt != torch.int8 else mv.clamp(max=100)
+        if hb is not None:
+            kw["hbv"] = torch.from_numpy(rng.integers(28, 31, n)).to(dev, torch.int32)
+    args = (gm, c, valid, 5, 0x2468ACE, 40)
+    w0, hb0 = w.clone(), None if hb is None else hb.clone()
+    key = m8_pull.counter_key(diag, cluster=k > 1)
+    before = counters.launches[key]
+    got = m8_pull.m8_pull(w, hb, *args, cluster=k, **kw)
+    assert counters.launches[key] == before + 1
+    want = m8_pull.m8_pull_plain(w, hb, *args, **kw)
+    pw, phb = w.clone(), None if hb is None else hb.clone()
+    pairs_pull.pairs_pull(pw, phb, *args, **kw)
+    torch.cuda.synchronize()
+    got, want = ((x,) if hb is None else x for x in (got, want))
+    for a, b, pp in zip(got, want, (pw, phb), strict=False):
+        assert torch.equal(a, b) and torch.equal(a, pp)
+    assert torch.equal(w, w0) and (hb is None or torch.equal(hb, hb0))
+
+
+@pytest.mark.parametrize("wdt", [torch.int8, torch.int16])
+def test_m8_totals_form_column_blocks_equal_plain(dev, wdt):
+    """The totals-fed m8 pull on two column blocks (owner offsets 0 and
+    1,024 of 2,192; self-matched rows, asymmetric valid) against the plain
+    version at the same offsets and, side by side, the whole width; any
+    cluster but 1 is refused with totals."""
+    n = CLUSTER_N
+    w, gm, c, valid, mv = _totals_operands(n, 71, wdt, dev, self_match=True, asymmetric=True)
+    mv = mv.clamp(max=100)
+    hb = torch.from_numpy(np.random.default_rng(72).integers(0, 30, (n, n))).to(dev, wdt)
+    hbv = torch.full((n,), 29, dtype=torch.int32, device=dev)
+    args = (gm, c, valid, 5, 0x2468ACE, 40)
+    tot = m8_totals.m8_totals(w, gm, c, valid, mv=mv)
+    whole = m8_pull.m8_pull(w, hb, *args, mv=mv, hbv=hbv, totals=tot)
+    with pytest.raises(ValueError, match="no cluster"):
+        m8_pull.m8_pull(w, hb, *args, mv=mv, hbv=hbv, totals=tot, cluster=2)
+    outs = []
+    for col0, width in ((0, 1024), (1024, n - 1024)):
+        cols = slice(col0, col0 + width)
+        block = (w[:, cols].contiguous(), hb[:, cols].contiguous())
+        bkw = dict(mv=mv[cols].contiguous(), hbv=hbv[cols].contiguous(), owner_offset=col0,
+                   totals=tot)
+        got = m8_pull.m8_pull(*block, *args, **bkw)
+        want = m8_pull.m8_pull_plain(*block, *args, **bkw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        outs.append(got)
+    for k, x in enumerate(whole):
+        assert torch.equal(torch.cat([o[k] for o in outs], dim=1), x)
+
+
+# Row bytes 0 and 8 mod 16: int8 at 2,192 and 2,184 owners, packed at
+# 2,176 and 2,192 (1,088 and 1,096 bytes); the last ends a row on a half
+# step and its rows are not 16-byte aligned.
+NARROW_TOTALS_N = {"int8": (2192, 2184), "u4r": (2176, 2192)}
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["whole_steps", "half_step"])
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("rung", ["int8", "u4r"])
+def test_pairs_totals_narrow_modes_equal_plain(dev, rung, diag, half):
+    """The 1-byte totals modes (16 bytes a row a step, SIMD bytes) against
+    their plain versions with a self-matched group and asymmetric valid:
+    whole width (the m8 totals too on int8), two column blocks summing to
+    it, and 3 lanes (the middle one voided) against the plain lanes."""
+    n = NARROW_TOTALS_N[rung][half]
+    packed = rung == "u4r"
+    w, gm, c, valid, _ = _totals_operands(n, 81 + half, torch.int8, dev, self_match=True,
+                                          asymmetric=True)
+    rng = np.random.default_rng(82 + half)
+    if packed:
+        w = torch.from_numpy(rng.integers(0, 256, (n, n // 2), dtype=np.uint8)).to(dev)
+        mv = torch.from_numpy(rng.integers(0, 20, n)).to(dev, torch.int32)  # write bumps
+    else:
+        w = torch.from_numpy(rng.integers(0, 128, (n, n), dtype=np.int8)).to(dev)
+        mv = torch.from_numpy(rng.integers(0, 128, n)).to(dev, torch.int32)
+    mv = mv if diag else None
+    key = pairs_totals.counter_key(diag, packed)
+    before = counters.launches[key]
+    got = pairs_totals.pairs_totals(w, gm, c, valid, mv=mv)
+    assert counters.launches[key] == before + 1
+    want = pairs_totals.pairs_totals_plain(w, gm, c, valid, mv=mv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((got > 0).any())
+    if not packed:
+        assert torch.equal(m8_totals.m8_totals(w, gm, c, valid, mv=mv), want)
+    split = 1024
+    summed = torch.zeros_like(got)
+    for col0, width in ((0, split), (split, n - split)):
+        cols = slice(col0 // 2, (col0 + width) // 2) if packed else slice(col0, col0 + width)
+        block = w[:, cols].contiguous()
+        bmv = None if mv is None else mv[col0:col0 + width].contiguous()
+        part = pairs_totals.pairs_totals(block, gm, c, valid, mv=bmv, owner_offset=col0)
+        assert torch.equal(part, pairs_totals.pairs_totals_plain(block, gm, c, valid, mv=bmv,
+                                                                owner_offset=col0))
+        summed += part
+    torch.cuda.synchronize()
+    assert torch.equal(summed, got)
+    lanes = 3
+    lw = torch.stack([w, torch.roll(w, 1, dims=1), torch.roll(w, 2, dims=0)])
+    lgm, lc = gm.expand(lanes, -1).contiguous(), c.expand(lanes, -1).contiguous()
+    lvalid = torch.stack([valid, torch.zeros_like(valid), valid.roll(3)])
+    lmv = None if mv is None else torch.stack([mv, mv.roll(1), mv.roll(2)])
+    lgot = pairs_totals.pairs_totals_lanes(lw, lgm, lc, lvalid, mv=lmv)
+    lwant = pairs_totals.pairs_totals_lanes_plain(lw, lgm, lc, lvalid, mv=lmv)
+    torch.cuda.synchronize()
+    assert torch.equal(lgot, lwant) and not bool(lgot[1].any())

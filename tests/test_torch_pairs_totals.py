@@ -309,3 +309,76 @@ def test_flag_with_a_need_beyond_the_watermark_dtype():
     alive = s.alive.clone()
     alive[5] = False  # a dead owner is excused
     assert bool(gossip.all_converged_flag(s.replace(alive=alive)))
+
+
+# -- the kernel's word arithmetic on 1-byte rows, mirrored ------------------------
+
+
+@pytest.mark.parametrize("col0", [0, 64])
+def test_packed_swar_refresh_equals_refresh_packed_rows(col0):
+    """The kernel's packed refresh on words of nibble lanes (saturating
+    adds with a carry mask, then the row's own owner zeroed in its one
+    step) equals ``refreshed_packed_rows`` nibble for nibble, on random
+    bytes and bumps (every nibble 0..15, so the clamp bites) and on rows
+    whose own owner lies in the block at each nibble position of a word,
+    in another step, or outside the block."""
+    rng = np.random.default_rng(5 + col0)
+    n_bytes = 48  # three 16-byte steps, 96 owners from col0
+    r = _t(rng.integers(0, 256, (40, n_bytes), dtype=np.uint8))
+    bump_bytes = _t(rng.integers(0, 256, n_bytes, dtype=np.uint8))
+    lo, hi = gossip.nibbles(bump_bytes)
+    bump = torch.stack((lo, hi), dim=-1).flatten()  # per owner, 0..15
+    # The own owner at every nibble of the first word, in later steps,
+    # before the block and past it.
+    rows = torch.tensor(
+        [col0 + t for t in range(16)] + [col0 + 33, col0 + 63, col0 + 64, col0 + 95]
+        + [col0 - 1, col0 + 96, col0 + 200] + list(rng.integers(0, 400, 17)),
+        dtype=torch.int64,
+    )
+    rows = rows.clamp(min=0)
+    got = pairs_totals.packed_refresh_swar(r, bump_bytes, rows, col0)
+    # refreshed_packed_rows' steps, with the rows' own ids for the diagonal.
+    want = gossip.packed_diag_zero_(gossip.packed_writes_shift(r, bump), rows, col0)
+    assert torch.equal(got, want)
+    assert torch.equal(pairs_totals.packed_refresh_swar(r, None, rows, col0), r)
+
+
+@pytest.mark.parametrize("rung", ["int8", "u4r"])
+@pytest.mark.parametrize("diag", [False, True])
+def test_narrow_pair_sums_equal_plain_totals(rung, diag):
+    """The kernel's deficit sums of 1-byte rows, (A + D) / 2 and (A - D) /
+    2 over words of bytes, equal both directions' plain deficit totals,
+    masked by each row's own valid (asymmetric too): int8 over the whole
+    signed range, the packed rung refreshed by its write bumps."""
+    rng = np.random.default_rng(17 + diag)
+    r, n_bytes = 24, 64
+    vi = _t(rng.random(r) < 0.7)
+    vp = _t(rng.random(r) < 0.7)
+    if rung == "int8":
+        x = _t(rng.integers(-128, 128, (r, n_bytes), dtype=np.int8))
+        y = _t(rng.integers(-128, 128, (r, n_bytes), dtype=np.int8))
+        ti, tp = pairs_totals.narrow_pair_sums(x, y, vi, vp)
+        xs, ys = x.to(torch.int64), y.to(torch.int64)
+        want_i = torch.where(vi, (ys - xs).clamp(min=0).sum(dim=1), 0)
+        want_p = torch.where(vp, (xs - ys).clamp(min=0).sum(dim=1), 0)
+    else:
+        x = _t(rng.integers(0, 256, (r, n_bytes), dtype=np.uint8))
+        y = _t(rng.integers(0, 256, (r, n_bytes), dtype=np.uint8))
+        rows_i = torch.arange(0, 2 * r, 2)
+        rows_p = rows_i + 1
+        bump_bytes = _t(rng.integers(0, 64, n_bytes, dtype=np.uint8)) if diag else None
+        bump = None
+        if diag:
+            lo, hi = gossip.nibbles(bump_bytes)
+            bump = torch.stack((lo, hi), dim=-1).flatten()
+        ti, tp = pairs_totals.narrow_pair_sums(x, y, vi, vp, bump=bump_bytes, rows_i=rows_i,
+                                               rows_p=rows_p)
+        both = torch.cat([x, y])
+        if diag:  # the rows' own owners are rows_i / rows_p
+            both = gossip.packed_diag_zero_(gossip.packed_writes_shift(both, bump),
+                                            torch.cat([rows_i, rows_p]))
+        xr, yr = both[:r], both[r:]
+        want_i = gossip.packed_totals(xr, yr, vi).to(torch.int64)
+        want_p = gossip.packed_totals(yr, xr, vp).to(torch.int64)
+    assert torch.equal(ti, want_i) and torch.equal(tp, want_p)
+    assert bool((ti > 0).any()) and bool((tp > 0).any())

@@ -168,6 +168,30 @@ def test_kernel_pull_form_rule(name):
                         ("pairs" if k == 1 else "pairs_cluster", k))
 
 
+M8_FORM_NAMES = {"pairs": "m8", "pairs_cluster": "m8_cluster", "pairs_two_pass": "m8_two_pass"}
+
+
+@pytest.mark.parametrize("name", list(FORM_CASES))
+def test_kernel_pull_form_rule_m8(name):
+    """Pinned to m8, each configuration takes the pairs pull's form and
+    cluster size under the m8 name (the m8 pull runs the same frame out
+    of place): the headline staged by one CTA, the north star on 4-CTA
+    clusters, the int8 and u4r rows past NARROW_STAGED_BYTES and the
+    column blocks two-pass. The u4r rung pinned to m8 still runs the
+    reference's plain route ("packed_dtype"): no m8 kernel carries the
+    codec."""
+    cfg, n_local, (form, k) = FORM_CASES[name]
+    m8 = dataclasses.replace(cfg, pallas_variant="m8")
+    want = (M8_FORM_NAMES[form], k)
+    assert gossip.kernel_pull_form(m8, n_local) == want
+    assert want[0] in gossip.M8_FORMS
+    phases = gossip.resolve_phases(m8, torch.device("cuda"), n_local=n_local)
+    if cfg.version_dtype == "u4r":
+        assert (phases.pull, phases.pull_fallback) == ("plain", "packed_dtype")
+    else:
+        assert phases.pull == want[0] and phases.pull_fallback is None
+
+
 def test_dispatch_resolution():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     head = SimConfig(n_nodes=10_240, keys_per_node=16, fanout=3, budget=2618, **NARROW)
@@ -223,15 +247,19 @@ def test_dispatch_resolution():
     # its staged width: the same bits).
     pinned = dataclasses.replace(head, n_nodes=58_112, pallas_variant="pairs")
     assert gossip.pull_phase_engaged(pinned, cuda) == "pairs_cluster"
-    # A pinned m8 stages its rows by the same width rule, else it takes
-    # the m8 two-pass form (the m8 totals, then the pull fed them).
-    assert gossip.pull_phase_engaged(dataclasses.replace(m8, n_nodes=57_984), cuda) == "m8"
+    # A pinned m8 stages its rows by the same rule on the same clusters
+    # (it runs the pairs pull's frame out of place), else it takes the m8
+    # two-pass form (the m8 totals, then the pull fed them).
+    assert gossip.pull_phase_engaged(dataclasses.replace(m8, n_nodes=28_800), cuda) == "m8"
+    assert gossip.pull_phase_engaged(dataclasses.replace(m8, n_nodes=57_984), cuda) == "m8_cluster"
     wide_m8 = dataclasses.replace(m8, n_nodes=58_112)
-    assert gossip.pull_phase_engaged(wide_m8, cuda) == "m8_two_pass"
+    assert gossip.pull_phase_engaged(wide_m8, cuda) == "m8_cluster"
     assert gossip.fd_phase_engaged(wide_m8, cuda) == "kernel"
     north_star_m8 = lean_config(100_352, budget=2618, pallas_variant="m8")
-    assert gossip.pull_phase_engaged(north_star_m8, cuda) == "m8_two_pass"
+    assert gossip.pull_phase_engaged(north_star_m8, cuda) == "m8_cluster"
     assert gossip.fd_phase_engaged(north_star_m8, cuda) == "off"
+    int8_m8 = lean_config(100_352, "int8", budget=2618, pallas_variant="m8")
+    assert gossip.pull_phase_engaged(int8_m8, cuda) == "m8_two_pass"
     assert not counters.refusals
     # use_pallas=True asks for the kernels on the CPU too: the same route,
     # and the reference's gates name it so.
@@ -271,6 +299,10 @@ M8_PROFILES = {
     "headline_shaped": SimConfig(n_nodes=256, keys_per_node=4, fanout=3, budget=64,
                                  use_pallas=True, pallas_variant="m8", **NARROW),
     "lean": lean_config(256, budget=300, use_pallas=True, pallas_variant="m8"),
+    # The headline config (bench.py's keys, fanout, budget and dtypes),
+    # its width cut to 256 owners.
+    "headline": SimConfig(n_nodes=256, keys_per_node=16, fanout=3, budget=2618,
+                          use_pallas=True, pallas_variant="m8", **NARROW),
 }
 M8_ROUNDS = 8
 
@@ -288,15 +320,19 @@ def _reference_m8_states(profile: str):
     return states
 
 
-@pytest.mark.parametrize("form", ["m8", "m8_two_pass"])
+@pytest.mark.parametrize("form", ["m8", "m8_cluster", "m8_two_pass"])
 @pytest.mark.parametrize("profile", sorted(M8_PROFILES))
 def test_m8_simulator_equals_reference_and_pairs_path(profile, form, monkeypatch):
     """The pinned-m8 Simulator (its kernels' plain versions here) equals
-    the reference's pinned-m8 Simulator round by round, in the single-pass
-    form and in the two-pass form (forced: no row may stage), and equals
-    the port's own pairs path on every state tensor."""
+    the reference's pinned-m8 Simulator round by round, in each form: the
+    single-pass form staged by one CTA, on a cluster (forced: a block
+    limit one CTA cannot stage a pair of 256 owners in) and the two-pass
+    form (forced: no row may stage), and equals the port's own pairs path
+    on every state tensor."""
     if form == "m8_two_pass":
         monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM)
+    elif form == "m8_cluster":
+        monkeypatch.setattr(pairs_pull, "SMEM_LIMIT", pairs_pull.STATIC_SMEM + 200)
     cfg = M8_PROFILES[profile]
     assert gossip.pull_phase_engaged(cfg, "cpu") == form
     counters.reset()
