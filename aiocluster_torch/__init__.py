@@ -7,7 +7,10 @@ seed=...)`` follows the reference's trajectory round for round on the
 same ``SimConfig`` and seed, and ``SweepSimulator(cfg, seeds, ...)``
 runs S such scenarios together, one lane each. ``Simulator(cfg,
 mesh=parallel.make_mesh(...))`` holds the state as column blocks of the
-owners over a mesh's devices (the reference's owner-sharded simulator).
+owners over a mesh's devices (the reference's owner-sharded simulator),
+and ``Simulator(cfg, topology=models.scale_free(...))`` draws each
+node's peers from an adjacency. Every config of the reference's
+simulator runs but its fault plans and heterogeneity.
 Its entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (or a mesh of CPU devices), where every kernel wrapper
 takes its plain PyTorch version.

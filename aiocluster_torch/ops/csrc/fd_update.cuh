@@ -7,8 +7,10 @@
 // (ops/gossip.py sim_step, failure-detection phase), each rounded once:
 // the explicit _rn intrinsics (and the -fmad=false build) keep the
 // compiler from contracting a multiply and an add into one FMA, and the
-// divide is the correctly rounded one. Loads widen exactly; the caller
-// rounds once when it stores.
+// divide is the correctly rounded one. The one fused multiply-add is the
+// liveness bound's mean * count + prior_weight * prior_mean, which XLA's
+// CPU backend contracts in the reference's block (__fmaf_rn: rounded
+// once). Loads widen exactly; the caller rounds once when it stores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,7 +50,7 @@ __device__ __forceinline__ FdResult fd_update(int32_t tick, int32_t hb, int32_t 
   const bool live =
       count >= 1 &&
       __fmul_rn(elapsed, __fadd_rn(count_f, k.prior_weight)) <=
-          __fmul_rn(k.phi, __fadd_rn(__fmul_rn(mean, count_f), k.prior_wm));
+          __fmul_rn(k.phi, __fmaf_rn(mean, count_f, k.prior_wm));
   FdResult r;
   r.last_change = lc2;
   r.imean = mean;

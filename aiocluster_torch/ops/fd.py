@@ -23,6 +23,10 @@ from . import _build, counters
 # size; csrc/common.cuh).
 MATRIX_DTYPES = (torch.int8, torch.int16, torch.int32)
 
+# The owner columns the standalone FD kernel takes a multiple of
+# (csrc/fd.cu reads eight elements at a time).
+FD_ALIGN = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class FdParams:
@@ -45,12 +49,35 @@ class FdParams:
         )
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (a fused multiply-add), on any
+    device: the product is exact in float64 and the sum rounds once
+    there; where that sum lies exactly halfway between two float32
+    values, the sign of its rounding error (two-sum) picks the side."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32) for x in (a, b, c))
+    prod = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = prod + c64
+    bb = s - prod
+    err = (prod - (s - bb)) + (c64 - bb)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    toward = torch.where(s > r64, float("inf"), float("-inf")).to(torch.float32)
+    alt = torch.nextafter(r, toward)
+    tie = (s != r64) & ((s - r64) == (alt.to(torch.float64) - s))
+    flip = tie & (err != 0) & ((err > 0) == (alt.to(torch.float64) > r64))
+    return torch.where(flip, alt, r)
+
+
 def fd_update(tick: int, hb, hb0, lc, im32, ic, k: FdParams):
     """One FD update on int32 (hb, hb0, last_change, icount) and float32
     (imean) tensors. Returns (last_change', imean', icount', live') in
     int32/float32/int32/bool, BEFORE the self diagonal and the death
     wipe (callers apply both). Python-float constants enter float32
-    arithmetic rounded to float32, as JAX's weakly typed scalars do."""
+    arithmetic rounded to float32, as JAX's weakly typed scalars do. The
+    liveness bound's ``imean * count + prior_weight * prior_mean`` is one
+    fused multiply-add, as XLA's CPU backend contracts it in the
+    reference's block (csrc/fd_update.cuh likewise)."""
     increased = hb > hb0
     never_seen = lc == 0
     interval = (tick - lc).to(torch.float32)
@@ -62,7 +89,7 @@ def fd_update(tick: int, hb, hb0, lc, im32, ic, k: FdParams):
     lc2 = torch.where(increased, tick, lc)
     elapsed = (tick - lc2).to(torch.float32)
     lhs = elapsed * (count + k.prior_weight)
-    rhs = (imean * count + k.prior_wm) * k.phi
+    rhs = fma32(imean, count, k.prior_wm) * k.phi
     live = (icount >= 1) & (lhs <= rhs)
     return lc2, imean, icount, live
 
@@ -119,8 +146,8 @@ def fused_fd(
         raise ValueError(f"heartbeat dtype {hdt} is not int8/int16/int32")
     if im.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"imean dtype {im.dtype} is not bfloat16/float32")
-    if n_cols % 8:
-        raise ValueError("the owner columns must be a multiple of 8")
+    if n_cols % FD_ALIGN:
+        raise ValueError(f"the owner columns must be a multiple of {FD_ALIGN}")
     for name, t, dt, shape in (
         ("hb", hb, hdt, (n, n_cols)),
         ("hb0", hb0, hdt, (n, n_cols)),

@@ -1,11 +1,13 @@
 """The batched gossip round in PyTorch: one ScuttleButt round for all N
 nodes as tensor passes over the (N, N) watermark, heartbeat and
 failure-detector matrices — the port of the reference's ops/gossip.py
-for the slice it covers (grouped matching, proportional budget, FD on or
-off, every rung of the memory ladder, no churn, no lifecycle, no fault
-plan). The packed u4r rung computes on the nibbles (the packed helpers
-below), and the shrunk FD bookkeeping stores int8 counters and the live
-bitmap.
+for everything but its fault plans and heterogeneity: churn, the
+matching (grouped, or unrestricted off n % 128 == 0), permutation and
+choice pairings (uniform, categorical, the view draw, adjacency
+topologies), both budget policies, the dead-node lifecycle and every
+rung of the memory ladder. The packed u4r rung computes on the nibbles
+(the packed helpers below), and the shrunk FD bookkeeping stores int8
+counters and the live bitmap.
 
 Two implementations serve a round, resolved once per call by
 ``resolve_phases`` (the counterpart of the reference's
@@ -22,14 +24,15 @@ Two implementations serve a round, resolved once per call by
   ran faster) and past what a cluster of 8 stages, each sub-exchange is
   two launches instead: the deficit totals (ops/pairs_totals.py), then
   the pull fed those totals ("pairs_two_pass", the reference's sharded
-  two-pass form). ``pairs_pull.pull_form`` is the rule. A config the
-  kernels cannot take is refused, never run plain,
-  except on the routes the reference itself serves with XLA for want of
-  a kernel: "packed_dtype" (u4r with heartbeats, or pinned to m8) and
-  "fanout" (fanout 0: no sub-exchange carries the refresh and the FD
-  epilogue; its FD phase is the standalone kernel) run the plain pull,
-  "fd_packed_bookkeeping" (the shrunk FD bookkeeping off the pairs path)
-  the plain FD phase, each counted in ``counters.fallbacks``;
+  two-pass form). ``pairs_pull.pull_form`` is the rule. Churn keeps
+  these forms: the kernels take the post-churn alive masks. A config
+  the kernels cannot take runs its pull plain only on the routes the
+  reference itself serves with XLA for want of a kernel, each counted in
+  ``counters.fallbacks`` under the reference's reason
+  (``plain_pull_reason``: "topology", "pairing", "packed_dtype",
+  "fanout", "shape", "budget_policy", "lifecycle"); the FD phase of those
+  rounds is the standalone kernel, except under the lifecycle and on the
+  shrunk bookkeeping ("fd_packed_bookkeeping"), which run it plain;
 - ``pallas_variant="m8"`` on a CUDA device: the single-pass pull
   (ops/m8_pull.py, out of place), which runs the pairs pull's frame and
   takes its forms by the same rule under its own names: one launch a
@@ -60,8 +63,9 @@ collectives of ``reduce_blocks`` (the deficit totals summed over the
 blocks before any block's pull, the flag's min), the kernels at each
 block's ``owner_offset``. ``sim_step`` is that round on one block of
 every owner; ``run_rounds`` queues a chunk of rounds of either (the
-chunk's draws once, no host sync), and ``block_width`` is the one rule
-for the widths a mesh's blocks may take.
+chunk's draws once, no host sync); ``block_width`` is the rule for
+the widths a mesh's blocks may take, ``resolve_phases`` the rule for
+the widths the kernels take.
 
 ``sim_step``, ``step_blocks`` and ``sweep_step`` consume their input
 state, as the reference's donated buffers do: the matrices are updated
@@ -71,18 +75,27 @@ in place where a phase can.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Sequence
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..sim.config import SimConfig, unported_reason
-from ..sim.packed import U4_MAX, is_packed_w, live_view_bool, watermarks_i32
+from ..sim.packed import (
+    U4_MAX,
+    is_packed_live,
+    is_packed_w,
+    live_view_bool,
+    unpack_bits,
+    watermarks_i32,
+)
 from ..sim.state import DTYPES, STATE_FIELDS, SimState, SweepParams, lane, state_n_local
 from . import counters, m8_pull, m8_totals, pairs_pull, pairs_totals, prng
 from . import fd as fd_mod
-from .fd import FdParams
+from .fd import FdParams, fma32
 
 M32 = prng.M32
 K1, K2, K3, K4 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F
@@ -322,27 +335,20 @@ def fd_bookkeeping_packed(cfg: SimConfig) -> bool:
 BLOCK_ALIGN = 128
 
 
-def block_width(cfg: SimConfig, blocks: int, device) -> int:
+def block_width(cfg: SimConfig, blocks: int) -> int:
     """The owners of each of ``blocks`` column blocks (a mesh's
     n_local): the blocks must be whole and their packed forms whole
     bytes (two owners a byte of w, eight a byte of the live bitmap: a
-    multiple of 16 owners), and where the kernels are wanted (on
-    ``device``) more than one block must be lane-aligned
-    (``BLOCK_ALIGN``). Raises a ValueError naming the width otherwise."""
+    multiple of 16 owners). Raises a ValueError naming the width
+    otherwise. Whether the kernels take such blocks is the round's
+    decision (``resolve_phases``)."""
     n = cfg.n_nodes
     if n % blocks or (n // blocks) % 16:
         raise ValueError(
             f"a mesh of {blocks} blocks does not split n_nodes={n} into "
             "column blocks of a multiple of 16 owners"
         )
-    n_local = n // blocks
-    if blocks > 1 and kernels_wanted(cfg, device) and n_local % BLOCK_ALIGN:
-        raise ValueError(
-            f"column blocks of n_local={n_local} owners are off the kernels' "
-            f"domain (n_local % {BLOCK_ALIGN} == 0, the reference's "
-            "lane-aligned shard); use fewer blocks or use_pallas=False"
-        )
-    return n_local
+    return n // blocks
 
 
 def kernel_pull_form(cfg: SimConfig, n_local: int | None = None) -> tuple[str, int]:
@@ -364,8 +370,44 @@ def kernel_pull_form(cfg: SimConfig, n_local: int | None = None) -> tuple[str, i
     return form, k
 
 
+def plain_pull_reason(cfg: SimConfig, has_topology: bool = False) -> str | None:
+    """Why a config that asks for the kernels runs its pull plain — the
+    reference's reason name, its first failing gate in the order of its
+    ``pallas_fallback_reason`` — or None when a kernel form serves it:
+    "topology" (an adjacency run: the choice path), "pairing"
+    (permutation or choice), "packed_dtype" (the u4r rung with
+    heartbeats, or pinned to m8: only the pairs kernels carry the nibble
+    codec, and only in the lean profile), "fanout" (fanout 0: no
+    sub-exchange exists to carry the diagonal refresh and the FD
+    epilogue), "shape" (n % 128 != 0: off the grouped matching's
+    domain), "budget_policy" (greedy) or "lifecycle" (the kernels carry
+    no scheduled-for-deletion mask)."""
+    if has_topology:
+        return "topology"
+    if cfg.pairing != "matching":
+        return "pairing"
+    if cfg.version_dtype == "u4r" and (cfg.track_heartbeats or cfg.pallas_variant == "m8"):
+        return "packed_dtype"
+    if cfg.fanout < 1:
+        return "fanout"
+    if cfg.n_nodes % 128 != 0:
+        return "shape"
+    if cfg.budget_policy != "proportional":
+        return "budget_policy"
+    if lifecycle_enabled(cfg):
+        return "lifecycle"
+    return None
+
+
+def lifecycle_enabled(cfg: SimConfig) -> bool:
+    """Whether the two-stage dead-node lifecycle runs (the FD on and a
+    grace set)."""
+    return cfg.track_failure_detector and cfg.dead_grace_ticks is not None
+
+
 def resolve_phases(
-    cfg: SimConfig, device, sweep: bool = False, n_local: int | None = None
+    cfg: SimConfig, device, sweep: bool = False, n_local: int | None = None,
+    has_topology: bool = False,
 ) -> Phases:
     """Resolve both phases of a round once (the counterpart of the
     reference's ``pallas_fallback_reason`` / ``pallas_path_engaged`` /
@@ -377,18 +419,20 @@ def resolve_phases(
     "m8_cluster" or "m8_two_pass" (the same forms of the single-pass
     pull, pinned by ``pallas_variant="m8"``), or "plain": no kernels
     wanted, or a route the reference serves with XLA for want of a
-    kernel, "packed_dtype"
-    (the u4r rung with heartbeats, or pinned to m8: only the pairs
-    kernels carry the nibble codec, and only in the lean profile) or
-    "fanout" (fanout 0: no sub-exchange exists to carry the diagonal
-    refresh and the FD epilogue).
+    kernel (``plain_pull_reason``; ``has_topology``: the round draws its
+    peers from an adjacency).
 
     The FD phase is "fused" (the epilogue of the round's last pairs
-    sub-exchange), "kernel" (the standalone pass; the m8 forms' and
-    fanout 0's too, as in the reference), "plain", or "off" (no failure
-    detector). The shrunk bookkeeping off the pairs path runs plain, as
-    the standalone kernel (nor the reference's) does not take it: where
-    the kernels are wanted that is "fd_packed_bookkeeping".
+    sub-exchange), "kernel" (the standalone pass: the m8 forms' and the
+    plain routes', as in the reference), "plain", or "off" (no failure
+    detector). The lifecycle's FD runs plain (it rewrites w and hb and
+    carries dead_since), as does the shrunk bookkeeping off the pairs
+    path, which the standalone kernel (nor the reference's) does not
+    take: where the kernels are wanted that is "fd_packed_bookkeeping".
+    The standalone kernel takes blocks of a multiple of ``fd.FD_ALIGN``
+    owners; the reference's gates its own on n_local % 128 == 0, the
+    TPU's lane tiling, which a CUDA kernel does not need (the state is
+    bit-equal either way), so here a width such as 10,000 runs it.
 
     ``sweep``: the round of a sweep's lanes (``sweep_step``). Only the
     pairs forms carry the lane axis, as in the reference: a sweep pinned
@@ -401,22 +445,25 @@ def resolve_phases(
     are the two-pass ones ("pairs_two_pass" / "m8_two_pass": each block's
     totals, summed over the blocks, feed every block's pull), as in the
     reference's sharded round; one block of every owner runs the
-    unsharded forms (``block_width`` says which widths a mesh may
-    take)."""
+    unsharded forms. A kernel form on more than one block needs
+    lane-aligned blocks (``BLOCK_ALIGN``, the reference's sharded kernel
+    domain): off it the round is refused naming the width; a plain pull
+    takes any block ``block_width`` gives."""
     wanted = kernels_wanted(cfg, device)
-    pull_fallback = None
-    if wanted and cfg.version_dtype == "u4r" and (
-        cfg.track_heartbeats or cfg.pallas_variant == "m8"
-    ):
-        pull_fallback = "packed_dtype"
-    elif wanted and cfg.fanout < 1:
-        pull_fallback = "fanout"
+    pull_fallback = plain_pull_reason(cfg, has_topology) if wanted else None
     pull = kernel_pull_form(cfg, n_local)[0] if wanted and pull_fallback is None else "plain"
+    if pull != "plain" and n_local is not None and n_local < cfg.n_nodes and n_local % BLOCK_ALIGN:
+        raise ValueError(
+            f"column blocks of n_local={n_local} owners are off the kernels' "
+            f"domain (n_local % {BLOCK_ALIGN} == 0, the reference's "
+            "lane-aligned shard); use fewer blocks or use_pallas=False"
+        )
     if sweep and pull in M8_FORMS:
         pull, pull_fallback = "plain", "sweep_needs_pairs"
     fd, fd_fallback = "off", None
+    width = cfg.n_nodes if n_local is None else n_local
     if cfg.track_failure_detector:
-        if cfg.use_pallas_fd is False:
+        if cfg.use_pallas_fd is False or lifecycle_enabled(cfg):
             fd = "plain"
         elif pull in PAIRS_FORMS:
             fd = "fused"
@@ -424,21 +471,23 @@ def resolve_phases(
             fd = "plain"
             if wanted and fd_bookkeeping_packed(cfg):
                 fd_fallback = "fd_packed_bookkeeping"
-        elif cfg.use_pallas_fd is True or wanted:
+        elif (cfg.use_pallas_fd is True or wanted) and width % fd_mod.FD_ALIGN == 0:
             fd = "kernel"
         else:
             fd = "plain"
     return Phases(pull, pull_fallback, fd, fd_fallback)
 
 
-def pull_phase_engaged(cfg: SimConfig, device, n_local: int | None = None) -> str:
+def pull_phase_engaged(
+    cfg: SimConfig, device, n_local: int | None = None, has_topology: bool = False
+) -> str:
     """The form that serves the sub-exchanges (``resolve_phases``)."""
-    return resolve_phases(cfg, device, n_local=n_local).pull
+    return resolve_phases(cfg, device, n_local=n_local, has_topology=has_topology).pull
 
 
 def pull_fallback_reason(cfg: SimConfig, device) -> str | None:
     """Why a config that asks for the kernels runs its pull plain anyway
-    ("packed_dtype", "fanout"), or None (``resolve_phases``)."""
+    (``plain_pull_reason``), or None (``resolve_phases``)."""
     return resolve_phases(cfg, device).pull_fallback
 
 
@@ -463,17 +512,22 @@ def sim_step(
     *,
     return_converged: bool = False,
     tick: int | None = None,
-    draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    draws=None,
     run_salt: int | None = None,
+    adjacency: torch.Tensor | None = None,
+    degrees: torch.Tensor | None = None,
 ):
     """Advance the whole cluster by one gossip round.
 
     ``key`` is the run's key (``prng.key(seed)``). ``tick`` is the host
-    value of ``state.tick`` and ``draws`` the round's (gm, c, p) matchings
-    on the state's device, shape (fanout, ...) — both derived here when
-    not given (reading ``state.tick`` then costs a device sync);
-    ``Simulator`` passes them, drawn a chunk at a time on the device, so
-    its loop never syncs. ``run_salt`` is ``prng.run_salt(key)``.
+    value of ``state.tick`` and ``draws`` the round's ``prng.RoundDraws``
+    on the state's device (``prng.chunk_draws(...).round(r)``) — both
+    derived here when not given (reading
+    ``state.tick`` then costs a device sync); ``Simulator`` passes them,
+    drawn a chunk at a time on the device, so its loop never syncs.
+    ``run_salt`` is ``prng.run_salt(key)``. ``adjacency`` / ``degrees``
+    (a ``Topology``'s arrays as tensors) restrict each node's peers to
+    its adjacency row, as the reference's topology runs.
 
     ``return_converged=True`` also returns the all-converged flag of the
     new state (a bool tensor); on the pairs path it rides the round's
@@ -481,7 +535,7 @@ def sim_step(
     """
     out = step_blocks(
         [state], key, cfg, offsets=(0,), return_converged=return_converged,
-        tick=tick, draws=draws, run_salt=run_salt,
+        tick=tick, draws=draws, run_salt=run_salt, adjacency=adjacency, degrees=degrees,
     )
     if not return_converged:
         return out[0]
@@ -533,27 +587,30 @@ def step_blocks(
     offsets: Sequence[int],
     return_converged: bool = False,
     tick: int | None = None,
-    draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    draws=None,
     run_salt: int | None = None,
+    adjacency: torch.Tensor | None = None,
+    degrees: torch.Tensor | None = None,
 ):
     """One gossip round of a state held as column blocks of the owners
     (the reference's ``sim_step(axis_name="owners")`` under shard_map):
     ``blocks[k]`` holds the (N, n_local) matrices of the global owners
     ``offsets[k] ..`` and the replicated (N,) vectors and tick. The
-    replicated work runs once, on the first block's device, and is
-    copied to the others; every phase then runs block after block
-    between the collectives (``reduce_blocks``): each sub-exchange's deficit
-    totals are summed over the blocks before any block's pull reads them
-    (the two-pass kernel forms; the plain round likewise), the FD phase
-    runs per block at its offset, and the convergence flag is the min
-    over the blocks. ``sim_step`` is this round on one block of every
-    owner. Returns the new blocks (and the flag with
+    replicated work (the churn, the draws) runs once, on the first
+    block's device, and is copied to the others; every phase then runs
+    block after block between the collectives (``reduce_blocks``): each
+    sub-exchange's deficit totals (greedy: the earlier blocks' row sums)
+    are reduced over the blocks before any block's pull reads them (the
+    two-pass kernel forms; the plain round likewise), the view draw
+    takes each block's best peer and then the best over the blocks, the
+    FD phase runs per block at its offset, and the convergence flag is
+    the min over the blocks. ``sim_step`` is this round on one block of
+    every owner. Returns the new blocks (and the flag with
     ``return_converged``); the other arguments are ``sim_step``'s."""
     reason = unported_reason(cfg)
     if reason is not None:
         counters.refuse(reason)
     head = blocks[0]
-    n = cfg.n_nodes
     n_local = state_n_local(head)
     dev = head.w.device
     rep = _replicas([b.w.device for b in blocks])
@@ -563,17 +620,27 @@ def step_blocks(
     new_tick = tick + 1
     if run_salt is None:
         run_salt = prng.run_salt(key)
+    has_topology = adjacency is not None
     if draws is None:
-        draws = [t[0] for t in prng.round_draws(key.to(dev), new_tick, 1, n, cfg.fanout)]
-    gm_all, c_all, p_all = draws
+        draws = prng.chunk_draws(
+            key.to(dev), new_tick, 1, cfg, alive=head.alive, adjacency=adjacency,
+            degrees=degrees,
+        ).round(0)
 
     alive = head.alive
+    if draws.dies is not None:
+        # Churn (the ground truth): the round's flips, written into the
+        # new state; heartbeats, writes and every pair's validity follow
+        # the flipped mask.
+        alive = torch.where(alive, ~draws.dies, draws.revives)
     alive_i32 = alive.to(torch.int32)
     heartbeat = head.heartbeat + alive_i32
     max_version = head.max_version + cfg.writes_per_round * alive_i32
     alive_b, hbt_b, mv_b = rep(alive), rep(heartbeat), rep(max_version)
     track_hb = cfg.track_heartbeats
-    phases = resolve_phases(cfg, dev, n_local=None if len(blocks) == 1 else n_local)
+    phases = resolve_phases(
+        cfg, dev, n_local=None if len(blocks) == 1 else n_local, has_topology=has_topology
+    )
     pull, fd_phase = phases.pull, phases.fd
     for reason in (phases.pull_fallback, phases.fd_fallback):
         if reason is not None:
@@ -592,8 +659,8 @@ def step_blocks(
 
     def matching(c: int):
         """Sub-exchange ``c``'s (gm, c, p, valid) on each block's device."""
-        p = p_all[c]
-        return zip(rep(gm_all[c]), rep(c_all[c]), rep(p), rep(alive & alive[p]))
+        p = draws.p[c]
+        return zip(rep(draws.gm[c]), rep(draws.c[c]), rep(p), rep(alive & alive[p]))
 
     flag = None
     ws = [b.w for b in blocks]
@@ -648,8 +715,13 @@ def step_blocks(
             if flags:
                 flag = reduce_blocks(flags, "min")[0]
     else:
-        hb0s = _plain_exchanges(cfg, blocks, ws, hbs, offsets, matching, refresh, hbv,
-                                salt_of, run_salt)
+        # The lifecycle's digest exclusion, from the pre-round stamps.
+        scheds = [scheduled_for_deletion_mask(b, cfg, new_tick) for b in blocks]
+        hb0s = _plain_exchanges(
+            cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_salt, draws,
+            rep(alive), scheds, view_salt=-(new_tick + 1) * cfg.fanout,
+            choice=has_topology or cfg.pairing == "choice",
+        )
 
     for k, b in enumerate(blocks):
         if fd_phase == "kernel":
@@ -658,18 +730,22 @@ def step_blocks(
                 b.live_view, params, owner_offset=offsets[k],
             )
         elif fd_phase == "plain":
-            # The reference's XLA block (no lifecycle); hb0's diagonal is
-            # refreshed again, idempotently.
+            # The reference's XLA block; hb0's diagonal is refreshed
+            # again, idempotently.
             fd_mod.fused_fd_plain(
                 new_tick, hbs[k], hb0s[k], hbv[k], b.last_change, b.imean, b.icount,
                 b.live_view, params, owner_offset=offsets[k],
             )
             counters.plain_calls["fd"] += 1
+            if lifecycle_enabled(cfg):
+                lifecycle_(cfg, new_tick, ws[k], hbs[k], b.last_change, b.live_view,
+                           b.dead_since, alive_b[k])
 
     ticks = rep(head.tick + 1)
     new_blocks = [
         b.replace(
-            tick=ticks[k], max_version=mv_b[k], heartbeat=hbt_b[k], w=ws[k], hb_known=hbs[k],
+            tick=ticks[k], max_version=mv_b[k], heartbeat=hbt_b[k], alive=alive_b[k], w=ws[k],
+            hb_known=hbs[k],
         )
         for k, b in enumerate(blocks)
     ]
@@ -683,28 +759,35 @@ def step_blocks(
 def run_rounds(
     blocks: list[SimState], key: torch.Tensor, cfg: SimConfig, *, offsets, m: int,
     tick: int, tracked: bool, run_salt: int | None = None,
-    device_key: torch.Tensor | None = None,
+    device_key: torch.Tensor | None = None, adjacency: torch.Tensor | None = None,
+    degrees: torch.Tensor | None = None,
 ):
     """Queue ``m`` rounds of the blocks from host tick ``tick``, with no
     host sync: the chunk's draws in one batched pass on the first block's
-    device, then each round (``step_blocks``). Returns the new
-    blocks and a device scalar holding the first converged tick among
-    the rounds (0 if none; always 0 unless ``tracked``). The draws and
-    each round are ``torch.profiler`` ranges (``aiocluster_torch.draws``
-    / ``aiocluster_torch.sim_step``)."""
+    device (``prng.chunk_draws``, the categorical peers carried through
+    the chunk's churn from the blocks' alive mask), then each round
+    (``step_blocks``, on the topology ``adjacency`` / ``degrees`` when
+    given). Returns the new blocks and a device scalar holding the first
+    converged tick among the rounds (0 if none; always 0 unless
+    ``tracked``). The draws and each round are ``torch.profiler`` ranges
+    (``aiocluster_torch.draws`` / ``aiocluster_torch.sim_step``)."""
     dev = blocks[0].w.device
     if run_salt is None:
         run_salt = prng.run_salt(key)
     if device_key is None:
         device_key = key.to(dev)
     with record_function("aiocluster_torch.draws"):
-        gm, c, p = prng.round_draws(device_key, tick + 1, m, cfg.n_nodes, cfg.fanout)
+        draws = prng.chunk_draws(
+            device_key, tick + 1, m, cfg, alive=blocks[0].alive, adjacency=adjacency,
+            degrees=degrees,
+        )
     first = torch.zeros((), dtype=torch.int32, device=dev)
     for r in range(m):
         with record_function("aiocluster_torch.sim_step"):
             out = step_blocks(
                 blocks, key, cfg, offsets=offsets, return_converged=tracked,
-                tick=tick + r, draws=(gm[r], c[r], p[r]), run_salt=run_salt,
+                tick=tick + r, draws=draws.round(r), run_salt=run_salt,
+                adjacency=adjacency, degrees=degrees,
             )
         if tracked:
             blocks, conv = out
@@ -755,16 +838,24 @@ def _m8_exchanges(cfg, pull, ws, hbs, offsets, matching, refresh, hbv, salt_of, 
                 hbs[k] = out[1]
 
 
-def _plain_exchanges(cfg, blocks, ws, hbs, offsets, matching, refresh, hbv, salt_of,
-                     run_salt):
+def _plain_exchanges(cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_salt, draws,
+                     alive, scheds, view_salt, choice):
     """The round's sub-exchanges as plain PyTorch ops, block after block,
     in ``ws``/``hbs`` (new tensors): the owner diagonal refreshed, then
-    each sub-exchange's deficits taken per block, their row totals
-    summed over the blocks, and each block advanced with the global
-    totals (the reference's XLA round; one block is the unsharded
-    round). Returns the round-start hb of each block (refreshed)."""
+    each sub-exchange's handshake directions (``_advances``: the
+    deficits' row totals or greedy offsets reduced over the blocks first)
+    applied from the pre-exchange matrices — the reference's XLA round;
+    one block is the unsharded round. A matching is one direction; a
+    permutation two, row i pulling from ``p[i]`` and from ``inv[i]``,
+    joined by their max; a choice sub-exchange is the initiator's pull
+    from its peer and the responder's scatter-max of its own advance
+    into the peer's row (the peers drawn, or the view draw of the blocks'
+    pre-round live views). ``alive`` and ``scheds`` (the lifecycle's
+    scheduled-for-deletion masks, or None) are per block. Returns the
+    round-start hb of each block (refreshed)."""
     n = cfg.n_nodes
     track_hb, packed = cfg.track_heartbeats, is_packed_w(ws[0])
+    rep = _replicas([w.device for w in ws])
     owners = []
     for k, b in enumerate(blocks):
         dev = b.w.device
@@ -782,31 +873,321 @@ def _plain_exchanges(cfg, blocks, ws, hbs, offsets, matching, refresh, hbv, salt
         if track_hb:
             hbs[k] = torch.where(diag, hbv[k].to(b.hb_known.dtype)[None, :], b.hb_known)
     hb0s = list(hbs)
+
+    def direction(p, recv_is_peer: bool, salt: int):
+        """One handshake direction of every block: row i advances toward
+        its peer ``p[i]`` (or, ``recv_is_peer``, the peer row toward row
+        i), where both ends are alive."""
+        ps, valids = rep(p), [a & a[q] for a, q in zip(alive, rep(p))]
+        return [
+            _Direction(q, None, v, salt) if recv_is_peer else _Direction(None, q, v, salt)
+            for q, v in zip(ps, valids)
+        ]
+
+    def absorb(k, dn):
+        """The hb rows a direction's receivers take from their senders
+        (their advertised heartbeats, 0 where masked)."""
+        ok = dn.valid[:, None]
+        if scheds[k] is not None:
+            ok = ok & ~_gather(scheds[k], dn.send)
+        return torch.where(ok, _gather(hbs[k], dn.send), 0)
+
+    if choice:
+        peers = draws.peers
+        if peers is None:
+            peers = view_peers(cfg, blocks, offsets, view_salt, run_salt)
+        for c in range(cfg.fanout):
+            p = peers[:, c]
+            d_in = direction(p, False, salt_of(c))
+            d_out = direction(p, True, salt_of(c) + 1)
+            a_in = _advances(cfg, ws, owners, scheds, d_in, run_salt)
+            a_out = _advances(cfg, ws, owners, scheds, d_out, run_salt)
+            for k, w in enumerate(ws):
+                q = d_out[k].recv
+                # The initiator applies the responder's delta, the
+                # responder ours (a max: any scatter order is exact).
+                w_next = w + a_in[k]
+                for r0, r1 in row_blocks(n, w.shape[1]):
+                    scatter_max_rows_(w_next, q[r0:r1], w[q[r0:r1]] + a_out[k][r0:r1])
+                ws[k] = w_next
+                if track_hb:
+                    hb_next = torch.maximum(hbs[k], absorb(k, d_in[k]))
+                    ok = d_out[k].valid[:, None]
+                    if scheds[k] is not None:
+                        ok = ok & ~scheds[k]
+                    scatter_max_rows_(hb_next, q, torch.where(ok, hbs[k], 0))
+                    hbs[k] = hb_next
+                counters.plain_calls["pull"] += 1
+        return hb0s
     for c in range(cfg.fanout):
-        ops = list(matching(c))
-        peers = [w[p] for w, (_, _, p, _) in zip(ws, ops)]
-        if packed:
-            totals = reduce_blocks([
-                packed_totals(w, peer, valid) for w, peer, (_, _, _, valid) in zip(ws, peers, ops)
-            ], "sum")
-        else:
-            ds = [deficits(w, peer, valid) for w, peer, (_, _, _, valid) in zip(ws, peers, ops)]
-            totals = reduce_blocks([deficit_totals(d) for d in ds], "sum")
-        for k, (_, _, p, valid) in enumerate(ops):
+        dirs = [direction(draws.p[c], False, salt_of(c))]
+        if draws.inv is not None:
+            # The permutation's responder role: the pull through the
+            # inverse, from the same pre-exchange matrices.
+            dirs.append(direction(draws.inv[c], False, salt_of(c) + 1))
+        advs = [_advances(cfg, ws, owners, scheds, dns, run_salt) for dns in dirs]
+        for k, w in enumerate(ws):
             if packed:
-                a_lo, a_hi = packed_adv_halves(
-                    ws[k], peers[k], cfg.budget, valid, salt_of(c), owners[k], run_salt,
-                    totals[k],
-                )
-                ws[k] = packed_apply(ws[k], a_lo, a_hi)
+                a_lo = functools.reduce(torch.maximum, [a[k][0] for a in advs])
+                a_hi = functools.reduce(torch.maximum, [a[k][1] for a in advs])
+                ws[k] = packed_apply(w, a_lo, a_hi)
             else:
-                scale = budget_scale(totals[k], cfg.budget)
-                adv = proportional_advance(ds[k], scale, salt_of(c), owners[k], run_salt)
-                ws[k] = ws[k] + adv.to(ws[k].dtype)
+                ws[k] = w + functools.reduce(torch.maximum, [a[k] for a in advs])
             if track_hb:
-                hbs[k] = torch.maximum(hbs[k], torch.where(valid[:, None], hbs[k][p], 0))
+                hbs[k] = functools.reduce(
+                    torch.maximum, [torch.maximum(hbs[k], absorb(k, dns[k])) for dns in dirs]
+                )
             counters.plain_calls["pull"] += 1
     return hb0s
+
+
+class _Direction(NamedTuple):
+    """One handshake direction of a plain sub-exchange in one block: at
+    position i, row ``recv[i]`` (None: row i) advances toward row
+    ``send[i]`` (None: row i) where ``valid[i]``; the dither hashes row
+    id i with ``salt``."""
+
+    recv: torch.Tensor | None
+    send: torch.Tensor | None
+    valid: torch.Tensor
+    salt: int
+
+
+def _gather(m: torch.Tensor, idx: torch.Tensor | None, r0: int = 0, r1: int | None = None):
+    """Rows ``idx[r0:r1]`` of ``m`` (rows ``r0:r1`` when ``idx`` is None)."""
+    if idx is None:
+        return m[r0:r1]
+    return m[idx[r0:r1]]
+
+
+def _direction_deficits(w, dn: _Direction, sched, r0: int, r1: int) -> torch.Tensor:
+    """Positions ``r0:r1`` of a direction's deficits, zero where the pair
+    is not alive or the sender has scheduled the owner for deletion (the
+    reference's ``col_ok``)."""
+    d = deficits(_gather(w, dn.recv, r0, r1), _gather(w, dn.send, r0, r1), dn.valid[r0:r1])
+    if sched is not None:
+        d = torch.where(_gather(sched, dn.send, r0, r1), 0, d)
+    return d
+
+
+def _advances(cfg, ws, owners, scheds, dns, run_salt) -> list:
+    """Each block's advances of one handshake direction (``dns``, one
+    ``_Direction`` per block), the reference's ``_budgeted_advance``:
+    a first pass takes every block's row totals of the deficits
+    (proportional: float32, summed over the blocks; greedy: exact sums,
+    each block offset by the earlier blocks'), the second the advances,
+    a block of rows at a time. Returns (N, n_local) advances in each
+    block's w dtype; on the packed rung the int32 nibble halves
+    (a_lo, a_hi)."""
+    n = ws[0].shape[0]
+    packed = is_packed_w(ws[0])
+    greedy = cfg.budget_policy == "greedy"
+    parts = []
+    for w, dn, sched in zip(ws, dns, scheds):
+        part = torch.empty(n, dtype=torch.int64 if greedy else torch.float32, device=w.device)
+        for r0, r1 in row_blocks(n, w.shape[1]):
+            if packed:
+                part[r0:r1] = packed_totals(
+                    _gather(w, dn.recv, r0, r1), _gather(w, dn.send, r0, r1), dn.valid[r0:r1]
+                )
+                continue
+            d = _direction_deficits(w, dn, sched, r0, r1)
+            part[r0:r1] = d.sum(dim=1, dtype=torch.int64) if greedy else deficit_totals(d)
+        parts.append(part)
+    if greedy:
+        # Global owner order across the blocks: block k's cumsum starts at
+        # the row sums of blocks 0 .. k - 1.
+        stats, acc = [], torch.zeros_like(parts[0])
+        for part in parts:
+            stats.append(acc.to(part.device))
+            acc = acc + part.to(acc.device)
+    else:
+        stats = reduce_blocks(parts, "sum")
+    out = []
+    for w, dn, sched, own, st in zip(ws, dns, scheds, owners, stats):
+        shape = (n, w.shape[1])
+        if packed:
+            adv = (torch.empty(shape, dtype=torch.int32, device=w.device),
+                   torch.empty(shape, dtype=torch.int32, device=w.device))
+        else:
+            adv = torch.empty(shape, dtype=w.dtype, device=w.device)
+        for r0, r1 in row_blocks(n, w.shape[1]):
+            ids = torch.arange(r0, r1, device=w.device)
+            if packed:
+                a_lo, a_hi = packed_adv_halves(
+                    _gather(w, dn.recv, r0, r1), _gather(w, dn.send, r0, r1), cfg.budget,
+                    dn.valid[r0:r1], dn.salt, own, run_salt, st[r0:r1], row_ids=ids,
+                )
+                adv[0][r0:r1], adv[1][r0:r1] = a_lo, a_hi
+                continue
+            d = _direction_deficits(w, dn, sched, r0, r1)
+            if greedy:
+                adv[r0:r1] = greedy_advance(d, st[r0:r1], cfg.budget)
+            else:
+                scale = budget_scale(st[r0:r1], cfg.budget)
+                adv[r0:r1] = proportional_advance(d, scale, dn.salt, own, run_salt, ids).to(w.dtype)
+        out.append(adv)
+    return out
+
+
+def greedy_advance(d: torch.Tensor, offset: torch.Tensor, budget: int) -> torch.Tensor:
+    """The reference's greedy policy on deficit rows ``d``: each owner
+    takes what is left of the budget after the owners before it in
+    global order, ``clip(budget - c, 0, d)``, with ``c`` the exclusive
+    cumsum of the row's deficits (``offset``: the rows' sums over the
+    owners of earlier column blocks). The reference sums in int32, so
+    ``c`` and ``budget - c`` wrap as int32 do (exact int64 sums, wrapped
+    once: the same residues)."""
+    d64 = d.to(torch.int64)
+    c = torch.cumsum(d64, dim=1) - d64 + offset[:, None]
+    left = prng.wrap_i32(budget - c)
+    return torch.minimum(torch.clamp(left, min=0), d64).to(d.dtype)
+
+
+def scatter_max_rows_(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst[rows[i]] = max(dst[rows[i]], src[i])`` for every i, in place
+    (the reference's ``dst.at[rows].max(src)``): a max is order-free, so
+    the order the repeated rows land in does not matter."""
+    index = rows[:, None].expand(src.shape)
+    return dst.scatter_reduce_(0, index, src.to(dst.dtype), "amax", include_self=True)
+
+
+# -- the view draw ------------------------------------------------------------------
+#
+# peer_mode="view" samples each row's peer from its own live view by a
+# Gumbel-max over the 32-bit hash of (row, global owner, salt): u =
+# float32(h) * 2^-32, clipped to [1e-12, 1 - 2^-24], noise -log(-log(u)),
+# +64 for live non-self peers, -1e30 for the row itself. The scores are
+# quantised (ties are frequent at the top), so the port computes them with
+# the float32 logarithm the reference gets from XLA on the CPU (Cephes'
+# polynomial with the same fused multiply-adds), not a library log that
+# differs from it in the last place.
+
+NEG_INF = -1e30
+LIVE_BONUS = 64.0
+_LOG_P = tuple(float(np.float32(x)) for x in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1,
+))
+_LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), float(np.float32(0.693359375))
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """The float32 natural log the reference's view draw takes on XLA's
+    CPU backend, for positive normal float32 ``x``: Cephes' range
+    reduction to [sqrt(1/2), sqrt(2)) and degree-8 polynomial, with the
+    fused multiply-adds XLA emits (``fma32``); every other step rounds to
+    float32 as it goes."""
+    bits = x.view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 127).to(torch.float32)
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _SQRT_HALF
+    m0 = torch.where(low, m, 0.0)
+    m = m - 1.0
+    e = e - low.to(torch.float32)
+    m = m + m0
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y, y1, y2 = fma32(p[0], m, p[1]), fma32(p[3], m, p[4]), fma32(p[6], m, p[7])
+    y, y1, y2 = fma32(y, m, p[2]), fma32(y1, m, p[5]), fma32(y2, m, p[8])
+    y = fma32(y, x3, y1)
+    y = fma32(y, x3, y2)
+    y = fma32(y, x3, e * _LOG_Q1)
+    m = m - x2 * 0.5
+    m = m + y
+    return m + e * _LOG_Q2
+
+
+# Rows per block of the view draw's scores: about 2^22 elements, so its
+# float64 transients stay near 32 MB each.
+VIEW_BLOCK_ELEMS = 1 << 22
+
+
+def view_block_best(live: torch.Tensor, salt: int, run_salt: int, col0: int = 0):
+    """One column block's best view-draw peer of every row (the
+    reference's ``_view_peer_choice`` before its cross-shard step):
+    ``live`` is the (N, n_local) bool live view of the owners ``col0
+    ..``. Returns the float32 best scores and their int64 global owner
+    ids (ties to the lowest), (N,) each."""
+    n, n_cols = live.shape
+    dev = live.device
+    cols = col0 + torch.arange(n_cols, device=dev)
+    s = (int(salt) ^ int(run_salt)) & M32
+    best_s = torch.empty(n, dtype=torch.float32, device=dev)
+    best_i = torch.empty(n, dtype=torch.int64, device=dev)
+    rows = max(1, VIEW_BLOCK_ELEMS // n_cols)
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        ids = torch.arange(r0, r1, device=dev)
+        h = hash_mix_u32(ids[:, None], cols[None, :], s)
+        u = torch.clamp(h.to(torch.float32) * 2.0**-32, min=1e-12, max=1.0 - 2.0**-24)
+        g = -xla_log(-xla_log(u))
+        is_self = ids[:, None] == cols[None, :]
+        score = torch.where(
+            live[r0:r1] & ~is_self, g + LIVE_BONUS, torch.where(is_self, NEG_INF, g)
+        )
+        best_s[r0:r1] = score.amax(dim=1)
+        best_i[r0:r1] = cols[torch.argmax(score, dim=1)]
+    return best_s, best_i
+
+
+def view_peers(cfg: SimConfig, blocks, offsets, view_salt: int, run_salt: int) -> torch.Tensor:
+    """(N, fanout) peers of the view draw (``peer_mode="view"``) over a
+    state's column blocks: sub-exchange ``c`` salts the hash with
+    ``view_salt + c``; each block's best, then the best over the blocks
+    in block order (an earlier block wins a tie), as the reference's
+    all_gather and argmax. On the first block's device."""
+    dev = blocks[0].w.device
+    cols = []
+    for c in range(cfg.fanout):
+        best = None
+        for b, off in zip(blocks, offsets):
+            sc, ix = (t.to(dev) for t in view_block_best(b.live_view, view_salt + c, run_salt, off))
+            if best is None:
+                best = (sc, ix)
+            else:
+                take = sc > best[0]
+                best = (torch.where(take, sc, best[0]), torch.where(take, ix, best[1]))
+        cols.append(best[1])
+    return torch.stack(cols, dim=1)
+
+
+# -- the dead-node lifecycle ------------------------------------------------------
+
+
+def scheduled_for_deletion_mask(state: SimState, cfg: SimConfig, tick: int):
+    """(N, n_local) bool: observer i has had owner j scheduled for
+    deletion for at least half the grace at ``tick`` (the round's tick;
+    from the pre-round stamps) — the digest-exclusion stage: such rows
+    stop sending j's state and advertising j's heartbeat. None when the
+    lifecycle is off."""
+    if not lifecycle_enabled(cfg):
+        return None
+    ds = state.dead_since.to(torch.int32)
+    return (ds > 0) & ((tick - ds) >= cfg.dead_grace_ticks // 2)
+
+
+def lifecycle_(cfg: SimConfig, tick: int, w, hb, lc, live, dead_since, alive) -> None:
+    """The lifecycle's step after the plain FD block, in place on one
+    column block: an alive observer stamps a known owner dead at its
+    live -> dead transition (a live owner clears the stamp); once the
+    full grace has passed the pair is forgotten — watermark, heartbeat
+    knowledge, last change and stamp reset to 0. ``live`` is the block's
+    new live view (bool or bitmap), ``alive`` the round's ground
+    truth."""
+    live = unpack_bits(live) if is_packed_live(live) else live
+    row_alive = alive[:, None]
+    known = ((w > 0) | (hb > 0)) & row_alive
+    ds32 = dead_since.to(torch.int32)
+    ds = torch.where(live, 0, torch.where((ds32 == 0) & known, tick, ds32))
+    gc_now = (ds > 0) & ((tick - ds) >= cfg.dead_grace_ticks) & row_alive
+    w.masked_fill_(gc_now, 0)
+    hb.masked_fill_(gc_now, 0)
+    lc.masked_fill_(gc_now, 0)
+    dead_since.copy_(torch.where(gc_now, 0, ds))
 
 
 # -- the round of a sweep's lanes -----------------------------------------------------
@@ -874,16 +1255,16 @@ def sweep_step(
 
     ``states`` is lane-batched (``init_lanes``), ``keys`` the (S, 2) lane
     keys, ``tick`` the host value of the (shared) pre-round tick.
-    ``draws`` are the round's (gm, c, p) of every lane, (fanout, S, ...)
-    (``prng.round_draws`` of the keys), ``salts`` the round's (fanout, S)
-    salt_mix table (``lane_salt_table``), ``run_salts`` the lanes' run
+    ``draws`` are the round's ``prng.RoundDraws`` of every lane (the
+    matchings (fanout, S, ...), the churn flips (S, n); ``chunk_draws``
+    of the keys), ``salts`` the round's (fanout, S) salt_mix table (``lane_salt_table``), ``run_salts`` the lanes' run
     salts as host ints and ``active`` the (fanout, S) bool table of the
     sub-exchanges each lane runs (``c < f_lane``; None when fanout is not
     swept).
 
     On the pairs forms each sub-exchange is one lane launch for all S
     lanes (two in the two-pass form: the totals, then the pull), on the
-    lanes' salts; a lane whose fanout is below the config's voids its
+    lanes' salts and each lane's post-churn alive mask; a lane whose fanout is below the config's voids its
     sub-exchanges ``c >= f_lane`` (``valid`` all 0) while the refresh
     still rides c = 0 and the check and the FD epilogue (with the lane's
     phi) c = fanout - 1. Elsewhere every lane runs the plain round.
@@ -899,9 +1280,11 @@ def sweep_step(
     if phases.pull not in PAIRS_FORMS:
         return _plain_lanes(states, keys, cfg, sweep, tick, draws, run_salts,
                             return_converged)
-    gm_all, c_all, p_all = draws
+    gm_all, c_all, p_all = draws.gm, draws.c, draws.p
 
     alive = states.alive
+    if draws.dies is not None:
+        alive = torch.where(alive, ~draws.dies, draws.revives)
     alive_i32 = alive.to(torch.int32)
     heartbeat = states.heartbeat + alive_i32
     wpr = cfg.writes_per_round
@@ -957,7 +1340,7 @@ def sweep_step(
             )
             counters.plain_calls["fd"] += 1
     new = states.replace(
-        tick=states.tick + 1, max_version=max_version, heartbeat=heartbeat, w=w,
+        tick=states.tick + 1, max_version=max_version, heartbeat=heartbeat, alive=alive, w=w,
         hb_known=hb,
     )
     if not return_converged:
@@ -969,15 +1352,12 @@ def _plain_lanes(states, keys, cfg, sweep, tick, draws, run_salts, return_conver
     """The plain route of ``sweep_step``: each lane runs ``sim_step``'s
     plain round with its own config on its views of the batch, and what
     the round wrote into new tensors is copied back into the batch."""
-    gm_all, c_all, p_all = draws
     flags = []
     for s, lane_cfg in enumerate(lane_configs(cfg, sweep, states.w.shape[0])):
-        f = lane_cfg.fanout
         view = lane(states, s)
         out = sim_step(
             view, keys[s], lane_cfg, tick=tick, run_salt=run_salts[s],
-            draws=(gm_all[:f, s], c_all[:f, s], p_all[:f, s]),
-            return_converged=return_converged,
+            draws=draws.lane(s, lane_cfg.fanout), return_converged=return_converged,
         )
         new, conv = out if return_converged else (out, None)
         for name in STATE_FIELDS:

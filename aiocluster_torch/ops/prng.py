@@ -1,12 +1,13 @@
 """Threefry-2x32 counter-based random draws, bit-equal to ``jax.random``.
 
-The reference draws every random choice of a round (the grouped
-matchings of the sub-exchanges) from ``jax.random`` with
-``jax_threefry_partitionable`` on. A port that draws the same bits
-follows the same trajectory, so this module re-implements the pieces
-the gossip round uses — ``key``, ``fold_in``, ``split``, ``bits``,
-``randint`` and ``permutation`` — with PyTorch integer ops, plus the
-matchings built on them and the round's key schedule.
+The reference draws every random choice of a round (the matchings or
+permutations of the sub-exchanges, the churn flips, the choice peers)
+from ``jax.random`` with ``jax_threefry_partitionable`` on. A port that
+draws the same bits follows the same trajectory, so this module
+re-implements the pieces the gossip round uses — ``key``, ``fold_in``,
+``split``, ``bits``, ``randint``, ``uniform``, ``bernoulli``,
+``categorical`` and ``permutation`` — with PyTorch integer ops, plus the
+matchings built on them and the round's key schedule (``chunk_draws``).
 
 Layout: a key is an int64 tensor whose last axis holds the two 32-bit
 words (JAX's ``random.key_data``); leading axes batch independent keys,
@@ -20,6 +21,7 @@ GPU, so a simulator draws on its state's device.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,36 +95,93 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack((y1, y2), dim=-1)
 
 
-def bits(keys: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+def bits(keys: torch.Tensor, shape: tuple[int, ...] = (), start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` (partitionable form): the
-    two output words of each counter, xor-ed; (..., 2) -> (..., *shape)."""
+    two output words of each counter, xor-ed; (..., 2) -> (..., *shape).
+    ``start`` skips the first counters: the words ``start ..`` of a
+    larger draw whose flat index begins there (a block of its rows)."""
     size = math.prod(shape)
-    counts = torch.arange(size, dtype=torch.int64, device=keys.device)
+    counts = torch.arange(start, start + size, dtype=torch.int64, device=keys.device)
     y1, y2 = threefry2x32(
         keys[..., 0, None], keys[..., 1, None], counts >> 32, counts & M32
     )
     return (y1 ^ y2).reshape((*keys.shape[:-1], *shape))
 
 
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return ((x + 2**31) & M32) - 2**31
 
 
-def randint(
-    keys: torch.Tensor, shape: tuple[int, ...], minval: int, maxval: int
-) -> torch.Tensor:
-    """``jax.random.randint`` into int32 for int bounds: two words of
-    bits per value, combined modulo the span with the ``2**32 % span``
-    multiplier. Returns int64 values in [minval, maxval)."""
+def randint(keys: torch.Tensor, shape: tuple[int, ...], minval: int, maxval) -> torch.Tensor:
+    """``jax.random.randint`` into int32: two words of bits per value,
+    combined modulo the span with the ``2**32 % span`` multiplier.
+    ``maxval`` is an int or an integer tensor broadcasting against
+    ``shape`` (a span per element, as the adjacency draw's degrees).
+    Returns int64 values in [minval, maxval)."""
     ks = split(keys)
     higher = bits(ks[..., 0, :], shape)
     lower = bits(ks[..., 1, :], shape)
     lo = max(min(int(minval), 2**31 - 1), -(2**31))
-    hi = max(min(int(maxval), 2**31 - 1), -(2**31))
-    span = 1 if hi <= lo else (hi - lo) & M32
+    if torch.is_tensor(maxval):
+        hi = torch.clamp(maxval.to(torch.int64), -(2**31), 2**31 - 1)
+        span = torch.where(hi <= lo, 1, (hi - lo) & M32)
+    else:
+        hi = max(min(int(maxval), 2**31 - 1), -(2**31))
+        span = 1 if hi <= lo else (hi - lo) & M32
     mult = ((2**16 % span) ** 2 & M32) % span  # the square wraps in uint32
     offset = ((((higher % span) * mult) & M32) + lower % span) & M32
-    return _wrap_i32(lo + offset % span)
+    return wrap_i32(lo + offset % span)
+
+
+def uniform_mantissas(keys: torch.Tensor, shape: tuple[int, ...], start: int = 0) -> torch.Tensor:
+    """The 23-bit mantissas ``m`` of ``jax.random.uniform(key, shape,
+    float32)``, whose values are exactly ``m * 2**-23`` in [0, 1)."""
+    return bits(keys, shape, start) >> 9
+
+
+def uniform(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on [0, 1)."""
+    return uniform_mantissas(keys, shape).to(torch.float32) * 2.0**-23
+
+
+def bernoulli(keys: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p`` with ``p``
+    rounded to float32 (the comparison is exact in float64)."""
+    p32 = float(np.float32(p))
+    return uniform_mantissas(keys, shape).to(torch.float64) * 2.0**-23 < p32
+
+
+# Elements of the (rows, fanout, n) uniform draw the categorical takes in
+# one block of rows: its int64 transients stay near 300 MB at any width.
+CATEGORICAL_BLOCK_ELEMS = 1 << 22
+
+
+def categorical(key: torch.Tensor, alive: torch.Tensor, fanout: int) -> torch.Tensor:
+    """``jax.random.categorical(key, where(alive, 0, -1e30), shape=(n,
+    fanout))``: each draw's argmax over the categories of uniform noise
+    plus the logits. A dead category scores -1e30 exactly, and
+    ``u -> -log(-log(u))`` is strictly increasing on the float32 uniforms
+    (multiples of 2**-23, clipped below at the smallest normal), so the
+    pick is the alive category with the largest uniform mantissa, ties to
+    the lowest index, and category 0 when none is alive: no logarithm is
+    taken. ``key`` is one key; the (n, fanout, n) words are drawn a block
+    of rows at a time. Returns int64 (n, fanout)."""
+    n = alive.shape[0]
+    out = torch.empty((n, fanout), dtype=torch.int64, device=alive.device)
+    rows = max(1, CATEGORICAL_BLOCK_ELEMS // (fanout * n))
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        m = uniform_mantissas(key, (r1 - r0, fanout, n), start=r0 * fanout * n)
+        out[r0:r1] = torch.argmax(torch.where(alive, m, -1), dim=-1)
+    return out
+
+
+def inverse_permutation(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of permutations ``p`` along the last axis (the
+    reference's ``argsort(p)``)."""
+    inv = torch.empty_like(p)
+    ids = torch.arange(p.shape[-1], dtype=p.dtype, device=p.device)
+    return inv.scatter_(-1, p, ids.expand_as(p).contiguous())
 
 
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -198,32 +257,127 @@ def run_salts(lane_keys: torch.Tensor) -> torch.Tensor:
 def salt_mix(salt: torch.Tensor, run_salts: torch.Tensor) -> torch.Tensor:
     """The kernels' dither salt of each lane, ``(salt ^ run_salt) mod
     2**32`` as int32 bits (the lane launches read them as uint32)."""
-    return _wrap_i32((salt & M32) ^ (run_salts & M32)).to(torch.int32)
+    return wrap_i32((salt & M32) ^ (run_salts & M32)).to(torch.int32)
 
 
-def round_draws(
-    run_key: torch.Tensor, first_tick: int, rounds: int, n: int, fanout: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The matchings of rounds ``first_tick .. first_tick + rounds - 1``
-    (each the POST-increment tick a round runs at), following the
-    reference's key schedule: ``round_key = fold_in(key, tick)``;
-    ``churn_key, peer_key = split(round_key)``; sub-exchange ``c`` draws
-    ``_grouped_matching(fold_in(peer_key, c), n)``. Returns int32
-    ``(gm, c, p)`` of shape (rounds, fanout, ...) on the device of
-    ``run_key``, with no host sync on the way. ``run_key`` may be a
-    batch of keys (S, 2), a sweep's lanes: every lane's draws come out
-    of the same one pass, laid out (rounds, fanout, S, ...) so that one
-    sub-exchange of all lanes is one contiguous block."""
-    dev = run_key.device
+def _round_keys(run_key: torch.Tensor, first_tick: int, rounds: int):
+    """(churn_keys, peer_keys), (rounds, *lead, 2) each: the reference's
+    ``round_key = fold_in(key, tick)``, ``churn_key, peer_key =
+    split(round_key)`` for the POST-increment ticks ``first_tick ..``."""
     lead = run_key.shape[:-1]
-    ticks = torch.arange(first_tick, first_tick + rounds, dtype=torch.int64, device=dev)
+    ticks = torch.arange(first_tick, first_tick + rounds, dtype=torch.int64,
+                         device=run_key.device)
     ticks = ticks.reshape(rounds, *(1 for _ in lead))
-    round_keys = fold_in(run_key.expand(rounds, *lead, 2), ticks)
-    peer_keys = split(round_keys)[..., 1, :]
-    sub_keys = fold_in(
-        peer_keys[:, None],
-        torch.arange(fanout, dtype=torch.int64, device=dev).reshape(
-            1, fanout, *(1 for _ in lead)
-        ),
-    )
-    return tuple(t.to(torch.int32) for t in grouped_matching(sub_keys, n))
+    return split(fold_in(run_key.expand(rounds, *lead, 2), ticks)).unbind(-2)
+
+
+def _sub_keys(peer_keys: torch.Tensor, fanout: int, lead) -> torch.Tensor:
+    """``fold_in(peer_key, c)`` of every sub-exchange: (rounds, fanout,
+    *lead, 2)."""
+    subs = torch.arange(fanout, dtype=torch.int64, device=peer_keys.device)
+    return fold_in(peer_keys[:, None], subs.reshape(1, fanout, *(1 for _ in lead)))
+
+
+class RoundDraws(NamedTuple):
+    """Everything the rounds of one config draw from ``jax.random``, for
+    a chunk of rounds (``chunk_draws``) or one round (``round(r)``);
+    each field None where the config draws no such thing. With a batch of
+    keys (a sweep's lanes, leading axes ``lead``):
+
+    - ``gm``, ``c``: the grouped matchings' group involutions and
+      rotations, (rounds, fanout, *lead, n/8);
+    - ``p``: each sub-exchange's partner, (rounds, fanout, *lead, n): the
+      grouped or unrestricted matching's involution, or the
+      permutation; ``inv`` the permutation's inverse (the responder's
+      pull);
+    - ``dies``, ``revives``: the churn flips, bool (rounds, *lead, n);
+    - ``peers``: the choice pairing's peers, int64 (rounds, *lead, n,
+      fanout): uniform, categorical over the alive nodes, or drawn from
+      an adjacency (the view draw is a hash of the state's live view,
+      taken in the round)."""
+
+    gm: torch.Tensor | None = None
+    c: torch.Tensor | None = None
+    p: torch.Tensor | None = None
+    inv: torch.Tensor | None = None
+    dies: torch.Tensor | None = None
+    revives: torch.Tensor | None = None
+    peers: torch.Tensor | None = None
+
+    def round(self, r: int) -> "RoundDraws":
+        """Round ``r`` of a chunk's draws."""
+        return RoundDraws(*(None if t is None else t[r] for t in self))
+
+    def lane(self, s: int, fanout: int) -> "RoundDraws":
+        """Lane ``s`` of one round of a sweep's draws, with the first
+        ``fanout`` sub-exchanges (the lane's own fanout)."""
+        sub = ("gm", "c", "p", "inv")
+        return RoundDraws(**{
+            name: None if t is None else (t[:fanout, s] if name in sub else t[s])
+            for name, t in zip(self._fields, self)
+        })
+
+
+def churn_flips(churn_keys: torch.Tensor, n: int, death_rate: float, revival_rate: float):
+    """The churn of a round (the reference's ``dk, rk =
+    split(churn_key)``; ``dies = bernoulli(dk, death_rate, (n,))``,
+    ``revives = bernoulli(rk, revival_rate, (n,))``); the new ground
+    truth is ``where(alive, ~dies, revives)``."""
+    ks = split(churn_keys)
+    return (bernoulli(ks[..., 0, :], death_rate, (n,)),
+            bernoulli(ks[..., 1, :], revival_rate, (n,)))
+
+
+def chunk_draws(
+    run_key: torch.Tensor, first_tick: int, rounds: int, cfg, *,
+    alive: torch.Tensor | None = None, adjacency: torch.Tensor | None = None,
+    degrees: torch.Tensor | None = None,
+) -> RoundDraws:
+    """The draws of rounds ``first_tick .. first_tick + rounds - 1`` of
+    config ``cfg`` (each the POST-increment tick a round runs at) on the
+    device of ``run_key``, with no host sync: the reference's key
+    schedule ``round_key = fold_in(key, tick)``, ``churn_key, peer_key =
+    split(round_key)``. The churn flips come from ``churn_key``; a
+    matching or permutation sub-exchange ``c`` from ``fold_in(peer_key,
+    c)`` (the grouped family on n % 128 == 0, the unrestricted matching
+    off it); the choice peers from ``peer_key`` itself: ``randint(0,
+    n)`` on a statically churn-free config, else the categorical over
+    each round's alive nodes (``alive`` is the ground truth before the
+    chunk, carried through the chunk's flips), or a uniform slot of the
+    ``adjacency`` row below its ``degrees``. ``run_key`` may be a batch
+    of keys (a sweep's lanes, ``alive`` then batched alike)."""
+    dev = run_key.device
+    n, fanout = cfg.n_nodes, cfg.fanout
+    lead = run_key.shape[:-1]
+    churn_keys, peer_keys = _round_keys(run_key, first_tick, rounds)
+    out = {}
+    churn = cfg.death_rate > 0 or cfg.revival_rate > 0
+    if churn:
+        out["dies"], out["revives"] = churn_flips(churn_keys, n, cfg.death_rate, cfg.revival_rate)
+    if adjacency is not None:
+        slot = randint(peer_keys, (n, fanout), 0, degrees.to(dev)[:, None])
+        adj = adjacency.to(dev, torch.int64).expand(*slot.shape[:-1], adjacency.shape[-1])
+        out["peers"] = torch.gather(adj, -1, slot)
+    elif cfg.pairing == "choice":
+        if cfg.peer_mode == "alive" and not churn:
+            out["peers"] = randint(peer_keys, (n, fanout), 0, n)
+        elif cfg.peer_mode == "alive":
+            live = alive.to(dev).reshape(-1, n)
+            peers = torch.empty((rounds, live.shape[0], n, fanout), dtype=torch.int64, device=dev)
+            flat_keys = peer_keys.reshape(rounds, -1, 2)
+            dies, revives = (t.reshape(rounds, -1, n) for t in (out["dies"], out["revives"]))
+            for r in range(rounds):
+                live = torch.where(live, ~dies[r], revives[r])
+                for s in range(live.shape[0]):
+                    peers[r, s] = categorical(flat_keys[r, s], live[s], fanout)
+            out["peers"] = peers.reshape(rounds, *lead, n, fanout)
+    else:
+        sub_keys = _sub_keys(peer_keys, fanout, lead)
+        if cfg.pairing == "permutation":
+            out["p"] = permutation(sub_keys, n)
+            out["inv"] = inverse_permutation(out["p"])
+        elif n % 128 == 0:
+            out["gm"], out["c"], out["p"] = (t.to(torch.int32) for t in grouped_matching(sub_keys, n))
+        else:
+            out["p"] = random_matching(sub_keys, n)
+    return RoundDraws(**out)

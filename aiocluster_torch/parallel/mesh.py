@@ -47,7 +47,7 @@ class Mesh:
     def n_local(self, cfg: SimConfig) -> int:
         """The owners a block holds (``gossip.block_width``: refused by
         name off the widths a mesh may take)."""
-        return gossip.block_width(cfg, self.size, self.devices[0])
+        return gossip.block_width(cfg, self.size)
 
     def offsets(self, cfg: SimConfig) -> tuple[int, ...]:
         """Each block's first global owner."""

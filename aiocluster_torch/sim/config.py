@@ -3,10 +3,10 @@
 A field-for-field copy of the reference ``SimConfig`` (field names,
 defaults and ``__post_init__`` validation), so a config written for the
 JAX package means the same thing here. The reference module imports its
-fault-plan and topology types; the port keeps its own copy instead, and
-refuses every config outside the ported slice loudly
-(``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it)
-rather than silently running something else.
+fault-plan and heterogeneity types; the port has none yet, and refuses a
+config that carries either loudly (``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them) rather than silently running
+something else.
 
 In the port, ``use_pallas="auto"`` and ``use_pallas_fd="auto"`` mean
 "the state lives on a CUDA device": the hand-written CUDA kernels
@@ -208,22 +208,6 @@ def unported_reason(cfg: SimConfig) -> str | None:
     ``ROADMAP.md`` item that ports it — or None when the port runs it.
     The one predicate behind both refusals (``SimConfig.__post_init__``
     and ``ops.gossip.sim_step``)."""
-    if cfg.death_rate > 0 or cfg.revival_rate > 0:
-        return "churn (death_rate/revival_rate > 0) is not ported yet: ROADMAP.md A6"
-    if cfg.pairing != "matching":
-        return (
-            f"pairing={cfg.pairing!r} is not ported yet: ROADMAP.md A7 "
-            "(only the grouped 'matching' pairing is)"
-        )
-    if cfg.n_nodes % 128 != 0:
-        return (
-            "n_nodes % 128 != 0 (the unrestricted matching off the grouped "
-            "domain) is not ported yet: ROADMAP.md A7"
-        )
-    if cfg.budget_policy != "proportional":
-        return "budget_policy='greedy' is not ported yet: ROADMAP.md A8"
-    if cfg.dead_grace_ticks is not None:
-        return "the dead-node lifecycle (dead_grace_ticks) is not ported yet: ROADMAP.md A9"
     if cfg.fault_plan is not None or cfg.heterogeneity is not None:
         return "fault_plan / heterogeneity are not ported yet: ROADMAP.md A10"
     return None

@@ -2,8 +2,9 @@
 
 Keeps the SimState resident on its device (or, with ``mesh=``, as column
 blocks of the owners over a mesh's devices: parallel/mesh.py) and steps
-it in chunks of rounds: the draws of a whole chunk (every sub-exchange's
-grouped matching) are computed on the device in one batched pass, each
+it in chunks of rounds: the draws of a whole chunk (the matchings or
+permutations, the churn flips, the choice peers: ``prng.chunk_draws``)
+are computed on the device in one batched pass, each
 round's kernels are queued without a host sync, and convergence is
 polled once per chunk — the counterpart of the reference's jit-compiled
 chunks.
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import counters, prng
+from ..ops import prng
 from ..ops.gossip import (
     convergence_metrics,
     metrics_sample_blocks,
@@ -43,6 +44,9 @@ class Simulator:
     only on (cfg, seed, tick): it equals the reference's
     ``Simulator(cfg, seed=seed)`` round for round, sharded or not.
 
+    ``topology`` (a ``models.Topology``) restricts each node's peers to
+    its adjacency row (the choice path; its arrays go to the device).
+
     ``state`` is the whole state (with a mesh: gathered, a copy of
     every matrix on the first device); ``blocks`` are the column blocks
     as held (one block, the state itself, without a mesh)."""
@@ -58,10 +62,12 @@ class Simulator:
         mesh: Mesh | None = None,
         topology=None,
     ) -> None:
-        if topology is not None:
-            counters.refuse(
-                "topologies are not ported yet: ROADMAP.md A7 (choice pairing "
-                "over an adjacency)"
+        if topology is not None and topology.n_nodes != cfg.n_nodes:
+            raise ValueError("topology size != cfg.n_nodes")
+        if topology is not None and cfg.version_dtype == "u4r":
+            raise ValueError(
+                "version_dtype='u4r' does not support topology runs "
+                "(the adjacency path's scatter-max is unpacked-only)"
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -79,7 +85,12 @@ class Simulator:
             self.device = mesh.devices[0]
             self._offsets = mesh.offsets(cfg)
             n_local = mesh.n_local(cfg)
-        pull_phase_engaged(cfg, self.device, n_local)  # refuse before allocating
+        # Refuse before allocating.
+        pull_phase_engaged(cfg, self.device, n_local, has_topology=topology is not None)
+        self._adj = self._deg = None
+        if topology is not None:
+            self._adj = torch.as_tensor(np.asarray(topology.adjacency), device=self.device)
+            self._deg = torch.as_tensor(np.asarray(topology.degrees), device=self.device)
         self._key = prng.key(seed)
         self._run_salt = prng.run_salt(self._key)
         self._device_key = self._key.to(self.device)
@@ -92,6 +103,24 @@ class Simulator:
             blocks = init_blocks(cfg, mesh)
         self._blocks: list[SimState] = blocks
         head = blocks[0]
+        # The churn-free 'choice' draw is uniform over ALL nodes (the
+        # alive mask is statically all-true for the states such a config
+        # produces): a provided state with dead nodes would be sampled
+        # wrongly, so it is refused, as the reference does. The view draw
+        # samples from live_view instead and takes such states.
+        if (
+            state is not None
+            and cfg.pairing == "choice"
+            and cfg.peer_mode == "alive"
+            and cfg.death_rate == 0.0
+            and cfg.revival_rate == 0.0
+            and not bool(head.alive.all())
+        ):
+            raise ValueError(
+                "churn-free 'choice' config resumed with dead nodes in "
+                "state.alive — peer sampling would ignore them; run this "
+                "state under a config with churn enabled"
+            )
         # Horizon guard inputs, read once here where a sync is free.
         self._known_max_version = int(head.max_version.max())
         self._host_tick = int(head.tick)
@@ -150,7 +179,7 @@ class Simulator:
         self._blocks, first = run_rounds(
             self._blocks, self._key, self.cfg, offsets=self._offsets, m=m,
             tick=self._host_tick, tracked=tracked, run_salt=self._run_salt,
-            device_key=self._device_key,
+            device_key=self._device_key, adjacency=self._adj, degrees=self._deg,
         )
         self._host_tick += m
         return first

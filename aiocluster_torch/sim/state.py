@@ -50,8 +50,8 @@ class SimState:
     icount: torch.Tensor  # (N, N) icount_dtype — number of samples (window-capped)
     live_view: torch.Tensor  # (N, N) bool — i's belief that j is alive
     # (live_bits: (N, N/8) uint8, eight owners a byte; sim/packed.py)
-    # Dead-node lifecycle stamps; (0, 0) unless dead_grace_ticks is set,
-    # which the port does not run yet.
+    # Dead-node lifecycle stamps: the tick at which observer i saw owner
+    # j die (0: not dead); (0, 0) unless dead_grace_ticks is set.
     dead_since: torch.Tensor  # (N, N) heartbeat_dtype
 
     def replace(self, **changes) -> "SimState":
@@ -95,13 +95,16 @@ def state_n_local(state: SimState) -> int:
 def expected_shapes(cfg: SimConfig) -> dict[str, tuple[int, ...]]:
     """The (N, N)-class fields' stored shapes for this config's rung:
     the packed u4 rung halves w's width, the live bitmap divides the live
-    view's by eight, and a disabled matrix is (0, 0)."""
+    view's by eight, and a disabled matrix (dead_since without the
+    lifecycle) is (0, 0)."""
     n = cfg.n_nodes
     fd = cfg.track_failure_detector
+    lifecycle = fd and cfg.dead_grace_ticks is not None
     return {
         "w": (n, n // 2) if cfg.version_dtype == "u4r" else (n, n),
         "hb_known": (n, n) if cfg.track_heartbeats else (0, 0),
         "live_view": ((n, n // 8) if cfg.live_bits else (n, n)) if fd else (0, 0),
+        "dead_since": (n, n) if lifecycle else (0, 0),
     }
 
 
@@ -161,7 +164,7 @@ def check_lanes(states: SimState, cfg: SimConfig, lanes: int, device) -> None:
     fd = (n, n) if cfg.track_failure_detector else (0, 0)
     shapes = dict(
         tick=(), max_version=(n,), heartbeat=(n,), alive=(n,), last_change=fd,
-        imean=fd, icount=fd, dead_since=(0, 0), **expected_shapes(cfg),
+        imean=fd, icount=fd, **expected_shapes(cfg),
     )
     for f in STATE_FIELDS:
         t = getattr(states, f)

@@ -6,7 +6,8 @@ own values of the sweepable scalars (``fanout``, ``phi_threshold``,
 ``writes_per_round``; ``SweepParams``). Lane s is bit-identical to
 ``Simulator(replace(cfg, <lane values>), seed=seeds[s])``. The lanes'
 state is one ``SimState`` with a leading lane axis on the device; each
-chunk draws every lane's matchings in one batched pass and builds every
+chunk draws every lane's matchings, churn flips and choice peers in one
+batched pass and builds every
 lane's salts on the device, and on the pairs forms each sub-exchange is
 one lane launch of the pair-fused kernels for all lanes
 (``ops.gossip.sweep_step``). Per-lane first-converged ticks accumulate
@@ -277,8 +278,8 @@ class SweepSimulator:
         device."""
         cfg, first_tick = self.cfg, self._host_tick + 1
         with record_function("aiocluster_torch.draws"):
-            gm, c, p = prng.round_draws(
-                self._device_keys, first_tick, m, cfg.n_nodes, cfg.fanout
+            draws = prng.chunk_draws(
+                self._device_keys, first_tick, m, cfg, alive=self.states.alive
             )
             salts = lane_salt_table(
                 first_tick, m, cfg.fanout, self._lane_fanout, self._device_run_salts
@@ -287,7 +288,7 @@ class SweepSimulator:
             with record_function("aiocluster_torch.sweep_step"):
                 out = sweep_step(
                     self.states, self._keys, cfg, self._sweep, tick=self._host_tick,
-                    draws=(gm[r], c[r], p[r]), salts=salts[r], run_salts=self._run_salts,
+                    draws=draws.round(r), salts=salts[r], run_salts=self._run_salts,
                     active=self._active, return_converged=tracked,
                 )
             self._host_tick += 1

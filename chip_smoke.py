@@ -102,6 +102,24 @@ the unsharded run's at tick 20; round 209), timed with each block pass
 beside its bound; 4 rounds each of the int8, u4r and shrunk rungs on 8
 blocks, field-equal to their unsharded runs.
 
+Then the round's remaining semantics (phase 14), each run from counters
+at 0: the headline under churn (5% deaths, 20% revivals, one write a
+round, seed 0) on the pairs kernels, 16 rounds equal round by round to
+the plain round on the card, no fallback, then the next round's three
+pull modes held against their plain versions and timed on the run's
+own state (the kernel line's ``pairs_pull[churn ...]`` entries);
+BASELINE config 4 (10,000
+nodes on ``scale_free(attach=3)``, the choice path) to its converged
+round, the reference's 22, with ``fd.cu`` every round (held against its
+plain version on the run's state and timed there); BASELINE config 3
+(the view draw, churn and the lifecycle) for 200 rounds at 1,000 nodes
+and 4 at 10,240; ``lean_config(32_768, budget=2618, pairing="choice")``
+at seed 1 to round 45 (the reference's certified round); the permutation
+pairing and the greedy budget at 10,240; and the masked categorical and
+the view draw timed at 10,240. Ticks 1-3 of every run (and tick 200 of
+config 3) are held to the sha256 of the reference's state, field by
+field (``REF_DIGESTS``, made by ``tools/torch_reference_digests.py``).
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -119,13 +137,15 @@ import json
 import subprocess
 import sys
 import time
+import unittest.mock
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from aiocluster_torch import (
-    Simulator, SweepSimulator, full_config, headline_config, lean_config,
+    HEADLINE_BUDGET, SimConfig, Simulator, SweepSimulator, full_config, headline_config,
+    lean_config,
 )
 from aiocluster_torch.ops import (
     _build, counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng,
@@ -574,9 +594,7 @@ def check_two_pass_full_width(dev, errs):
     mv = sim.state.max_version + wrote.to(torch.int32)
     tick = FULL_WIDTH_ROUNDS + 1
     run_key = prng.key(NORTH_STAR_SEED)
-    gm_all, c_all, p_all = (
-        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, 4)
-    )
+    gm_all, c_all, p_all = matchings(run_key.to(dev), tick, dataclasses.replace(cfg, fanout=4))
     steps = (
         ("first", dict(mv=mv)),
         ("middle", {}),
@@ -649,6 +667,13 @@ def check_fd_kernel(dev):
     log("fd", f"n={N} int16/bf16: max_abs_err={err} live={int(a[6].sum())}")
     check(err == 0.0, "fd kernel disagrees with its plain version")
     return err, fresh, params
+
+
+def matchings(run_key, tick, cfg):
+    """The grouped matchings (gm, c, p) of the round at ``tick`` of
+    ``cfg``, each (fanout, ...) (the first round of ``chunk_draws``)."""
+    draws = prng.chunk_draws(run_key, tick, 1, cfg)
+    return draws.gm[0], draws.c[0], draws.p[0]
 
 
 def states_equal(s1, s2) -> bool:
@@ -1139,7 +1164,7 @@ def m8_subexchange(dev, sim, seed, s):
     mv = sim.state.max_version + wrote.to(torch.int32)
     tick = sim.tick + 1
     run_key = prng.key(sim.seed)
-    gm, c, p = (t[0][s] for t in prng.round_draws(run_key.to(dev), tick, 1, n, sim.cfg.fanout))
+    gm, c, p = (t[s] for t in matchings(run_key.to(dev), tick, sim.cfg))
     salt = tick * 2 * sim.cfg.fanout + 2 * s
     return gm, c, alive & alive[p], mv, salt, prng.run_salt(run_key)
 
@@ -1725,9 +1750,7 @@ def chained_round_check(dev, sim, rung, errs, seed=8):
     heartbeat = st.heartbeat + alive.to(torch.int32)
     tick = sim.tick + 1
     run_key = prng.key(sim.seed)
-    gm_all, c_all, p_all = (
-        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
-    )
+    gm_all, c_all, p_all = matchings(run_key.to(dev), tick, cfg)
     plain = dict(w=st.w, hb=st.hb_known if cfg.track_heartbeats else None)
     kern = {k: None if v is None else v.clone() for k, v in plain.items()}
     fds = None
@@ -1889,8 +1912,7 @@ def zero_deficit_shares(sim, gen, rows=ZERO_SHARE_ROWS):
     counts where all its deficits are 0, both ways)."""
     n = sim.cfg.n_nodes
     dev = sim.state.w.device
-    _, _, p = (t[0][0] for t in prng.round_draws(prng.key(sim.seed).to(dev), sim.tick + 1, 1,
-                                                  n, sim.cfg.fanout))
+    p = matchings(prng.key(sim.seed).to(dev), sim.tick + 1, sim.cfg)[2][0]
     p = p.long()
     ids = torch.arange(n, device=dev)
     lead = ids[ids < p]
@@ -2965,7 +2987,7 @@ def sampled_lane_round_check(dev, sweep, rung, errs, leaders=NS_PAIR_LEADERS, se
     heartbeat = None if hb is None else st.heartbeat + alive.to(torch.int32)
     tick = sweep.tick + 1
     keys = prng.keys(sweep.seeds)
-    gm_all, c_all, p_all = (t[0] for t in prng.round_draws(keys.to(dev), tick, 1, n, cfg.fanout))
+    gm_all, c_all, p_all = matchings(keys.to(dev), tick, cfg)
     salts = gossip.lane_salt_table(
         tick, 1, cfg.fanout, torch.full((lanes,), cfg.fanout, dtype=torch.int64, device=dev),
         prng.run_salts(keys).to(dev),
@@ -3440,9 +3462,7 @@ def sampled_round_check(dev, sim, errs, rung="full int16", leaders=C2_LEADERS, s
     hb = st.hb_known if cfg.track_heartbeats else None
     tick = sim.tick + 1
     run_key = prng.key(sim.seed)
-    gm_all, c_all, p_all = (
-        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
-    )
+    gm_all, c_all, p_all = matchings(run_key.to(dev), tick, cfg)
     fd = None
     if cfg.track_failure_detector:
         fd = pairs_pull.FdOperands(tick, st.last_change, st.imean, st.icount, st.live_view,
@@ -3943,9 +3963,7 @@ def sampled_mesh_round_check(dev, sim, errs, leaders=NS_PAIR_LEADERS, seed=10):
     mv = blocks[0].max_version + wrote.to(torch.int32)
     tick = sim.tick + 1
     run_key = prng.key(sim.seed)
-    gm_all, c_all, p_all = (
-        t[0] for t in prng.round_draws(run_key.to(dev), tick, 1, n, cfg.fanout)
-    )
+    gm_all, c_all, p_all = matchings(run_key.to(dev), tick, cfg)
     steps = [("first", 0)] + [("middle", s) for s in range(1, cfg.fanout - 1)]
     steps += [("last", cfg.fanout - 1), ("need 0", cfg.fanout - 1)]
     ids = torch.arange(n, device=dev)
@@ -4199,6 +4217,500 @@ def column_block_entries(errs, times, runs):
     return entries
 
 
+# -- the round's remaining semantics (phase 14) -----------------------------------
+#
+# Churn on the pairs kernels, the permutation and choice pairings, an
+# adjacency topology, the greedy budget and the dead-node lifecycle at full
+# width. The reference's values are the first 16 hex digits of the sha256
+# of every state field after ticks 1-3 (and tick 200 of config 3 at 1,000
+# nodes), and config 4's converged round, made by the reference's XLA path
+# on JAX's CPU backend with
+#     JAX_PLATFORMS=cpu python -m tools.torch_reference_digests <case>
+# (the case names are the keys of REF_DIGESTS; the dict is that script's
+# output, pasted).
+
+REF_DIGESTS: dict = {
+    "churn_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "5c728cba3a5e59d6", "heartbeat": "d4c3bec662e68f66",
+            "alive": "71735dd44b8e957b", "w": "ab878e25106cebd4", "hb_known": "f7f8fcd94f1e706d",
+            "last_change": "77e51b04bc3228f9", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "6841539b96d9d6a0", "heartbeat": "85694fcbebeda441",
+            "alive": "549cd1825e163a6a", "w": "a7d5d697c4bdb2fb", "hb_known": "a971bca5f2c335f9",
+            "last_change": "79b6b50322ece234", "imean": "751fdbebd7395aa5", "icount": "78684759e4f5323a",
+            "live_view": "2b22dd9188485d95", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "62b8ea4c83ca35f1", "heartbeat": "cee80422112435e7",
+            "alive": "4dcce8f12edadd7c", "w": "e018e4eead1b7dcb", "hb_known": "28e4f215ffa2fe88",
+            "last_change": "1ed4d1abb89698bc", "imean": "7a35770824a22e0b", "icount": "604778c3f2c6a73d",
+            "live_view": "6055074debc714aa", "dead_since": "e3b0c44298fc1c14",
+        },
+    }},
+    "config3_1000": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "5e2fb05ce8dece93", "heartbeat": "ec1432188e1c6a33",
+            "alive": "f59d9fdaf942ffc6", "w": "f21f1559d6ec2fb1", "hb_known": "4f8783615dbd02a8",
+            "last_change": "28f7ee714ab9db14", "imean": "8dbe5f139fd946d4", "icount": "13aea96040f21330",
+            "live_view": "f3b0177e3e7756e9", "dead_since": "28f7ee714ab9db14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "19af4c1b8e30ad00", "heartbeat": "c7fac83b9cdb4fdc",
+            "alive": "00ef337964cb369c", "w": "24a0a69c8b3fd6f5", "hb_known": "ad1d9cba111f2271",
+            "last_change": "7b22bcea11a9dc16", "imean": "021fdcc7c6408674", "icount": "477f35a558b48d4e",
+            "live_view": "90895866c9ed4cc6", "dead_since": "0456ffcb78f5fd94",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3546c25dd15f9b68", "heartbeat": "a7cd2a69ff5973dc",
+            "alive": "e4a2e1220e1f029d", "w": "fe910b5ca8d23a23", "hb_known": "14e3ec48cc19a38b",
+            "last_change": "e0fc5c8a40dcb047", "imean": "252f8b99f85cf7d5", "icount": "70ad9607a0671877",
+            "live_view": "d9e3959582a7f529", "dead_since": "6ad899c806902c35",
+        },
+        "200": {
+            "tick": "a77802d8305178be", "max_version": "b8b803e567e9a5e6", "heartbeat": "8f4a44867a1d4aae",
+            "alive": "3dcd4e1116ea1611", "w": "97c114df2950f137", "hb_known": "494ac8b6e0c7230d",
+            "last_change": "ed78bf5753428cf6", "imean": "065479b181491cca", "icount": "96214b24a82f563a",
+            "live_view": "57c00a9d10c222cd", "dead_since": "bb0e5c6da58cc893",
+        },
+    }},
+    "config3_10240": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "5c728cba3a5e59d6", "heartbeat": "d4c3bec662e68f66",
+            "alive": "71735dd44b8e957b", "w": "1025b483da136b82", "hb_known": "5af4f1f00210a2f8",
+            "last_change": "d26daf337feea82a", "imean": "6ed5e85372e48880", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "d26daf337feea82a",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "6841539b96d9d6a0", "heartbeat": "85694fcbebeda441",
+            "alive": "549cd1825e163a6a", "w": "54d3a49c112ede45", "hb_known": "95e31525c0d95399",
+            "last_change": "6857a3ea84216a0e", "imean": "45a81ccabdf203ea", "icount": "cad91d98d9b0f934",
+            "live_view": "7adcbb9454f6d99c", "dead_since": "2b224208ab2b0c29",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "62b8ea4c83ca35f1", "heartbeat": "cee80422112435e7",
+            "alive": "4dcce8f12edadd7c", "w": "3c046ea66dd1047a", "hb_known": "115b564234c56d25",
+            "last_change": "a418eb59844abf56", "imean": "75be1bf51278482b", "icount": "35f545f83ba665a1",
+            "live_view": "f41f9662c11203f9", "dead_since": "9cd6e769418e392a",
+        },
+    }},
+    "permutation_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "db119d860b29f1d5", "hb_known": "e376378e4707a008",
+            "last_change": "41092637e098b8d8", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "8df7f3fbb8c9bc89", "hb_known": "de5a93fcd582a5dc",
+            "last_change": "bacd4d1f1d000a14", "imean": "af0e015b89d2b195", "icount": "d35b078ef404891c",
+            "live_view": "b65625a7e737c0c3", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "f6f6d200483005c0", "hb_known": "317ad857f5d86756",
+            "last_change": "da6a10d8916bcf6f", "imean": "1a0e4c1ba7676a4a", "icount": "c5fc53f28c524016",
+            "live_view": "a99a4611b6b53e70", "dead_since": "e3b0c44298fc1c14",
+        },
+    }},
+    "greedy_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "6a524e66701e1f4e", "hb_known": "eaeeb4a2492882d6",
+            "last_change": "915ad5e37cad9b1f", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "8d125a73a1153e9b", "hb_known": "624a4a1389430fd9",
+            "last_change": "910ad2cce33d407b", "imean": "d38d193b7b85b045", "icount": "fd07ed1bd0f43207",
+            "live_view": "5bbdd79edce2f6da", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "19c1c45fd879dd92", "hb_known": "5ac3bdafc49ff88b",
+            "last_change": "b01c475d0ca517cf", "imean": "604eb882be17643b", "icount": "806cac8808df54a7",
+            "live_view": "82a7ccb783f312a1", "dead_since": "e3b0c44298fc1c14",
+        },
+    }},
+    "config4": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "9363b41212643713", "heartbeat": "e9bf3a5f000cb690",
+            "alive": "684ad25fdc2bbb80", "w": "8f46a37caf7f1776", "hb_known": "fd2e42c7c21277c5",
+            "last_change": "871601112e2b477c", "imean": "36286c9dd45c90a7", "icount": "d162f6594b643795",
+            "live_view": "f74f260d4586ed56", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "9363b41212643713", "heartbeat": "13334ca230f46cd8",
+            "alive": "684ad25fdc2bbb80", "w": "2ea3aa254d06a479", "hb_known": "a3c3c3506adbba2d",
+            "last_change": "d8b8f6200ab679d2", "imean": "add45f2ee006e07c", "icount": "9198cd536c984a76",
+            "live_view": "59bf40d1d0998496", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "9363b41212643713", "heartbeat": "0ca1a64224eebfed",
+            "alive": "684ad25fdc2bbb80", "w": "abbb5bd4467b5a1f", "hb_known": "d687a72a18e8cf6e",
+            "last_change": "9ce39cfb1fab38a4", "imean": "d1a1f1a5b1f4c82f", "icount": "69d42e971c303ed2",
+            "live_view": "8a442ebbce4fafe7", "dead_since": "e3b0c44298fc1c14",
+        },
+    }, "converged_round": 22},
+}
+CONFIG4_N = 10_000
+CONFIG4_ROUND = REF_DIGESTS["config4"]["converged_round"]  # the reference's, the same script
+CHOICE_N, CHOICE_SEED, CHOICE_ROUND = 32_768, 1, 45  # r5_full_profile_certification.json
+CONFIG3_ROUNDS = 200
+
+
+def host_digests(state) -> dict:
+    """The reference script's digest of every state field (sha256 of its
+    bytes, bfloat16 as raw 16-bit words, first 16 hex digits)."""
+    out = {}
+    for f in STATE_FIELDS:
+        t = getattr(state, f).detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[f] = hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def check_digests(case: str, state, tick: int) -> None:
+    want = REF_DIGESTS[case]["ticks"][str(tick)]
+    got = host_digests(state)
+    bad = [f for f in STATE_FIELDS if got[f] != want[f]]
+    check(not bad, f"{case}: fields {bad} differ from the reference's at tick {tick}")
+
+
+def config3(n: int):
+    """BASELINE config 3 (benchmarks/run_all.py::config3): 5% churn a round
+    with revival, the view draw, the lifecycle with a 40-round grace."""
+    return SimConfig(n_nodes=n, keys_per_node=16, fanout=3, budget=HEADLINE_BUDGET,
+                     death_rate=0.05, revival_rate=0.2, writes_per_round=1,
+                     peer_mode="view", pairing="choice", dead_grace_ticks=40)
+
+
+def config4():
+    """BASELINE config 4 (benchmarks/run_all.py::config4): 10,000 nodes on a
+    scale-free topology, the choice path with the failure detector."""
+    return SimConfig(n_nodes=CONFIG4_N, keys_per_node=16, fanout=3, budget=HEADLINE_BUDGET,
+                     pairing="choice")
+
+
+def digest_prefix(case, cfg, dev, seed, topology=None):
+    """Ticks 1-3 of ``cfg`` a round at a time, each state's digests held
+    against the reference's. Returns the simulator at tick 3."""
+    sim = Simulator(cfg, seed=seed, device=dev, chunk=1, topology=topology)
+    for tick in (1, 2, 3):
+        sim.run(1)
+        check_digests(case, sim.state, tick)
+    return sim
+
+
+def churn_round_entries(dev, sim, launches):
+    """The churned headline's own pull launches, on the run's state
+    (``sim`` after its rounds): the next round's draws (its churn flips
+    and matchings), its post-churn alive mask, heartbeats and writes,
+    and its sub-exchanges chained as an untracked ``step_blocks`` round
+    chains them (the first refreshes the diagonal, the last carries the
+    FD epilogue on the round-start hb). Each mode's kernel against its
+    plain version on the same inputs, then both timed by CUDA events on
+    a copy of that mode's inputs. Returns one kernels-line entry a mode,
+    its launches the churned run's count of that mode (``launches``)."""
+    st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    form, k = gossip.kernel_pull_form(cfg)
+    check(form in ("pairs", "pairs_cluster"), f"the churned headline's form is {form}")
+    tick = sim.tick + 1
+    run_key = prng.key(sim.seed)
+    draws = prng.chunk_draws(run_key.to(dev), tick, 1, cfg, alive=st.alive).round(0)
+    alive = torch.where(st.alive, ~draws.dies, draws.revives)
+    alive_i32 = alive.to(torch.int32)
+    heartbeat = st.heartbeat + alive_i32
+    mv = st.max_version + cfg.writes_per_round * alive_i32
+    params = FdParams.from_config(cfg)
+    start = dict(w=st.w, hb=st.hb_known, hb0=st.hb_known, lc=st.last_change, im=st.imean,
+                 ic=st.icount, live=st.live_view)
+    kern = {f: t.clone() for f, t in start.items()}
+    plain = {f: t.clone() for f, t in start.items()}
+    entries = []
+    for c in range(cfg.fanout):
+        mode = dict(diag=c == 0, check=False, fd=c == cfg.fanout - 1)
+        args = (draws.gm[c], draws.c[c], alive & alive[draws.p[c]],
+                tick * 2 * cfg.fanout + 2 * c, prng.run_salt(run_key), cfg.budget)
+
+        def call(fn, ops, mode=mode, args=args):
+            kw = {}
+            if mode["diag"]:
+                kw.update(mv=mv, hbv=heartbeat)
+            if mode["fd"]:
+                kw.update(hbv=heartbeat, fd=pairs_pull.FdOperands(
+                    tick, ops["lc"], ops["im"], ops["ic"], ops["live"], ops["hb0"], params))
+            return fn(ops["w"], ops["hb"], *args, **kw)
+
+        inputs = {f: t.clone() for f, t in kern.items()}
+        call(pairs_pull.pairs_pull, kern)
+        call(pairs_pull.pairs_pull_plain, plain)
+        torch.cuda.synchronize()
+        err = max_abs_err(list(kern.values()), list(plain.values()))
+        key = pairs_pull.counter_key(**mode, cluster=k > 1)
+        check(err == 0.0, f"churned headline: {key} (sub-exchange {c}) disagrees")
+        ms = cuda_ms(lambda: call(pairs_pull.pairs_pull, inputs), 20)
+        plain_ms = cuda_ms(lambda: call(pairs_pull.pairs_pull_plain, inputs), 3, 1)
+        del inputs
+        b_ms, b_by = bound(pull_bytes(n, 2, 2, **mode, hb0=mode["fd"]),
+                           (OPS_PAIR + (OPS_FD * 2 if mode["fd"] else 0)) * n * n / 2)
+        name = key[len("pairs_pull["):-1]
+        entries.append(dict(
+            name=f"pairs_pull[churn {name}]", route="cuda",
+            source="aiocluster_torch/ops/csrc/pairs_pull.cu",
+            replaces="aiocluster_tpu/ops/pallas_pull.py:490",
+            launches=launches.get(key, 0), launches_per_round=launches.get(key, 0) / sim.tick,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, path="churn_headline", tick=tick,
+        ))
+        log("churn", f"{key} at tick {tick} (sub-exchange {c}, {int(alive.sum())} alive): "
+            f"max_abs_err={err}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
+            f"{plain_ms:.3f} ms)")
+    del kern, plain
+    torch.cuda.empty_cache()
+    return entries
+
+
+def churn_headline(dev, card_line):
+    """(a) The headline under churn on the pairs kernels: 16 rounds equal
+    round by round to the plain round on the card, ticks 1-3 equal to the
+    reference's digests, no fallback; then its round time."""
+    cfg = dataclasses.replace(headline_config(), death_rate=0.05, revival_rate=0.2,
+                              writes_per_round=1)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False)
+    counters.reset()
+    kern = Simulator(cfg, seed=0, device=dev, chunk=1)
+    plain = Simulator(plain_cfg, seed=0, device=dev, chunk=1)
+    launches = collections.Counter()
+    alive_counts = []
+    for tick in range(1, 17):
+        before = collections.Counter(counters.launches)
+        plain_before = dict(counters.plain_calls)
+        kern.run(1)
+        check(dict(counters.plain_calls) == plain_before,
+              "the churned kernel round ran a plain phase")
+        launches.update(collections.Counter(counters.launches) - before)
+        plain.run(1)
+        check(states_equal(kern.state, plain.state),
+              f"churned headline: kernel round != plain round at tick {tick}")
+        if tick <= 3:
+            check_digests("churn_headline", kern.state, tick)
+        alive_counts.append(int(kern.state.alive.sum()))
+    check(not counters.fallbacks and not counters.refusals, "the churned headline fell back")
+    check(sum(v for k, v in launches.items() if k.startswith("pairs_pull[")) == 16 * 3,
+          "the churned headline did not launch a pull a sub-exchange")
+    check(len(set(alive_counts)) > 1, "churn flipped no node")
+    del plain
+    entries = churn_round_entries(dev, kern, launches)
+    del kern
+    round_ms = round_rate(Simulator(cfg, seed=0, device=dev, chunk=16))
+    log("churn", f"headline under churn: 16 rounds kernel == plain every round, ticks 1-3 == "
+        f"the reference's digests; alive {alive_counts[0]} -> {alive_counts[-1]}; launches "
+        f"{dict(launches)}; {round_ms:.3f} ms a round ({card_line})")
+    return {"rounds": 16, "round_ms": round_ms, "launches": dict(launches),
+            "alive_first_last": [alive_counts[0], alive_counts[-1]]}, entries
+
+
+def config4_run(dev, card_line):
+    """(b) BASELINE config 4 to convergence: plain pulls on the adjacency
+    ("topology"), the FD phase through fd.cu every round. Its round time,
+    and fd.cu's time and share of a round on the run's state, fd.cu held
+    against its plain version there."""
+    from aiocluster_torch.models import scale_free
+
+    topo = scale_free(CONFIG4_N, attach=3, seed=0)
+    cfg = config4()
+    digest_prefix("config4", cfg, dev, 0, topo)
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=0, device=dev, chunk=8, topology=topo)
+    converged = sim.run_until_converged(max_rounds=4 * CONFIG4_N)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, rounds = dict(counters.launches), sim.tick
+    log("config4", f"converged at round {converged} after {rounds} rounds in {run_s:.2f} s; "
+        f"launches {launches}; plain calls {dict(counters.plain_calls)}; fallbacks "
+        f"{dict(counters.fallbacks)}")
+    check(converged == CONFIG4_ROUND,
+          f"config 4 converged at {converged}, the reference at {CONFIG4_ROUND}")
+    check(converged is not None and launches == {"fd": rounds}
+          and dict(counters.fallbacks) == {"topology": rounds},
+          "config 4 did not run its FD phase through fd.cu every round")
+    round_ms = round_rate(sim, rounds=8, warmup=1)
+    # fd.cu on the run's own state: against its plain version, then timed.
+    s = sim.state
+    hbv = s.heartbeat.clone()
+    hb0 = s.hb_known.clone()
+    hb = torch.maximum(s.hb_known, torch.roll(s.hb_known, 1, 0))
+    fresh = lambda: (hb, hb0, hbv, s.last_change.clone(), s.imean.clone(),  # noqa: E731
+                     s.icount.clone(), s.live_view.clone())
+    got, want = fresh(), fresh()
+    tick = sim.tick + 1
+    fd_mod.fused_fd(tick, *got, FdParams.from_config(cfg))
+    fd_mod.fused_fd_plain(tick, *want, FdParams.from_config(cfg))
+    torch.cuda.synchronize()
+    err = max_abs_err(got[3:], want[3:])
+    check(err == 0.0, f"fd.cu != plain on config 4's state (max abs err {err})")
+    args = fresh()
+    fd_ms = cuda_ms(lambda: fd_mod.fused_fd(tick, *args, FdParams.from_config(cfg)), 10)
+    args = fresh()
+    fd_plain_ms = cuda_ms(lambda: fd_mod.fused_fd_plain(tick, *args, FdParams.from_config(cfg)),
+                          3, 1)
+    # What the fused liveness bound (fd.fma32, float64 with a tie fix-up)
+    # costs the plain FD: the same call with the bound's product and sum
+    # rounded apart, the plain arithmetic before the fusion.
+    args = fresh()
+    with unittest.mock.patch.object(fd_mod, "fma32", lambda a, b, c: a * b + c):
+        fd_plain_unfused_ms = cuda_ms(
+            lambda: fd_mod.fused_fd_plain(tick, *args, FdParams.from_config(cfg)), 3, 1)
+    del args, got, want
+    mat = CONFIG4_N * CONFIG4_N
+    # hb, hb0, last_change read (int32), last_change written, imean read and
+    # written (float32), icount read and written (int16), live written.
+    b_ms, b_by = bound(mat * (4 * 3 + 4 + 4 * 2 + 2 * 2 + 1) + CONFIG4_N * 4, OPS_FD * mat)
+    log("config4", f"{round_ms:.3f} ms a round; fd.cu {fd_ms:.4f} ms ({fd_ms / round_ms:.1%} "
+        f"of a round; bound {b_ms:.4f} ms by {b_by}; plain {fd_plain_ms:.3f} ms, "
+        f"{fd_plain_unfused_ms:.3f} ms with the bound unfused), equal to its plain version "
+        f"on the run's state ({card_line})")
+    entry = dict(
+        name="fd[config4]", route="cuda", source="aiocluster_torch/ops/csrc/fd.cu",
+        replaces="aiocluster_tpu/ops/pallas_fd.py:51", launches=launches.get("fd", 0),
+        launches_per_round=launches.get("fd", 0) / rounds, max_abs_err=err, ms=fd_ms,
+        plain_ms=fd_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, path="config4",
+        plain_unfused_ms=fd_plain_unfused_ms,
+    )
+    out = {"converged_round": converged, "rounds_run": rounds, "round_ms": round_ms,
+           "run_s": run_s, "fd_ms": fd_ms, "fd_share": fd_ms / round_ms}
+    return out, entry
+
+
+def config3_runs(dev, card_line):
+    """(c) BASELINE config 3: 200 rounds at 1,000 nodes (digests at ticks
+    1-3 and 200), then 4 rounds at 10,240 (ticks 1-3); every phase plain
+    (the pull's reason "pairing", the lifecycle's FD), as in the
+    reference. Round times, and the view draw's
+    time at 10,240."""
+    counters.reset()
+    sim = digest_prefix("config3_1000", config3(1000), dev, 0)
+    t0 = time.perf_counter()
+    sim.run(CONFIG3_ROUNDS - 3)
+    torch.cuda.synchronize()
+    small_ms = (time.perf_counter() - t0) / (CONFIG3_ROUNDS - 3) * 1e3
+    check_digests("config3_1000", sim.state, CONFIG3_ROUNDS)
+    m = sim.metrics()
+    alive = int(m["alive_count"])
+    check(0 < alive < 1000 and np.isfinite(float(m["mean_fraction"])),
+          "config 3's metrics are not finite")
+    check(not counters.launches and dict(counters.fallbacks) == {"pairing": CONFIG3_ROUNDS},
+          "config 3 did not run plain with the reason 'pairing'")
+    del sim
+    big = digest_prefix("config3_10240", config3(N), dev, 0)
+    t0 = time.perf_counter()
+    big.run(1)
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    s = big.state
+    cfg = config3(N)
+    view = lambda: gossip.view_peers(cfg, [s], [0], -7, 12345)  # noqa: E731
+    view_dev_ms = cuda_ms(view, 2, 1)
+    t0 = time.perf_counter()
+    view()
+    torch.cuda.synchronize()
+    view_host_ms = (time.perf_counter() - t0) * 1e3
+    log("config3", f"1,000 nodes: ticks 1-3 and {CONFIG3_ROUNDS} == the reference's digests, "
+        f"{small_ms:.3f} ms a round, {alive} alive at the end; 10,240: ticks 1-3 == the "
+        f"reference's, round 4 {big_ms:.3f} ms; the view draw (3 peers a row) at 10,240: "
+        f"{view_dev_ms:.3f} ms device, {view_host_ms:.3f} ms host ({card_line})")
+    return {"round_ms_1000": small_ms, "round_ms_10240": big_ms, "alive_1000": alive,
+            "view_draw_device_ms": view_dev_ms, "view_draw_host_ms": view_host_ms}
+
+
+def choice_north(dev, card_line):
+    """(d) The certified choice run: lean_config(32,768, budget=2618,
+    pairing="choice") at seed 1 converges at round 45."""
+    cfg = lean_config(CHOICE_N, budget=HEADLINE_BUDGET, pairing="choice")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=CHOICE_SEED, device=dev, chunk=8)
+    converged = sim.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    rounds = sim.tick
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log("choice", f"lean_config({CHOICE_N}, pairing='choice') seed {CHOICE_SEED}: converged "
+        f"at round {converged} in {run_s:.2f} s ({run_s / rounds * 1e3:.1f} ms a round with the "
+        f"check), {peak:.1f} GB peak; fallbacks {dict(counters.fallbacks)} ({card_line})")
+    check(converged == CHOICE_ROUND, f"the choice run converged at {converged}, "
+          f"the reference's certified round is {CHOICE_ROUND}")
+    check(dict(counters.fallbacks) == {"pairing": rounds} and not counters.launches,
+          "the choice run did not take the plain pull with the reason 'pairing'")
+    del sim
+    torch.cuda.empty_cache()
+    return {"converged_round": converged, "run_s": run_s, "round_ms": run_s / rounds * 1e3,
+            "peak_memory_gb": peak}
+
+
+def categorical_draw_times(dev, card_line):
+    """The masked categorical draw (choice under churn) of one round at
+    10,240 nodes, fanout 3: device and host time."""
+    alive = torch.rand(N, generator=torch.Generator().manual_seed(0)) < 0.8
+    alive, key = alive.to(dev), prng.key(0).to(dev)
+    draw = lambda: prng.categorical(key, alive, 3)  # noqa: E731
+    dev_ms = cuda_ms(draw, 2, 1)
+    t0 = time.perf_counter()
+    draw()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(alive[draw()].all()), "the categorical draw picked a dead node")
+    log("draws", f"categorical over {N} nodes x 3 peers: {dev_ms:.3f} ms device, "
+        f"{host_ms:.3f} ms host ({card_line})")
+    return {"device_ms": dev_ms, "host_ms": host_ms}
+
+
+def headline_variants(dev, card_line):
+    """(e) The permutation pairing and the greedy budget at the headline
+    width: ticks 1-3 equal to the reference's digests, the plain pull with
+    the reference's reason, the FD phase through fd.cu; round times."""
+    out, launches = {}, collections.Counter()
+    for case, over, reason in (("permutation_headline", dict(pairing="permutation"), "pairing"),
+                               ("greedy_headline", dict(budget_policy="greedy"),
+                                "budget_policy")):
+        cfg = dataclasses.replace(headline_config(), **over)
+        counters.reset()
+        sim = digest_prefix(case, cfg, dev, 0)
+        check(dict(counters.launches) == {"fd": 3} and dict(counters.fallbacks) == {reason: 3},
+              f"{case} did not run the plain pull ({reason}) and fd.cu")
+        launches.update(counters.launches)
+        round_ms = round_rate(sim, rounds=8, warmup=1)
+        out[case] = {"round_ms": round_ms}
+        log("variants", f"{case}: ticks 1-3 == the reference's digests; {round_ms:.3f} ms a "
+            f"round ({card_line})")
+        del sim
+    return out, launches
+
+
+def remaining_semantics(dev, card_line):
+    """Phase 14: (a)-(e) above, each run from counters at 0."""
+    t0 = time.perf_counter()
+    churn, churn_entries = churn_headline(dev, card_line)
+    c4, fd_entry = config4_run(dev, card_line)
+    c3 = config3_runs(dev, card_line)
+    choice = choice_north(dev, card_line)
+    variants, variant_launches = headline_variants(dev, card_line)
+    draws = categorical_draw_times(dev, card_line)
+    fd_entry["launches_variants"] = variant_launches["fd"]
+    log("phase14", f"{time.perf_counter() - t0:.1f} s")
+    return {"churn_headline": churn, "config4": c4, "config3": c3, "choice_32768": choice,
+            "headline_variants": variants, "categorical_draw": draws}, churn_entries, fd_entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4302,9 +4814,9 @@ def main() -> int:
     # The simulator draws its matchings on the device: the same bits as
     # on the host, at the headline width.
     key0 = prng.key(0)
-    on_dev = prng.round_draws(key0.to(dev), 1, 16, N, cfg.fanout)
-    on_cpu = prng.round_draws(key0, 1, 16, N, cfg.fanout)
-    check(all(torch.equal(a.cpu(), b) for a, b in zip(on_dev, on_cpu)),
+    on_dev = prng.chunk_draws(key0.to(dev), 1, 16, cfg)
+    on_cpu = prng.chunk_draws(key0, 1, 16, cfg)
+    check(all(torch.equal(getattr(on_dev, f).cpu(), getattr(on_cpu, f)) for f in ("gm", "c", "p")),
           "device draws differ from host draws")
     log("draws", f"16 rounds x {cfg.fanout} matchings at N={N}: device == host")
 
@@ -4511,6 +5023,13 @@ def main() -> int:
     )
     kernels += column_block_entries(block_errs, {"blocks": block_times, "main": ns_mesh_times},
                                     mesh_runs)
+
+    # Phase 14: churn, the other pairings, greedy and the lifecycle at
+    # full width. The churned headline runs the pairs kernels (each mode
+    # held and timed on the run's own state) and config 4 the standalone
+    # FD kernel.
+    remaining, churn_entries, fd_entry = remaining_semantics(dev, card_line)
+    kernels += churn_entries + [fd_entry]
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -4557,6 +5076,7 @@ def main() -> int:
         },
         "full_past_staged": c2,
         "mesh": {"headline": head_mesh, "north_star": ns_mesh},
+        "remaining_semantics": remaining,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -378,9 +378,10 @@ def test_simulator_m8_paths_equal_plain_path(dev, monkeypatch):
 
 def test_draws_on_the_device_equal_the_host(dev):
     key = prng.key(7)
-    on_dev = prng.round_draws(key.to(dev), 3, 4, 1024, 3)
-    on_cpu = prng.round_draws(key, 3, 4, 1024, 3)
-    for a, b in zip(on_dev, on_cpu, strict=True):
+    cfg = SimConfig(n_nodes=1024, fanout=3)
+    on_dev = prng.chunk_draws(key.to(dev), 3, 4, cfg)
+    on_cpu = prng.chunk_draws(key, 3, 4, cfg)
+    for a, b in zip((on_dev.gm, on_dev.c, on_dev.p), (on_cpu.gm, on_cpu.c, on_cpu.p), strict=True):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
 
 
@@ -1099,3 +1100,99 @@ def test_pairs_totals_narrow_modes_equal_plain(dev, rung, diag, half):
     lwant = pairs_totals.pairs_totals_lanes_plain(lw, lgm, lc, lvalid, mv=lmv)
     torch.cuda.synchronize()
     assert torch.equal(lgot, lwant) and not bool(lgot[1].any())
+
+
+# -- the round's remaining semantics on the card (churn, the other pairings,
+# greedy, the lifecycle): the kernels on post-churn masks, the standalone FD
+# kernel beside the plain pulls, and the plain routes' ops against the CPU.
+
+
+def test_pairs_kernel_under_churn_equals_plain(dev):
+    """Churn (alive changing between rounds) through the pairs kernels with
+    the fused FD and the check equals the plain round on the card every
+    round, and nothing falls back."""
+    cfg = SimConfig(n_nodes=1024, keys_per_node=8, budget=48, writes_per_round=1,
+                    death_rate=0.05, revival_rate=0.2, **NARROW)
+    counters.reset()
+    kern = Simulator(cfg, seed=3, device=dev, chunk=4)
+    plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False), seed=3,
+                      device=dev, chunk=4)
+    alive = []
+    for _ in range(8):
+        kern.run(1)
+        plain.run(1)
+        torch.cuda.synchronize()
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
+        alive.append(kern.state.alive.clone())
+    assert counters.kernel_launches("pairs_pull") == 8 * 3
+    assert not counters.fallbacks and not counters.refusals
+    assert any(not torch.equal(a, b) for a, b in zip(alive, alive[1:]))
+
+
+def test_fd_kernel_on_a_choice_round_off_the_lane_width(dev):
+    """A choice round at n = 1,000 (n % 128 != 0): the plain pulls with
+    the standalone FD kernel (fd.cu takes any multiple of 8 owners) equal
+    the all-plain round, one FD launch a round, the reference's reason
+    counted."""
+    cfg = SimConfig(n_nodes=1000, keys_per_node=8, budget=48, pairing="choice",
+                    death_rate=0.05, revival_rate=0.2)
+    counters.reset()
+    kern = Simulator(cfg, seed=4, device=dev)
+    plain = Simulator(dataclasses.replace(cfg, use_pallas_fd=False), seed=4, device=dev)
+    kern.run(6)
+    plain.run(6)
+    torch.cuda.synchronize()
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
+    assert counters.launches["fd"] == 6
+    assert counters.fallbacks == {"pairing": 12}
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_scatter_max_in_each_matrix_dtype(dev, dtype):
+    """The responder's scatter-max on the card equals the CPU's in every
+    watermark and heartbeat dtype, rows hit many times included."""
+    rng = np.random.default_rng(5)
+    top = torch.iinfo(dtype).max
+    dst = torch.from_numpy(rng.integers(0, top, (512, 256))).to(dtype)
+    rows = torch.from_numpy(rng.integers(0, 64, 2048))
+    src = torch.from_numpy(rng.integers(0, top, (2048, 256))).to(dtype)
+    want = gossip.scatter_max_rows_(dst.clone(), rows, src)
+    got = gossip.scatter_max_rows_(dst.to(dev), rows.to(dev), src.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and not torch.equal(want, dst)
+
+
+def test_plain_routes_on_the_card_equal_the_cpu(dev):
+    """The draws (uniform, categorical, the adjacency slot), the float32
+    log of the view draw and whole rounds of every new plain route (the
+    view draw under churn and the lifecycle, greedy, permutation, the
+    unrestricted matching, a scale-free topology) give the same bits on
+    the card as on the CPU."""
+    from aiocluster_torch.models import scale_free
+
+    key = prng.key(7)
+    alive = torch.from_numpy(np.random.default_rng(7).random(700) < 0.6)
+    assert torch.equal(prng.categorical(key.to(dev), alive.to(dev), 3).cpu(),
+                       prng.categorical(key, alive, 3))
+    u = torch.linspace(1e-12, 1 - 2.0**-24, 1 << 20)
+    assert torch.equal(gossip.xla_log(u.to(dev)).cpu(), gossip.xla_log(u))
+    base = dict(n_nodes=320, keys_per_node=6, fanout=3, budget=16, writes_per_round=1)
+    topo = scale_free(320, 3, seed=1)
+    for kw, top in (
+        (dict(pairing="choice", peer_mode="view", death_rate=0.1, revival_rate=0.1,
+              dead_grace_ticks=4), None),
+        (dict(pairing="choice", budget_policy="greedy", death_rate=0.1, revival_rate=0.2),
+         None),
+        (dict(pairing="permutation", **NARROW), None),
+        (dict(**NARROW), None),
+        (dict(pairing="choice"), topo),
+    ):
+        cfg = SimConfig(**base, **kw)
+        on_dev = Simulator(cfg, seed=2, device=dev, topology=top)
+        on_cpu = Simulator(cfg, seed=2, device="cpu", topology=top)
+        on_dev.run(8)
+        on_cpu.run(8)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(on_dev.state, f).cpu(), getattr(on_cpu.state, f)), (kw, f)

@@ -24,6 +24,7 @@ from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
 from aiocluster_torch import SimConfig, Simulator, SweepSimulator
+from aiocluster_torch.models import ring
 from aiocluster_torch.ops import counters, gossip
 from aiocluster_torch.parallel import (
     PARTITION_RULES,
@@ -253,14 +254,35 @@ def test_mesh_widths_are_refused_by_name():
 
 
 def test_unported_mesh_routes_refuse_by_roadmap_id():
-    """Topologies (A7) and sweeps over a mesh (A15b) stay refused."""
+    """Sweeps over a mesh (A15b) stay refused; a topology over a mesh
+    (A7, once refused here) runs, equal to the unsharded run."""
     counters.reset()
     cfg = SimConfig(n_nodes=128, **NARROW)
-    with pytest.raises(NotImplementedError, match="A7"):
-        Simulator(cfg, mesh=make_mesh(["cpu"]), topology=object())
+    meshed = Simulator(cfg, seed=2, mesh=make_mesh(["cpu"] * 2), topology=ring(128, 2))
+    whole = Simulator(cfg, seed=2, device="cpu", topology=ring(128, 2))
+    meshed.run(3)
+    whole.run(3)
+    assert all(torch.equal(getattr(meshed.state, f), getattr(whole.state, f)) for f in STATE_FIELDS)
     with pytest.raises(NotImplementedError, match="A15b"):
         SweepSimulator(cfg, [0, 1], mesh=make_mesh(["cpu"]), device="cpu")
-    assert sum(counters.refusals.values()) == 2
+    assert sum(counters.refusals.values()) == 1
+
+
+def test_topology_mesh_takes_blocks_off_the_kernels_domain():
+    """A topology round's pull is plain ("topology") whatever the config
+    asks, so a mesh whose blocks are off the kernels' lane-aligned domain
+    runs it where the kernels are wanted, equal to the unsharded run;
+    the same blocks without the topology stay refused."""
+    cfg = SimConfig(n_nodes=256, keys_per_node=4, use_pallas=True, **NARROW)
+    with pytest.raises(ValueError, match="n_local=64"):
+        Simulator(cfg, mesh=make_mesh(["cpu"] * 4))
+    counters.reset()
+    meshed = Simulator(cfg, seed=3, mesh=make_mesh(["cpu"] * 4), topology=ring(256, 2))
+    whole = Simulator(cfg, seed=3, device="cpu", topology=ring(256, 2))
+    meshed.run(3)
+    assert counters.fallbacks["topology"] == 3
+    whole.run(3)
+    assert all(torch.equal(getattr(meshed.state, f), getattr(whole.state, f)) for f in STATE_FIELDS)
 
 
 def test_reduce_blocks_in_block_order():

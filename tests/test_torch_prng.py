@@ -10,6 +10,7 @@ from jax import random
 
 from aiocluster_tpu.ops.gossip import _grouped_matching, _random_matching
 from aiocluster_torch.ops import prng
+from aiocluster_torch.sim.config import SimConfig
 import torch
 
 # Tiny tensors: one thread each, leaving the cores to the suite's
@@ -84,12 +85,13 @@ def test_random_matching(n):
 
 
 def test_round_key_schedule():
-    """round_draws follows sim_step's schedule: fold_in(key, tick), split
+    """chunk_draws follows sim_step's schedule: fold_in(key, tick), split
     into (churn, peer), fold_in(peer, c), then _grouped_matching — over a
     batch of ticks and sub-exchanges in one pass."""
     n, fanout, seed = 256, 3, 11
     ticks = [9, 10, 11, 12]
-    gm, c, p = prng.round_draws(prng.key(seed), 9, 4, n, fanout)
+    draws = prng.chunk_draws(prng.key(seed), 9, 4, SimConfig(n_nodes=n, fanout=fanout))
+    gm, c, p = draws.gm, draws.c, draws.p
     key = random.key(seed)
     for r, tick in enumerate(ticks):
         _, peer_key = random.split(random.fold_in(key, jnp.asarray(tick, jnp.int32)))

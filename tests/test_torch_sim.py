@@ -19,6 +19,7 @@ from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
 from aiocluster_torch import Simulator, SimConfig, full_config, lean_config
+from aiocluster_torch.models import ring
 from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
 from aiocluster_torch.parallel import make_mesh
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
@@ -398,17 +399,27 @@ def test_counters_on_the_cpu_path():
 
 
 def test_sim_step_refuses_out_of_slice_configs():
+    """sim_step refuses only a fault plan (A10), also one set past
+    __post_init__; churn (A6, once refused here) runs and writes the
+    flipped alive mask, and topologies (A7) run through
+    ``Simulator(topology=)``."""
     cfg = SimConfig(n_nodes=128)
-    object.__setattr__(cfg, "death_rate", 0.1)  # past __post_init__
+    object.__setattr__(cfg, "fault_plan", object())  # past __post_init__
     state = init_state(SimConfig(n_nodes=128), device="cpu")
     counters.reset()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         gossip.sim_step(state, prng.key(0), cfg)
-    # Meshes are ported (tests/test_torch_mesh.py); topologies are not.
+    churn = SimConfig(n_nodes=128, death_rate=0.5)
+    new = gossip.sim_step(init_state(churn, device="cpu"), prng.key(0), churn)
+    assert 0 < int(new.alive.sum()) < 128
+    assert torch.equal(new.heartbeat, 1 + new.alive.to(torch.int32))
     Simulator(SimConfig(n_nodes=128), mesh=make_mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="A7"):
-        Simulator(SimConfig(n_nodes=128), topology=object(), device="cpu")
-    assert sum(counters.refusals.values()) == 2
+    sim = Simulator(SimConfig(n_nodes=128), topology=ring(128, 1), device="cpu")
+    sim.run(2)
+    assert sim.tick == 2
+    with pytest.raises(ValueError, match="topology size"):
+        Simulator(SimConfig(n_nodes=64), topology=ring(128, 1), device="cpu")
+    assert sum(counters.refusals.values()) == 1
 
 
 def test_horizon_guard():

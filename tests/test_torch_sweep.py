@@ -148,7 +148,7 @@ def test_sweep_step_alone_equals_a_sweep_round():
     keys = prng.keys(SEEDS)
     for tick in range(3):
         sweep.run(1)
-        draws = [t[0] for t in prng.round_draws(keys, tick + 1, 1, cfg.n_nodes, cfg.fanout)]
+        draws = prng.chunk_draws(keys, tick + 1, 1, cfg, alive=states.alive).round(0)
         salts = gossip.lane_salt_table(tick + 1, 1, cfg.fanout, sweep._lane_fanout,
                                        sweep._device_run_salts)[0]
         states, conv = gossip.sweep_step(
@@ -258,10 +258,11 @@ def test_lane_keys_draws_and_salts():
         assert torch.equal(got[s], prng.key(seed))
     with pytest.raises(ValueError, match="2\\*\\*32"):
         prng.keys([2**32])
-    batched = prng.round_draws(got, 5, 3, 256, 2)
+    draw_cfg = SimConfig(n_nodes=256, fanout=2)
+    batched = prng.chunk_draws(got, 5, 3, draw_cfg)
     for s, seed in enumerate(seeds):
-        single = prng.round_draws(prng.key(seed), 5, 3, 256, 2)
-        for a, b in zip(batched, single):
+        single = prng.chunk_draws(prng.key(seed), 5, 3, draw_cfg)
+        for a, b in zip((batched.gm, batched.c, batched.p), (single.gm, single.c, single.p)):
             assert a.shape[:3] == (3, 2, len(seeds))
             assert torch.equal(a[:, :, s], b)
     run = prng.run_salts(got)
@@ -364,8 +365,17 @@ def test_refusals_and_validation():
     with pytest.raises(ValueError) as want:
         RefSweep(_ref_cfg(lean), [0], phi_threshold=[8.0])
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A6"):
-        SweepSimulator(dataclasses.replace(cfg, death_rate=0.1), [0], device="cpu")
+    # Churn (A6, once refused here) sweeps; a fanout sweep under choice
+    # keeps the reference's error.
+    churn = SweepSimulator(dataclasses.replace(cfg, death_rate=0.1), [0, 1], device="cpu")
+    churn.run(2)
+    assert churn.tick == 2 and not bool(churn.states.alive.all())
+    choice = dataclasses.replace(cfg, pairing="choice")
+    with pytest.raises(ValueError) as got:
+        SweepSimulator(choice, [0, 1], fanout=[1, 2], device="cpu")
+    with pytest.raises(ValueError) as want:
+        RefSweep(_ref_cfg(choice), [0, 1], fanout=[1, 2])
+    assert str(got.value) == str(want.value)
 
 
 def test_result_table():
