@@ -10,12 +10,15 @@ mesh=parallel.make_mesh(...))`` holds the state as column blocks of the
 owners over a mesh's devices (the reference's owner-sharded simulator),
 and ``Simulator(cfg, topology=models.scale_free(...))`` draws each
 node's peers from an adjacency. Every config of the reference's
-simulator runs but its fault plans and heterogeneity.
+simulator runs, fault plans (``aiocluster_torch.faults``) and
+heterogeneity classes (``models.Heterogeneity``) included.
 Its entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (or a mesh of CPU devices), where every kernel wrapper
 takes its plain PyTorch version.
 """
 
+from .faults import FaultPlan
+from .models import Heterogeneity
 from .sim import (
     HEADLINE_BUDGET,
     SimConfig,
@@ -31,7 +34,9 @@ from .sim import (
 )
 
 __all__ = (
+    "FaultPlan",
     "HEADLINE_BUDGET",
+    "Heterogeneity",
     "SimConfig",
     "SimState",
     "Simulator",

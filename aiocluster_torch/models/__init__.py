@@ -1,6 +1,6 @@
 """Cluster topology models for the simulator (ring, small-world,
-scale-free, hierarchical racks)."""
+scale-free, hierarchical racks) and its heterogeneity classes."""
 
-from .topology import Topology, hierarchical, ring, scale_free, small_world
+from .topology import Heterogeneity, Topology, hierarchical, ring, scale_free, small_world
 
-__all__ = ("Topology", "hierarchical", "ring", "scale_free", "small_world")
+__all__ = ("Heterogeneity", "Topology", "hierarchical", "ring", "scale_free", "small_world")

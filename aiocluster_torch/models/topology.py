@@ -11,8 +11,11 @@ arguments (the same numpy generator calls in the same order).
 
 Static shapes: adjacency rows are padded to max_degree with self-loops
 (sampling a pad slot can't happen because degrees bounds the draw).
-``Heterogeneity`` (the cadence, WAN and zone classes) comes with the
-fault plans (ROADMAP.md A10).
+
+``Heterogeneity`` is the reference's model of per-node gossip cadence
+classes, WAN latency/loss classes and zone-aware peer bias, lowered by
+the simulator onto the fault plan's masks (faults/sim.py) and the choice
+draw (ops/prng.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,145 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+
+@dataclass(frozen=True, slots=True, eq=True)
+class Heterogeneity:
+    """Per-node gossip-cadence classes, WAN latency/loss classes and
+    zone-aware peer bias — one hashable model lowered to BOTH backends
+    (docs/faults.md "heterogeneity").
+
+    The node-coordinate space is the fault plan's: the sim places node
+    ``i`` at ``i / n``, the runtime places a node at
+    ``crc32(name) / 2**32`` (faults/plan._frac_of), so classes and
+    zones mean the same thing in one config that runs on both.
+
+    - **Cadence classes**: ``class_frac`` cuts the coordinate space
+      into consecutive windows (must sum to 1); a class-``k`` node
+      initiates gossip every ``gossip_every[k]`` rounds. Runtime: the
+      node's ticker interval is scaled by its class
+      (``Cluster.effective_gossip_interval``). Sim: a symmetric
+      ("matching") pair exchanges when EITHER side is on-cadence this
+      tick — a quiet node still responds, as in the reference; the
+      directional pairings ("permutation", "choice") gate each
+      handshake by its initiator's cadence (responders always serve).
+    - **WAN classes**: ``zones`` contiguous coordinate blocks; every
+      cross-zone link drops each operation with probability
+      ``wan_loss`` and stalls ``wan_delay`` seconds (ticks in the sim —
+      a delay >= 1 tick misses the round) with probability 1. Lowered
+      as derived :class:`~aiocluster_torch.faults.plan.LinkFault` entries
+      appended to the effective fault plan (``wan_link_faults``), so
+      one injection machinery serves both backends.
+    - **Zone bias**: with probability ``zone_bias`` a peer pick is
+      drawn from the node's own zone. Runtime: biases the live-target
+      sample (runtime/peers.py). Sim: requires ``pairing="choice"``
+      (a global matching cannot honour per-node preference).
+    """
+
+    gossip_every: tuple[int, ...] = (1,)
+    class_frac: tuple[float, ...] = (1.0,)
+    zones: int = 1
+    wan_delay: float = 0.0
+    wan_loss: float = 0.0
+    zone_bias: float = 0.0
+
+    def __post_init__(self) -> None:
+        if len(self.gossip_every) != len(self.class_frac):
+            raise ValueError(
+                "gossip_every and class_frac must have the same length"
+            )
+        if not self.gossip_every:
+            raise ValueError("need at least one cadence class")
+        if any(int(g) != g or g < 1 for g in self.gossip_every):
+            raise ValueError("gossip_every periods must be integers >= 1")
+        if any(f < 0 for f in self.class_frac):
+            raise ValueError("class_frac entries must be >= 0")
+        if abs(sum(self.class_frac) - 1.0) > 1e-6:
+            raise ValueError("class_frac must sum to 1")
+        if self.zones < 1:
+            raise ValueError("zones must be >= 1")
+        if self.wan_delay < 0:
+            raise ValueError("wan_delay must be >= 0")
+        if not 0.0 <= self.wan_loss <= 1.0:
+            raise ValueError("wan_loss must be in [0, 1]")
+        if not 0.0 <= self.zone_bias <= 1.0:
+            raise ValueError("zone_bias must be in [0, 1]")
+        if (self.wan_loss > 0 or self.wan_delay > 0) and self.zones < 2:
+            raise ValueError("WAN loss/delay needs zones >= 2")
+
+    # -- coordinate classification (shared by both backends) ------------------
+
+    def class_of_frac(self, frac: float) -> int:
+        """Cadence class of a node at coordinate ``frac`` in [0, 1)."""
+        cum = 0.0
+        for k, f in enumerate(self.class_frac):
+            cum += f
+            if frac < cum:
+                return k
+        return len(self.class_frac) - 1
+
+    def zone_of_frac(self, frac: float) -> int:
+        """Zone of a node at coordinate ``frac`` — floor(frac * zones),
+        the same bucketing Partition uses for derived groups."""
+        return min(int(frac * self.zones), self.zones - 1)
+
+    def class_of_name(self, name: str) -> int:
+        from ..faults.plan import _frac_of
+
+        return self.class_of_frac(_frac_of(name))
+
+    def zone_of_name(self, name: str) -> int:
+        from ..faults.plan import _frac_of
+
+        return self.zone_of_frac(_frac_of(name))
+
+    def gossip_every_of_name(self, name: str) -> int:
+        return self.gossip_every[self.class_of_name(name)]
+
+    # -- behaviour predicates -------------------------------------------------
+
+    def cadence_effective(self) -> bool:
+        return any(g != 1 for g in self.gossip_every)
+
+    def wan_effective(self) -> bool:
+        return self.zones >= 2 and (self.wan_loss > 0 or self.wan_delay > 0)
+
+    def effective(self) -> bool:
+        """Whether this model changes ANY behaviour (the all-defaults
+        instance is free: nothing is constructed or masked)."""
+        return (
+            self.cadence_effective()
+            or self.wan_effective()
+            or self.zone_bias > 0
+        )
+
+    # -- WAN lowering ---------------------------------------------------------
+
+    def wan_link_faults(self):
+        """The cross-zone degradation as directional LinkFaults over the
+        zones' coordinate windows — appended to the effective fault plan
+        by both backends (faults.plan.with_extra_links)."""
+        from ..faults.plan import LinkFault, NodeSet
+
+        if not self.wan_effective():
+            return ()
+        z = self.zones
+
+        def window(a: int) -> NodeSet:
+            return NodeSet(frac=(a / z, (a + 1) / z))
+
+        return tuple(
+            LinkFault(
+                src=window(a),
+                dst=window(b),
+                drop=self.wan_loss,
+                delay=self.wan_delay,
+                delay_prob=1.0 if self.wan_delay > 0 else 0.0,
+            )
+            for a in range(z)
+            for b in range(z)
+            if a != b
+        )
 
 
 @dataclass(frozen=True)

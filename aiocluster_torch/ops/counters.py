@@ -14,13 +14,16 @@ counterpart of the reference's ``pallas_fallbacks`` ledger.
 - ``fallbacks``: rounds whose phase a config asked the kernels for but
   plain PyTorch ops served, because the reference serves that route with
   XLA for want of a kernel too; keyed by the reference's reason name
-  (``"packed_dtype"``: the u4r rung with heartbeats or pinned to m8;
+  (``"fault_plan"``: an effective fault plan, whose link, crash and
+  byzantine masks no kernel carries; ``"packed_dtype"``: the u4r rung
+  with heartbeats or pinned to m8;
   ``"fd_packed_bookkeeping"``: int8 sample counters or the live bitmap
   off the pairs path; ``"fanout"``: a fanout-0 round, whose pull has no
   sub-exchange to carry the refresh and the FD epilogue;
   ``"sweep_needs_pairs"``: a sweep pinned to m8, which has no lane lift).
-- ``refusals``: configs refused with ``NotImplementedError``, keyed by the
-  message (which names the ``ROADMAP.md`` item that ports them).
+- ``refusals``: routes refused with ``NotImplementedError``, keyed by the
+  message (which names the ``ROADMAP.md`` item that ports them: sweeps
+  over a mesh, sweep metrics, sweep checkpoints).
 """
 
 from __future__ import annotations

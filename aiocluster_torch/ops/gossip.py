@@ -1,13 +1,15 @@
 """The batched gossip round in PyTorch: one ScuttleButt round for all N
 nodes as tensor passes over the (N, N) watermark, heartbeat and
-failure-detector matrices — the port of the reference's ops/gossip.py
-for everything but its fault plans and heterogeneity: churn, the
-matching (grouped, or unrestricted off n % 128 == 0), permutation and
-choice pairings (uniform, categorical, the view draw, adjacency
-topologies), both budget policies, the dead-node lifecycle and every
-rung of the memory ladder. The packed u4r rung computes on the nibbles
-(the packed helpers below), and the shrunk FD bookkeeping stores int8
-counters and the live bitmap.
+failure-detector matrices — the port of the reference's ops/gossip.py:
+churn, the matching (grouped, or unrestricted off n % 128 == 0),
+permutation and choice pairings (uniform, categorical, the view draw,
+adjacency topologies), both budget policies, the dead-node lifecycle,
+fault plans and heterogeneity (faults/sim.py: crash windows with
+amnesiac restarts, link faults and partitions, the quarantine of the
+choice draw, byzantine guard blocks, cadence classes, WAN classes and
+zone bias) and every rung of the memory ladder. The packed u4r rung
+computes on the nibbles (the packed helpers below), and the shrunk FD
+bookkeeping stores int8 counters and the live bitmap.
 
 Two implementations serve a round, resolved once per call by
 ``resolve_phases`` (the counterpart of the reference's
@@ -25,12 +27,14 @@ Two implementations serve a round, resolved once per call by
   two launches instead: the deficit totals (ops/pairs_totals.py), then
   the pull fed those totals ("pairs_two_pass", the reference's sharded
   two-pass form). ``pairs_pull.pull_form`` is the rule. Churn keeps
-  these forms: the kernels take the post-churn alive masks. A config
+  these forms: the kernels take the post-churn alive masks, and cadence
+  classes fold into the same pair validity. A config
   the kernels cannot take runs its pull plain only on the routes the
   reference itself serves with XLA for want of a kernel, each counted in
   ``counters.fallbacks`` under the reference's reason
-  (``plain_pull_reason``: "topology", "pairing", "packed_dtype",
-  "fanout", "shape", "budget_policy", "lifecycle"); the FD phase of those
+  (``plain_pull_reason``: "topology", "fault_plan", "pairing",
+  "packed_dtype", "fanout", "shape", "budget_policy", "lifecycle"); the
+  FD phase of those
   rounds is the standalone kernel, except under the lifecycle and on the
   shrunk bookkeeping ("fd_packed_bookkeeping"), which run it plain;
 - ``pallas_variant="m8"`` on a CUDA device: the single-pass pull
@@ -83,7 +87,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..sim.config import SimConfig, unported_reason
+from ..faults import sim as fsim
+from ..sim.config import SimConfig
 from ..sim.packed import (
     U4_MAX,
     is_packed_live,
@@ -374,7 +379,10 @@ def plain_pull_reason(cfg: SimConfig, has_topology: bool = False) -> str | None:
     """Why a config that asks for the kernels runs its pull plain — the
     reference's reason name, its first failing gate in the order of its
     ``pallas_fallback_reason`` — or None when a kernel form serves it:
-    "topology" (an adjacency run: the choice path), "pairing"
+    "topology" (an adjacency run: the choice path), "fault_plan" (the
+    effective plan injects link, crash or byzantine behaviour, which the
+    kernels carry no mask for; cadence classes alone keep the kernels),
+    "pairing"
     (permutation or choice), "packed_dtype" (the u4r rung with
     heartbeats, or pinned to m8: only the pairs kernels carry the nibble
     codec, and only in the lean profile), "fanout" (fanout 0: no
@@ -384,6 +392,8 @@ def plain_pull_reason(cfg: SimConfig, has_topology: bool = False) -> str | None:
     no scheduled-for-deletion mask)."""
     if has_topology:
         return "topology"
+    if round_faults(cfg).active:
+        return "fault_plan"
     if cfg.pairing != "matching":
         return "pairing"
     if cfg.version_dtype == "u4r" and (cfg.track_heartbeats or cfg.pallas_variant == "m8"):
@@ -397,6 +407,43 @@ def plain_pull_reason(cfg: SimConfig, has_topology: bool = False) -> str | None:
     if lifecycle_enabled(cfg):
         return "lifecycle"
     return None
+
+
+class RoundFaults(NamedTuple):
+    """What a config's fault plan and heterogeneity inject, resolved once
+    per config (``round_faults``): the effective plan (the configured one
+    plus the WAN classes' link faults) and the static predicates the
+    round branches on, as the reference's ``sim_step`` does."""
+
+    plan: object | None
+    links: bool  # partitions or link faults with a nonzero failure rate
+    nodes: bool  # crash windows
+    amnesia: bool  # crash windows restarting with recovery="amnesia"
+    byzantine: bool  # byzantine entries with a nonzero rate
+    quarantine: bool  # cfg.quarantine and a link fault it acts on
+    cadence: object | None  # the heterogeneity model when it has cadence classes
+
+    @property
+    def active(self) -> bool:
+        """Whether the plan injects anything the kernels carry no mask for
+        (the reference's ``_fault_plan_active``; cadence is not)."""
+        return self.links or self.nodes or self.byzantine
+
+
+@functools.lru_cache(maxsize=64)
+def round_faults(cfg: SimConfig) -> RoundFaults:
+    """The config's ``RoundFaults`` (static: resolved once per config)."""
+    plan = fsim.effective_fault_plan(cfg.fault_plan, cfg.heterogeneity)
+    het = cfg.heterogeneity
+    return RoundFaults(
+        plan=plan,
+        links=fsim.plan_affects_links(plan),
+        nodes=fsim.plan_affects_nodes(plan),
+        amnesia=fsim.plan_amnesia_restarts(plan),
+        byzantine=fsim.plan_affects_byzantine(plan),
+        quarantine=cfg.quarantine and fsim.plan_quarantines(plan),
+        cadence=het if het is not None and het.cadence_effective() else None,
+    )
 
 
 def lifecycle_enabled(cfg: SimConfig) -> bool:
@@ -607,9 +654,6 @@ def step_blocks(
     the min over the blocks. ``sim_step`` is this round on one block of
     every owner. Returns the new blocks (and the flag with
     ``return_converged``); the other arguments are ``sim_step``'s."""
-    reason = unported_reason(cfg)
-    if reason is not None:
-        counters.refuse(reason)
     head = blocks[0]
     n_local = state_n_local(head)
     dev = head.w.device
@@ -621,6 +665,11 @@ def step_blocks(
     if run_salt is None:
         run_salt = prng.run_salt(key)
     has_topology = adjacency is not None
+    if cfg.quarantine and has_topology:
+        raise ValueError(
+            "quarantine is not supported with a topology (the "
+            "adjacency draw carries no per-peer mask)"
+        )
     if draws is None:
         draws = prng.chunk_draws(
             key.to(dev), new_tick, 1, cfg, alive=head.alive, adjacency=adjacency,
@@ -633,10 +682,27 @@ def step_blocks(
         # new state; heartbeats, writes and every pair's validity follow
         # the flipped mask.
         alive = torch.where(alive, ~draws.dies, draws.revives)
-    alive_i32 = alive.to(torch.int32)
-    heartbeat = head.heartbeat + alive_i32
-    max_version = head.max_version + cfg.writes_per_round * alive_i32
-    alive_b, hbt_b, mv_b = rep(alive), rep(heartbeat), rep(max_version)
+    # The fault plan (faults/sim.py): a crash window overrides the
+    # round's effective liveness (the node's heartbeat and writes freeze,
+    # its exchanges void) without touching the churn ground truth, and an
+    # amnesiac restart resets the node's knowledge rows before the
+    # exchanges. Cadence classes gate each handshake by its initiator.
+    faults, n = round_faults(cfg), cfg.n_nodes
+    eff_alive = alive
+    if faults.nodes and fsim.crashes_now(faults.plan, new_tick):
+        eff_alive = alive & ~fsim.crash_mask(faults.plan, n, new_tick, dev)
+    if faults.amnesia and fsim.restarts_now(faults.plan, new_tick):
+        reset = fsim.amnesia_restart_mask(faults.plan, n, new_tick, dev)
+        for b, r, off in zip(blocks, rep(reset), offsets):
+            amnesia_reset_(cfg, b, r, off)
+    cad = None
+    if faults.cadence is not None:
+        cad = fsim.cadence_on(faults.cadence, n, new_tick, dev)
+    eff_i32 = eff_alive.to(torch.int32)
+    heartbeat = head.heartbeat + eff_i32
+    max_version = head.max_version + cfg.writes_per_round * eff_i32
+    alive_b, eff_b = rep(alive), rep(eff_alive)
+    hbt_b, mv_b = rep(heartbeat), rep(max_version)
     track_hb = cfg.track_heartbeats
     phases = resolve_phases(
         cfg, dev, n_local=None if len(blocks) == 1 else n_local, has_topology=has_topology
@@ -660,7 +726,11 @@ def step_blocks(
     def matching(c: int):
         """Sub-exchange ``c``'s (gm, c, p, valid) on each block's device."""
         p = draws.p[c]
-        return zip(rep(draws.gm[c]), rep(draws.c[c]), rep(p), rep(alive & alive[p]))
+        valid = eff_alive & eff_alive[p]
+        if cad is not None:
+            # A matched pair exchanges when either side is on-cadence.
+            valid = valid & (cad | cad[p])
+        return zip(rep(draws.gm[c]), rep(draws.c[c]), rep(p), rep(valid))
 
     flag = None
     ws = [b.w for b in blocks]
@@ -698,7 +768,7 @@ def step_blocks(
                         kw["hbv"] = hbv[k]
                 if last and return_converged:
                     sl = owned[k]
-                    kw["check"] = (mv_b[k][sl], alive_b[k], alive_b[k][sl])
+                    kw["check"] = (mv_b[k][sl], eff_b[k], eff_b[k][sl])
                 if last and fd_phase == "fused":
                     b = blocks[k]
                     kw["hbv"] = hbv[k]
@@ -719,8 +789,9 @@ def step_blocks(
         scheds = [scheduled_for_deletion_mask(b, cfg, new_tick) for b in blocks]
         hb0s = _plain_exchanges(
             cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_salt, draws,
-            rep(alive), scheds, view_salt=-(new_tick + 1) * cfg.fanout,
+            eff_b, scheds, view_salt=-(new_tick + 1) * cfg.fanout,
             choice=has_topology or cfg.pairing == "choice",
+            faults=_FaultRound(cfg, faults, new_tick) if faults.active else None, cad=cad,
         )
 
     for k, b in enumerate(blocks):
@@ -739,7 +810,7 @@ def step_blocks(
             counters.plain_calls["fd"] += 1
             if lifecycle_enabled(cfg):
                 lifecycle_(cfg, new_tick, ws[k], hbs[k], b.last_change, b.live_view,
-                           b.dead_since, alive_b[k])
+                           b.dead_since, eff_b[k])
 
     ticks = rep(head.tick + 1)
     new_blocks = [
@@ -839,20 +910,26 @@ def _m8_exchanges(cfg, pull, ws, hbs, offsets, matching, refresh, hbv, salt_of, 
 
 
 def _plain_exchanges(cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_salt, draws,
-                     alive, scheds, view_salt, choice):
+                     alive, scheds, view_salt, choice, faults=None, cad=None):
     """The round's sub-exchanges as plain PyTorch ops, block after block,
     in ``ws``/``hbs`` (new tensors): the owner diagonal refreshed, then
-    each sub-exchange's handshake directions (``_advances``: the
-    deficits' row totals or greedy offsets reduced over the blocks first)
-    applied from the pre-exchange matrices — the reference's XLA round;
-    one block is the unsharded round. A matching is one direction; a
-    permutation two, row i pulling from ``p[i]`` and from ``inv[i]``,
-    joined by their max; a choice sub-exchange is the initiator's pull
-    from its peer and the responder's scatter-max of its own advance
-    into the peer's row (the peers drawn, or the view draw of the blocks'
-    pre-round live views). ``alive`` and ``scheds`` (the lifecycle's
-    scheduled-for-deletion masks, or None) are per block. Returns the
-    round-start hb of each block (refreshed)."""
+    each sub-exchange's handshake directions (``_direction_stats``: the
+    deficits' row totals or greedy offsets reduced over the blocks first;
+    then ``_advance_rows`` a block of rows at a time) applied from the
+    pre-exchange matrices — the reference's XLA round; one block is the
+    unsharded round. A matching is one direction; a permutation two, row
+    i pulling from ``p[i]`` and from ``inv[i]``, joined by their max; a
+    choice sub-exchange is the initiator's pull from its peer and the
+    responder's scatter-max of its own advance into the peer's row (the
+    peers drawn, or the view draw of the blocks' pre-round live views).
+    Each row block's advances are applied as they are computed, so no
+    (N, n_local) advance matrix is held. ``alive`` (the round's effective
+    liveness: churn and crash windows) and ``scheds`` (the lifecycle's
+    scheduled-for-deletion masks, or None) are per block; ``faults`` (a
+    ``_FaultRound``, or None) adds the link permits and the byzantine
+    guard blocks, ``cad`` (the cadence mask, or None) gates each
+    handshake by its initiator (a matched pair by either side). Returns
+    the round-start hb of each block (refreshed)."""
     n = cfg.n_nodes
     track_hb, packed = cfg.track_heartbeats, is_packed_w(ws[0])
     rep = _replicas([w.device for w in ws])
@@ -860,29 +937,44 @@ def _plain_exchanges(cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_s
     for k, b in enumerate(blocks):
         dev = b.w.device
         ids = torch.arange(n, device=dev)
-        cols = offsets[k] + torch.arange(state_n_local(b), device=dev)
+        local = torch.arange(state_n_local(b), device=dev)
+        cols = offsets[k] + local
         owners.append(cols)
-        diag = ids[:, None] == cols[None, :]
+        # The owner diagonal (w[j, j] = max_version[j], the heartbeat's
+        # likewise) written into copies: the element (cols[j], j).
         if packed:
             # Owner writes raise every observer's residual (saturating),
             # then each owner's residual on itself is 0.
             w = packed_writes_shift(b.w, refresh[k]) if cfg.writes_per_round != 0 else b.w.clone()
             ws[k] = packed_diag_zero_(w, ids, offsets[k])
         else:
-            ws[k] = torch.where(diag, refresh[k].to(b.w.dtype)[None, :], b.w)
+            ws[k] = b.w.clone()
+            ws[k][cols, local] = refresh[k].to(b.w.dtype)
         if track_hb:
-            hbs[k] = torch.where(diag, hbv[k].to(b.hb_known.dtype)[None, :], b.hb_known)
+            hbs[k] = b.hb_known.clone()
+            hbs[k][cols, local] = hbv[k].to(b.hb_known.dtype)
     hb0s = list(hbs)
+    byz_in = [None if faults is None else faults.byz_in(own) for own in owners]
 
-    def direction(p, recv_is_peer: bool, salt: int):
+    def direction(p, salt: int, gate=None, outbound: bool = False):
         """One handshake direction of every block: row i advances toward
-        its peer ``p[i]`` (or, ``recv_is_peer``, the peer row toward row
-        i), where both ends are alive."""
-        ps, valids = rep(p), [a & a[q] for a, q in zip(alive, rep(p))]
-        return [
-            _Direction(q, None, v, salt) if recv_is_peer else _Direction(None, q, v, salt)
-            for q, v in zip(ps, valids)
-        ]
+        its peer ``p[i]`` (``outbound``: the peer row toward row i) where
+        both ends are alive, ``gate`` (N,) allows and the fault plan
+        permits the link; with its byzantine guard blocks."""
+        dns = []
+        gates = [None] * len(ws) if gate is None else rep(gate)
+        for k, (a, q, g) in enumerate(zip(alive, rep(p), gates)):
+            v = a & a[q]
+            if g is not None:
+                v = v & g
+            blk = hblk = None
+            if faults is not None:
+                ids = torch.arange(n, device=q.device)
+                snd, rcv = (ids, q) if outbound else (q, ids)
+                v, blk, hblk = faults.direction(v, snd, rcv, salt, owners[k], byz_in[k])
+            dns.append(_Direction(q, None, v, salt, blk, hblk) if outbound
+                       else _Direction(None, q, v, salt, blk, hblk))
+        return dns
 
     def absorb(k, dn):
         """The hb rows a direction's receivers take from their senders
@@ -890,7 +982,7 @@ def _plain_exchanges(cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_s
         ok = dn.valid[:, None]
         if scheds[k] is not None:
             ok = ok & ~_gather(scheds[k], dn.send)
-        return torch.where(ok, _gather(hbs[k], dn.send), 0)
+        return _zero_blocked(torch.where(ok, _gather(hbs[k], dn.send), 0), dn.hb_block)
 
     if choice:
         peers = draws.peers
@@ -898,41 +990,63 @@ def _plain_exchanges(cfg, blocks, ws, hbs, offsets, refresh, hbv, salt_of, run_s
             peers = view_peers(cfg, blocks, offsets, view_salt, run_salt)
         for c in range(cfg.fanout):
             p = peers[:, c]
-            d_in = direction(p, False, salt_of(c))
-            d_out = direction(p, True, salt_of(c) + 1)
-            a_in = _advances(cfg, ws, owners, scheds, d_in, run_salt)
-            a_out = _advances(cfg, ws, owners, scheds, d_out, run_salt)
+            # Row i initiates this handshake: its cadence gates both
+            # directions (responders serve but never initiate).
+            d_in = direction(p, salt_of(c), cad)
+            d_out = direction(p, salt_of(c) + 1, cad, outbound=True)
+            st_in = _direction_stats(cfg, ws, scheds, d_in)
+            st_out = _direction_stats(cfg, ws, scheds, d_out)
             for k, w in enumerate(ws):
                 q = d_out[k].recv
-                # The initiator applies the responder's delta, the
-                # responder ours (a max: any scatter order is exact).
-                w_next = w + a_in[k]
-                for r0, r1 in row_blocks(n, w.shape[1]):
-                    scatter_max_rows_(w_next, q[r0:r1], w[q[r0:r1]] + a_out[k][r0:r1])
+                # The initiator applies the responder's delta, then the
+                # responder ours (a max: any scatter order is exact),
+                # both from the pre-exchange w.
+                w_next = torch.empty_like(w)
+                blocks_k = list(row_blocks(n, w.shape[1]))
+                for r0, r1 in blocks_k:
+                    w_next[r0:r1] = w[r0:r1] + _advance_rows(
+                        cfg, w, d_in[k], scheds[k], owners[k], st_in[k], run_salt, r0, r1)
+                for r0, r1 in blocks_k:
+                    a_out = _advance_rows(
+                        cfg, w, d_out[k], scheds[k], owners[k], st_out[k], run_salt, r0, r1)
+                    scatter_max_rows_(w_next, q[r0:r1], w[q[r0:r1]] + a_out)
                 ws[k] = w_next
                 if track_hb:
                     hb_next = torch.maximum(hbs[k], absorb(k, d_in[k]))
                     ok = d_out[k].valid[:, None]
                     if scheds[k] is not None:
                         ok = ok & ~scheds[k]
-                    scatter_max_rows_(hb_next, q, torch.where(ok, hbs[k], 0))
+                    sent = _zero_blocked(torch.where(ok, hbs[k], 0), d_out[k].hb_block)
+                    scatter_max_rows_(hb_next, q, sent)
                     hbs[k] = hb_next
                 counters.plain_calls["pull"] += 1
         return hb0s
     for c in range(cfg.fanout):
-        dirs = [direction(draws.p[c], False, salt_of(c))]
-        if draws.inv is not None:
-            # The permutation's responder role: the pull through the
-            # inverse, from the same pre-exchange matrices.
-            dirs.append(direction(draws.inv[c], False, salt_of(c) + 1))
-        advs = [_advances(cfg, ws, owners, scheds, dns, run_salt) for dns in dirs]
+        p = draws.p[c]
+        if draws.inv is None:
+            # A matched pair exchanges when either side is on-cadence.
+            dirs = [direction(p, salt_of(c), None if cad is None else cad | cad[p])]
+        else:
+            # The permutation: row i's pull from p[i] belongs to the
+            # handshake i initiated, its pull through the inverse (the
+            # responder's role, from the same pre-exchange matrices) to
+            # the one inv[i] initiated; each is gated by its initiator.
+            inv = draws.inv[c]
+            dirs = [direction(p, salt_of(c), cad),
+                    direction(inv, salt_of(c) + 1, None if cad is None else cad[inv])]
+        stats = [_direction_stats(cfg, ws, scheds, dns) for dns in dirs]
         for k, w in enumerate(ws):
-            if packed:
-                a_lo = functools.reduce(torch.maximum, [a[k][0] for a in advs])
-                a_hi = functools.reduce(torch.maximum, [a[k][1] for a in advs])
-                ws[k] = packed_apply(w, a_lo, a_hi)
-            else:
-                ws[k] = w + functools.reduce(torch.maximum, [a[k] for a in advs])
+            w_next = torch.empty_like(w)
+            for r0, r1 in row_blocks(n, w.shape[1]):
+                advs = [_advance_rows(cfg, w, dns[k], scheds[k], owners[k], st[k], run_salt, r0, r1)
+                        for dns, st in zip(dirs, stats)]
+                if packed:
+                    a_lo = functools.reduce(torch.maximum, [a[0] for a in advs])
+                    a_hi = functools.reduce(torch.maximum, [a[1] for a in advs])
+                    w_next[r0:r1] = packed_apply(w[r0:r1], a_lo, a_hi)
+                else:
+                    w_next[r0:r1] = w[r0:r1] + functools.reduce(torch.maximum, advs)
+            ws[k] = w_next
             if track_hb:
                 hbs[k] = functools.reduce(
                     torch.maximum, [torch.maximum(hbs[k], absorb(k, dns[k])) for dns in dirs]
@@ -945,12 +1059,76 @@ class _Direction(NamedTuple):
     """One handshake direction of a plain sub-exchange in one block: at
     position i, row ``recv[i]`` (None: row i) advances toward row
     ``send[i]`` (None: row i) where ``valid[i]``; the dither hashes row
-    id i with ``salt``."""
+    id i with ``salt``. ``block`` / ``hb_block`` (``fsim.ByzBlock`` or
+    None) are the owner columns whose advances / heartbeats the
+    receivers' byzantine guards reject, by position."""
 
     recv: torch.Tensor | None
     send: torch.Tensor | None
     valid: torch.Tensor
     salt: int
+    block: fsim.ByzBlock | None = None
+    hb_block: fsim.ByzBlock | None = None
+
+
+class _FaultRound:
+    """A round's fault plan lowered for the plain exchanges
+    (``faults/sim.py`` at the round's tick): per handshake direction the
+    link permits ANDed into its validity, and its byzantine guard blocks
+    — the sender-side ones (``byz_out_block``) joined with the
+    receiver-side starvation (``byz_in_block``, gathered at the
+    receivers), and the heartbeat block (``byz_hb_block``)."""
+
+    def __init__(self, cfg: SimConfig, faults: RoundFaults, tick: int):
+        self.plan, self.faults, self.tick, self.n = faults.plan, faults, tick, cfg.n_nodes
+
+    def byz_in(self, owners: torch.Tensor):
+        if not self.faults.byzantine:
+            return None
+        return fsim.byz_in_block(self.plan, self.n, self.tick, owners)
+
+    def direction(self, valid, snd, rcv, salt: int, owners, byz_in):
+        """(valid, block, hb_block) of the direction ``snd[i] -> rcv[i]``
+        with dither salt ``salt`` over the block's ``owners``."""
+        if self.faults.links:
+            valid = valid & fsim.link_ok(self.plan, self.n, self.tick, snd, rcv, salt)
+        if not self.faults.byzantine:
+            return valid, None, None
+        blk = fsim.byz_out_block(self.plan, self.n, self.tick, snd, owners, salt)
+        if byz_in is not None:
+            blk = byz_in.gather(rcv) | blk
+        hblk = fsim.byz_hb_block(self.plan, self.n, self.tick, snd, owners, salt)
+        return valid, blk, hblk
+
+
+def _zero_blocked(x: torch.Tensor, blk) -> torch.Tensor:
+    """``x`` with the entries of the guard block ``blk`` (or None) zeroed,
+    in place, a block of rows at a time."""
+    if blk is not None:
+        for r0, r1 in row_blocks(x.shape[0], x.shape[1]):
+            x[r0:r1].masked_fill_(blk.rows(r0, r1), 0)
+    return x
+
+
+def amnesia_reset_(cfg: SimConfig, b: SimState, reset: torch.Tensor, col0: int) -> None:
+    """The amnesiac restart of the rows ``reset`` ((N,) bool) in one
+    column block (the owners ``col0 ..``), in place: the knowledge rows
+    return to the fresh-boot state — watermarks, heartbeat knowledge and
+    the FD bookkeeping zeroed, the live view believing only the node
+    itself, no dead stamps. Owner ground truth is untouched."""
+    rows = reset[:, None]
+    b.w.masked_fill_(rows, 0)
+    if cfg.track_heartbeats:
+        b.hb_known.masked_fill_(rows, 0)
+    if cfg.track_failure_detector:
+        for m in (b.last_change, b.imean, b.icount, b.live_view):
+            m.masked_fill_(rows, 0)
+        ids = torch.arange(reset.numel(), device=reset.device)
+        local = ids - col0
+        own = reset & (local >= 0) & (local < b.live_view.shape[1])
+        b.live_view[ids[own], local[own]] = True
+        if b.dead_since.numel():
+            b.dead_since.masked_fill_(rows, 0)
 
 
 def _gather(m: torch.Tensor, idx: torch.Tensor | None, r0: int = 0, r1: int | None = None):
@@ -970,15 +1148,13 @@ def _direction_deficits(w, dn: _Direction, sched, r0: int, r1: int) -> torch.Ten
     return d
 
 
-def _advances(cfg, ws, owners, scheds, dns, run_salt) -> list:
-    """Each block's advances of one handshake direction (``dns``, one
-    ``_Direction`` per block), the reference's ``_budgeted_advance``:
-    a first pass takes every block's row totals of the deficits
-    (proportional: float32, summed over the blocks; greedy: exact sums,
-    each block offset by the earlier blocks'), the second the advances,
-    a block of rows at a time. Returns (N, n_local) advances in each
-    block's w dtype; on the packed rung the int32 nibble halves
-    (a_lo, a_hi)."""
+def _direction_stats(cfg, ws, scheds, dns) -> list:
+    """The first pass of one handshake direction (``dns``, one
+    ``_Direction`` per block) of the reference's ``_budgeted_advance``:
+    every block's row totals of the deficits (proportional: float32,
+    summed over the blocks; greedy: exact sums, each block offset by the
+    earlier blocks'), one (N,) tensor per block. The budget counts every
+    column, the byzantine-blocked ones too."""
     n = ws[0].shape[0]
     packed = is_packed_w(ws[0])
     greedy = cfg.budget_policy == "greedy"
@@ -994,40 +1170,38 @@ def _advances(cfg, ws, owners, scheds, dns, run_salt) -> list:
             d = _direction_deficits(w, dn, sched, r0, r1)
             part[r0:r1] = d.sum(dim=1, dtype=torch.int64) if greedy else deficit_totals(d)
         parts.append(part)
-    if greedy:
-        # Global owner order across the blocks: block k's cumsum starts at
-        # the row sums of blocks 0 .. k - 1.
-        stats, acc = [], torch.zeros_like(parts[0])
-        for part in parts:
-            stats.append(acc.to(part.device))
-            acc = acc + part.to(acc.device)
+    if not greedy:
+        return reduce_blocks(parts, "sum")
+    # Global owner order across the blocks: block k's cumsum starts at
+    # the row sums of blocks 0 .. k - 1.
+    stats, acc = [], torch.zeros_like(parts[0])
+    for part in parts:
+        stats.append(acc.to(part.device))
+        acc = acc + part.to(acc.device)
+    return stats
+
+
+def _advance_rows(cfg, w, dn: _Direction, sched, own, st, run_salt, r0: int, r1: int):
+    """Positions ``r0:r1`` of one block's advances of a direction (the
+    second pass of ``_budgeted_advance`` on the block's first-pass
+    ``st``): in w's dtype, or on the packed rung the int32 nibble halves
+    (a_lo, a_hi); zero on the columns of the direction's byzantine guard
+    block, whose budget share was spent all the same."""
+    ids = torch.arange(r0, r1, device=w.device)
+    if is_packed_w(w):
+        return packed_adv_halves(
+            _gather(w, dn.recv, r0, r1), _gather(w, dn.send, r0, r1), cfg.budget,
+            dn.valid[r0:r1], dn.salt, own, run_salt, st[r0:r1], row_ids=ids,
+        )
+    d = _direction_deficits(w, dn, sched, r0, r1)
+    if cfg.budget_policy == "greedy":
+        adv = greedy_advance(d, st[r0:r1], cfg.budget)
     else:
-        stats = reduce_blocks(parts, "sum")
-    out = []
-    for w, dn, sched, own, st in zip(ws, dns, scheds, owners, stats):
-        shape = (n, w.shape[1])
-        if packed:
-            adv = (torch.empty(shape, dtype=torch.int32, device=w.device),
-                   torch.empty(shape, dtype=torch.int32, device=w.device))
-        else:
-            adv = torch.empty(shape, dtype=w.dtype, device=w.device)
-        for r0, r1 in row_blocks(n, w.shape[1]):
-            ids = torch.arange(r0, r1, device=w.device)
-            if packed:
-                a_lo, a_hi = packed_adv_halves(
-                    _gather(w, dn.recv, r0, r1), _gather(w, dn.send, r0, r1), cfg.budget,
-                    dn.valid[r0:r1], dn.salt, own, run_salt, st[r0:r1], row_ids=ids,
-                )
-                adv[0][r0:r1], adv[1][r0:r1] = a_lo, a_hi
-                continue
-            d = _direction_deficits(w, dn, sched, r0, r1)
-            if greedy:
-                adv[r0:r1] = greedy_advance(d, st[r0:r1], cfg.budget)
-            else:
-                scale = budget_scale(st[r0:r1], cfg.budget)
-                adv[r0:r1] = proportional_advance(d, scale, dn.salt, own, run_salt, ids).to(w.dtype)
-        out.append(adv)
-    return out
+        scale = budget_scale(st[r0:r1], cfg.budget)
+        adv = proportional_advance(d, scale, dn.salt, own, run_salt, ids).to(w.dtype)
+    if dn.block is not None:
+        adv.masked_fill_(dn.block.rows(r0, r1), 0)
+    return adv
 
 
 def greedy_advance(d: torch.Tensor, offset: torch.Tensor, budget: int) -> torch.Tensor:
@@ -1176,8 +1350,9 @@ def lifecycle_(cfg: SimConfig, tick: int, w, hb, lc, live, dead_since, alive) ->
     live -> dead transition (a live owner clears the stamp); once the
     full grace has passed the pair is forgotten — watermark, heartbeat
     knowledge, last change and stamp reset to 0. ``live`` is the block's
-    new live view (bool or bitmap), ``alive`` the round's ground
-    truth."""
+    new live view (bool or bitmap), ``alive`` the round's effective
+    liveness (the churn ground truth less the crash windows: a crashed
+    node's FD bookkeeping freezes too)."""
     live = unpack_bits(live) if is_packed_live(live) else live
     row_alive = alive[:, None]
     known = ((w > 0) | (hb > 0)) & row_alive
@@ -1219,20 +1394,29 @@ def lane_salt_table(
 
 def lane_configs(cfg: SimConfig, sweep: SweepParams, lanes: int) -> list[SimConfig]:
     """Each lane's config as a sequential run would hold it (the swept
-    values as static fields), pinned to the plain round: the sweep's
-    plain route runs every lane through ``sim_step`` with it."""
+    values as static fields; a lane's fault seed and attacker fraction
+    as its own plan, ``replace(plan, seed=...)`` and
+    ``fsim.with_byz_frac``), pinned to the plain round: the sweep's plain
+    route runs every lane through ``sim_step`` with it."""
     values = {
         name: getattr(sweep, name).tolist()
         for name in ("fanout", "phi_threshold", "writes_per_round")
         if getattr(sweep, name) is not None
     }
-    return [
-        dataclasses.replace(
-            cfg, use_pallas=False, use_pallas_fd=False,
+    seeds = None if sweep.fault_seed is None else sweep.fault_seed.tolist()
+    fracs = None if sweep.byz_frac is None else sweep.byz_frac.tolist()
+    out = []
+    for s in range(lanes):
+        plan = cfg.fault_plan
+        if seeds is not None:
+            plan = dataclasses.replace(plan, seed=seeds[s])
+        if fracs is not None:
+            plan = fsim.with_byz_frac(plan, fracs[s])
+        out.append(dataclasses.replace(
+            cfg, use_pallas=False, use_pallas_fd=False, fault_plan=plan,
             **{k: v[s] for k, v in values.items()},
-        )
-        for s in range(lanes)
-    ]
+        ))
+    return out
 
 
 def sweep_step(
@@ -1269,9 +1453,6 @@ def sweep_step(
     still rides c = 0 and the check and the FD epilogue (with the lane's
     phi) c = fanout - 1. Elsewhere every lane runs the plain round.
     ``return_converged=True`` also returns the (S,) bool flags."""
-    reason = unported_reason(cfg)
-    if reason is not None:
-        counters.refuse(reason)
     lanes, new_tick = states.w.shape[0], tick + 1
     phases = resolve_phases(cfg, states.w.device, sweep=True)
     for why in (phases.pull_fallback, phases.fd_fallback):
@@ -1287,6 +1468,10 @@ def sweep_step(
         alive = torch.where(alive, ~draws.dies, draws.revives)
     alive_i32 = alive.to(torch.int32)
     heartbeat = states.heartbeat + alive_i32
+    # On the pairs forms the effective plan injects nothing (else the
+    # lanes run plain): cadence classes are the one fault-model input.
+    cadence = round_faults(cfg).cadence
+    cad = None if cadence is None else fsim.cadence_on(cadence, cfg.n_nodes, new_tick, alive.device)
     wpr = cfg.writes_per_round
     if sweep.writes_per_round is not None:
         wpr = sweep.writes_per_round.to(torch.int32)[:, None]
@@ -1303,6 +1488,8 @@ def sweep_step(
     for c in range(cfg.fanout):
         first, last = c == 0, c == cfg.fanout - 1
         valid = alive & torch.gather(alive, 1, p_all[c].long())
+        if cad is not None:
+            valid &= cad | cad[p_all[c].long()]
         if active is not None:
             valid &= active[c][:, None]
         kw = {}

@@ -278,6 +278,30 @@ def _sub_keys(peer_keys: torch.Tensor, fanout: int, lead) -> torch.Tensor:
     return fold_in(peer_keys[:, None], subs.reshape(1, fanout, *(1 for _ in lead)))
 
 
+def zone_biased(peers: torch.Tensor, peer_keys: torch.Tensor, cfg) -> torch.Tensor:
+    """Zone-aware peer bias (``Heterogeneity.zone_bias``; the reference's
+    ``_zone_biased``): with probability ``zone_bias`` a choice draw is
+    replaced by a uniform pick from the node's own zone (contiguous
+    coordinate blocks, ``i * zones // n``), from ``split(fold_in(
+    peer_key, 0x5A))``: a ``randint`` below each row's zone size, then a
+    ``bernoulli`` of the bias. ``peers`` (..., n, fanout) as is when the
+    config carries no bias."""
+    het = cfg.heterogeneity
+    if het is None or het.zone_bias <= 0.0:
+        return peers
+    n, fanout = peers.shape[-2:]
+    zones = het.zones
+    # Zone z holds the rows i with i * zones // n == z: rows
+    # ceil(z * n / zones) up to ceil((z + 1) * n / zones).
+    z = torch.arange(n, dtype=torch.int64, device=peers.device) * zones // n
+    zstart = (z * n + zones - 1) // zones
+    zcount = ((z + 1) * n + zones - 1) // zones - zstart
+    ks = split(fold_in(peer_keys, 0x5A))
+    local = zstart[:, None] + randint(ks[..., 0, :], (n, fanout), 0, zcount[:, None])
+    biased = bernoulli(ks[..., 1, :], het.zone_bias, (n, fanout))
+    return torch.where(biased, local, peers)
+
+
 class RoundDraws(NamedTuple):
     """Everything the rounds of one config draw from ``jax.random``, for
     a chunk of rounds (``chunk_draws``) or one round (``round(r)``);
@@ -292,8 +316,8 @@ class RoundDraws(NamedTuple):
       pull);
     - ``dies``, ``revives``: the churn flips, bool (rounds, *lead, n);
     - ``peers``: the choice pairing's peers, int64 (rounds, *lead, n,
-      fanout): uniform, categorical over the alive nodes, or drawn from
-      an adjacency (the view draw is a hash of the state's live view,
+      fanout): uniform, categorical over the alive nodes (less crashed
+      and quarantined ones), zone-biased, or drawn from an adjacency (the view draw is a hash of the state's live view,
       taken in the round)."""
 
     gm: torch.Tensor | None = None
@@ -341,9 +365,11 @@ def chunk_draws(
     matching or permutation sub-exchange ``c`` from ``fold_in(peer_key,
     c)`` (the grouped family on n % 128 == 0, the unrestricted matching
     off it); the choice peers from ``peer_key`` itself: ``randint(0,
-    n)`` on a statically churn-free config, else the categorical over
-    each round's alive nodes (``alive`` is the ground truth before the
-    chunk, carried through the chunk's flips), or a uniform slot of the
+    n)`` on a statically churn-free config without a quarantine, else the
+    categorical over each round's alive nodes (``alive`` is the ground
+    truth before the chunk, carried through the chunk's flips) less the
+    fault plan's crashed and quarantined ones at the round's tick, then
+    the zone bias (``zone_biased``); or a uniform slot of the
     ``adjacency`` row below its ``degrees``. ``run_key`` may be a batch
     of keys (a sweep's lanes, ``alive`` then batched alike)."""
     dev = run_key.device
@@ -358,19 +384,36 @@ def chunk_draws(
         slot = randint(peer_keys, (n, fanout), 0, degrees.to(dev)[:, None])
         adj = adjacency.to(dev, torch.int64).expand(*slot.shape[:-1], adjacency.shape[-1])
         out["peers"] = torch.gather(adj, -1, slot)
-    elif cfg.pairing == "choice":
-        if cfg.peer_mode == "alive" and not churn:
-            out["peers"] = randint(peer_keys, (n, fanout), 0, n)
-        elif cfg.peer_mode == "alive":
+    elif cfg.pairing == "choice" and cfg.peer_mode == "alive":
+        from ..ops.gossip import round_faults  # the round's fault model
+
+        faults = round_faults(cfg)
+        if not churn and not faults.quarantine:
+            peers = randint(peer_keys, (n, fanout), 0, n)
+        else:
+            # The masked categorical: over each round's alive nodes,
+            # less those inside a crash window and those quarantined
+            # (both pure functions of the tick), also on a churn-free
+            # config when a quarantine applies.
+            from ..faults import sim as fsim
+
             live = alive.to(dev).reshape(-1, n)
             peers = torch.empty((rounds, live.shape[0], n, fanout), dtype=torch.int64, device=dev)
             flat_keys = peer_keys.reshape(rounds, -1, 2)
-            dies, revives = (t.reshape(rounds, -1, n) for t in (out["dies"], out["revives"]))
             for r in range(rounds):
-                live = torch.where(live, ~dies[r], revives[r])
+                if churn:
+                    live = torch.where(live, ~out["dies"][r].reshape(-1, n),
+                                       out["revives"][r].reshape(-1, n))
+                tick, sel = first_tick + r, live
+                if faults.nodes and fsim.crashes_now(faults.plan, tick):
+                    sel = sel & ~fsim.crash_mask(faults.plan, n, tick, dev)
+                if faults.quarantine:
+                    sel = sel & ~fsim.quarantine_mask(
+                        faults.plan, n, tick, dev, open_after=cfg.quarantine_open_after)
                 for s in range(live.shape[0]):
-                    peers[r, s] = categorical(flat_keys[r, s], live[s], fanout)
-            out["peers"] = peers.reshape(rounds, *lead, n, fanout)
+                    peers[r, s] = categorical(flat_keys[r, s], sel[s], fanout)
+            peers = peers.reshape(rounds, *lead, n, fanout)
+        out["peers"] = zone_biased(peers, peer_keys, cfg)
     else:
         sub_keys = _sub_keys(peer_keys, fanout, lead)
         if cfg.pairing == "permutation":

@@ -2,11 +2,11 @@
 
 A field-for-field copy of the reference ``SimConfig`` (field names,
 defaults and ``__post_init__`` validation), so a config written for the
-JAX package means the same thing here. The reference module imports its
-fault-plan and heterogeneity types; the port has none yet, and refuses a
-config that carries either loudly (``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them) rather than silently running
-something else.
+JAX package means the same thing here. ``fault_plan`` and
+``heterogeneity`` take the port's own copies of the reference's types
+(``aiocluster_torch.faults.FaultPlan``,
+``aiocluster_torch.models.Heterogeneity``), checked as the reference
+checks them.
 
 In the port, ``use_pallas="auto"`` and ``use_pallas_fd="auto"`` mean
 "the state lives on a CUDA device": the hand-written CUDA kernels
@@ -17,6 +17,9 @@ it on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from ..faults.plan import FaultPlan
+from ..models.topology import Heterogeneity
 
 # budget_from_mtu(65_507) of the reference (sim/bytes.py): key-versions
 # that fit one maximal UDP payload at the headline workload's key/value
@@ -75,12 +78,13 @@ class SimConfig:
     # Heartbeat knowledge matrix; required by the failure detector.
     track_heartbeats: bool = True
 
-    # Deterministic fault injection and heterogeneity (reference types
-    # faults.plan.FaultPlan / models.topology.Heterogeneity).
-    fault_plan: object | None = None
+    # Deterministic fault injection (faults/plan.py, lowered by
+    # faults/sim.py), the breaker quarantine of the choice draw, and
+    # heterogeneity classes (models/topology.py).
+    fault_plan: FaultPlan | None = None
     quarantine: bool = False
     quarantine_open_after: int = 3
-    heterogeneity: object | None = None
+    heterogeneity: Heterogeneity | None = None
 
     # Kernel switches, named as in the reference so configs carry
     # across. "auto": the CUDA kernels serve the round when the state is
@@ -159,6 +163,33 @@ class SimConfig:
             )
         if self.budget_policy not in ("proportional", "greedy"):
             raise ValueError(f"unknown budget_policy: {self.budget_policy}")
+        if self.fault_plan is not None:
+            if not isinstance(self.fault_plan, FaultPlan):
+                raise ValueError("fault_plan must be a faults.FaultPlan")
+            self.fault_plan.check_sim_compatible()
+            if self.fault_plan.byzantine and self.version_dtype == "u4r":
+                raise ValueError(
+                    "byzantine fault kinds are unpacked-only (the guard "
+                    "masks are owner-column selects with no byte-space "
+                    "form); version_dtype='u4r' cannot run them"
+                )
+            amnesia = any(
+                cr.recovery == "amnesia" for cr in self.fault_plan.crashes
+            )
+            if amnesia and self.version_dtype == "u4r":
+                raise ValueError(
+                    "recovery='amnesia' crash windows are unpacked-only "
+                    "(the knowledge-row reset writes w=0, which in "
+                    "residual space is a per-owner value, not a "
+                    "constant); version_dtype='u4r' cannot run them — "
+                    "use recovery='warm' or a wider rung"
+                )
+            if amnesia and self.live_bits:
+                raise ValueError(
+                    "recovery='amnesia' crash windows do not support "
+                    "live_bits (the live-view row reset has no packed "
+                    "form); use recovery='warm' or live_bits=False"
+                )
         if self.quarantine:
             if self.pairing != "choice":
                 raise ValueError(
@@ -173,6 +204,32 @@ class SimConfig:
                 )
             if self.quarantine_open_after < 0:
                 raise ValueError("quarantine_open_after must be >= 0")
+            if self.heterogeneity is not None and any(
+                k != 1 for k in self.heterogeneity.gossip_every
+            ):
+                raise ValueError(
+                    "quarantine cannot combine with heterogeneity cadence "
+                    "classes: a class-k initiator accumulates its "
+                    "failures-to-open k times slower, but the mask opens "
+                    "at a fixed start+open_after for every initiator — "
+                    "the sim would quarantine more than the runtime does"
+                )
+        if self.heterogeneity is not None:
+            if not isinstance(self.heterogeneity, Heterogeneity):
+                raise ValueError(
+                    "heterogeneity must be a models.topology.Heterogeneity"
+                )
+            if self.heterogeneity.zone_bias > 0 and self.pairing != "choice":
+                raise ValueError(
+                    "zone_bias requires pairing='choice' (a global "
+                    "matching cannot honour per-node zone preference)"
+                )
+            if self.heterogeneity.zone_bias > 0 and self.peer_mode != "alive":
+                raise ValueError(
+                    "zone_bias requires peer_mode='alive' (the view-mode "
+                    "Gumbel-max draw carries no zone bias; refusing "
+                    "beats silently sampling unbiased)"
+                )
         if self.track_failure_detector and not self.track_heartbeats:
             raise ValueError("failure detector requires track_heartbeats")
         if self.dead_grace_ticks is not None:
@@ -198,19 +255,6 @@ class SimConfig:
             or self.use_pallas_fd == "auto"
         ):
             raise ValueError(f"unknown use_pallas_fd: {self.use_pallas_fd!r}")
-        reason = unported_reason(self)
-        if reason is not None:
-            raise NotImplementedError(reason)
-
-
-def unported_reason(cfg: SimConfig) -> str | None:
-    """Why ``cfg`` lies outside the ported slice — the message names the
-    ``ROADMAP.md`` item that ports it — or None when the port runs it.
-    The one predicate behind both refusals (``SimConfig.__post_init__``
-    and ``ops.gossip.sim_step``)."""
-    if cfg.fault_plan is not None or cfg.heterogeneity is not None:
-        return "fault_plan / heterogeneity are not ported yet: ROADMAP.md A10"
-    return None
 
 
 # The memory ladder's named rungs (the reference's sim.memory tables): a

@@ -46,6 +46,8 @@ class Simulator:
 
     ``topology`` (a ``models.Topology``) restricts each node's peers to
     its adjacency row (the choice path; its arrays go to the device).
+    ``cfg.fault_plan`` and ``cfg.heterogeneity`` run as in the reference
+    (faults/sim.py), on the mesh too.
 
     ``state`` is the whole state (with a mesh: gathered, a copy of
     every matrix on the first device); ``blocks`` are the column blocks
@@ -68,6 +70,16 @@ class Simulator:
             raise ValueError(
                 "version_dtype='u4r' does not support topology runs "
                 "(the adjacency path's scatter-max is unpacked-only)"
+            )
+        if (
+            topology is not None
+            and cfg.heterogeneity is not None
+            and cfg.heterogeneity.zone_bias > 0
+        ):
+            raise ValueError(
+                "zone_bias does not support topology runs (the "
+                "adjacency draw carries no zone bias; refusing beats "
+                "silently sampling unbiased)"
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")

@@ -73,11 +73,20 @@ class SweepParams:
       ``replace(cfg, fanout=...)``.
     - ``phi_threshold`` (float32): the FD liveness bound.
     - ``writes_per_round`` (int32): the owners' write rate.
+    - ``fault_seed`` (int64, masked to 32 bits): overrides
+      ``fault_plan.seed`` in the probabilistic link and byzantine draws.
+    - ``byz_frac`` (float32 in [0, 1]): moves every byzantine entry's
+      attackers to the window [0, byz_frac).
+
+    The last two stay on the host: they choose each lane's plan
+    (``ops.gossip.lane_configs``), which is host data.
     """
 
     fanout: torch.Tensor | None = None
     phi_threshold: torch.Tensor | None = None
     writes_per_round: torch.Tensor | None = None
+    fault_seed: torch.Tensor | None = None
+    byz_frac: torch.Tensor | None = None
 
 # Largest representable watermark / heartbeat per dtype rung: init_state
 # and the horizon guard (Simulator._check_horizon) enforce these bounds

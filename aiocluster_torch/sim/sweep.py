@@ -3,8 +3,12 @@ lane axis (the port of the reference's ``sim/sweep.py``).
 
 ``SweepSimulator(cfg, seeds, ...)`` runs one lane per seed, each with its
 own values of the sweepable scalars (``fanout``, ``phi_threshold``,
-``writes_per_round``; ``SweepParams``). Lane s is bit-identical to
-``Simulator(replace(cfg, <lane values>), seed=seeds[s])``. The lanes'
+``writes_per_round``, the fault plan's ``fault_seeds`` and the byzantine
+attacker fraction ``byz_frac``; ``SweepParams``). Lane s is
+bit-identical to ``Simulator(replace(cfg, <lane values>),
+seed=seeds[s])``; a fault seed is ``replace(plan, seed=...)`` and an
+attacker fraction the plan with every byzantine entry's attackers at
+[0, byz_frac). The lanes'
 state is one ``SimState`` with a leading lane axis on the device; each
 chunk draws every lane's matchings, churn flips and choice peers in one
 batched pass and builds every
@@ -14,10 +18,13 @@ one lane launch of the pair-fused kernels for all lanes
 on the device; the host reads one scalar a chunk. Results come back as a
 ``SweepResult`` table.
 
+A plan that injects link, crash or byzantine behaviour runs every lane's
+round plain, as the reference serves it with XLA
+(``counters.fallbacks["fault_plan"]``); cadence classes keep the lane
+launches.
+
 Not ported yet, refused by name: ``mesh=`` (ROADMAP.md A15),
-``metrics=`` (A18), ``save`` / ``resume`` (A12). ``fault_seeds=`` and
-``byz_frac=`` raise the reference's own errors, since the port's config
-carries no fault plan (A10).
+``metrics=`` (A18), ``save`` / ``resume`` (A12).
 """
 
 from __future__ import annotations
@@ -175,9 +182,13 @@ class SweepSimulator:
         if phi_threshold is not None and not cfg.track_failure_detector:
             raise ValueError("phi_threshold sweep requires the failure detector")
         writes_per_round = lane_list("writes_per_round", writes_per_round, lo=0)
-        if lane_list("fault_seeds", fault_seeds) is not None:
+        fault_seeds = lane_list("fault_seeds", fault_seeds)
+        if fault_seeds is not None and cfg.fault_plan is None:
             raise ValueError("fault_seeds sweep requires cfg.fault_plan")
-        if lane_list("byz_frac", byz_frac, lo=0.0, hi=1.0) is not None:
+        byz_frac = lane_list("byz_frac", byz_frac, lo=0.0, hi=1.0)
+        if byz_frac is not None and not (
+            cfg.fault_plan is not None and cfg.fault_plan.byzantine
+        ):
             raise ValueError(
                 "byz_frac sweep requires a cfg.fault_plan with byzantine "
                 "entries (the lane value overrides their attacker windows)"
@@ -202,6 +213,8 @@ class SweepSimulator:
             ("fanout", fanout),
             ("phi_threshold", phi_threshold),
             ("writes_per_round", writes_per_round),
+            ("fault_seeds", fault_seeds),
+            ("byz_frac", byz_frac),
         ):
             if values is not None:
                 self.params[name] = values
@@ -216,6 +229,11 @@ class SweepSimulator:
                 None if writes_per_round is None
                 else torch.tensor(writes_per_round, dtype=torch.int32, device=dev)
             ),
+            fault_seed=(
+                None if fault_seeds is None
+                else torch.tensor([int(v) & 0xFFFFFFFF for v in fault_seeds], dtype=torch.int64)
+            ),
+            byz_frac=None if byz_frac is None else torch.tensor(byz_frac, dtype=torch.float32),
         )
         # The horizon guard charges the fastest-writing lane.
         self._max_wpr = max(writes_per_round) if writes_per_round else cfg.writes_per_round

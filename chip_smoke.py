@@ -120,6 +120,24 @@ the view draw timed at 10,240. Ticks 1-3 of every run (and tick 200 of
 config 3) are held to the sha256 of the reference's state, field by
 field (``REF_DIGESTS``, made by ``tools/torch_reference_digests.py``).
 
+Then fault plans and heterogeneity (phase 15), each run from counters at
+0, all at 10,240 nodes: ``benchmarks/fault_bench.py``'s sim arm
+(split_brain(3) healing at tick 48, the lean profile, seed 0) unconverged
+at the heal and converged at the reference's round; the headline under
+flaky_links(0.2) (plain pulls, ``fd.cu`` a round, timed on the run's
+state) and with cadence classes (on the pairs kernels, the cadence in
+their pair validity: 3 launches a round and no plain pull; each mode on
+the run's next round against its plain version; then pinned to m8) to
+the reference's converged rounds; ticks 1-4 of an amnesiac rolling
+restart, ticks 1-3 of the byzantine storm with the lifecycle, of a
+quarantined choice draw and of zone bias with WAN classes; 3-lane
+``fault_seeds``, ``byz_frac`` and cadence sweeps (every lane equal to
+its sequential run); fault_bench's arm and the cadence headline on 8
+column blocks (equal to the unsharded runs). ``python3 chip_smoke.py
+--c4`` runs only ``lean_config(65_536, budget=2618, pairing="choice")``
+at seed 1 to the reference's certified round 81 (ROADMAP C4) and prints
+its peak memory.
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -152,6 +170,11 @@ from aiocluster_torch.ops import (
 )
 from aiocluster_torch.ops import fd as fd_mod
 from aiocluster_torch.ops.fd import FdParams
+from aiocluster_torch.faults import (
+    FaultPlan, LinkFault, NodeSet, byzantine_storm, flaky_links, rolling_restart, split_brain,
+)
+from aiocluster_torch.faults import sim as fsim
+from aiocluster_torch.models import Heterogeneity
 from aiocluster_torch.parallel import make_mesh
 from aiocluster_torch.sim.packed import is_packed_w, pack_bits, unpack_bits, unpack_u4
 from aiocluster_torch.sim.state import STATE_FIELDS, lane
@@ -4356,10 +4379,163 @@ REF_DIGESTS: dict = {
             "live_view": "8a442ebbce4fafe7", "dead_since": "e3b0c44298fc1c14",
         },
     }, "converged_round": 22},
+    "fault_bench_split": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "9975cc1ae3611fdb", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "78657e22bf9618ed", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "b645e862dfa0a1de", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+    }, "converged_round": 63},
+    "flaky_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "03e2513b0eda5e14", "hb_known": "e70fb65db57bf030",
+            "last_change": "d0b8efdb8e1a36d3", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "97d63bd2e16b1e73", "hb_known": "d387035529208312",
+            "last_change": "39126084d6627fb1", "imean": "3e9f60ff3f970cc4", "icount": "37d22d78b153d52b",
+            "live_view": "1eae771a174a9db2", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "da1a70c0bc8a4cfb", "hb_known": "678fd739492cc202",
+            "last_change": "c660385383380667", "imean": "b380b02f542263da", "icount": "ddad6010071cd80f",
+            "live_view": "7e66435d828ebde8", "dead_since": "e3b0c44298fc1c14",
+        },
+    }, "converged_round": 35},
+    "cadence_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "e5c476cc463e869f", "hb_known": "0f59ad387cfd6505",
+            "last_change": "8ccd405f86c780ec", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "7e947ce009c1e8a9", "hb_known": "97e4e6b4b81eacfa",
+            "last_change": "7ff248d8ffc3a6bd", "imean": "456a6ba4029493fb", "icount": "1ca90f97ef48c1c3",
+            "live_view": "064d6d4038602e05", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "01ee2bd8d5b040e3", "hb_known": "ac9d02264a1e0b3d",
+            "last_change": "fd62cd699ce84b62", "imean": "d9f7f588b8920608", "icount": "dd5168b243ee2826",
+            "live_view": "c684809a653cf4ce", "dead_since": "e3b0c44298fc1c14",
+        },
+    }, "converged_round": 44},
+    "amnesia_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "6a524e66701e1f4e", "hb_known": "eaeeb4a2492882d6",
+            "last_change": "915ad5e37cad9b1f", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "d80cb6812da672b2",
+            "alive": "445d72bc039eaa0e", "w": "2ff219e1749054e4", "hb_known": "2c99a52ae3786a10",
+            "last_change": "521e7dc129cbe382", "imean": "af3d214b63618db1", "icount": "616e5e9d23bba33d",
+            "live_view": "120be899566dc676", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "9a66fd6539a453e3",
+            "alive": "445d72bc039eaa0e", "w": "f99758b52ed14823", "hb_known": "c3f83966cb086cbc",
+            "last_change": "9cdc6540d1c93c04", "imean": "380cb20cdac9664c", "icount": "b7a23dcb6c69779c",
+            "live_view": "a67cc720f294798b", "dead_since": "e3b0c44298fc1c14",
+        },
+        "4": {
+            "tick": "fb5e512425fc9449", "max_version": "3855e96afa8c8c55", "heartbeat": "3946e7176fd3a346",
+            "alive": "445d72bc039eaa0e", "w": "a56bce8e9cc1a7b0", "hb_known": "1350e39ee69974d3",
+            "last_change": "2450782cddac5c69", "imean": "1c2997a005306677", "icount": "51e173ee96d777dc",
+            "live_view": "c22fa591ff0aac71", "dead_since": "e3b0c44298fc1c14",
+        },
+    }},
+    "storm_headline": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "f30fa416158d3053", "hb_known": "6b494e9d053c2296",
+            "last_change": "3e582402ba5d6071", "imean": "72abf2ca8f36943e", "icount": "72abf2ca8f36943e",
+            "live_view": "d0cdbab1ca66c775", "dead_since": "3e582402ba5d6071",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "808e43d1b37ff986", "hb_known": "6aeb72d44abc46b5",
+            "last_change": "fea75f7785a61d2c", "imean": "af7a238724ca10e8", "icount": "64608f4459c1b84f",
+            "live_view": "2b378075992172d6", "dead_since": "a6e63bf3339ad49d",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "f8fc83f4cd9f055e", "hb_known": "7c40ac988443dd83",
+            "last_change": "b534bf8ade39590a", "imean": "e305baeda171f224", "icount": "0efb42df172e5a2e",
+            "live_view": "00e74ffd518737a0", "dead_since": "deb2ba8c193548cd",
+        },
+    }},
+    "quarantine_choice": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "c4211534ffb71eb1", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "632bcdb66c06e2a1", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "95e497c52e0d4da6", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+    }},
+    "zone_choice": {"ticks": {
+        "1": {
+            "tick": "67abdd721024f0ff", "max_version": "3855e96afa8c8c55", "heartbeat": "21b592d5143ce8cd",
+            "alive": "445d72bc039eaa0e", "w": "c7d9651653981729", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+        "2": {
+            "tick": "26b25d457597a7b0", "max_version": "3855e96afa8c8c55", "heartbeat": "2292e30b6e5f215c",
+            "alive": "445d72bc039eaa0e", "w": "5f8378442b124c24", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+        "3": {
+            "tick": "9d9f290527a6be62", "max_version": "3855e96afa8c8c55", "heartbeat": "a6cb8d915ed4c5cd",
+            "alive": "445d72bc039eaa0e", "w": "692455e3c9086282", "hb_known": "e3b0c44298fc1c14",
+            "last_change": "e3b0c44298fc1c14", "imean": "e3b0c44298fc1c14", "icount": "e3b0c44298fc1c14",
+            "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
+        },
+    }},
 }
 CONFIG4_N = 10_000
 CONFIG4_ROUND = REF_DIGESTS["config4"]["converged_round"]  # the reference's, the same script
 CHOICE_N, CHOICE_SEED, CHOICE_ROUND = 32_768, 1, 45  # r5_full_profile_certification.json
+# The choice run's peak before the choice branch applied its advances a
+# block of rows at a time (PERF.md §4, PR 10, one H100 80GB HBM3 at 700 W):
+# the state and four (N, N) matrices.
+CHOICE_PEAK_BEFORE_GB = 20.0
+# C4: the certified choice round at 65,536 (r5_full_profile_convergence.json,
+# choice_65536), run by ``chip_smoke.py --c4``.
+C4_N, C4_ROUND = 65_536, 81
 CONFIG3_ROUNDS = 200
 
 
@@ -4397,33 +4573,38 @@ def config4():
                      pairing="choice")
 
 
-def digest_prefix(case, cfg, dev, seed, topology=None):
-    """Ticks 1-3 of ``cfg`` a round at a time, each state's digests held
-    against the reference's. Returns the simulator at tick 3."""
+def digest_prefix(case, cfg, dev, seed, topology=None, ticks=(1, 2, 3)):
+    """Ticks 1-3 (or ``ticks``) of ``cfg`` a round at a time, each state's
+    digests held against the reference's. Returns the simulator at the
+    last of them."""
     sim = Simulator(cfg, seed=seed, device=dev, chunk=1, topology=topology)
-    for tick in (1, 2, 3):
-        sim.run(1)
+    for tick in ticks:
+        sim.run(tick - sim.tick)
         check_digests(case, sim.state, tick)
     return sim
 
 
-def churn_round_entries(dev, sim, launches):
-    """The churned headline's own pull launches, on the run's state
-    (``sim`` after its rounds): the next round's draws (its churn flips
-    and matchings), its post-churn alive mask, heartbeats and writes,
-    and its sub-exchanges chained as an untracked ``step_blocks`` round
-    chains them (the first refreshes the diagonal, the last carries the
-    FD epilogue on the round-start hb). Each mode's kernel against its
-    plain version on the same inputs, then both timed by CUDA events on
-    a copy of that mode's inputs. Returns one kernels-line entry a mode,
-    its launches the churned run's count of that mode (``launches``)."""
+def round_entries(dev, sim, launches, tag, check_last=False):
+    """The pairs pull launches of a run on its own state (``sim`` after its
+    rounds): the next round's draws (its churn flips and matchings), its
+    post-churn alive mask, cadence gate, heartbeats and writes, and its
+    sub-exchanges chained as ``step_blocks`` chains them (the first
+    refreshes the diagonal, the last carries the FD epilogue on the
+    round-start hb, and with ``check_last`` the convergence check, as a
+    tracked round does). Each mode's kernel against its plain version on
+    the same inputs, then both timed by CUDA events on a copy of that
+    mode's inputs. Returns one kernels-line entry a mode, named
+    ``pairs_pull[<tag> <mode>]``, its launches the run's count of that
+    mode (``launches``)."""
     st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
     form, k = gossip.kernel_pull_form(cfg)
-    check(form in ("pairs", "pairs_cluster"), f"the churned headline's form is {form}")
+    check(form in ("pairs", "pairs_cluster"), f"the {tag} run's form is {form}")
     tick = sim.tick + 1
     run_key = prng.key(sim.seed)
     draws = prng.chunk_draws(run_key.to(dev), tick, 1, cfg, alive=st.alive).round(0)
-    alive = torch.where(st.alive, ~draws.dies, draws.revives)
+    alive = st.alive if draws.dies is None else torch.where(st.alive, ~draws.dies, draws.revives)
+    cadence = gossip.round_faults(cfg).cadence
+    cad = None if cadence is None else fsim.cadence_on(cadence, n, tick, dev)
     alive_i32 = alive.to(torch.int32)
     heartbeat = st.heartbeat + alive_i32
     mv = st.max_version + cfg.writes_per_round * alive_i32
@@ -4434,26 +4615,34 @@ def churn_round_entries(dev, sim, launches):
     plain = {f: t.clone() for f, t in start.items()}
     entries = []
     for c in range(cfg.fanout):
-        mode = dict(diag=c == 0, check=False, fd=c == cfg.fanout - 1)
-        args = (draws.gm[c], draws.c[c], alive & alive[draws.p[c]],
-                tick * 2 * cfg.fanout + 2 * c, prng.run_salt(run_key), cfg.budget)
+        last = c == cfg.fanout - 1
+        mode = dict(diag=c == 0, check=check_last and last, fd=last)
+        p = draws.p[c]
+        valid = alive & alive[p]
+        if cad is not None:
+            valid = valid & (cad | cad[p])
+        args = (draws.gm[c], draws.c[c], valid, tick * 2 * cfg.fanout + 2 * c,
+                prng.run_salt(run_key), cfg.budget)
 
         def call(fn, ops, mode=mode, args=args):
             kw = {}
             if mode["diag"]:
                 kw.update(mv=mv, hbv=heartbeat)
+            if mode["check"]:
+                kw["check"] = (mv, alive, alive)
             if mode["fd"]:
                 kw.update(hbv=heartbeat, fd=pairs_pull.FdOperands(
                     tick, ops["lc"], ops["im"], ops["ic"], ops["live"], ops["hb0"], params))
             return fn(ops["w"], ops["hb"], *args, **kw)
 
         inputs = {f: t.clone() for f, t in kern.items()}
-        call(pairs_pull.pairs_pull, kern)
-        call(pairs_pull.pairs_pull_plain, plain)
+        flags = [call(pairs_pull.pairs_pull, kern), call(pairs_pull.pairs_pull_plain, plain)]
         torch.cuda.synchronize()
         err = max_abs_err(list(kern.values()), list(plain.values()))
+        if mode["check"]:
+            err = max(err, max_abs_err([flags[0]], [flags[1]]))
         key = pairs_pull.counter_key(**mode, cluster=k > 1)
-        check(err == 0.0, f"churned headline: {key} (sub-exchange {c}) disagrees")
+        check(err == 0.0, f"{tag}: {key} (sub-exchange {c}) disagrees")
         ms = cuda_ms(lambda: call(pairs_pull.pairs_pull, inputs), 20)
         plain_ms = cuda_ms(lambda: call(pairs_pull.pairs_pull_plain, inputs), 3, 1)
         del inputs
@@ -4461,14 +4650,14 @@ def churn_round_entries(dev, sim, launches):
                            (OPS_PAIR + (OPS_FD * 2 if mode["fd"] else 0)) * n * n / 2)
         name = key[len("pairs_pull["):-1]
         entries.append(dict(
-            name=f"pairs_pull[churn {name}]", route="cuda",
+            name=f"pairs_pull[{tag} {name}]", route="cuda",
             source="aiocluster_torch/ops/csrc/pairs_pull.cu",
             replaces="aiocluster_tpu/ops/pallas_pull.py:490",
             launches=launches.get(key, 0), launches_per_round=launches.get(key, 0) / sim.tick,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, path="churn_headline", tick=tick,
+            library_ms=None, path=f"{tag}_headline", tick=tick,
         ))
-        log("churn", f"{key} at tick {tick} (sub-exchange {c}, {int(alive.sum())} alive): "
+        log(tag, f"{key} at tick {tick} (sub-exchange {c}, {int(valid.sum())} valid rows): "
             f"max_abs_err={err}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
             f"{plain_ms:.3f} ms)")
     del kern, plain
@@ -4506,7 +4695,7 @@ def churn_headline(dev, card_line):
           "the churned headline did not launch a pull a sub-exchange")
     check(len(set(alive_counts)) > 1, "churn flipped no node")
     del plain
-    entries = churn_round_entries(dev, kern, launches)
+    entries = round_entries(dev, kern, launches, "churn")
     del kern
     round_ms = round_rate(Simulator(cfg, seed=0, device=dev, chunk=16))
     log("churn", f"headline under churn: 16 rounds kernel == plain every round, ticks 1-3 == "
@@ -4514,6 +4703,38 @@ def churn_headline(dev, card_line):
         f"{dict(launches)}; {round_ms:.3f} ms a round ({card_line})")
     return {"rounds": 16, "round_ms": round_ms, "launches": dict(launches),
             "alive_first_last": [alive_counts[0], alive_counts[-1]]}, entries
+
+
+def fd_on_state(sim, what):
+    """fd.cu on a run's own state (``sim`` after its rounds): the next FD
+    phase (its heartbeats one row-rolled max ahead of the round-start
+    matrix) against its plain version, then both timed by CUDA events.
+    Returns (max_abs_err, ms, plain ms, bound ms, bound by, a factory of
+    fresh operands)."""
+    s, cfg = sim.state, sim.cfg
+    n, params = cfg.n_nodes, FdParams.from_config(cfg)
+    hbv = s.heartbeat.clone()
+    hb0 = s.hb_known.clone()
+    hb = torch.maximum(s.hb_known, torch.roll(s.hb_known, 1, 0))
+    fresh = lambda: (hb, hb0, hbv, s.last_change.clone(), s.imean.clone(),  # noqa: E731
+                     s.icount.clone(), s.live_view.clone())
+    got, want = fresh(), fresh()
+    tick = sim.tick + 1
+    fd_mod.fused_fd(tick, *got, params)
+    fd_mod.fused_fd_plain(tick, *want, params)
+    torch.cuda.synchronize()
+    err = max_abs_err(got[3:], want[3:])
+    check(err == 0.0, f"fd.cu != plain on {what}'s state (max abs err {err})")
+    args = fresh()
+    fd_ms = cuda_ms(lambda: fd_mod.fused_fd(tick, *args, params), 10)
+    args = fresh()
+    fd_plain_ms = cuda_ms(lambda: fd_mod.fused_fd_plain(tick, *args, params), 3, 1)
+    del args, got, want
+    # hb, hb0, last_change read, last_change written, imean read and
+    # written, icount read and written (int16), live written.
+    hs, ims = s.hb_known.element_size(), s.imean.element_size()
+    b_ms, b_by = bound(n * n * (4 * hs + 2 * ims + 2 * 2 + 1) + n * 4, OPS_FD * n * n)
+    return err, fd_ms, fd_plain_ms, b_ms, b_by, fresh
 
 
 def config4_run(dev, card_line):
@@ -4542,37 +4763,15 @@ def config4_run(dev, card_line):
           and dict(counters.fallbacks) == {"topology": rounds},
           "config 4 did not run its FD phase through fd.cu every round")
     round_ms = round_rate(sim, rounds=8, warmup=1)
-    # fd.cu on the run's own state: against its plain version, then timed.
-    s = sim.state
-    hbv = s.heartbeat.clone()
-    hb0 = s.hb_known.clone()
-    hb = torch.maximum(s.hb_known, torch.roll(s.hb_known, 1, 0))
-    fresh = lambda: (hb, hb0, hbv, s.last_change.clone(), s.imean.clone(),  # noqa: E731
-                     s.icount.clone(), s.live_view.clone())
-    got, want = fresh(), fresh()
-    tick = sim.tick + 1
-    fd_mod.fused_fd(tick, *got, FdParams.from_config(cfg))
-    fd_mod.fused_fd_plain(tick, *want, FdParams.from_config(cfg))
-    torch.cuda.synchronize()
-    err = max_abs_err(got[3:], want[3:])
-    check(err == 0.0, f"fd.cu != plain on config 4's state (max abs err {err})")
-    args = fresh()
-    fd_ms = cuda_ms(lambda: fd_mod.fused_fd(tick, *args, FdParams.from_config(cfg)), 10)
-    args = fresh()
-    fd_plain_ms = cuda_ms(lambda: fd_mod.fused_fd_plain(tick, *args, FdParams.from_config(cfg)),
-                          3, 1)
+    err, fd_ms, fd_plain_ms, b_ms, b_by, fresh = fd_on_state(sim, "config 4")
     # What the fused liveness bound (fd.fma32, float64 with a tie fix-up)
     # costs the plain FD: the same call with the bound's product and sum
     # rounded apart, the plain arithmetic before the fusion.
-    args = fresh()
+    args, tick = fresh(), sim.tick + 1
     with unittest.mock.patch.object(fd_mod, "fma32", lambda a, b, c: a * b + c):
         fd_plain_unfused_ms = cuda_ms(
             lambda: fd_mod.fused_fd_plain(tick, *args, FdParams.from_config(cfg)), 3, 1)
-    del args, got, want
-    mat = CONFIG4_N * CONFIG4_N
-    # hb, hb0, last_change read (int32), last_change written, imean read and
-    # written (float32), icount read and written (int16), live written.
-    b_ms, b_by = bound(mat * (4 * 3 + 4 + 4 * 2 + 2 * 2 + 1) + CONFIG4_N * 4, OPS_FD * mat)
+    del args
     log("config4", f"{round_ms:.3f} ms a round; fd.cu {fd_ms:.4f} ms ({fd_ms / round_ms:.1%} "
         f"of a round; bound {b_ms:.4f} ms by {b_by}; plain {fd_plain_ms:.3f} ms, "
         f"{fd_plain_unfused_ms:.3f} ms with the bound unfused), equal to its plain version "
@@ -4651,6 +4850,9 @@ def choice_north(dev, card_line):
           f"the reference's certified round is {CHOICE_ROUND}")
     check(dict(counters.fallbacks) == {"pairing": rounds} and not counters.launches,
           "the choice run did not take the plain pull with the reason 'pairing'")
+    log("choice", f"peak {peak:.2f} GB against {CHOICE_PEAK_BEFORE_GB:.1f} GB before the "
+        "choice branch applied its advances a block of rows at a time")
+    check(peak < CHOICE_PEAK_BEFORE_GB, "the choice run's peak did not fall")
     del sim
     torch.cuda.empty_cache()
     return {"converged_round": converged, "run_s": run_s, "round_ms": run_s / rounds * 1e3,
@@ -4711,6 +4913,356 @@ def remaining_semantics(dev, card_line):
             "headline_variants": variants, "categorical_draw": draws}, churn_entries, fd_entry
 
 
+# -- fault plans and heterogeneity (phase 15) --------------------------------------
+#
+# fault_bench's split-brain arm and the headline under flaky links and under
+# cadence classes to the reference's converged rounds; ticks 1-3 (1-4) of an
+# amnesiac rolling restart, the byzantine storm with the lifecycle, a
+# quarantined choice draw and zone bias; fault-seed, attacker-fraction and
+# cadence sweeps; fault_bench's arm and the cadence headline on 8 column
+# blocks. The reference's values are REF_DIGESTS' entries of the same names.
+
+FAULT_HEAL_TICK = 48  # benchmarks/fault_bench.py SIM_HEAL_TICK
+FAULT_MAX_ROUNDS = 400  # benchmarks/fault_bench.py SIM_MAX_ROUNDS
+CADENCE = Heterogeneity(gossip_every=(1, 4), class_frac=(0.5, 0.5))
+
+
+def fault_config(case: str) -> SimConfig:
+    """Phase 15's configurations, as tools/torch_reference_digests.py
+    builds the reference's."""
+    lean = lean_config(N, budget=HEADLINE_BUDGET)
+    head = headline_config(N)
+    if case == "fault_bench_split":  # benchmarks/fault_bench.py's sim arm
+        return dataclasses.replace(
+            lean, fault_plan=split_brain(3, start=0.0, heal=float(FAULT_HEAL_TICK)))
+    if case == "flaky_headline":
+        return dataclasses.replace(head, fault_plan=flaky_links(0.2))
+    if case == "cadence_headline":
+        return dataclasses.replace(head, heterogeneity=CADENCE)
+    if case == "amnesia_headline":
+        return dataclasses.replace(head, fault_plan=rolling_restart(4, recovery="amnesia"))
+    if case == "storm_headline":
+        return dataclasses.replace(head, fault_plan=byzantine_storm(0.25), dead_grace_ticks=40)
+    if case == "quarantine_choice":
+        return dataclasses.replace(lean, pairing="choice", quarantine=True, fault_plan=FaultPlan(
+            links=(LinkFault(dst=NodeSet(frac=(0.0, 0.1)), drop=1.0),)))
+    if case == "zone_choice":
+        return dataclasses.replace(lean, pairing="choice", heterogeneity=Heterogeneity(
+            zones=4, wan_loss=0.1, wan_delay=1.5, zone_bias=0.5))
+    raise KeyError(case)
+
+
+def fault_bench_arm(dev, card_line):
+    """(a) fault_bench's sim arm: split_brain(3) healing at tick 48 on the
+    lean profile at 10,240, seed 0. Ticks 1-3 equal the reference's
+    digests, the run is not converged at the heal, and converges at the
+    reference's round; every pull plain ("fault_plan"), no kernel."""
+    case = "fault_bench_split"
+    cfg, want = fault_config(case), REF_DIGESTS[case]["converged_round"]
+    counters.reset()
+    sim = digest_prefix(case, cfg, dev, 0)
+    sim.chunk = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(FAULT_HEAL_TICK - sim.tick)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) / (FAULT_HEAL_TICK - 3) * 1e3
+    at_heal = sim.metrics()
+    check(not bool(at_heal["all_converged"]), "fault_bench's arm converged while partitioned")
+    converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
+    rounds = sim.tick
+    log("faults", f"fault_bench split_brain(3) heal {FAULT_HEAL_TICK}: ticks 1-3 == the "
+        f"reference's digests; unconverged at the heal (min fraction "
+        f"{float(at_heal['min_fraction']):.4f}); converged at round {converged} (the "
+        f"reference's {want}); {round_ms:.3f} ms a plain round; plain calls "
+        f"{dict(counters.plain_calls)}; fallbacks {dict(counters.fallbacks)} ({card_line})")
+    check(converged == want, f"fault_bench's arm converged at {converged}, the reference at {want}")
+    check(not counters.launches and dict(counters.fallbacks) == {"fault_plan": rounds},
+          "fault_bench's arm did not run plain with the reason 'fault_plan'")
+    return {"converged_round": converged, "reconverge_rounds": converged - FAULT_HEAL_TICK,
+            "min_fraction_at_heal": float(at_heal["min_fraction"]), "round_ms": round_ms}
+
+
+def flaky_headline(dev, card_line):
+    """(b) The headline under flaky_links(0.2): plain pulls ("fault_plan")
+    and fd.cu once a round, to the reference's converged round; fd.cu held
+    against its plain version on the run's state and timed there."""
+    case = "flaky_headline"
+    cfg, want = fault_config(case), REF_DIGESTS[case]["converged_round"]
+    counters.reset()
+    sim = digest_prefix(case, cfg, dev, 0)
+    sim.chunk = 8
+    converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
+    rounds, launches = sim.tick, dict(counters.launches)
+    check(converged == want, f"the flaky headline converged at {converged}, the reference at {want}")
+    check(launches == {"fd": rounds} and dict(counters.fallbacks) == {"fault_plan": rounds},
+          "the flaky headline did not run its FD phase through fd.cu every round")
+    round_ms = round_rate(sim, rounds=8, warmup=1)
+    err, fd_ms, fd_plain_ms, b_ms, b_by, _ = fd_on_state(sim, "the flaky headline")
+    log("faults", f"headline under flaky_links(0.2): converged at round {converged} (the "
+        f"reference's {want}); {round_ms:.3f} ms a round; fd.cu {fd_ms:.4f} ms (bound "
+        f"{b_ms:.4f} ms by {b_by}; plain {fd_plain_ms:.3f} ms) on the run's state ({card_line})")
+    entry = dict(
+        name="fd[flaky]", route="cuda", source="aiocluster_torch/ops/csrc/fd.cu",
+        replaces="aiocluster_tpu/ops/pallas_fd.py:51", launches=launches["fd"],
+        launches_per_round=launches["fd"] / rounds, max_abs_err=err, ms=fd_ms,
+        plain_ms=fd_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        path="flaky_headline",
+    )
+    return {"converged_round": converged, "round_ms": round_ms, "fd_ms": fd_ms,
+            "fd_bound_ms": b_ms}, entry
+
+
+def m8_round_entries(dev, sim, launches, tag):
+    """The m8 pull launches of a pinned-m8 run on its own state: the next
+    round's sub-exchanges (cadence-gated validity, the first refreshing
+    the diagonal) chained out of place, each against its plain version on
+    the same inputs and both timed. One kernels-line entry a mode."""
+    st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
+    form, k = gossip.kernel_pull_form(cfg)
+    check(form == "m8", f"the {tag} m8 run's form is {form}")
+    tick = sim.tick + 1
+    run_key = prng.key(sim.seed)
+    draws = prng.chunk_draws(run_key.to(dev), tick, 1, cfg, alive=st.alive).round(0)
+    cadence = gossip.round_faults(cfg).cadence
+    cad = fsim.cadence_on(cadence, n, tick, dev)
+    alive = st.alive
+    hbv = st.heartbeat + alive.to(torch.int32)
+    mv = st.max_version + cfg.writes_per_round * alive.to(torch.int32)
+    w, hb = st.w, st.hb_known
+    entries, errs = [], {}
+    for c in range(cfg.fanout):
+        p = draws.p[c]
+        ops = dict(w=w, hb=hb, gm=draws.gm[c], c=draws.c[c],
+                   valid=alive & alive[p] & (cad | cad[p]),
+                   salt=tick * 2 * cfg.fanout + 2 * c, run_salt=prng.run_salt(run_key),
+                   budget=cfg.budget)
+        if c == 0:
+            ops.update(mv=mv, hbv=hbv)
+        got = call_m8(m8_pull.m8_pull, ops)
+        want = call_m8(m8_pull.m8_pull_plain, ops)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        key = m8_pull.counter_key(diag=c == 0)
+        check(err == 0.0, f"{tag}: {key} (sub-exchange {c}) disagrees")
+        errs[key] = max(errs.get(key, 0.0), err)
+        ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull, ops), 20)
+        plain_ms = cuda_ms(lambda: call_m8(m8_pull.m8_pull_plain, ops), 3, 1)
+        b_ms, b_by = m8_pull_bound(n, n, 2, 2, diag=c == 0, totals=False)
+        if c < 2:  # the later sub-exchanges repeat sub-exchange 1's mode
+            entries.append(dict(
+                name=f"m8_pull[{tag} {key[len('m8_pull['):-1]}]", route="cuda",
+                source="aiocluster_torch/ops/csrc/m8_pull.cu",
+                replaces="aiocluster_tpu/ops/pallas_pull.py:263",
+                launches=launches.get(key, 0), launches_per_round=launches.get(key, 0) / sim.tick,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, path=f"{tag}_headline_m8", tick=tick,
+            ))
+        else:
+            entries[-1]["max_abs_err"] = errs[key]
+        log(tag, f"{key} at tick {tick} (sub-exchange {c}): max_abs_err={err}; {ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.3f} ms)")
+        w, hb = got
+    del w, hb
+    torch.cuda.empty_cache()
+    return entries
+
+
+def cadence_headline(dev, card_line):
+    """(c) The headline with cadence classes gossip_every=(1, 4): the pairs
+    kernels with the cadence folded into their pair validity (3 launches a
+    round, the FD fused, no plain pull, no fallback) to the reference's
+    converged round; each launched mode on the run's next round against
+    its plain version; then pinned to m8 (fd.cu a round) to the same
+    round, its modes likewise."""
+    case = "cadence_headline"
+    cfg, want = fault_config(case), REF_DIGESTS[case]["converged_round"]
+    counters.reset()
+    sim = digest_prefix(case, cfg, dev, 0)
+    sim.chunk = 8
+    converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
+    rounds, launches = sim.tick, dict(counters.launches)
+    log("cadence", f"converged at round {converged} (the reference's {want}) after {rounds} "
+        f"rounds; launches {launches}; plain calls {dict(counters.plain_calls)}; fallbacks "
+        f"{dict(counters.fallbacks)}")
+    check(converged == want, f"the cadence headline converged at {converged}, the reference at {want}")
+    check(counters.kernel_launches("pairs_pull") == 3 * rounds and not counters.plain_calls
+          and not counters.fallbacks, "the cadence headline left the pairs kernels")
+    entries = round_entries(dev, sim, launches, "cadence", check_last=True)
+    del sim
+    round_ms = round_rate(Simulator(cfg, seed=0, device=dev, chunk=16))
+    m8_cfg = dataclasses.replace(cfg, pallas_variant="m8")
+    counters.reset()
+    sim = Simulator(m8_cfg, seed=0, device=dev)
+    m8_converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
+    m8_rounds, m8_launches = sim.tick, dict(counters.launches)
+    log("cadence", f"pinned to m8: converged at round {m8_converged} after {m8_rounds} rounds; "
+        f"launches {m8_launches}; plain calls {dict(counters.plain_calls)}")
+    check(m8_converged == want, f"the cadence headline on m8 converged at {m8_converged}")
+    check(counters.kernel_launches("m8_pull") == 3 * m8_rounds
+          and m8_launches.get("fd") == m8_rounds and not counters.plain_calls
+          and not counters.fallbacks, "the cadence m8 run left the m8 kernel and fd.cu")
+    entries += m8_round_entries(dev, sim, m8_launches, "cadence")
+    del sim
+    log("cadence", f"{round_ms:.3f} ms a round on the pairs kernels ({card_line})")
+    return {"converged_round": converged, "m8_converged_round": m8_converged,
+            "round_ms": round_ms, "launches": launches, "m8_launches": m8_launches}, entries
+
+
+def fault_digest_cases(dev, card_line):
+    """(d) Ticks 1-3 (1-4) against the reference's digests: the headline
+    under rolling_restart(4, recovery="amnesia") (the first restart at
+    tick 3; fd.cu every round, held against its plain version on the
+    reset bookkeeping at tick 4), under byzantine_storm(0.25) with the
+    lifecycle (the FD plain), and lean choice under a quarantining link
+    fault and under zone bias with WAN classes."""
+    out, entry = {}, None
+    for case, ticks, fd_launches in (("amnesia_headline", (1, 2, 3, 4), True),
+                                     ("storm_headline", (1, 2, 3), False),
+                                     ("quarantine_choice", (1, 2, 3), False),
+                                     ("zone_choice", (1, 2, 3), False)):
+        cfg = fault_config(case)
+        counters.reset()
+        t0 = time.perf_counter()
+        sim = digest_prefix(case, cfg, dev, 0, ticks=ticks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rounds, launches = ticks[-1], dict(counters.launches)
+        check(launches == ({"fd": rounds} if fd_launches else {})
+              and dict(counters.fallbacks) == {"fault_plan": rounds},
+              f"{case} did not run plain ('fault_plan') with its FD phase where expected")
+        out[case] = {"ticks": list(ticks), "seconds": secs, "launches": launches}
+        log("faults", f"{case}: ticks {list(ticks)} == the reference's digests in {secs:.2f} s; "
+            f"launches {launches}; plain calls {dict(counters.plain_calls)} ({card_line})")
+        if case == "amnesia_headline":
+            err, ms, plain_ms, b_ms, b_by, _ = fd_on_state(sim, "the amnesia headline")
+            entry = dict(
+                name="fd[amnesia]", route="cuda", source="aiocluster_torch/ops/csrc/fd.cu",
+                replaces="aiocluster_tpu/ops/pallas_fd.py:51", launches=launches["fd"],
+                launches_per_round=launches["fd"] / rounds, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                path="amnesia_headline",
+            )
+        del sim
+    return out, entry
+
+
+def fault_sweeps(dev, card_line):
+    """(e) Sweeps, 4 rounds each, every lane field-equal to its sequential
+    run: 3 ``fault_seeds`` lanes of the flaky headline and 3 ``byz_frac``
+    lanes (0, 0.25, 0.5) of the storm headline (each lane's round plain,
+    "fault_plan"), and 3 lanes of the cadence headline on the pairs lane
+    launches."""
+    out = {}
+    flaky = fault_config("flaky_headline")
+    storm = fault_config("storm_headline")
+    for what, cfg, lanes, per_lane in (
+        ("fault_seeds", flaky, dict(fault_seeds=[0, 7, 9]),
+         {"fault_plan": [dataclasses.replace(flaky.fault_plan, seed=s) for s in (0, 7, 9)]}),
+        ("byz_frac", storm, dict(byz_frac=[0.0, 0.25, 0.5]),
+         {"fault_plan": [fsim.with_byz_frac(storm.fault_plan, f) for f in (0.0, 0.25, 0.5)]}),
+        ("cadence", fault_config("cadence_headline"), {}, {}),
+    ):
+        counters.reset()
+        t0 = time.perf_counter()
+        sweep = SweepSimulator(cfg, [0, 1, 2], device=dev, **lanes)
+        sweep.run(4)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, fallbacks = dict(counters.launches), dict(counters.fallbacks)
+        if what == "cadence":
+            check(counters.kernel_launches("pairs_pull") == 4 * 3 and not counters.plain_calls
+                  and not fallbacks, "the cadence sweep left the lane launches")
+        else:
+            check(not launches and fallbacks == {"fault_plan": 4},
+                  f"the {what} sweep did not run its lanes plain ('fault_plan')")
+        lanes_equal_sequential(sweep, cfg, dev, per_lane, f"the {what} sweep")
+        out[what] = {"seconds": secs, "launches": launches}
+        log("faults", f"{what} sweep, 3 lanes x 4 rounds in {secs:.2f} s, each lane == its "
+            f"sequential run; launches {launches}; fallbacks {fallbacks} ({card_line})")
+        del sweep
+    return out
+
+
+def fault_meshes(dev, card_line):
+    """(f) fault_bench's arm on 8 column blocks for 8 rounds (the plain
+    pulls block by block) and the cadence headline on 8 blocks for 4
+    rounds (the two-pass kernels at each block's owner offset, the FD
+    fused): each gathered state field-equal to its unsharded run."""
+    out = {}
+    for case, rounds in (("fault_bench_split", 8), ("cadence_headline", 4)):
+        cfg = fault_config(case)
+        counters.reset()
+        mesh = Simulator(cfg, seed=0, mesh=mesh_of(dev))
+        mesh.run(rounds)
+        torch.cuda.synchronize()
+        launches = dict(counters.launches)
+        if case == "cadence_headline":
+            check(counters.kernel_launches("pairs_totals") == rounds * 3 * MESH_BLOCKS
+                  and counters.kernel_launches("pairs_pull") == rounds * 3 * MESH_BLOCKS
+                  and not counters.plain_calls and not counters.fallbacks,
+                  "the cadence mesh left the column-block kernels")
+        else:
+            check(not launches and dict(counters.fallbacks) == {"fault_plan": rounds},
+                  "fault_bench's mesh did not run plain ('fault_plan')")
+        whole = Simulator(cfg, seed=0, device=dev)
+        whole.run(rounds)
+        torch.cuda.synchronize()
+        check(states_equal(mesh.state, whole.state),
+              f"{case} on {MESH_BLOCKS} blocks differs from the unsharded run")
+        out[case] = {"rounds": rounds, "launches": launches}
+        log("faults", f"{case} on {MESH_BLOCKS} column blocks, {rounds} rounds == the unsharded "
+            f"run; launches {launches} ({card_line})")
+        del mesh, whole
+    return out
+
+
+def fault_plans(dev, card_line):
+    """Phase 15: (a)-(f) above, each run from counters at 0."""
+    t0 = time.perf_counter()
+    arm = fault_bench_arm(dev, card_line)
+    flaky, flaky_fd = flaky_headline(dev, card_line)
+    cadence, cadence_entries = cadence_headline(dev, card_line)
+    digests, amnesia_fd = fault_digest_cases(dev, card_line)
+    sweeps = fault_sweeps(dev, card_line)
+    meshes = fault_meshes(dev, card_line)
+    secs = time.perf_counter() - t0
+    log("phase15", f"{secs:.1f} s")
+    return {"fault_bench": arm, "flaky_headline": flaky, "cadence_headline": cadence,
+            "digest_cases": digests, "sweeps": sweeps, "meshes": meshes,
+            "seconds": secs}, cadence_entries + [flaky_fd, amnesia_fd]
+
+
+def c4_run(dev, card_line):
+    """``--c4`` (ROADMAP C4): lean_config(65,536, budget=2618,
+    pairing="choice") at seed 1 to the reference's certified round 81, on
+    the plain choice path; its peak memory and time a round."""
+    cfg = lean_config(C4_N, budget=HEADLINE_BUDGET, pairing="choice")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=CHOICE_SEED, device=dev, chunk=8)
+    converged = sim.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    rounds, peak = sim.tick, torch.cuda.max_memory_allocated() / 1e9
+    log("c4", f"lean_config({C4_N}, pairing='choice') seed {CHOICE_SEED}: converged at round "
+        f"{converged} in {run_s:.2f} s ({run_s / rounds * 1e3:.1f} ms a round with the check), "
+        f"{peak:.2f} GB peak; fallbacks {dict(counters.fallbacks)} ({card_line})")
+    check(converged == C4_ROUND, f"the choice run at {C4_N} converged at {converged}, the "
+          f"reference's certified round is {C4_ROUND}")
+    return {"n": C4_N, "converged_round": converged, "run_s": run_s,
+            "round_ms": run_s / rounds * 1e3, "peak_memory_gb": peak}
+
+
+def device_record() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4720,6 +5272,17 @@ def main() -> int:
     t_all = time.perf_counter()
     card_line = card()
     log("device", f"{card_line}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:] == ["--c4"]:
+        # C4 alone: the certified choice run at 65,536 (plain PyTorch, no
+        # kernel), outside the default run.
+        c4 = c4_run(dev, card_line)
+        print(card_line)
+        print(json.dumps({"c4": c4}))
+        print(device_record())
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only --c4)", file=sys.stderr)
+        return 2
 
     _build.build_all()
     log("build", f"{_build.build_seconds:.1f} s (nvcc per source, in parallel)")
@@ -5030,6 +5593,13 @@ def main() -> int:
     # FD kernel.
     remaining, churn_entries, fd_entry = remaining_semantics(dev, card_line)
     kernels += churn_entries + [fd_entry]
+
+    # Phase 15: fault plans and heterogeneity at full width. The cadence
+    # headline runs the pairs kernels and the m8 pull with the cadence in
+    # their pair validity (each mode held and timed on the run's own
+    # state); the faulted runs' FD phase is fd.cu.
+    fault_out, fault_entries = fault_plans(dev, card_line)
+    kernels += fault_entries
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -5046,7 +5616,10 @@ def main() -> int:
         f"full_config({C2_N}) {c2['round_ms']:.3f} ms a round at {c2['peak_memory_gb']:.1f} GB; "
         f"{MESH_BLOCKS} column blocks: headline {head_mesh['converged_round']} at "
         f"{head_mesh['round_ms']:.3f} ms a round (m8 {head_mesh['m8_converged_round']}), north "
-        f"star {ns_mesh['converged_round']} at {ns_mesh['round_ms']:.3f} ms a round")
+        f"star {ns_mesh['converged_round']} at {ns_mesh['round_ms']:.3f} ms a round; faults: "
+        f"fault_bench split brain {fault_out['fault_bench']['converged_round']}, flaky "
+        f"headline {fault_out['flaky_headline']['converged_round']}, cadence headline "
+        f"{fault_out['cadence_headline']['converged_round']}")
 
     print(card_line)
     print(json.dumps({
@@ -5077,11 +5650,9 @@ def main() -> int:
         "full_past_staged": c2,
         "mesh": {"headline": head_mesh, "north_star": ns_mesh},
         "remaining_semantics": remaining,
+        "fault_plans": fault_out,
     }))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(device_record())
     return 0
 
 

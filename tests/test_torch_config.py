@@ -1,6 +1,7 @@
 """The port's SimConfig mirrors the reference's field for field, rejects
-the same invalid inputs, refuses every config outside the ported slice
-with NotImplementedError, and takes every rung of the memory ladder."""
+the same invalid inputs, takes every config of the reference's simulator
+(fault plans and heterogeneity included) and every rung of the memory
+ladder."""
 
 import dataclasses
 
@@ -9,11 +10,12 @@ import pytest
 from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import budget_from_mtu
 from aiocluster_torch import Simulator
+from aiocluster_torch.faults import split_brain
+from aiocluster_torch.models import Heterogeneity
 from aiocluster_torch.sim.config import (
     HEADLINE_BUDGET,
     SimConfig,
     headline_config,
-    unported_reason,
 )
 from aiocluster_torch.sim.state import DTYPES, expected_dtypes, expected_shapes
 
@@ -79,24 +81,21 @@ def test_invalid_inputs_raise_like_reference(bad):
         (dict(n_nodes=200), "A7"),
         (dict(budget_policy="greedy"), "A8"),
         (dict(dead_grace_ticks=8), "A9"),
-        (dict(fault_plan=object()), "A10"),
-        (dict(heterogeneity=object()), "A10"),
+        (dict(fault_plan=split_brain(2, heal=1)), "A10"),
+        (dict(heterogeneity=Heterogeneity(gossip_every=(1, 2), class_frac=(0.5, 0.5))),
+         "A10"),
     ],
 )
 def test_out_of_slice_configs_are_refused(over, item):
-    """Only ROADMAP.md A10 (fault plans, heterogeneity) is still refused
-    by name. The configs of A6-A9 (churn, the other pairings, the
-    unrestricted matching, greedy, the lifecycle), once refused here
-    case for case, construct and run two rounds on the CPU with their
-    dtypes and shapes (tests/test_torch_churn.py, test_torch_pairings.py
-    and test_torch_lifecycle.py hold them against the reference)."""
+    """No config is refused by roadmap ID any more. The configs of A6-A10
+    (churn, the other pairings, the unrestricted matching, greedy, the
+    lifecycle, fault plans and heterogeneity), once refused here case for
+    case, construct and run two rounds on the CPU with their dtypes and
+    shapes (tests/test_torch_churn.py, test_torch_pairings.py,
+    test_torch_lifecycle.py, test_torch_faults.py and
+    test_torch_heterogeneity.py hold them against the reference)."""
     kw = {"n_nodes": 256, **over}
-    if item == "A10":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            SimConfig(**kw)
-        return
     cfg = SimConfig(**kw, keys_per_node=4, budget=16)
-    assert unported_reason(cfg) is None
     sim = Simulator(cfg, seed=0, device="cpu")
     sim.run(2)
     assert sim.tick == 2
@@ -114,7 +113,8 @@ def test_in_slice_configs_construct():
         dict(n_nodes=128, track_failure_detector=False, track_heartbeats=False),
         dict(n_nodes=128, use_pallas=False, use_pallas_fd=True),
     ):
-        assert unported_reason(SimConfig(**kw)) is None
+        cfg = SimConfig(**kw)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(RefConfig(**kw))
 
 
 @pytest.mark.parametrize(
@@ -132,7 +132,6 @@ def test_ladder_rungs_construct_and_run(over):
     """The memory ladder's rungs (once refused) construct and run: two
     rounds on the CPU, every field stored in its rung's dtype."""
     cfg = SimConfig(n_nodes=256, keys_per_node=8, budget=24, **over)
-    assert unported_reason(cfg) is None
     sim = Simulator(cfg, seed=0, device="cpu")
     sim.run(2)
     for name, dt in expected_dtypes(cfg).items():

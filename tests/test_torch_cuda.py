@@ -1196,3 +1196,67 @@ def test_plain_routes_on_the_card_equal_the_cpu(dev):
         on_cpu.run(8)
         for f in STATE_FIELDS:
             assert torch.equal(getattr(on_dev.state, f).cpu(), getattr(on_cpu.state, f)), (kw, f)
+
+
+# -- fault plans and heterogeneity on the card: cadence classes in the
+# kernels' pair validity, and a faulted round's plain pulls beside fd.cu.
+
+
+@pytest.mark.parametrize("variant", ["pairs", "m8"])
+def test_cadence_kernels_equal_plain(dev, variant):
+    """Cadence classes fold into the pair validity of the pairs (fused FD
+    and check) and m8 kernels: every round equals the plain round on the
+    card, three pull launches a round, no plain pull and no fallback."""
+    from aiocluster_torch.models import Heterogeneity
+
+    het = Heterogeneity(gossip_every=(1, 3, 4), class_frac=(0.25, 0.5, 0.25))
+    cfg = SimConfig(n_nodes=1024, keys_per_node=8, budget=48, writes_per_round=1,
+                    heterogeneity=het, pallas_variant=variant, **NARROW)
+    counters.reset()
+    kern = Simulator(cfg, seed=5, device=dev, chunk=4)
+    plain = Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False), seed=5,
+                      device=dev, chunk=4)
+    for _ in range(8):
+        kern.run(1)
+        plain.run(1)
+        torch.cuda.synchronize()
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(kern.state, f), getattr(plain.state, f)), f
+    assert counters.kernel_launches(f"{variant}_pull") == 8 * 3
+    # Every plain pull is the plain run's: 3 a round.
+    assert not counters.fallbacks and counters.plain_calls["pull"] == 8 * 3
+    assert "m8_pull" not in counters.plain_calls
+
+
+def test_faulted_rounds_on_the_card_equal_the_cpu(dev):
+    """A plan with a partition, flaky links, an amnesiac crash window and
+    the byzantine storm: the plain pulls and fd.cu (one launch a round) on
+    the card equal the CPU's rounds field for field, counted under the
+    reference's reason "fault_plan"; the quarantined choice draw and zone
+    bias give the CPU's peers."""
+    from aiocluster_torch.faults import (
+        FaultPlan, LinkFault, NodeCrash, NodeSet, Partition, byzantine_storm,
+    )
+    from aiocluster_torch.models import Heterogeneity
+
+    plan = FaultPlan(
+        links=(LinkFault(drop=0.2),), partitions=(Partition(n_groups=3, end=3.0),),
+        crashes=(NodeCrash(nodes=NodeSet(frac=(0.0, 0.3)), at=1.0, down_for=2.0),),
+        byzantine=byzantine_storm(0.25).byzantine,
+    )
+    cfg = SimConfig(n_nodes=512, keys_per_node=8, budget=32, writes_per_round=1,
+                    fault_plan=plan, **NARROW)
+    counters.reset()
+    on_dev = Simulator(cfg, seed=6, device=dev)
+    on_cpu = Simulator(cfg, seed=6, device="cpu")
+    on_dev.run(6)
+    on_cpu.run(6)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(on_dev.state, f).cpu(), getattr(on_cpu.state, f)), f
+    assert counters.launches["fd"] == 6 and counters.fallbacks["fault_plan"] == 6
+    q = SimConfig(n_nodes=512, pairing="choice", quarantine=True, quarantine_open_after=0,
+                  heterogeneity=Heterogeneity(zones=4, zone_bias=0.5),
+                  fault_plan=FaultPlan(links=(LinkFault(dst=NodeSet(frac=(0.0, 0.1)), drop=1.0),)))
+    alive = torch.ones(512, dtype=torch.bool)
+    got = prng.chunk_draws(prng.key(8).to(dev), 1, 3, q, alive=alive.to(dev)).peers
+    assert torch.equal(got.cpu(), prng.chunk_draws(prng.key(8), 1, 3, q, alive=alive).peers)

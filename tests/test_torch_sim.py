@@ -19,6 +19,7 @@ from aiocluster_tpu.sim import SimConfig as RefConfig
 from aiocluster_tpu.sim import Simulator as RefSimulator
 from aiocluster_tpu.sim.state import init_state as ref_init
 from aiocluster_torch import Simulator, SimConfig, full_config, lean_config
+from aiocluster_torch.faults import split_brain
 from aiocluster_torch.models import ring
 from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
 from aiocluster_torch.parallel import make_mesh
@@ -399,16 +400,19 @@ def test_counters_on_the_cpu_path():
 
 
 def test_sim_step_refuses_out_of_slice_configs():
-    """sim_step refuses only a fault plan (A10), also one set past
-    __post_init__; churn (A6, once refused here) runs and writes the
-    flipped alive mask, and topologies (A7) run through
-    ``Simulator(topology=)``."""
+    """sim_step refuses no config by roadmap ID any more: a fault plan
+    (A10, once refused here), also one set past __post_init__, runs and
+    masks the round; churn (A6) runs and writes the flipped alive mask,
+    and topologies (A7) run through ``Simulator(topology=)``."""
     cfg = SimConfig(n_nodes=128)
-    object.__setattr__(cfg, "fault_plan", object())  # past __post_init__
+    object.__setattr__(cfg, "fault_plan", split_brain(2, heal=4))  # past __post_init__
     state = init_state(SimConfig(n_nodes=128), device="cpu")
     counters.reset()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        gossip.sim_step(state, prng.key(0), cfg)
+    new = gossip.sim_step(state, prng.key(0), cfg)
+    assert not counters.refusals and int(new.tick) == 1
+    # The partition held: neither island learned of the other.
+    assert int(new.w[:64, 64:].max()) == 0 and int(new.w[64:, :64].max()) == 0
+    assert int(new.w[:64, :64].sum()) > int(torch.diagonal(new.w)[:64].sum())
     churn = SimConfig(n_nodes=128, death_rate=0.5)
     new = gossip.sim_step(init_state(churn, device="cpu"), prng.key(0), churn)
     assert 0 < int(new.alive.sum()) < 128
@@ -419,7 +423,7 @@ def test_sim_step_refuses_out_of_slice_configs():
     assert sim.tick == 2
     with pytest.raises(ValueError, match="topology size"):
         Simulator(SimConfig(n_nodes=64), topology=ring(128, 1), device="cpu")
-    assert sum(counters.refusals.values()) == 1
+    assert not counters.refusals
 
 
 def test_horizon_guard():
