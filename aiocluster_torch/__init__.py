@@ -11,16 +11,22 @@ owners over a mesh's devices (the reference's owner-sharded simulator),
 and ``Simulator(cfg, topology=models.scale_free(...))`` draws each
 node's peers from an adjacency. Every config of the reference's
 simulator runs, fault plans (``aiocluster_torch.faults``) and
-heterogeneity classes (``models.Heterogeneity``) included.
-Its entry points run on the CUDA device unless the caller passes
+heterogeneity classes (``models.Heterogeneity``) included. A run
+saves and resumes through the reference's checkpoint file
+(``Simulator.save`` / ``Simulator.resume``), reports through
+``obs.MetricsRegistry`` and ``obs.TraceWriter`` (``Simulator(metrics=,
+trace_writer=)``), and ``SimCluster`` gives it the reference's
+key/value surface. Its entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (or a mesh of CPU devices), where every kernel wrapper
 takes its plain PyTorch version.
 """
 
 from .faults import FaultPlan
 from .models import Heterogeneity
+from .obs import MetricsRegistry, TraceWriter
 from .sim import (
     HEADLINE_BUDGET,
+    SimCluster,
     SimConfig,
     SimState,
     Simulator,
@@ -37,12 +43,15 @@ __all__ = (
     "FaultPlan",
     "HEADLINE_BUDGET",
     "Heterogeneity",
+    "MetricsRegistry",
+    "SimCluster",
     "SimConfig",
     "SimState",
     "Simulator",
     "SweepParams",
     "SweepResult",
     "SweepSimulator",
+    "TraceWriter",
     "full_config",
     "headline_config",
     "init_state",

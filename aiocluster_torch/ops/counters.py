@@ -23,7 +23,7 @@ counterpart of the reference's ``pallas_fallbacks`` ledger.
   ``"sweep_needs_pairs"``: a sweep pinned to m8, which has no lane lift).
 - ``refusals``: routes refused with ``NotImplementedError``, keyed by the
   message (which names the ``ROADMAP.md`` item that ports them: sweeps
-  over a mesh, sweep metrics, sweep checkpoints).
+  over a mesh).
 """
 
 from __future__ import annotations

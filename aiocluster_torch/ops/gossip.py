@@ -80,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from collections.abc import Sequence
 from typing import NamedTuple
 
@@ -88,6 +89,7 @@ import torch
 from torch.profiler import record_function
 
 from ..faults import sim as fsim
+from ..obs.sim import STALENESS_PCTS
 from ..sim.config import SimConfig
 from ..sim.packed import (
     U4_MAX,
@@ -309,6 +311,29 @@ def kernels_wanted(cfg: SimConfig, device) -> bool:
     return cfg.use_pallas is True or (
         cfg.use_pallas == "auto" and torch.device(device).type == "cuda"
     )
+
+
+VARIANT_ENV = "AIOCLUSTER_TPU_PALLAS_VARIANT"
+
+
+def resolve_variant_env(cfg: SimConfig) -> SimConfig:
+    """Fold the ``AIOCLUSTER_TPU_PALLAS_VARIANT`` override (the A/B and
+    kill-switch knob, the reference's variable) into the config once, at
+    construction: ``Simulator`` and ``SweepSimulator`` apply it, so the
+    resolved variant is what provenance reads from ``sim.cfg``.
+
+    Precedence: an EXPLICIT ``cfg.pallas_variant`` ("m8"/"pairs") wins
+    over the variable, which steers only configs that left the choice to
+    "auto". A set value is validated loudly: a typo must not measure the
+    wrong kernel."""
+    env = os.environ.get(VARIANT_ENV)
+    if not env:
+        return cfg
+    if env not in ("auto", "m8", "pairs"):
+        raise ValueError(f"{VARIANT_ENV} must be auto/m8/pairs, got {env!r}")
+    if env == "auto" or cfg.pallas_variant != "auto":
+        return cfg
+    return dataclasses.replace(cfg, pallas_variant=env)
 
 
 PAIRS_FORMS = ("pairs", "pairs_cluster", "pairs_two_pass")
@@ -1761,10 +1786,6 @@ def convergence_metrics_blocks(
 
 
 # -- staleness ----------------------------------------------------------------------
-
-# The nearest-rank percentiles the staleness tensor is compressed to (the
-# reference's obs.sim.STALENESS_PCTS): keys ``staleness_p<label>``.
-STALENESS_PCTS = (("50", 0.50), ("99", 0.99), ("100", 1.0))
 
 
 def staleness_tensor(state: SimState, col0: int = 0) -> torch.Tensor:

@@ -8,6 +8,13 @@ are computed on the device in one batched pass, each
 round's kernels are queued without a host sync, and convergence is
 polled once per chunk — the counterpart of the reference's jit-compiled
 chunks.
+
+Telemetry (``metrics=`` a ``obs.MetricsRegistry``, ``trace_writer=`` a
+``obs.TraceWriter``) samples ``gossip.metrics_sample`` every
+``metrics_stride`` rounds at chunk boundaries as device tensors, and
+converts them once at ``flush_metrics``: no host sync in the loop.
+``save`` / ``resume`` go through sim/checkpoint.py's ``.npz`` container,
+the reference's.
 """
 
 from __future__ import annotations
@@ -15,15 +22,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.registry import MetricsRegistry
+from ..obs.sim import SimMetrics
+from ..obs.trace import TraceWriter
 from ..ops import prng
 from ..ops.gossip import (
-    convergence_metrics,
     metrics_sample_blocks,
     pull_phase_engaged,
+    resolve_variant_env,
+    row_blocks,
     run_rounds,
 )
 from ..parallel.mesh import Mesh, gather_state, init_blocks, shard_state
+from .bytes import state_bytes
+from .checkpoint import load_state, save_state
 from .config import SimConfig
+from .packed import live_view_bool, watermarks_i32
 from .state import (
     DTYPES,
     HEARTBEAT_LIMITS,
@@ -32,6 +46,7 @@ from .state import (
     expected_dtypes,
     expected_shapes,
     init_state,
+    state_n_local,
 )
 
 
@@ -50,8 +65,16 @@ class Simulator:
     (faults/sim.py), on the mesh too.
 
     ``state`` is the whole state (with a mesh: gathered, a copy of
-    every matrix on the first device); ``blocks`` are the column blocks
-    as held (one block, the state itself, without a mesh)."""
+    every matrix on the first device); setting it replaces the state
+    (re-sharded onto the blocks on a mesh). ``blocks`` are the column
+    blocks as held (one block, the state itself, without a mesh).
+
+    ``initial_versions`` gives each owner's starting version count;
+    ``trace=True`` appends a row of metrics to ``trace`` each chunk (a
+    sync each); ``metrics`` / ``trace_writer`` turn on the stride
+    sampler (``obs.SimMetrics``, every ``metrics_stride`` rounds).
+    ``AIOCLUSTER_TPU_PALLAS_VARIANT`` steers an "auto" kernel variant
+    (``gossip.resolve_variant_env``): read provenance from ``sim.cfg``."""
 
     def __init__(
         self,
@@ -63,6 +86,11 @@ class Simulator:
         device: str | torch.device | None = None,
         mesh: Mesh | None = None,
         topology=None,
+        initial_versions=None,
+        trace: bool = False,
+        metrics: MetricsRegistry | None = None,
+        metrics_stride: int = 64,
+        trace_writer: TraceWriter | None = None,
     ) -> None:
         if topology is not None and topology.n_nodes != cfg.n_nodes:
             raise ValueError("topology size != cfg.n_nodes")
@@ -83,7 +111,7 @@ class Simulator:
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
-        self.cfg = cfg
+        self.cfg = cfg = resolve_variant_env(cfg)
         self.chunk = chunk
         self.seed = seed
         self.mesh = mesh
@@ -110,9 +138,9 @@ class Simulator:
             _check_state(state, cfg, None if mesh else self.device)
             blocks = [state] if mesh is None else shard_state(state, mesh)
         elif mesh is None:
-            blocks = [init_state(cfg, device=self.device)]
+            blocks = [init_state(cfg, initial_versions, device=self.device)]
         else:
-            blocks = init_blocks(cfg, mesh)
+            blocks = init_blocks(cfg, mesh, initial_versions)
         self._blocks: list[SimState] = blocks
         head = blocks[0]
         # The churn-free 'choice' draw is uniform over ALL nodes (the
@@ -134,9 +162,24 @@ class Simulator:
                 "state under a config with churn enabled"
             )
         # Horizon guard inputs, read once here where a sync is free.
+        # _version_base_tick stays at the tick read here, so the bound
+        # charges writes only for ticks run since (a resumed state's
+        # max_version already holds its past writes).
         self._known_max_version = int(head.max_version.max())
         self._host_tick = int(head.tick)
         self._version_base_tick = self._host_tick
+        self._trace_enabled = trace
+        self.trace: list[dict[str, float]] = []
+        # The stride sampler buffers device tensors at chunk boundaries
+        # and converts them only at flush_metrics(); start_tick anchors
+        # its rounds counter for a resumed state.
+        self._obs: SimMetrics | None = None
+        if metrics is not None or trace_writer is not None:
+            self._obs = SimMetrics(
+                metrics, trace_writer, stride=metrics_stride,
+                start_tick=self._host_tick, writes_per_round=cfg.writes_per_round,
+            )
+            self._obs.set_state_bytes(state_bytes(cfg))
 
     @property
     def blocks(self) -> list[SimState]:
@@ -153,7 +196,54 @@ class Simulator:
             return self._blocks[0]
         return gather_state(self._blocks)
 
+    @state.setter
+    def state(self, state: SimState) -> None:
+        """Replace the whole state (checked against the config's rung; on
+        a mesh, re-sharded onto the blocks). It must be at the
+        simulator's tick: the host tick is not re-read. Callers that
+        raise max_version report it (``note_max_version_increase``)."""
+        _check_state(state, self.cfg, None if self.mesh else self.device)
+        self._blocks = [state] if self.mesh is None else shard_state(state, self.mesh)
+
+    def _owners(self, k: int) -> torch.Tensor:
+        """The global owner ids of block ``k``'s columns."""
+        blk = self._blocks[k]
+        return self._offsets[k] + torch.arange(state_n_local(blk), device=blk.w.device)
+
+    def watermark(self, observer: int, owner: int) -> int:
+        """``observer``'s watermark on ``owner``, read from the block that
+        holds the owner (no gathered copy; one small sync)."""
+        k = max(i for i, off in enumerate(self._offsets) if off <= owner)
+        row = watermarks_i32(self._blocks[k], self._owners(k), rows=slice(observer, observer + 1))
+        return int(row[0, owner - self._offsets[k]])
+
+    def column_minima(self) -> np.ndarray:
+        """(N,) int64: each owner's smallest watermark over every observer
+        (its own diagonal included), read block by block."""
+        parts = []
+        for k, blk in enumerate(self._blocks):
+            owners = self._owners(k)
+            lo = torch.full(owners.shape, torch.iinfo(torch.int32).max, dtype=torch.int32,
+                            device=owners.device)
+            for r0, r1 in row_blocks(self.cfg.n_nodes, owners.shape[0]):
+                lo = torch.minimum(lo, watermarks_i32(blk, owners, rows=slice(r0, r1)).amin(dim=0))
+            parts.append(lo.cpu())
+        return torch.cat(parts).numpy().astype(np.int64)
+
+    def live_row(self, observer: int) -> np.ndarray:
+        """(N,) bool: ``observer``'s live view of every owner, unpacked
+        block by block."""
+        return torch.cat([
+            live_view_bool(b, rows=slice(observer, observer + 1))[0].cpu() for b in self._blocks
+        ]).numpy()
+
     # -- stepping -------------------------------------------------------------
+
+    def note_max_version_increase(self, delta: int) -> None:
+        """Host-side writers that raise ``max_version`` directly on the
+        state (SimCluster's write flush) report the largest per-node
+        bump here so the narrow rungs' horizon guard stays sound."""
+        self._known_max_version += int(delta)
 
     def _check_horizon(self, rounds: int) -> None:
         """Raise before a narrow rung silently wraps: heartbeats store the
@@ -194,6 +284,9 @@ class Simulator:
             device_key=self._device_key, adjacency=self._adj, degrees=self._deg,
         )
         self._host_tick += m
+        self._maybe_sample()
+        if self._trace_enabled:
+            self._record_trace()
         return first
 
     def run(self, rounds: int) -> None:
@@ -222,19 +315,85 @@ class Simulator:
 
     # -- observation ----------------------------------------------------------
 
+    def _sample(self) -> dict[str, torch.Tensor]:
+        """The metrics bundle as device tensors (no sync): the
+        convergence metrics, the version spread and the staleness
+        percentiles, reduced over the blocks on a mesh."""
+        return metrics_sample_blocks(self._blocks, self._offsets)
+
+    def _maybe_sample(self) -> None:
+        if self._obs is not None and self._obs.due(self._host_tick):
+            self._obs.record(self._host_tick, self._sample())
+
+    def flush_metrics(self) -> list[dict]:
+        """Convert the buffered samples (one transfer), update the
+        registry's gauges, emit the trace events; returns the sampled
+        series ([] without telemetry). The series is closed at the
+        run's current tick."""
+        if self._obs is None:
+            return []
+        if self._obs.last_tick != self._host_tick:
+            self._obs.record(self._host_tick, self._sample())
+        return self._obs.flush()
+
+    def _record_trace(self) -> None:
+        m = self.metrics()
+        self.trace.append({
+            "tick": float(self._host_tick),
+            "converged_owners": float(m["converged_owners"]),
+            "min_fraction": float(m["min_fraction"]),
+            "mean_fraction": float(m["mean_fraction"]),
+            "alive_count": float(m["alive_count"]),
+        })
+
     def metrics(self) -> dict[str, np.ndarray]:
-        """``convergence_metrics`` of the state; with a mesh, the
-        reference's sharded bundle (also the version spread and the
-        staleness percentiles), reduced over the blocks."""
-        if self.mesh is None:
-            out = convergence_metrics(self._blocks[0])
-        else:
-            out = metrics_sample_blocks(self._blocks, self._offsets)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        """The metrics bundle on the host: ``convergence_metrics``, the
+        version spread and the staleness percentiles (the reference's
+        ``_metrics_sample``), reduced over the blocks on a mesh."""
+        return {k: v.cpu().numpy() for k, v in self._sample().items()}
 
     @property
     def tick(self) -> int:
         return int(self._blocks[0].tick)
+
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def save(self, path) -> None:
+        """Checkpoint the state (with a mesh, copied to the host one
+        column block at a time), plus the seed and the topology flag
+        needed to continue the trajectory."""
+        save_state(path, self._blocks, self.cfg, seed=self.seed,
+                   has_topology=self._adj is not None)
+
+    @classmethod
+    def resume(
+        cls,
+        path,
+        *,
+        seed: int | None = None,
+        mesh: Mesh | None = None,
+        topology=None,
+        chunk: int = 8,
+        trace: bool = False,
+        device: str | torch.device | None = None,
+    ) -> "Simulator":
+        """Continue a checkpointed run (either package's file) on any
+        layout: ``device`` (the card unless asked), or a mesh's column
+        blocks; the round's randomness depends only on (seed, tick). The
+        stored seed is used unless overridden."""
+        if mesh is not None and device is not None:
+            raise ValueError("a mesh places its blocks: list its devices, not device=")
+        where = mesh.devices[0] if mesh is not None else ("cuda" if device is None else device)
+        state, cfg, meta = load_state(path, device=where)
+        if meta["has_topology"] and topology is None:
+            raise ValueError(
+                "checkpoint was taken with a topology; pass the same "
+                "topology to resume (adjacency is not persisted)"
+            )
+        return cls(
+            cfg, seed=meta["seed"] if seed is None else seed, mesh=mesh, topology=topology,
+            chunk=chunk, trace=trace, state=state, device=None if mesh is not None else where,
+        )
 
 
 def _check_state(state: SimState, cfg: SimConfig, device: torch.device | None) -> None:

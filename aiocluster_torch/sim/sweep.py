@@ -23,8 +23,11 @@ round plain, as the reference serves it with XLA
 (``counters.fallbacks["fault_plan"]``); cadence classes keep the lane
 launches.
 
-Not ported yet, refused by name: ``mesh=`` (ROADMAP.md A15),
-``metrics=`` (A18), ``save`` / ``resume`` (A12).
+``metrics=`` (an ``obs.MetricsRegistry``) exports each lane's converged
+round and version spread (``obs.SweepMetrics``) when the host reads
+them; ``save`` / ``resume`` write and read the reference's sweep
+checkpoint (sim/checkpoint.py). Not ported yet, refused by name:
+``mesh=`` (ROADMAP.md A15b).
 """
 
 from __future__ import annotations
@@ -33,14 +36,18 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..obs.registry import MetricsRegistry
+from ..obs.sim import SweepMetrics
 from ..ops import counters, prng
 from ..ops.gossip import (
     lane_fanouts,
     lane_salt_table,
     metrics_sample,
     pull_phase_engaged,
+    resolve_variant_env,
     sweep_step,
 )
+from .checkpoint import load_sweep, save_sweep
 from .config import SimConfig
 from .state import (
     HEARTBEAT_LIMITS,
@@ -144,10 +151,10 @@ class SweepSimulator:
         chunk: int = 8,
         initial_versions=None,
         states: SimState | None = None,
-        metrics=None,
+        metrics: MetricsRegistry | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        self.cfg = cfg
+        self.cfg = cfg = resolve_variant_env(cfg)
         self.chunk = chunk
         self.seeds = [int(s) for s in seeds]
         lanes = len(self.seeds)
@@ -197,11 +204,6 @@ class SweepSimulator:
             counters.refuse(
                 "sweeps over a mesh are not ported yet: ROADMAP.md A15b (the lane "
                 "launches at an owner offset)"
-            )
-        if metrics is not None:
-            counters.refuse(
-                "SweepSimulator(metrics=) is not ported yet: ROADMAP.md A18 "
-                "(the telemetry surface)"
             )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -260,6 +262,7 @@ class SweepSimulator:
         self._version_base_tick = self._host_tick
         self._known_max_version = int(states.max_version.max())
         self._first = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        self._obs = SweepMetrics(metrics) if metrics is not None else None
 
     @property
     def lanes(self) -> int:
@@ -343,7 +346,10 @@ class SweepSimulator:
             m = min(self.chunk, max_rounds - self._host_tick)
             self._check_horizon(m)
             self._run_chunk(m, tracked=True)
-        return [int(f) if f else None for f in self._first.tolist()]
+        out = [int(f) if f else None for f in self._first.tolist()]
+        if self._obs is not None:
+            self._obs.update(out)
+        return out
 
     # -- observation ----------------------------------------------------------
 
@@ -359,9 +365,12 @@ class SweepSimulator:
         """The per-lane results table at the current state
         (rounds-to-convergence as ``run_until_converged`` has seen it)."""
         rounds = [int(f) if f else None for f in self._first.tolist()]
+        metrics = self.metrics()
+        if self._obs is not None:
+            self._obs.update(rounds, metrics["version_spread"])
         return SweepResult(
             seeds=self.seeds, params=self.params, rounds_to_convergence=rounds,
-            metrics=self.metrics(),
+            metrics=metrics,
         )
 
     @property
@@ -371,8 +380,36 @@ class SweepSimulator:
     # -- checkpoint / resume --------------------------------------------------
 
     def save(self, path) -> None:
-        counters.refuse("sweep checkpoints (save/resume) are not ported yet: ROADMAP.md A12")
+        """Checkpoint all lanes (copied to the host), plus the seeds, the
+        sweep values and the convergence accumulator."""
+        save_sweep(path, self.states, self.cfg, seeds=self.seeds, params=self.params,
+                   first=self._first, host_tick=self._host_tick)
 
     @classmethod
-    def resume(cls, path, **kwargs) -> "SweepSimulator":
-        counters.refuse("sweep checkpoints (save/resume) are not ported yet: ROADMAP.md A12")
+    def resume(
+        cls,
+        path,
+        *,
+        mesh=None,
+        chunk: int = 8,
+        metrics: MetricsRegistry | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "SweepSimulator":
+        """Continue a checkpointed sweep (either package's file) on
+        ``device``: lane randomness is keyed by (seed, tick), like the
+        single-scenario resume."""
+        states, cfg, meta = load_sweep(path, device=device)
+        params = meta["params"]
+        sim = cls(
+            cfg, meta["seeds"], fanout=params.get("fanout"),
+            phi_threshold=params.get("phi_threshold"),
+            writes_per_round=params.get("writes_per_round"),
+            fault_seeds=params.get("fault_seeds"), byz_frac=params.get("byz_frac"),
+            mesh=mesh, chunk=chunk, states=states, metrics=metrics, device=device,
+        )
+        sim._first = torch.as_tensor(meta["first"], dtype=torch.int32).to(sim.device)
+        sim._host_tick = int(meta["host_tick"])
+        # The guard charges writes only for ticks run since the
+        # checkpoint: its max_version already holds its past writes.
+        sim._version_base_tick = sim._host_tick
+        return sim

@@ -138,6 +138,33 @@ column blocks (equal to the unsharded runs). ``python3 chip_smoke.py
 at seed 1 to the reference's certified round 81 (ROADMAP C4) and prints
 its peak memory.
 
+Then the simulator's user surface (phase 16), each run from counters at
+0, at 10,240 nodes unless noted: the headline run to tick 8 and saved
+(``Simulator.save``; the file's bytes and the seconds to save and load),
+resumed on the CPU for 2 rounds (equal to the card's tick 10), on 8
+column blocks (converged at 24, the gathered state equal to the
+uninterrupted run's) and on the card (ticks 9-11 equal to the
+reference's own save and resume, ``REF_DIGESTS["resume_headline"]``;
+converged at 24, every field equal to the uninterrupted run's; the
+save runs on a thread of its own, started before phase 14, beside the
+card's work); a
+3-lane phi sweep at 2,048 nodes (budget 512) saved at tick 8 and
+resumed, each lane equal to the uninterrupted sweep and
+``SweepSimulator(metrics=)``'s gauges equal to ``result()``; the headline with a registry and a trace
+writer at stride 4 (converged at 24; its series ticks 4-24 ending at
+``metrics()``; one trace event a sample; its pull modes on its state
+against their plain versions; ms a round without and with telemetry
+interleaved, and one ``metrics_sample`` by CUDA events) and the north
+star at stride 64 (209; its peak beside phase 8's); the headline under
+``AIOCLUSTER_TPU_PALLAS_VARIANT=m8`` (the m8 pulls and ``fd.cu``, 24; a
+bad value raises); ``SimCluster`` at 10,240 x 16 keys (24; a write
+script whose state digests equal the reference's
+``REF_DIGESTS["simcluster_headline"]``, 512 replica views equal to
+their owners', compaction of every entry, 4 nodes killed out of a live
+view and revived, ms a step); and BASELINE config 1's 3-node cluster
+(which phases ran plain). Each resumed and SimCluster run's next round
+through the kernels equals the plain round from the same state.
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -152,8 +179,10 @@ import dataclasses
 import functools
 import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import unittest.mock
 from pathlib import Path
@@ -162,9 +191,10 @@ import numpy as np
 import torch
 
 from aiocluster_torch import (
-    HEADLINE_BUDGET, SimConfig, Simulator, SweepSimulator, full_config, headline_config,
-    lean_config,
+    HEADLINE_BUDGET, MetricsRegistry, SimCluster, SimConfig, Simulator, SweepSimulator,
+    TraceWriter, full_config, headline_config, lean_config,
 )
+from aiocluster_torch.obs import read_trace
 from aiocluster_torch.ops import (
     _build, counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng,
 )
@@ -4244,7 +4274,8 @@ def column_block_entries(errs, times, runs):
 #
 # Churn on the pairs kernels, the permutation and choice pairings, an
 # adjacency topology, the greedy budget and the dead-node lifecycle at full
-# width. The reference's values are the first 16 hex digits of the sha256
+# width (phase 14), fault plans (phase 15), a resumed checkpoint and
+# SimCluster's script (phase 16). The reference's values are the first 16 hex digits of the sha256
 # of every state field after ticks 1-3 (and tick 200 of config 3 at 1,000
 # nodes), and config 4's converged round, made by the reference's XLA path
 # on JAX's CPU backend with
@@ -4525,6 +4556,40 @@ REF_DIGESTS: dict = {
             "live_view": "e3b0c44298fc1c14", "dead_since": "e3b0c44298fc1c14",
         },
     }},
+    "resume_headline": {"ticks": {
+        "9": {
+            "tick": "9f076b7eb7fdc031", "max_version": "3855e96afa8c8c55", "heartbeat": "b5923dd439be6169",
+            "alive": "445d72bc039eaa0e", "w": "99c5771120294fa9", "hb_known": "ca712c9be955e5f1",
+            "last_change": "abac9cfe049adb84", "imean": "3ebe2046f9b7834d", "icount": "22625d8c6209af12",
+            "live_view": "84ec7f9c3d02e7b1", "dead_since": "e3b0c44298fc1c14",
+        },
+        "10": {
+            "tick": "075de2b906dbd706", "max_version": "3855e96afa8c8c55", "heartbeat": "d19e1a7c21bb2d07",
+            "alive": "445d72bc039eaa0e", "w": "7452102b59a4acdb", "hb_known": "940d6748fbb543c9",
+            "last_change": "f9a36728b5497e23", "imean": "875ff0d73aa97ce7", "icount": "2e24516f11f60a61",
+            "live_view": "367222cbe7e0d88d", "dead_since": "e3b0c44298fc1c14",
+        },
+        "11": {
+            "tick": "cb30e91817239109", "max_version": "3855e96afa8c8c55", "heartbeat": "c841ccb54a03846b",
+            "alive": "445d72bc039eaa0e", "w": "1ddb015e4e25d4c3", "hb_known": "30c551be88839b18",
+            "last_change": "9df4458757c87ba2", "imean": "1082f3b8276eb10d", "icount": "c981d814d48a2122",
+            "live_view": "1e4eb838635ffe06", "dead_since": "e3b0c44298fc1c14",
+        },
+    }, "converged_round": 24},
+    "simcluster_headline": {"ticks": {
+        "28": {
+            "tick": "b01099398ce27bbc", "max_version": "d91b01dd04041f57", "heartbeat": "fc8a1edb8f8650d3",
+            "alive": "445d72bc039eaa0e", "w": "4f866ccda3d3d4dd", "hb_known": "7714241ef0b75933",
+            "last_change": "1cff7212eb0b6a51", "imean": "5fbc56c16aac8202", "icount": "5cc74bcbb504fa87",
+            "live_view": "1b555814cab1315d", "dead_since": "e3b0c44298fc1c14",
+        },
+        "68": {
+            "tick": "d16a7ad80717a9e7", "max_version": "87c9bc2a17ba4d52", "heartbeat": "4bb1a472942de032",
+            "alive": "ecba60c89dc89d43", "w": "d0646522b9ebe9cf", "hb_known": "5e42c755b2cb1ed1",
+            "last_change": "0888779a46c133af", "imean": "a9d3f9fd244de90e", "icount": "6a1bce4a53c196ee",
+            "live_view": "a1c2854c6a0a96d8", "dead_since": "e3b0c44298fc1c14",
+        },
+    }, "converged_round": 24, "script_converged_round": 34},
 }
 CONFIG4_N = 10_000
 CONFIG4_ROUND = REF_DIGESTS["config4"]["converged_round"]  # the reference's, the same script
@@ -5015,8 +5080,8 @@ def flaky_headline(dev, card_line):
 
 def m8_round_entries(dev, sim, launches, tag):
     """The m8 pull launches of a pinned-m8 run on its own state: the next
-    round's sub-exchanges (cadence-gated validity, the first refreshing
-    the diagonal) chained out of place, each against its plain version on
+    round's sub-exchanges (their validity cadence-gated under cadence
+    classes, the first refreshing the diagonal) chained out of place, each against its plain version on
     the same inputs and both timed. One kernels-line entry a mode."""
     st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
     form, k = gossip.kernel_pull_form(cfg)
@@ -5025,7 +5090,7 @@ def m8_round_entries(dev, sim, launches, tag):
     run_key = prng.key(sim.seed)
     draws = prng.chunk_draws(run_key.to(dev), tick, 1, cfg, alive=st.alive).round(0)
     cadence = gossip.round_faults(cfg).cadence
-    cad = fsim.cadence_on(cadence, n, tick, dev)
+    cad = None if cadence is None else fsim.cadence_on(cadence, n, tick, dev)
     alive = st.alive
     hbv = st.heartbeat + alive.to(torch.int32)
     mv = st.max_version + cfg.writes_per_round * alive.to(torch.int32)
@@ -5033,8 +5098,9 @@ def m8_round_entries(dev, sim, launches, tag):
     entries, errs = [], {}
     for c in range(cfg.fanout):
         p = draws.p[c]
+        valid = alive & alive[p]
         ops = dict(w=w, hb=hb, gm=draws.gm[c], c=draws.c[c],
-                   valid=alive & alive[p] & (cad | cad[p]),
+                   valid=valid if cad is None else valid & (cad | cad[p]),
                    salt=tick * 2 * cfg.fanout + 2 * c, run_salt=prng.run_salt(run_key),
                    budget=cfg.budget)
         if c == 0:
@@ -5231,6 +5297,481 @@ def fault_plans(dev, card_line):
     return {"fault_bench": arm, "flaky_headline": flaky, "cadence_headline": cadence,
             "digest_cases": digests, "sweeps": sweeps, "meshes": meshes,
             "seconds": secs}, cadence_entries + [flaky_fd, amnesia_fd]
+
+
+# -- the simulator's user surface (phase 16) ----------------------------------------
+#
+# Checkpoints (the headline saved at tick 8 and resumed on the card, on 8
+# column blocks and on the CPU; a 3-lane sweep), telemetry (the stride
+# sampler and the trace writer on the headline and the north star, timed
+# against untracked runs), the variant override and SimCluster at the
+# headline's width, and BASELINE config 1's 3-node counterpart. The
+# reference's values are REF_DIGESTS' "resume_headline" and
+# "simcluster_headline", from tools/torch_reference_digests.py.
+
+RESUME_TICK = 8  # tools/torch_reference_digests.py RESUME_SAVE_TICK
+# The sweep checkpoint's lanes: the headline profile at 2,048 nodes with
+# its budget cut to 512 key-versions, so they converge (round 24) well
+# after the save at tick 8 (at 2,618 they converge at 8).
+SWEEP_CKPT_N, SWEEP_CKPT_BUDGET, SWEEP_CKPT_PHIS = 2_048, 512, [7.0, 8.0, 9.0]
+TELEMETRY_STRIDE, NS_TELEMETRY_STRIDE = 4, 64
+TELEMETRY_ARMS = ("off", 4, 64, 64, 4, "off")  # interleaved: no trend favours an arm
+TELEMETRY_ROUNDS = 96
+# SimCluster's script, tools/torch_reference_digests.py SIMCLUSTER_*.
+SC_OWNERS = tuple(k * 640 for k in range(16))
+SC_KILLED = (7, 2_001, 5_003, 10_239)
+SC_KILL_ROUNDS, SC_PAIRS, SC_STEPS = 32, 512, 16
+SAVER = concurrent.futures.ThreadPoolExecutor(max_workers=1)  # the headline's save
+
+
+def states_equal_host(a, b) -> bool:
+    """Field equality of two states on any devices."""
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()) for f in STATE_FIELDS)
+
+
+def plain_round_equal(sim, what) -> dict:
+    """One more round from ``sim``'s state (gathered on a mesh) through the
+    kernels and through the plain path, each from its own copy, on the
+    run's layout: every mode the round launches, composed as the round
+    composes them, held against its plain version on the run's own state.
+    Returns the kernel round's launches (the counters are reset)."""
+    st = sim.state
+    plain_cfg = dataclasses.replace(sim.cfg, use_pallas=False, use_pallas_fd=False)
+    place = {"mesh": sim.mesh} if sim.mesh is not None else {"device": sim.device}
+    out = []
+    for cfg in (sim.cfg, plain_cfg):
+        counters.reset()
+        copy = st.replace(**{f: getattr(st, f).clone() for f in STATE_FIELDS})
+        one = Simulator(cfg, seed=sim.seed, state=copy, **place)
+        one.run(1)
+        torch.cuda.synchronize()
+        out.append((one.state, dict(counters.launches)))
+    check(states_equal(out[0][0], out[1][0]),
+          f"{what}: a round through the kernels differs from the plain round")
+    check(not out[1][1], f"{what}: the plain round launched a kernel")
+    del out[1], st
+    torch.cuda.empty_cache()
+    return out[0][1]
+
+
+def start_headline_save(dev, tmp):
+    """The headline run to tick 8 on the card, its state copied to the
+    host, then ``Simulator.save`` of that copy on a thread of its own: one
+    host core's compression (about two minutes), which the card work
+    after it overlaps. The copy frees the card of it and the save counts
+    nothing in ``counters``. Returns the save's future: (path, bytes,
+    seconds)."""
+    path = tmp / "headline.npz"
+    sim = Simulator(headline_config(), seed=0, device=dev)
+    sim.run(RESUME_TICK)
+    st = sim.state
+    host = Simulator(sim.cfg, seed=0, device="cpu",
+                     state=st.replace(**{f: getattr(st, f).cpu() for f in STATE_FIELDS}))
+    del sim, st
+    torch.cuda.empty_cache()
+    counters.reset()
+
+    def save():
+        t0 = time.perf_counter()
+        host.save(path)
+        return path, path.stat().st_size, time.perf_counter() - t0
+
+    return SAVER.submit(save)
+
+
+def checkpoint_headline(dev, card_line, saving):
+    """(a) The headline saved at tick 8 (``saving``), resumed on the CPU
+    for 2 rounds, on 8 column blocks to convergence, and on the card,
+    where ticks 9-11 equal the reference's digests (its own save and
+    resume) and the run converges at 24 with every field equal to the
+    uninterrupted run's."""
+    cfg, want = headline_config(), REF_DIGESTS["resume_headline"]["converged_round"]
+    counters.reset()
+    sim = Simulator(cfg, seed=0, device=dev)
+    whole = sim.run_until_converged(max_rounds=200)
+    check(whole == want, f"the uninterrupted headline converged at {whole}")
+    t0 = time.perf_counter()
+    path, size, save_s = saving.result()
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = Simulator.resume(path, device="cpu")
+    on_cpu.run(2)
+    cpu_s = time.perf_counter() - t0
+    counters.reset()
+    t0 = time.perf_counter()
+    mesh = Simulator.resume(path, mesh=mesh_of(dev))
+    torch.cuda.synchronize()
+    mesh_load_s = time.perf_counter() - t0
+    mesh_round = mesh.run_until_converged(max_rounds=200)
+    mesh_launches = dict(counters.launches)
+    check(mesh_round == want, f"the headline resumed on {MESH_BLOCKS} blocks converged at "
+          f"{mesh_round}, the reference at {want}")
+    check(counters.kernel_launches("pairs_totals") == 3 * MESH_BLOCKS * (mesh.tick - RESUME_TICK)
+          and not counters.plain_calls and not counters.fallbacks,
+          "the resumed mesh left the column-block kernels")
+    check(mesh.tick == sim.tick and states_equal(mesh.state, sim.state),
+          "the resumed mesh's gathered state != the uninterrupted run's")
+    plain_round_equal(mesh, "the resumed mesh")
+    del mesh
+    counters.reset()
+    t0 = time.perf_counter()
+    resumed = Simulator.resume(path, device=dev, chunk=1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(resumed.cfg == cfg and resumed.seed == 0 and resumed.tick == RESUME_TICK,
+          "the resumed headline is not the saved run")
+    for tick in (9, 10, 11):
+        resumed.run(1)
+        check_digests("resume_headline", resumed.state, tick)
+        if tick == 10:
+            check(states_equal_host(resumed.state, on_cpu.state),
+                  "the headline resumed on the CPU != the card's at tick 10")
+    del on_cpu
+    resumed.chunk = 8
+    converged = resumed.run_until_converged(max_rounds=200)
+    launches = dict(counters.launches)
+    check(converged == want, f"the resumed headline converged at {converged}, the reference "
+          f"at {want}")
+    check(counters.kernel_launches("pairs_pull") == 3 * (resumed.tick - RESUME_TICK)
+          and not counters.plain_calls and not counters.fallbacks,
+          "the resumed headline left the pairs kernels")
+    sim.run(resumed.tick - sim.tick)
+    check(states_equal(resumed.state, sim.state),
+          "the resumed headline != the uninterrupted run")
+    plain_round_equal(resumed, "the resumed headline")
+    log("resume", f"headline saved at tick {RESUME_TICK}: {size} bytes in {save_s:.2f} s (on a "
+        f"thread of its own beside the card's work; {wait_s:.2f} s waited for it); loaded "
+        f"in {load_s:.2f} s (card), {mesh_load_s:.2f} s ({MESH_BLOCKS} blocks); ticks 9-11 == "
+        f"the reference's digests; converged at {converged} (the reference's {want}), every "
+        f"field == the uninterrupted run's; on {MESH_BLOCKS} blocks {mesh_round}, gathered "
+        f"state equal; on the CPU 2 rounds in {cpu_s:.1f} s == the card's tick 10; launches "
+        f"{launches}, mesh {mesh_launches} ({card_line})")
+    del sim, resumed
+    torch.cuda.empty_cache()
+    return {"bytes": size, "save_s": save_s, "save_wait_s": wait_s, "load_s": load_s,
+            "mesh_load_s": mesh_load_s,
+            "cpu_two_rounds_s": cpu_s, "converged_round": converged,
+            "mesh_converged_round": mesh_round, "launches": launches,
+            "mesh_launches": mesh_launches}
+
+
+def sweep_checkpoint(dev, card_line, tmp):
+    """(b) A 3-lane phi sweep at 2,048 nodes (budget 512) saved at tick 8
+    and resumed (with ``metrics=``): each lane's converged round and
+    state equal the uninterrupted sweep's, and the gauges equal
+    ``result()``."""
+    cfg = dataclasses.replace(headline_config(SWEEP_CKPT_N), budget=SWEEP_CKPT_BUDGET)
+    seeds = list(range(len(SWEEP_CKPT_PHIS)))
+    path = tmp / "sweep.npz"
+    counters.reset()
+    whole = SweepSimulator(cfg, seeds, phi_threshold=SWEEP_CKPT_PHIS, device=dev)
+    rounds = whole.run_until_converged(max_rounds=400)
+    part = SweepSimulator(cfg, seeds, phi_threshold=SWEEP_CKPT_PHIS, device=dev)
+    part.run(RESUME_TICK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part.save(path)
+    save_s, size = time.perf_counter() - t0, path.stat().st_size
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    resumed = SweepSimulator.resume(path, device=dev, metrics=reg)
+    load_s = time.perf_counter() - t0
+    got = resumed.run_until_converged(max_rounds=400)
+    check(got == rounds and min(got) > RESUME_TICK and resumed.tick == whole.tick,
+          f"the resumed sweep converged at {got}, the uninterrupted one at {rounds}")
+    for s in range(len(seeds)):
+        check(states_equal(lane(resumed.states, s), lane(whole.states, s)),
+              f"lane {s} of the resumed sweep != the uninterrupted sweep's")
+    check(counters.kernel_launches("pairs_pull") > 0 and not counters.plain_calls,
+          "the sweeps left the lane launches")
+    rows, snap = resumed.result().rows(), reg.snapshot()
+    gauge = "aiocluster_sim_{}{{engine=torch,lane={}}}"
+    check(snap["aiocluster_sim_sweep_lanes{engine=torch}"] == len(rows)
+          and snap["aiocluster_sim_sweep_lanes_converged{engine=torch}"] == len(rows)
+          and all(snap[gauge.format("lane_rounds_to_convergence", r["lane"])]
+                  == r["rounds_to_convergence"]
+                  and snap[gauge.format("lane_version_spread", r["lane"])] == r["version_spread"]
+                  for r in rows), "the sweep's gauges != its result()")
+    log("resume", f"{len(seeds)}-lane phi sweep at {SWEEP_CKPT_N} saved at tick {RESUME_TICK}: "
+        f"{size} bytes in {save_s:.2f} s, loaded in {load_s:.2f} s; converged at {got}, each "
+        f"lane == the uninterrupted sweep's; gauges == result() ({card_line})")
+    del whole, part, resumed
+    return {"bytes": size, "save_s": save_s, "load_s": load_s, "rounds_to_convergence": got}
+
+
+def telemetry_headline(dev, card_line, tmp):
+    """(c) The headline with a registry, a trace writer and stride 4 (chunk
+    4): converges at 24, its series holds ticks 4, 8, ..., 24 and ends
+    at ``metrics()``, the trace one header and one event a sample; its
+    launched modes on its state against their plain versions; one
+    ``metrics_sample`` timed by CUDA events; ms a round without and with
+    the sampler at strides 4 and 64, interleaved."""
+    cfg = headline_config()
+    reg, trace_path = MetricsRegistry(), tmp / "telemetry.jsonl"
+    counters.reset()
+    with TraceWriter(trace_path) as tw:
+        sim = Simulator(cfg, seed=0, device=dev, chunk=TELEMETRY_STRIDE, metrics=reg,
+                        metrics_stride=TELEMETRY_STRIDE, trace_writer=tw)
+        converged = sim.run_until_converged(max_rounds=200)
+        launches = dict(counters.launches)
+        series = sim.flush_metrics()
+    check(converged == CONVERGED_ROUND, f"the telemetry headline converged at {converged}")
+    check(counters.kernel_launches("pairs_pull") == 3 * sim.tick and not counters.plain_calls,
+          "the telemetry headline left the pairs kernels")
+    ticks = [s["tick"] for s in series]
+    check(ticks == list(range(TELEMETRY_STRIDE, CONVERGED_ROUND + 1, TELEMETRY_STRIDE)),
+          f"the telemetry series holds ticks {ticks}")
+    last = sim.metrics()
+    check(all(float(v) == series[-1][k] for k, v in last.items()),
+          "the series' last sample != metrics()")
+    events = read_trace(trace_path)
+    check(events[0]["event"] == "trace_header"
+          and [e["event"] for e in events[1:]] == ["sim_round"] * len(series)
+          and [e["tick"] for e in events[1:]] == ticks, "the trace file is not one header "
+          "and one sim_round event a sample")
+    snap = reg.snapshot()
+    check(snap["aiocluster_sim_tick{engine=torch}"] == CONVERGED_ROUND
+          and snap["aiocluster_sim_converged_owners{engine=torch}"] == N
+          and snap["aiocluster_sim_rounds_total{engine=torch}"] == CONVERGED_ROUND,
+          "the registry's gauges disagree with the run")
+    entries = round_entries(dev, sim, launches, "telemetry", check_last=True)
+    sample_ms = cuda_ms(lambda: gossip.metrics_sample(sim.state), 20)
+    del sim
+    times = collections.defaultdict(list)
+    for arm in TELEMETRY_ARMS:
+        kw = {} if arm == "off" else {"metrics": MetricsRegistry(), "metrics_stride": arm}
+        rate = Simulator(cfg, seed=0, device=dev, chunk=TELEMETRY_STRIDE, **kw)
+        times[str(arm)].append(round_rate(rate, rounds=TELEMETRY_ROUNDS, warmup=8))
+        rate.flush_metrics()
+        del rate
+    log("telemetry", f"headline, stride {TELEMETRY_STRIDE}: converged at {converged}; series "
+        f"ticks {ticks}, last == metrics(); trace {len(events)} lines; metrics_sample "
+        f"{sample_ms:.4f} ms (CUDA events); ms a round (chunk {TELEMETRY_STRIDE}, arms "
+        f"{TELEMETRY_ARMS}): " + ", ".join(f"{k} {v}" for k, v in times.items())
+        + f" ({card_line})")
+    return {"converged_round": converged, "ticks": ticks, "trace_lines": len(events),
+            "metrics_sample_ms": sample_ms, "round_ms": dict(times)}, entries
+
+
+def telemetry_north_star(dev, card_line, untracked_peak_gb):
+    """(d) The north star with a registry at stride 64: converges at 209;
+    its peak memory beside the run without telemetry (phase 8's)."""
+    cfg = lean_config(NORTH_STAR_N, budget=HEADLINE_BUDGET)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev, metrics=reg,
+                    metrics_stride=NS_TELEMETRY_STRIDE)
+    converged = sim.run_until_converged(max_rounds=400)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    series = sim.flush_metrics()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ticks = [s["tick"] for s in series]
+    check(converged == NORTH_STAR_ROUND, f"the telemetry north star converged at {converged}")
+    check(ticks[-1] == sim.tick and series[-1]["all_converged"] == 1.0
+          and series[-1]["converged_owners"] == NORTH_STAR_N,
+          "the north star's series does not close converged at its final tick")
+    log("telemetry", f"north star, stride {NS_TELEMETRY_STRIDE}: converged at {converged} in "
+        f"{run_s:.2f} s ({run_s / sim.tick * 1e3:.3f} ms a round with set-up); series ticks "
+        f"{ticks}; peak {peak:.2f} GB (without telemetry {untracked_peak_gb:.2f} GB) "
+        f"({card_line})")
+    del sim
+    torch.cuda.empty_cache()
+    return {"converged_round": converged, "ticks": ticks, "run_s": run_s,
+            "peak_memory_gb": peak, "untracked_peak_memory_gb": untracked_peak_gb}
+
+
+def variant_override(dev, card_line):
+    """(e) The headline under AIOCLUSTER_TPU_PALLAS_VARIANT=m8, set for the
+    constructor only: ``sim.cfg`` says m8, the m8 pulls and fd.cu (once a
+    round) serve every round, no pairs pull, converged at 24; each
+    launched mode on the run's state against its plain version; a bad
+    value raises."""
+    cfg = headline_config()
+    with unittest.mock.patch.dict(os.environ, {gossip.VARIANT_ENV: "m8"}):
+        sim = Simulator(cfg, seed=0, device=dev)
+    check(sim.cfg.pallas_variant == "m8" and cfg.pallas_variant == "auto",
+          "the variant override did not reach sim.cfg")
+    counters.reset()
+    converged = sim.run_until_converged(max_rounds=200)
+    launches, rounds = dict(counters.launches), sim.tick
+    check(converged == CONVERGED_ROUND, f"the m8 override converged at {converged}")
+    check(counters.kernel_launches("m8_pull") > 0 and counters.kernel_launches("pairs_pull") == 0
+          and launches.get("fd") == rounds and not counters.plain_calls,
+          f"the m8 override ran {launches}")
+    with unittest.mock.patch.dict(os.environ, {gossip.VARIANT_ENV: "m9"}):
+        try:
+            Simulator(cfg, seed=0, device=dev)
+        except ValueError as err:
+            refused = str(err)
+        else:
+            refused = None
+    check(refused is not None and "must be auto/m8/pairs" in refused,
+          "a bad variant override did not raise")
+    entries = m8_round_entries(dev, sim, launches, "override")
+    err, ms, plain_ms, b_ms, b_by, _ = fd_on_state(sim, "the m8 override")
+    entries.append(dict(
+        name="fd[override]", route="cuda", source="aiocluster_torch/ops/csrc/fd.cu",
+        replaces="aiocluster_tpu/ops/pallas_fd.py:51", launches=launches.get("fd", 0),
+        launches_per_round=launches.get("fd", 0) / rounds, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        path="override_headline_m8",
+    ))
+    log("override", f"{gossip.VARIANT_ENV}=m8: sim.cfg.pallas_variant {sim.cfg.pallas_variant!r}; "
+        f"converged at {converged}; launches {launches}; fd.cu {ms:.4f} ms (bound {b_ms:.4f}; "
+        f"plain {plain_ms:.3f}); a bad value raised: {refused} ({card_line})")
+    del sim
+    return {"converged_round": converged, "launches": launches}, entries
+
+
+def simcluster_headline(dev, card_line):
+    """(f) SimCluster at 10,240 x 16 keys: converges at 24 with no writes,
+    then the script (tools/torch_reference_digests.py): the state's
+    digests at ticks 28 and 68 equal the reference's; 512 seeded
+    replica views equal the owners' own; compaction folds every entry;
+    4 killed nodes leave an observer's live view in 32 rounds and are
+    revived; its next round through the kernels equals the plain round.
+    Returns (numbers, the cluster) for ``simcluster_step_ms``."""
+    cfg, ref = headline_config(), REF_DIGESTS["simcluster_headline"]
+    counters.reset()
+    t0 = time.perf_counter()
+    sc = SimCluster(cfg, seed=0, device=dev)
+    setup_s = time.perf_counter() - t0
+    names = sc.names
+    converged = sc.run_until_converged(max_rounds=400)
+    check(converged == ref["converged_round"], f"SimCluster converged at {converged}")
+    owners = [names[i] for i in SC_OWNERS]
+    for k, o in enumerate(owners):
+        sc.set(o, f"key-{k:04d}", f"new-{k}")
+        sc.set(o, "extra", f"x{k}")
+    sc.step(2)
+    for o in owners:
+        sc.delete(o, "key-0001")
+    sc.step(2)
+    check_digests("simcluster_headline", sc.sim.state, sc.tick)
+    first_digest_tick = sc.tick
+    for k, o in enumerate(owners):
+        sc.set_with_ttl(o, "ttl", f"t{k}")
+    script_round = sc.run_until_converged(max_rounds=400)
+    check(script_round == ref["script_converged_round"],
+          f"SimCluster's script converged at {script_round}, the reference at "
+          f"{ref['script_converged_round']}")
+    rounds, launches = sc.tick, dict(counters.launches)
+    check(counters.kernel_launches("pairs_pull") == 3 * rounds and not counters.plain_calls
+          and not counters.fallbacks, "SimCluster left the pairs kernels")
+    gen = np.random.default_rng(16)
+    observers = gen.integers(0, N, SC_PAIRS)
+    owned = np.concatenate([SC_OWNERS, gen.integers(0, N, SC_PAIRS - len(SC_OWNERS))])
+    t0 = time.perf_counter()
+    for i, j in zip(observers, owned):
+        view = sc.replica_view(names[i], names[j])
+        check(view == sc.replica_view(names[j], names[j]),
+              f"replica_view({names[i]}, {names[j]}) != the owner's own")
+    views_s = time.perf_counter() - t0
+    first = sc.replica_view(names[int(observers[0])], owners[0])
+    check(first.get("key-0000") == "new-0" and first.get("extra") == "x0"
+          and "key-0001" not in first and "ttl" not in first,
+          f"the written owner's view reads {sorted(first.items())[:4]}")
+    total = int(sc.sim.blocks[0].max_version.sum())
+    t0 = time.perf_counter()
+    folded = sc.compact()
+    compact_s = time.perf_counter() - t0
+    check(folded == total and sc.compact() == 0,
+          f"compact() folded {folded} of {total} entries")
+    check(sc.replica_view(names[int(observers[1])], owners[1]) == sc.replica_view(
+        owners[1], owners[1]), "a view changed across compaction")
+    killed = {names[i] for i in SC_KILLED}
+    for name in killed:
+        sc.kill(name)
+    sc.step(SC_KILL_ROUNDS)
+    check_digests("simcluster_headline", sc.sim.state, sc.tick)
+    digest_ticks = (first_digest_tick, sc.tick)
+    live = set(sc.live_view(names[0]))
+    check(not live & killed and len(live) == N - len(killed),
+          "an observer's live view keeps killed nodes after 32 rounds")
+    check(not set(sc.alive_nodes()) & killed, "alive_nodes() lists killed nodes")
+    for name in killed:
+        sc.revive(name)
+    check(len(sc.alive_nodes()) == N, "revived nodes are not alive")
+    plain_round_equal(sc.sim, "SimCluster")
+    log("simcluster", f"{N} nodes x {cfg.keys_per_node} keys: set-up {setup_s:.2f} s; converged "
+        f"at {converged}; script: ticks {digest_ticks} == the reference's digests, converged "
+        f"at {script_round}; {SC_PAIRS} replica views == "
+        f"the owners' own ({views_s:.2f} s); compact folded {folded} entries in "
+        f"{compact_s:.2f} s; {len(killed)} killed nodes out of node-0's live view after "
+        f"{SC_KILL_ROUNDS} rounds, revived; launches {launches} ({card_line})")
+    return {"converged_round": converged, "script_converged_round": script_round,
+            "folded": folded, "compact_s": compact_s, "views_s": views_s,
+            "launches": launches}, sc
+
+
+def simcluster_step_ms(sc, card_line, head_round_ms):
+    """ms a ``step(1)`` of SimCluster (no write pending) on the host clock,
+    beside the headline's ms a round (phase 7)."""
+    sc.step(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SC_STEPS):
+        sc.step(1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SC_STEPS * 1e3
+    log("simcluster", f"{step_ms:.3f} ms a step(1) over {SC_STEPS} steps (the headline "
+        f"{head_round_ms:.3f} ms a round) ({card_line})")
+    return step_ms
+
+
+def baseline_config1(dev, card_line):
+    """(g) BASELINE config 1's counterpart (examples/simple.py): 3 named
+    nodes with one key each; it converges and every replica view is
+    equal. At n % 128 != 0 the reference serves it with XLA: the
+    counters say which phases ran plain."""
+    names = ["simple1", "simple2", "simple3"]
+    cfg = SimConfig(n_nodes=3, keys_per_node=1, fanout=3, budget=HEADLINE_BUDGET)
+    counters.reset()
+    sc = SimCluster(cfg, names=names, seed=0, device=dev,
+                    initial_key_values={n: {"cluster": str(i + 1)} for i, n in enumerate(names)})
+    converged = sc.run_until_converged(max_rounds=50)
+    views = {(a, b): sc.replica_view(a, b) for a in names for b in names}
+    check(converged is not None and all(v == views[(b, b)] for (_, b), v in views.items()),
+          "the 3-node SimCluster did not converge to equal views")
+    check(all(sc.live_view(n) == names for n in names), "a live view misses a node")
+    out = {"converged_round": converged, "plain_calls": dict(counters.plain_calls),
+           "fallbacks": dict(counters.fallbacks), "launches": dict(counters.launches)}
+    log("config1", f"3 nodes x 1 key: converged at {converged}; every replica view equal; "
+        f"plain calls {out['plain_calls']}, fallbacks {out['fallbacks']}, launches "
+        f"{out['launches']} ({card_line})")
+    return out
+
+
+def user_surface(dev, card_line, head_round_ms, ns_peak_gb, saving=None):
+    """Phase 16: (a)-(g) above, each run from counters at 0. The
+    headline's save (``start_headline_save``; started here unless
+    ``saving`` is the one main() started before phase 14) runs on its own
+    thread beside the card work; the timed comparisons ((c)'s arms,
+    SimCluster's steps) run after it."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if saving is None:
+            saving = start_headline_save(dev, tmp)
+        sweep_ckpt = sweep_checkpoint(dev, card_line, tmp)
+        ns = telemetry_north_star(dev, card_line, ns_peak_gb)
+        override, override_entries = variant_override(dev, card_line)
+        cluster, sc = simcluster_headline(dev, card_line)
+        ckpt = checkpoint_headline(dev, card_line, saving)
+        telemetry, telemetry_entries = telemetry_headline(dev, card_line, tmp)
+    cluster["step_ms"] = simcluster_step_ms(sc, card_line, head_round_ms)
+    cluster["headline_round_ms"] = head_round_ms
+    del sc
+    config1 = baseline_config1(dev, card_line)
+    secs = time.perf_counter() - t0
+    log("phase16", f"{secs:.1f} s")
+    return {"checkpoint": ckpt, "sweep_checkpoint": sweep_ckpt, "telemetry": telemetry,
+            "telemetry_north_star": ns, "variant_override": override, "simcluster": cluster,
+            "baseline_config1": config1, "seconds": secs}, telemetry_entries + override_entries
 
 
 def c4_run(dev, card_line):
@@ -5591,6 +6132,11 @@ def main() -> int:
     # full width. The churned headline runs the pairs kernels (each mode
     # held and timed on the run's own state) and config 4 the standalone
     # FD kernel.
+    # Phase 16's checkpoint, started here: the headline run to tick 8 and
+    # its save on a thread of its own (one host core's compression, about
+    # two minutes) beside phases 14 and 15 on the card.
+    ckpt_dir = tempfile.TemporaryDirectory()
+    saving = start_headline_save(dev, Path(ckpt_dir.name))
     remaining, churn_entries, fd_entry = remaining_semantics(dev, card_line)
     kernels += churn_entries + [fd_entry]
 
@@ -5600,6 +6146,15 @@ def main() -> int:
     # state); the faulted runs' FD phase is fd.cu.
     fault_out, fault_entries = fault_plans(dev, card_line)
     kernels += fault_entries
+
+    # Phase 16: the simulator's user surface at full width: checkpoints,
+    # telemetry, the variant override and SimCluster. The telemetry
+    # headline's pairs modes and the override's m8 modes and fd.cu are
+    # held and timed on their runs' own states.
+    surface, surface_entries = user_surface(dev, card_line, round_ms, ns["peak_memory_gb"],
+                                            saving)
+    ckpt_dir.cleanup()
+    kernels += surface_entries
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -5619,7 +6174,13 @@ def main() -> int:
         f"star {ns_mesh['converged_round']} at {ns_mesh['round_ms']:.3f} ms a round; faults: "
         f"fault_bench split brain {fault_out['fault_bench']['converged_round']}, flaky "
         f"headline {fault_out['flaky_headline']['converged_round']}, cadence headline "
-        f"{fault_out['cadence_headline']['converged_round']}")
+        f"{fault_out['cadence_headline']['converged_round']}; user surface: resumed "
+        f"{surface['checkpoint']['converged_round']} (mesh "
+        f"{surface['checkpoint']['mesh_converged_round']}), telemetry "
+        f"{surface['telemetry']['converged_round']} / north star "
+        f"{surface['telemetry_north_star']['converged_round']}, m8 override "
+        f"{surface['variant_override']['converged_round']}, SimCluster "
+        f"{surface['simcluster']['converged_round']}")
 
     print(card_line)
     print(json.dumps({
@@ -5651,6 +6212,7 @@ def main() -> int:
         "mesh": {"headline": head_mesh, "north_star": ns_mesh},
         "remaining_semantics": remaining,
         "fault_plans": fault_out,
+        "user_surface": surface,
     }))
     print(device_record())
     return 0

@@ -1260,3 +1260,44 @@ def test_faulted_rounds_on_the_card_equal_the_cpu(dev):
     alive = torch.ones(512, dtype=torch.bool)
     got = prng.chunk_draws(prng.key(8).to(dev), 1, 3, q, alive=alive.to(dev)).peers
     assert torch.equal(got.cpu(), prng.chunk_draws(prng.key(8), 1, 3, q, alive=alive).peers)
+
+
+def test_checkpoint_telemetry_and_simcluster_on_the_card(dev, tmp_path):
+    """A run on the card saved at tick 5 resumes on the card and on the
+    CPU to equal states; its telemetry series (stride 2) closes at the
+    final tick with the last sample equal to ``metrics()``; a SimCluster
+    on the card runs a write/kill/revive script equal to the CPU's."""
+    from aiocluster_torch import MetricsRegistry, SimCluster
+
+    cfg = SimConfig(n_nodes=256, keys_per_node=8, budget=32, **NARROW)
+    counters.reset()
+    sim = Simulator(cfg, seed=4, device=dev, metrics=MetricsRegistry(), metrics_stride=2,
+                    chunk=2)
+    sim.run(5)
+    sim.save(tmp_path / "c.npz")
+    assert counters.kernel_launches("pairs_pull") == 5 * 3
+    on_dev = Simulator.resume(tmp_path / "c.npz", device=dev)
+    on_cpu = Simulator.resume(tmp_path / "c.npz", device="cpu")
+    for s in (sim, on_dev, on_cpu):
+        s.run(3)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(on_dev.state, f), getattr(sim.state, f)), f
+        assert torch.equal(getattr(on_dev.state, f).cpu(), getattr(on_cpu.state, f)), f
+    series = sim.flush_metrics()
+    assert [s["tick"] for s in series] == [2, 4, 7, 8]  # chunk boundaries crossing a stride
+    assert {k: float(v) for k, v in sim.metrics().items()}.items() <= series[-1].items()
+
+    def script(sc):
+        sc.run_until_converged(200)
+        sc.set("node-3", "a", "1")
+        sc.delete("node-3", "key-0000")
+        sc.kill("node-7")
+        sc.step(4)
+        sc.revive("node-7")
+        sc.step(2)
+        return sc.tick, sc.replica_view("node-9", "node-3"), sc.live_view("node-9"), sc.compact()
+
+    card, cpu = SimCluster(cfg, seed=2, device=dev), SimCluster(cfg, seed=2, device="cpu")
+    assert script(card) == script(cpu)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(card.sim.state, f).cpu(), getattr(cpu.sim.state, f)), f

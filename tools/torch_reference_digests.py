@@ -1,5 +1,5 @@
 """Reference digests for the PyTorch port's chip check (chip_smoke.py,
-phases 14 and 15).
+phases 14 to 16).
 
 Runs the reference simulator (``aiocluster_tpu``, its XLA path on JAX's
 CPU backend) on the configurations phase 14 drives at full width and
@@ -13,7 +13,10 @@ whenever a configuration there changes:
 
 CASE is one of the names in ``CASES`` (each a few minutes on 8 CPU cores
 and a few GB of host memory at 10,240 nodes; ``config4`` and the cases
-marked so run on to their converged round).
+marked so run on to their converged round), or one of ``SCRIPTS``:
+``resume_headline`` (the headline saved at tick 8 and resumed from the
+file) and ``simcluster_headline`` (``SimCluster``'s write script,
+``SIMCLUSTER_SCRIPT``).
 """
 
 from __future__ import annotations
@@ -141,10 +144,109 @@ def run_case(name: str) -> dict:
     return out
 
 
+RESUME_SAVE_TICK = 8
+
+
+def run_resume_headline() -> dict:
+    """The headline run to tick 8, saved, resumed from the file in a new
+    simulator and digested at ticks 9-11, then run on to convergence."""
+    import tempfile
+    from pathlib import Path
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from aiocluster_tpu.sim import Simulator
+
+    sim = Simulator(_headline(), seed=0, chunk=8)
+    sim.run(RESUME_SAVE_TICK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "headline.npz"
+        sim.save(path)
+        del sim
+        resumed = Simulator.resume(path, chunk=1)
+    out = {"ticks": {}}
+    for t in (9, 10, 11):
+        resumed.run(t - resumed.tick)
+        out["ticks"][t] = state_digests(resumed.state)
+    resumed.chunk = 8
+    out["converged_round"] = resumed.run_until_converged(max_rounds=400)
+    return out
+
+
+# SimCluster's script at the headline width: 16 owners evenly spaced,
+# each write phase followed by rounds; the names are the default
+# "node-<i>". chip_smoke.py runs the same script on the port.
+SIMCLUSTER_OWNERS = tuple(k * 640 for k in range(16))
+SIMCLUSTER_KILLED = (7, 2_001, 5_003, 10_239)
+SIMCLUSTER_KILL_ROUNDS = 32
+
+
+def simcluster_script(sc, digest) -> dict:
+    """Drive ``sc`` (a SimCluster of either package at the headline
+    config) through the script; ``digest(tick)`` records the state's
+    digests at the ticks the chip check holds. Returns the converged
+    rounds."""
+    names = [f"node-{i}" for i in SIMCLUSTER_OWNERS]
+    out = {"converged_round": sc.run_until_converged(max_rounds=400)}
+    for k, o in enumerate(names):
+        sc.set(o, f"key-{k:04d}", f"new-{k}")
+        sc.set(o, "extra", f"x{k}")
+    sc.step(2)
+    for o in names:
+        sc.delete(o, "key-0001")
+    sc.step(2)
+    digest(sc.tick)
+    for k, o in enumerate(names):
+        sc.set_with_ttl(o, "ttl", f"t{k}")
+    out["script_converged_round"] = sc.run_until_converged(max_rounds=400)
+    for i in SIMCLUSTER_KILLED:
+        sc.kill(f"node-{i}")
+    sc.step(SIMCLUSTER_KILL_ROUNDS)
+    digest(sc.tick)
+    return out
+
+
+def copying_simcluster():
+    """The reference's SimCluster with its write flush adding a copy of the
+    pending counts. The reference adds the numpy array it zeroes right
+    after dispatch; JAX's CPU backend reads that buffer when the add
+    runs, behind any rounds still queued, so writes flushed after an
+    unsynced ``step`` are lost (ROADMAP.md C6). The copy gives the
+    reference's intended semantics, which the port implements."""
+    from aiocluster_tpu.sim.simcluster import SimCluster
+
+    class CopyingSimCluster(SimCluster):
+        def _flush_writes(self) -> None:
+            if self._pending_writes.any():
+                state = self.sim.state
+                self.sim.state = state.replace(
+                    max_version=state.max_version + self._pending_writes.copy())
+                self.sim.note_max_version_increase(int(self._pending_writes.max()))
+                self._pending_writes[:] = 0
+
+    return CopyingSimCluster
+
+
+def run_simcluster_headline() -> dict:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sc = copying_simcluster()(_headline(), seed=0)
+    out = {"ticks": {}}
+    out.update(simcluster_script(sc, lambda t: out["ticks"].__setitem__(
+        t, state_digests(sc.sim.state))))
+    return out
+
+
+SCRIPTS = {"resume_headline": run_resume_headline, "simcluster_headline": run_simcluster_headline}
+
+
 def main(argv: list[str]) -> None:
-    names = argv or list(CASES)
+    names = argv or list(CASES) + list(SCRIPTS)
     for name in names:
-        print(json.dumps({name: run_case(name)}), flush=True)
+        out = SCRIPTS[name]() if name in SCRIPTS else run_case(name)
+        print(json.dumps({name: out}), flush=True)
 
 
 if __name__ == "__main__":
