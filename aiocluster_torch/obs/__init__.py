@@ -7,9 +7,16 @@ package, its simulator-facing part):
 - ``sim``: ``SimMetrics``, the stride sampler that buffers device
   tensors and converts them once at ``flush`` (``Simulator(metrics=,
   trace_writer=)``), ``SweepMetrics`` (``SweepSimulator(metrics=)``),
-  and the marked-write wavefront study.
+  and the marked-write wavefront study;
+- ``expo``: the Prometheus text rendering of a registry and the
+  ``/metrics`` endpoint (``python -m aiocluster_torch sim
+  --metrics-port``);
+- ``profiling``: ``device_trace`` (a ``torch.profiler`` Chrome trace)
+  and ``SectionTimer``.
 """
 
+from .expo import MetricsHTTPServer, render_prometheus
+from .profiling import SectionTimer, device_trace
 from .registry import (
     Counter,
     Gauge,
@@ -25,16 +32,20 @@ __all__ = (
     "Counter",
     "Gauge",
     "Histogram",
+    "MetricsHTTPServer",
     "MetricsRegistry",
+    "SectionTimer",
     "SimMetrics",
     "SweepMetrics",
     "TRACE_SCHEMA",
     "TraceScan",
     "TraceWriter",
     "default_registry",
+    "device_trace",
     "marked_write_state",
     "percentile_of_sorted",
     "read_trace",
+    "render_prometheus",
     "scan_trace",
     "wavefront_series",
 )

@@ -58,14 +58,20 @@ refusal.
 pairs forms each sub-exchange is one lane launch for all lanes (two in
 the two-pass form), each lane with its own salts, fanout mask, write
 rate and FD phi; elsewhere each lane runs the plain round
-(``resolve_phases(sweep=True)``).
+(``resolve_phases(sweep=True)``). ``sweep_blocks`` is that round on
+lanes held as column blocks (a sweep over a mesh): the lane launches at
+each block's ``owner_offset``, the (S, N) lane totals reduced over the
+blocks before any block's pull.
 
 ``step_blocks`` is the round of a state held as column blocks of the
 owners (the reference's ``sim_step(axis_name="owners")``; the mesh of
 parallel/mesh.py): each phase runs block after block between the
 collectives of ``reduce_blocks`` (the deficit totals summed over the
 blocks before any block's pull, the flag's min), the kernels at each
-block's ``owner_offset``. ``sim_step`` is that round on one block of
+block's ``owner_offset``. Within a ``process_span`` (a mesh across
+processes, parallel/multihost.py) the blocks are this process's, and
+every collective first gathers all processes' partials
+(``all_blocks``), so each reduces them in global block order. ``sim_step`` is that round on one block of
 every owner; ``run_rounds`` queues a chunk of rounds of either (the
 chunk's draws once, no host sync); ``block_width`` is the rule for
 the widths a mesh's blocks may take, ``resolve_phases`` the rule for
@@ -78,6 +84,8 @@ in place where a phase can.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 import os
@@ -618,18 +626,71 @@ def sim_step(
 # The collectives of a round over column blocks, by name.
 _REDUCE_OPS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
 
+# The processes a mesh's collectives span: None in one process, else an
+# object whose ``gather(parts)`` returns every process's partials in
+# global block order and whose ``first_block`` is this process's first
+# block (parallel/multihost.py ``ProcessSpan``). Entered by
+# ``parallel.mesh.collectives``; the round and metrics entry points
+# refuse blocks that hold only part of the owners outside a span
+# (``_check_span``).
+_SPAN: contextvars.ContextVar = contextvars.ContextVar("aiocluster_torch_span", default=None)
+
+
+@contextlib.contextmanager
+def process_span(span):
+    """Run the enclosed rounds and reductions with their collectives
+    spanning ``span``'s processes (None: this process alone)."""
+    token = _SPAN.set(span)
+    try:
+        yield
+    finally:
+        _SPAN.reset(token)
+
+
+def _check_span(blocks: Sequence[SimState]) -> None:
+    """Refuse blocks that hold only part of the owners outside a
+    ``process_span``: they are one process's share of a mesh across
+    processes, and their collectives would silently reduce this
+    process's partials alone."""
+    if _SPAN.get() is None:
+        held = sum(state_n_local(b) for b in blocks)
+        if held != blocks[0].alive.shape[-1]:
+            raise RuntimeError(
+                f"these blocks hold {held} of {blocks[0].alive.shape[-1]} owners: a mesh "
+                "across processes runs its rounds and metrics inside "
+                "parallel.mesh.collectives(mesh)"
+            )
+
+
+def all_blocks(parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Every block's partial in global block order: ``parts`` (one per
+    block this process holds) alone, or within a ``process_span`` every
+    process's, gathered."""
+    span = _SPAN.get()
+    return list(parts) if span is None else span.gather(parts)
+
+
+def first_block() -> int:
+    """The global index of this process's first block (0 outside a
+    ``process_span``)."""
+    span = _SPAN.get()
+    return 0 if span is None else span.first_block
+
 
 def reduce_blocks(parts: Sequence[torch.Tensor], op: str) -> list[torch.Tensor]:
     """Reduce one partial per column block (``op`` "sum", "min" or
     "max") and return the result once per block, on the block's device:
     the counterpart of the reference's psum / pmin / pmax over the
-    "owners" axis. Taken in block order 0 .. P-1 on the first block's
-    device, in the partials' dtype (float32 for the deficit totals), so
-    a sum of exact integers below 2^24 is exact and equals the whole
-    width's. One block is returned as it is. A process per card would
-    swap this for an ``all_reduce`` of its one block."""
-    acc = parts[0]
-    for part in parts[1:]:
+    "owners" axis. Taken in global block order 0 .. P-1 on the first
+    block's device, in the partials' dtype (float32 for the deficit
+    totals), so a sum of exact integers below 2^24 is exact and equals
+    the whole width's; across processes the partials are gathered first
+    (``all_blocks``) and reduced in the same order, so every process
+    gets the single-process mesh's bits whatever order a backend's
+    ``all_reduce`` would take. One block is returned as it is."""
+    gathered = all_blocks(parts)
+    acc = gathered[0].to(parts[0].device)
+    for part in gathered[1:]:
         acc = _REDUCE_OPS[op](acc, part.to(acc.device))
     return _replicas([p.device for p in parts])(acc)
 
@@ -679,6 +740,7 @@ def step_blocks(
     the min over the blocks. ``sim_step`` is this round on one block of
     every owner. Returns the new blocks (and the flag with
     ``return_converged``); the other arguments are ``sim_step``'s."""
+    _check_span(blocks)
     head = blocks[0]
     n_local = state_n_local(head)
     dev = head.w.device
@@ -730,7 +792,8 @@ def step_blocks(
     hbt_b, mv_b = rep(heartbeat), rep(max_version)
     track_hb = cfg.track_heartbeats
     phases = resolve_phases(
-        cfg, dev, n_local=None if len(blocks) == 1 else n_local, has_topology=has_topology
+        cfg, dev, n_local=None if n_local == cfg.n_nodes else n_local,
+        has_topology=has_topology,
     )
     pull, fd_phase = phases.pull, phases.fd
     for reason in (phases.pull_fallback, phases.fd_fallback):
@@ -890,6 +953,33 @@ def run_rounds(
             first = torch.where((first == 0) & conv, blocks[0].tick, first)
         else:
             blocks = out
+    return blocks, first
+
+
+def run_sweep_rounds(
+    blocks: list[SimState], keys: torch.Tensor, cfg: SimConfig, sweep: SweepParams, *,
+    offsets, m: int, tick: int, draws, salts: torch.Tensor, run_salts: list[int],
+    active: torch.Tensor | None, first: torch.Tensor | None = None,
+):
+    """Queue ``m`` rounds of a sweep's lanes held as ``blocks`` from host
+    tick ``tick`` (``sweep_blocks``, each round a ``torch.profiler`` range
+    ``aiocluster_torch.sweep_step``), with no host sync: ``draws`` are the
+    chunk's ``prng.chunk_draws`` of the lanes' keys and ``salts`` its
+    ``lane_salt_table``. With ``first`` (the (S,) int32 first-converged
+    tick of each lane, 0: not yet) the rounds are tracked and the updated
+    ``first`` is returned beside the blocks."""
+    for r in range(m):
+        with record_function("aiocluster_torch.sweep_step"):
+            out = sweep_blocks(
+                blocks, keys, cfg, sweep, offsets=offsets, tick=tick + r, draws=draws.round(r),
+                salts=salts[r], run_salts=run_salts, active=active,
+                return_converged=first is not None,
+            )
+        if first is None:
+            blocks = out
+        else:
+            blocks, conv = out
+            first = torch.where((first == 0) & conv, tick + r + 1, first)
     return blocks, first
 
 
@@ -1198,10 +1288,12 @@ def _direction_stats(cfg, ws, scheds, dns) -> list:
     if not greedy:
         return reduce_blocks(parts, "sum")
     # Global owner order across the blocks: block k's cumsum starts at
-    # the row sums of blocks 0 .. k - 1.
+    # the row sums of blocks 0 .. k - 1 (of every process's blocks).
+    gathered, first = all_blocks(parts), first_block()
     stats, acc = [], torch.zeros_like(parts[0])
-    for part in parts:
-        stats.append(acc.to(part.device))
+    for g, part in enumerate(gathered[: first + len(parts)]):
+        if g >= first:
+            stats.append(acc.to(parts[g - first].device))
         acc = acc + part.to(acc.device)
     return stats
 
@@ -1342,9 +1434,13 @@ def view_peers(cfg: SimConfig, blocks, offsets, view_salt: int, run_salt: int) -
     dev = blocks[0].w.device
     cols = []
     for c in range(cfg.fanout):
+        parts = [view_block_best(b.live_view, view_salt + c, run_salt, off)
+                 for b, off in zip(blocks, offsets)]
+        scores = all_blocks([sc for sc, _ in parts])
+        ids = all_blocks([ix for _, ix in parts])
         best = None
-        for b, off in zip(blocks, offsets):
-            sc, ix = (t.to(dev) for t in view_block_best(b.live_view, view_salt + c, run_salt, off))
+        for sc, ix in zip(scores, ids):
+            sc, ix = sc.to(dev), ix.to(dev)
             if best is None:
                 best = (sc, ix)
             else:
@@ -1478,21 +1574,65 @@ def sweep_step(
     still rides c = 0 and the check and the FD epilogue (with the lane's
     phi) c = fanout - 1. Elsewhere every lane runs the plain round.
     ``return_converged=True`` also returns the (S,) bool flags."""
-    lanes, new_tick = states.w.shape[0], tick + 1
-    phases = resolve_phases(cfg, states.w.device, sweep=True)
+    out = sweep_blocks(
+        [states], keys, cfg, sweep, offsets=(0,), tick=tick, draws=draws, salts=salts,
+        run_salts=run_salts, active=active, return_converged=return_converged,
+    )
+    if not return_converged:
+        return out[0]
+    blocks, flags = out
+    return blocks[0], flags
+
+
+def sweep_blocks(
+    blocks: Sequence[SimState],
+    keys: torch.Tensor,
+    cfg: SimConfig,
+    sweep: SweepParams,
+    *,
+    offsets: Sequence[int],
+    tick: int,
+    draws,
+    salts: torch.Tensor,
+    run_salts: list[int],
+    active: torch.Tensor | None,
+    return_converged: bool = False,
+):
+    """``sweep_step`` of a sweep whose lanes are held as column blocks of
+    the owners (the reference's lane ``vmap`` inside its sharded chunk):
+    ``blocks[k]`` holds the (S, N, n_local) matrices of the global
+    owners ``offsets[k] ..`` and the replicated (S, N) vectors. On the
+    pairs forms every block's lane launches run at its ``owner_offset``;
+    on more than one block each sub-exchange's (S, N) lane totals are
+    reduced over the blocks (``reduce_blocks``, per lane, in block
+    order) before any block's pull reads them, and the lanes' (S,) flags
+    are the min over the blocks. A lane whose fanout is below the
+    config's voids its later sub-exchanges in every block alike.
+    Elsewhere each lane runs ``step_blocks``' plain round on its views of
+    the blocks. Returns the new blocks (and the (S,) bool flags with
+    ``return_converged``)."""
+    _check_span(blocks)
+    head = blocks[0]
+    lanes, new_tick = head.w.shape[0], tick + 1
+    n_local = state_n_local(head)
+    phases = resolve_phases(
+        cfg, head.w.device, sweep=True, n_local=None if n_local == cfg.n_nodes else n_local
+    )
     for why in (phases.pull_fallback, phases.fd_fallback):
         if why is not None:
             counters.fallbacks[why] += 1
     if phases.pull not in PAIRS_FORMS:
-        return _plain_lanes(states, keys, cfg, sweep, tick, draws, run_salts,
+        return _plain_lanes(blocks, keys, cfg, sweep, offsets, tick, draws, run_salts,
                             return_converged)
     gm_all, c_all, p_all = draws.gm, draws.c, draws.p
+    rep = _replicas([b.w.device for b in blocks])
+    owned = [slice(o, o + n_local) for o in offsets]
 
-    alive = states.alive
+    alive = head.alive
     if draws.dies is not None:
         alive = torch.where(alive, ~draws.dies, draws.revives)
     alive_i32 = alive.to(torch.int32)
-    heartbeat = states.heartbeat + alive_i32
+    heartbeat = head.heartbeat + alive_i32
     # On the pairs forms the effective plan injects nothing (else the
     # lanes run plain): cadence classes are the one fault-model input.
     cadence = round_faults(cfg).cadence
@@ -1500,15 +1640,27 @@ def sweep_step(
     wpr = cfg.writes_per_round
     if sweep.writes_per_round is not None:
         wpr = sweep.writes_per_round.to(torch.int32)[:, None]
-    max_version = states.max_version + wpr * alive_i32
-    track_hb, packed = cfg.track_heartbeats, is_packed_w(states.w)
+    max_version = head.max_version + wpr * alive_i32
+    alive_b, hbt_b, mv_b = rep(alive), rep(heartbeat), rep(max_version)
+    # The packed rung refreshes with the owners' write bump.
+    refresh_b = rep(max_version - head.max_version) if is_packed_w(head.w) else mv_b
+
+    def owned_of(vecs):
+        """Each block's (S, n_local) slice of replicated (S, N) vectors."""
+        return [v[:, sl].contiguous() for v, sl in zip(vecs, owned)]
+
+    refresh_o, hbv_o, mv_o, alive_o = (
+        owned_of(refresh_b), owned_of(hbt_b), owned_of(mv_b), owned_of(alive_b))
+    phi_b = [None] * len(blocks) if sweep.phi_threshold is None else rep(sweep.phi_threshold)
+    track_hb = cfg.track_heartbeats
     fused = phases.fd == "fused"
-    w, hb = states.w, states.hb_known
+    params = FdParams.from_config(cfg)
+    ws, hbs = [b.w for b in blocks], [b.hb_known for b in blocks]
     # As in sim_step: the FD epilogue reads the round-start hb unless it
     # fuses into a fanout-1 round's only launch.
-    hb_round_start = None
+    hb0s = [None] * len(blocks)
     if cfg.track_failure_detector and not (fused and cfg.fanout == 1):
-        hb_round_start = hb.clone()
+        hb0s = [h.clone() for h in hbs]
     flag = None
     for c in range(cfg.fanout):
         first, last = c == 0, c == cfg.fanout - 1
@@ -1517,69 +1669,87 @@ def sweep_step(
             valid &= cad | cad[p_all[c].long()]
         if active is not None:
             valid &= active[c][:, None]
-        kw = {}
-        if first:
-            kw["mv"] = max_version - states.max_version if packed else max_version
-            if track_hb:
-                kw["hbv"] = heartbeat
+        ops = list(zip(rep(gm_all[c]), rep(c_all[c]), rep(valid), rep(salts[c])))
+        totals = [None] * len(blocks)
         if phases.pull == "pairs_two_pass":
-            kw["totals"] = pairs_totals.pairs_totals_lanes(
-                w, gm_all[c], c_all[c], valid, mv=kw.get("mv")
+            # Pass A sees the refreshed diagonal exactly as pass B will.
+            totals = reduce_blocks([
+                pairs_totals.pairs_totals_lanes(
+                    w, gm, cc, v, mv=r if first else None, owner_offset=off,
+                )
+                for w, (gm, cc, v, _), r, off in zip(ws, ops, refresh_o, offsets)
+            ], "sum")
+        flags = []
+        for k, (gm, cc, v, salt) in enumerate(ops):
+            b = blocks[k]
+            kw = {}
+            if first:
+                kw["mv"] = refresh_o[k]
+                if track_hb:
+                    kw["hbv"] = hbv_o[k]
+            if last and return_converged:
+                kw["check"] = (mv_o[k], alive_b[k], alive_o[k])
+            if last and fused:
+                kw["hbv"] = hbv_o[k]
+                kw["fd"] = pairs_pull.FdOperands(
+                    new_tick, b.last_change, b.imean, b.icount, b.live_view, hb0s[k],
+                    params, phi=phi_b[k],
+                )
+            out = pairs_pull.pairs_pull_lanes(
+                ws[k], hbs[k] if track_hb else None, gm, cc, v, salt, cfg.budget,
+                totals=totals[k], owner_offset=offsets[k], **kw,
             )
-        if last and return_converged:
-            kw["check"] = (max_version, alive, alive)
-        if last and fused:
-            kw["hbv"] = heartbeat
-            kw["fd"] = pairs_pull.FdOperands(
-                new_tick, states.last_change, states.imean, states.icount,
-                states.live_view, hb_round_start, FdParams.from_config(cfg),
-                phi=sweep.phi_threshold,
-            )
-        out = pairs_pull.pairs_pull_lanes(
-            w, hb if track_hb else None, gm_all[c], c_all[c], valid, salts[c],
-            cfg.budget, **kw,
-        )
-        if out is not None:
-            flag = out
+            if out is not None:
+                flags.append(out)
+        if flags:
+            flag = reduce_blocks(flags, "min")[0]
     if cfg.track_failure_detector and not fused:
         # use_pallas_fd=False: the plain FD phase, lane by lane with
         # each lane's phi (the epilogue's input hb0 kept above).
         for s, lane_cfg in enumerate(lane_configs(cfg, sweep, lanes)):
-            fd_mod.fused_fd_plain(
-                new_tick, hb[s], hb_round_start[s], heartbeat[s], states.last_change[s],
-                states.imean[s], states.icount[s], states.live_view[s],
-                FdParams.from_config(lane_cfg),
-            )
-            counters.plain_calls["fd"] += 1
-    new = states.replace(
-        tick=states.tick + 1, max_version=max_version, heartbeat=heartbeat, alive=alive, w=w,
-        hb_known=hb,
-    )
+            lane_params = FdParams.from_config(lane_cfg)
+            for k, b in enumerate(blocks):
+                fd_mod.fused_fd_plain(
+                    new_tick, hbs[k][s], hb0s[k][s], hbv_o[k][s],
+                    b.last_change[s], b.imean[s], b.icount[s], b.live_view[s], lane_params,
+                    owner_offset=offsets[k],
+                )
+                counters.plain_calls["fd"] += 1
+    ticks = rep(head.tick + 1)
+    new = [
+        b.replace(
+            tick=ticks[k], max_version=mv_b[k], heartbeat=hbt_b[k], alive=alive_b[k], w=ws[k],
+            hb_known=hbs[k],
+        )
+        for k, b in enumerate(blocks)
+    ]
     if not return_converged:
         return new
     return new, flag > 0
 
 
-def _plain_lanes(states, keys, cfg, sweep, tick, draws, run_salts, return_converged):
-    """The plain route of ``sweep_step``: each lane runs ``sim_step``'s
-    plain round with its own config on its views of the batch, and what
-    the round wrote into new tensors is copied back into the batch."""
+def _plain_lanes(blocks, keys, cfg, sweep, offsets, tick, draws, run_salts, return_converged):
+    """The plain route of ``sweep_blocks``: each lane runs
+    ``step_blocks``' plain round with its own config on its views of the
+    blocks, and what the round wrote into new tensors is copied back into
+    the blocks."""
     flags = []
-    for s, lane_cfg in enumerate(lane_configs(cfg, sweep, states.w.shape[0])):
-        view = lane(states, s)
-        out = sim_step(
-            view, keys[s], lane_cfg, tick=tick, run_salt=run_salts[s],
+    for s, lane_cfg in enumerate(lane_configs(cfg, sweep, blocks[0].w.shape[0])):
+        views = [lane(b, s) for b in blocks]
+        out = step_blocks(
+            views, keys[s], lane_cfg, offsets=offsets, tick=tick, run_salt=run_salts[s],
             draws=draws.lane(s, lane_cfg.fanout), return_converged=return_converged,
         )
         new, conv = out if return_converged else (out, None)
-        for name in STATE_FIELDS:
-            src, dst = getattr(new, name), getattr(view, name)
-            if src.data_ptr() != dst.data_ptr() and src.numel():
-                dst.copy_(src)
+        for nb, view in zip(new, views):
+            for name in STATE_FIELDS:
+                src, dst = getattr(nb, name), getattr(view, name)
+                if src.data_ptr() != dst.data_ptr() and src.numel():
+                    dst.copy_(src)
         flags.append(conv)
     if not return_converged:
-        return states
-    return states, torch.stack(flags)
+        return list(blocks)
+    return list(blocks), torch.stack(flags)
 
 
 # -- row blocks ---------------------------------------------------------------------
@@ -1760,6 +1930,7 @@ def convergence_metrics_blocks(
     """``convergence_metrics`` of a state held as column blocks: each
     block's partials, then their sums (the minimum of the worst
     fractions) over the blocks, as the reference's sharded metrics."""
+    _check_span(blocks)
     parts = [_metric_partials(b, off) for b, off in zip(blocks, offsets)]
     ops = {"converged": "sum", "frac_min": "min", "frac_sum": "sum", "kv_known": "sum",
            "fp": "sum"}
@@ -1814,6 +1985,7 @@ def staleness_tensor_blocks(blocks: Sequence[SimState], offsets: Sequence[int]) 
     """``staleness_tensor`` of a state held as column blocks: each row's
     lag over each block's owners, maxed over the blocks (the reference's
     pmax)."""
+    _check_span(blocks)
     return reduce_blocks([staleness_tensor(b, off) for b, off in zip(blocks, offsets)], "max")[0]
 
 

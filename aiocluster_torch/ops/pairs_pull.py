@@ -327,10 +327,12 @@ def pairs_pull(
 def pairs_pull_lanes_plain(
     w, hb, gm, c, valid, salt_mix, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
+    owner_offset: int = 0,
 ):
     """The plain version of ``pairs_pull_lanes``: ``pairs_pull_plain`` on
-    each lane's operands with the lane's salt and phi, lane after lane.
-    Returns the (S,) int32 flags with ``check``, else None."""
+    each lane's operands with the lane's salt and phi, lane after lane,
+    on the block of owners from ``owner_offset``. Returns the (S,) int32
+    flags with ``check``, else None."""
     flags = []
     for s in range(w.shape[0]):
         def at(t):
@@ -340,7 +342,7 @@ def pairs_pull_lanes_plain(
             w[s], at(hb), gm[s], c[s], valid[s], int(salt_mix[s]), 0, budget,
             mv=at(mv), hbv=at(hbv), fd=None if fd is None else fd.lane(s),
             check=None if check is None else tuple(t[s] for t in check),
-            totals=at(totals),
+            totals=at(totals), owner_offset=owner_offset,
         )
         flags.append(flag)
     return None if check is None else torch.cat(flags)
@@ -349,7 +351,7 @@ def pairs_pull_lanes_plain(
 def pairs_pull_lanes(
     w, hb, gm, c, valid, salt_mix, budget, *,
     mv=None, hbv=None, check=None, fd: FdOperands | None = None, totals=None,
-    cluster: int | None = None,
+    owner_offset: int = 0, cluster: int | None = None,
 ):
     """One pair-fused sub-exchange of S sweep lanes in one launch, in
     place: ``pairs_pull`` with a leading lane axis on every operand —
@@ -357,20 +359,23 @@ def pairs_pull_lanes(
     ``salt_mix`` an (S,) int32 tensor of each lane's sub-exchange salt
     xor its run salt (the bits as uint32). ``fd.phi`` (S,) float32 gives
     each lane's threshold (``fd.params.phi`` for all when None);
-    ``cluster`` as in ``pairs_pull``. Returns the (S,) int32 flags with
-    ``check``, else None."""
+    ``owner_offset`` and ``cluster`` as in ``pairs_pull``: on a column
+    block (S, N, n_local) of the owners from ``owner_offset`` every owner
+    vector is the block's (S, n_local) slice (the reference's
+    ``fused_pull_pairs_lanes(owner_offset=)``, a sweep over a mesh).
+    Returns the (S,) int32 flags with ``check``, else None."""
     if w.device.type == "cpu":
         counters.plain_calls["pull"] += 1
         return pairs_pull_lanes_plain(
             w, hb, gm, c, valid, salt_mix, budget,
-            mv=mv, hbv=hbv, check=check, fd=fd, totals=totals,
+            mv=mv, hbv=hbv, check=check, fd=fd, totals=totals, owner_offset=owner_offset,
         )
     lanes = (w.shape[0],)
     expect("salt_mix", salt_mix, torch.int32, lanes, w.device, align=4)
     if fd is not None and fd.phi is not None:
         expect("phi", fd.phi, torch.float32, lanes, w.device, align=4)
     return _launch(w, hb, gm, c, valid, salt_mix, budget, lanes, mv, hbv, check, fd, totals,
-                   cluster=cluster)
+                   int(owner_offset), cluster)
 
 
 def check_block(n: int, n_cols: int, owner_offset: int, packed: bool) -> None:

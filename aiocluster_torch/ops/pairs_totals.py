@@ -68,23 +68,26 @@ def pairs_totals(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Te
     return _launch(w, gm, c, valid, mv, (), int(owner_offset))
 
 
-def pairs_totals_lanes_plain(w, gm, c, valid, *, mv=None) -> torch.Tensor:
+def pairs_totals_lanes_plain(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Tensor:
     """The plain version of ``pairs_totals_lanes``: ``pairs_totals_plain``
     on each lane's operands, lane after lane."""
     return torch.stack([
-        pairs_totals_plain(w[s], gm[s], c[s], valid[s], mv=None if mv is None else mv[s])
+        pairs_totals_plain(w[s], gm[s], c[s], valid[s], mv=None if mv is None else mv[s],
+                           owner_offset=owner_offset)
         for s in range(w.shape[0])
     ])
 
 
-def pairs_totals_lanes(w, gm, c, valid, *, mv=None) -> torch.Tensor:
+def pairs_totals_lanes(w, gm, c, valid, *, mv=None, owner_offset: int = 0) -> torch.Tensor:
     """(S, N) float32 deficit totals of one sub-exchange of S sweep lanes
     in one launch: ``pairs_totals`` with a leading lane axis on every
-    operand."""
+    operand; on a column block (S, N, n_local) of the owners from
+    ``owner_offset``, each lane's share of its rows' totals (the
+    reference's ``fused_pull_pairs_totals_lanes(owner_offset=)``)."""
     if w.device.type == "cpu":
         counters.plain_calls["totals"] += 1
-        return pairs_totals_lanes_plain(w, gm, c, valid, mv=mv)
-    return _launch(w, gm, c, valid, mv, (w.shape[0],))
+        return pairs_totals_lanes_plain(w, gm, c, valid, mv=mv, owner_offset=owner_offset)
+    return _launch(w, gm, c, valid, mv, (w.shape[0],), int(owner_offset))
 
 
 def _launch(w, gm, c, valid, mv, lanes, owner_offset=0) -> torch.Tensor:

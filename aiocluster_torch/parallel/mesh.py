@@ -17,32 +17,61 @@ has one process: a device may appear more than once in a mesh, so
 ``make_mesh(["cuda:0"] * 8)`` is the reference's 8-shard computation on
 one card and ``make_mesh(["cpu"] * 8)`` the tests' form; with distinct
 devices the collectives copy each block's partials to the first block's
-device and the result back.
+device and the result back. A mesh across processes
+(parallel/multihost.py ``global_mesh``) lists this process's blocks:
+each process holds its own, and ``collectives(mesh)`` makes every
+reduction gather all processes' partials first.
+
+Sweeps (sim/sweep.py) hold their lanes as the same column blocks with a
+leading lane axis: (S, N, n_local) matrices, (S, N) vectors
+(``shard_sweep_state``, ``sharded_sweep_chunk_fn``,
+``sharded_sweep_metrics_fn``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+from typing import TYPE_CHECKING
 
 import torch
 
 from ..ops import gossip
 from ..sim.config import SimConfig
-from ..sim.state import STATE_FIELDS, SimState, init_state, state_n_local
+from ..sim.state import STATE_FIELDS, SimState, init_lanes, init_state, lane, state_n_local
+
+if TYPE_CHECKING:
+    from .multihost import ProcessSpan
 
 AXIS = "owners"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The devices along the "owners" axis, in block order."""
+    """The devices along the "owners" axis, in block order: this
+    process's blocks. A mesh of ``torch.distributed``
+    (``parallel.multihost.global_mesh``) carries its ``span``, the
+    processes its collectives reduce over (a world of one included);
+    its blocks are then blocks ``span.first_block ..`` of
+    ``span.processes`` processes'."""
 
     devices: tuple[torch.device, ...]
+    span: ProcessSpan | None = None
+
+    @property
+    def processes(self) -> int:
+        """The processes holding the mesh's blocks."""
+        return 1 if self.span is None else self.span.processes
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """The blocks of the whole mesh, over every process."""
+        return len(self.devices) * self.processes
+
+    @property
+    def first_block(self) -> int:
+        """The global index of this process's first block."""
+        return 0 if self.span is None else self.span.first_block
 
     def n_local(self, cfg: SimConfig) -> int:
         """The owners a block holds (``gossip.block_width``: refused by
@@ -50,9 +79,16 @@ class Mesh:
         return gossip.block_width(cfg, self.size)
 
     def offsets(self, cfg: SimConfig) -> tuple[int, ...]:
-        """Each block's first global owner."""
+        """Each of this process's blocks' first global owner."""
         n_local = self.n_local(cfg)
-        return tuple(k * n_local for k in range(self.size))
+        return tuple((self.first_block + k) * n_local for k in range(len(self.devices)))
+
+
+def collectives(mesh: Mesh | None):
+    """The context in which rounds and reductions of ``mesh``'s blocks
+    run (``gossip.process_span``): over every process's blocks on a mesh
+    across processes; this process alone on any other mesh or none."""
+    return gossip.process_span(None if mesh is None else mesh.span)
 
 
 def make_mesh(devices=None) -> Mesh:
@@ -115,18 +151,20 @@ def state_partition_spec() -> dict[str, tuple]:
 
 
 def shard_state(state: SimState, mesh: Mesh) -> list[SimState]:
-    """Split a whole state into the mesh's column blocks, each copied to
-    its device (a disabled (0, 0) matrix stays (0, 0)). The packed rungs
-    split along their stored columns: a block of a packed w or live
-    bitmap is a block of owners."""
+    """Split a whole state into this process's column blocks of the mesh,
+    each copied to its device (a disabled (0, 0) matrix stays (0, 0)).
+    The packed rungs split along their stored columns: a block of a
+    packed w or live bitmap is a block of owners. A lane-batched state
+    (a sweep's) splits the same last axis."""
     blocks = []
     for k, dev in enumerate(mesh.devices):
+        g = mesh.first_block + k
         fields = {}
         for name, spec in state_partition_spec().items():
             t = getattr(state, name)
             if spec == COLUMNS and t.numel():
-                width = t.shape[1] // mesh.size
-                t = t[:, k * width : (k + 1) * width].contiguous()
+                width = t.shape[-1] // mesh.size
+                t = t[..., g * width : (g + 1) * width].contiguous()
             fields[name] = t.to(dev)
         blocks.append(SimState(**fields))
     return blocks
@@ -143,15 +181,16 @@ def init_blocks(cfg: SimConfig, mesh: Mesh, initial_versions=None) -> list[SimSt
 
 
 def gather_state(blocks: list[SimState]) -> SimState:
-    """The whole state of a mesh's blocks, on the first block's device
-    (a copy of every matrix: use it at the widths that fit twice)."""
+    """The whole state of a mesh's blocks (lane-batched or not), on the
+    first block's device (a copy of every matrix: use it at the widths
+    that fit twice). One process's blocks only."""
     head = blocks[0]
     dev = head.w.device
     fields = {}
     for name, spec in state_partition_spec().items():
         t = getattr(head, name)
         if spec == COLUMNS and t.numel():
-            t = torch.cat([getattr(b, name).to(dev) for b in blocks], dim=1)
+            t = torch.cat([getattr(b, name).to(dev) for b in blocks], dim=-1)
         fields[name] = t
     return SimState(**fields)
 
@@ -165,8 +204,9 @@ def sharded_chunk_fn(cfg: SimConfig, mesh: Mesh):
     offsets = mesh.offsets(cfg)
 
     def chunk(blocks, key, m, tick):
-        return gossip.run_rounds(blocks, key, cfg, offsets=offsets, m=m, tick=tick,
-                                 tracked=False)[0]
+        with collectives(mesh):
+            return gossip.run_rounds(blocks, key, cfg, offsets=offsets, m=m, tick=tick,
+                                     tracked=False)[0]
 
     return chunk
 
@@ -179,8 +219,9 @@ def sharded_tracked_chunk_fn(cfg: SimConfig, mesh: Mesh):
     offsets = mesh.offsets(cfg)
 
     def chunk(blocks, key, m, tick):
-        return gossip.run_rounds(blocks, key, cfg, offsets=offsets, m=m, tick=tick,
-                                 tracked=True)
+        with collectives(mesh):
+            return gossip.run_rounds(blocks, key, cfg, offsets=offsets, m=m, tick=tick,
+                                     tracked=True)
 
     return chunk
 
@@ -191,8 +232,91 @@ def sharded_metrics_fn(mesh: Mesh):
     block's partials reduced over the blocks."""
 
     def metrics(blocks):
-        n_local = state_n_local(blocks[0])
-        offsets = [k * n_local for k in range(mesh.size)]
-        return gossip.metrics_sample_blocks(blocks, offsets)
+        offsets = block_offsets(blocks, mesh)
+        with collectives(mesh):
+            return gossip.metrics_sample_blocks(blocks, offsets)
+
+    return metrics
+
+
+def block_offsets(blocks, mesh: Mesh) -> tuple[int, ...]:
+    """The first global owner of each of this process's ``blocks``."""
+    n_local = state_n_local(blocks[0])
+    return tuple((mesh.first_block + k) * n_local for k in range(len(blocks)))
+
+
+# -- sweep lanes (sim/sweep.py): a leading lane axis --------------------------------
+#
+# A sweep's state is the SimState with a leading lane axis: its (S, N,
+# n_local) matrices are column blocks of the owners exactly as above,
+# lanes and rows whole, its (S, N) vectors replicated. A round of the
+# blocks (``gossip.sweep_blocks``) reduces each collective per lane: one
+# (S, N) or (S,) reduction over the blocks, not S of them.
+
+
+def sweep_state_partition_spec() -> dict[str, tuple]:
+    """Each lane-batched SimState field's spec: the same table with the
+    lane axis prepended, (S, N, n_local) matrices split on the owners,
+    everything else replicated."""
+    return {name: (None, *spec) if spec else spec for name, spec in state_partition_spec().items()}
+
+
+def shard_sweep_state(states: SimState, mesh: Mesh) -> list[SimState]:
+    """Split a lane-batched state into this process's column blocks of
+    the mesh (``shard_state`` on the last axis)."""
+    return shard_state(states, mesh)
+
+
+def init_sweep_blocks(cfg: SimConfig, mesh: Mesh, lanes: int, initial_versions=None):
+    """``init_lanes`` made block by block on the mesh's devices."""
+    n_local = mesh.n_local(cfg)
+    return [
+        init_lanes(cfg, lanes, initial_versions, device=dev, owner_offset=off, n_local=n_local)
+        for dev, off in zip(mesh.devices, mesh.offsets(cfg))
+    ]
+
+
+def sharded_sweep_chunk_fn(cfg: SimConfig, mesh: Mesh, *, tracked: bool = False):
+    """The lane-batched chunk over the mesh's blocks (the reference's
+    ``sharded_sweep_chunk_fn``). Untracked: ``(blocks, keys, sweep, m,
+    tick, draws, salts, run_salts, active) -> blocks``; tracked: the same
+    and ``first`` -> ``(blocks, first)``, ``first`` the (S,) int32
+    first-converged tick of each lane (0: not yet), carried on the device
+    across chunks. ``draws`` are the chunk's ``prng.chunk_draws`` of the
+    lanes' keys, ``salts`` its ``gossip.lane_salt_table``, ``tick`` the
+    host tick before the chunk (``gossip.run_sweep_rounds``)."""
+    offsets = mesh.offsets(cfg)
+
+    def chunk(blocks, keys, sweep, m, tick, draws, salts, run_salts, active, first=None):
+        if tracked and first is None:
+            raise ValueError("a tracked chunk carries first")
+        with collectives(mesh):
+            blocks, first = gossip.run_sweep_rounds(
+                blocks, keys, cfg, sweep, offsets=offsets, m=m, tick=tick, draws=draws,
+                salts=salts, run_salts=run_salts, active=active,
+                first=first if tracked else None,
+            )
+        return (blocks, first) if tracked else blocks
+
+    return chunk
+
+
+def sharded_sweep_metrics_fn(mesh: Mesh):
+    """blocks -> the reference's per-lane sharded metrics: each lane's
+    ``convergence_metrics`` and version spread (no staleness
+    percentiles, as the reference's sharded sweep bundle), as (S,)
+    device tensors, each reduced over the blocks."""
+
+    def metrics(blocks):
+        lanes = blocks[0].w.shape[0]
+        offsets = block_offsets(blocks, mesh)
+        per_lane = []
+        with collectives(mesh):
+            for s in range(lanes):
+                views = [lane(b, s) for b in blocks]
+                out = gossip.convergence_metrics_blocks(views, offsets)
+                out["version_spread"] = gossip.staleness_tensor_blocks(views, offsets).max()
+                per_lane.append(out)
+        return {k: torch.stack([m[k] for m in per_lane]) for k in per_lane[0]}
 
     return metrics

@@ -71,22 +71,41 @@ def _encode(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 def _host_field(blocks: list[SimState], name: str) -> torch.Tensor:
     """Field ``name`` of the state held as ``blocks`` (column blocks of the
-    owners, in order, or one whole state) as a host tensor: an (N, N)-class
-    field's blocks are copied to the host one at a time into one array,
-    so no gathered copy is made on a device."""
+    owners, in order, or one whole state; lane-batched or not) as a host
+    tensor: an (N, N)-class field's blocks are copied to the host one at a
+    time into one array, so no gathered copy is made on a device."""
     from ..parallel.mesh import COLUMNS, state_partition_spec
 
     head = getattr(blocks[0], name)
     if len(blocks) == 1 or state_partition_spec()[name] != COLUMNS or not head.numel():
         return head.detach().cpu()
-    out = torch.empty((head.shape[0], sum(getattr(b, name).shape[1] for b in blocks)),
+    out = torch.empty((*head.shape[:-1], sum(getattr(b, name).shape[-1] for b in blocks)),
                       dtype=head.dtype)
     col = 0
     for b in blocks:
         t = getattr(b, name)
-        out[:, col : col + t.shape[1]].copy_(t)
-        col += t.shape[1]
+        out[..., col : col + t.shape[-1]].copy_(t)
+        col += t.shape[-1]
     return out
+
+
+# What the reference's jax.device_get raises for a state sharded over
+# devices of other processes (jax.Array's host fetch).
+ACROSS_PROCESSES = (
+    "Fetching value for `jax.Array` that spans non-addressable"
+    " (non process local) devices is not possible. You can use"
+    " `jax.experimental.multihost_utils.process_allgather` to print the"
+    " global array or use `.addressable_shards` method of jax.Array to"
+    " inspect the addressable (process local) shards."
+)
+
+
+def refuse_across_processes(mesh) -> None:
+    """Refuse to copy a state to the host whose blocks span processes, as
+    the reference's ``save`` refuses it (with its words): each process
+    holds only its own blocks."""
+    if mesh.processes > 1:
+        raise RuntimeError(ACROSS_PROCESSES)
 
 
 def _encode_fields(blocks: list[SimState]) -> tuple[dict, dict[str, str]]:
@@ -181,7 +200,7 @@ def save_state(
 
 def save_sweep(
     path: str | Path,
-    states: SimState,
+    states: SimState | Iterable[SimState],
     cfg: SimConfig,
     *,
     seeds: list[int],
@@ -192,8 +211,10 @@ def save_sweep(
     """Checkpoint a lane-batched sweep (sim/sweep.py): the (S, ...)
     state plus the per-lane seeds, the declared sweep values and the
     convergence accumulator. ``meta["sweep"]`` marks the layout so
-    load_state refuses it loudly."""
-    arrays, dtypes = _encode_fields([states])
+    load_state refuses it loudly. ``states`` is one lane-batched state or
+    the column blocks of a mesh, in order (copied to the host one block
+    at a time)."""
+    arrays, dtypes = _encode_fields([states] if isinstance(states, SimState) else list(states))
     arrays["__first__"] = np.asarray(torch.as_tensor(first).cpu(), np.int32)
     meta = {
         "config": dataclasses.asdict(cfg),

@@ -19,6 +19,7 @@ the reference's.
 
 from __future__ import annotations
 
+
 import numpy as np
 import torch
 
@@ -33,9 +34,9 @@ from ..ops.gossip import (
     row_blocks,
     run_rounds,
 )
-from ..parallel.mesh import Mesh, gather_state, init_blocks, shard_state
+from ..parallel.mesh import Mesh, collectives, gather_state, init_blocks, shard_state
 from .bytes import state_bytes
-from .checkpoint import load_state, save_state
+from .checkpoint import load_state, refuse_across_processes, save_state
 from .config import SimConfig
 from .packed import live_view_bool, watermarks_i32
 from .state import (
@@ -55,7 +56,11 @@ class Simulator:
     of rounds) on ``device`` ("cuda" unless the caller asks otherwise),
     or with ``mesh=`` (``parallel.make_mesh``) over the mesh's devices,
     its state held as one column block of the owners per mesh entry
-    (the reference's owner-sharded simulator). The trajectory depends
+    (the reference's owner-sharded simulator; across processes,
+    ``parallel.multihost.global_mesh``: each process holds its blocks,
+    and the metrics and the flag are every process's, as the
+    reference's replicated outputs are, while the host reads of the
+    state are refused with the reference's words). The trajectory depends
     only on (cfg, seed, tick): it equals the reference's
     ``Simulator(cfg, seed=seed)`` round for round, sharded or not.
 
@@ -194,6 +199,7 @@ class Simulator:
         a copy)."""
         if self.mesh is None:
             return self._blocks[0]
+        refuse_across_processes(self.mesh)
         return gather_state(self._blocks)
 
     @state.setter
@@ -205,6 +211,13 @@ class Simulator:
         _check_state(state, self.cfg, None if self.mesh else self.device)
         self._blocks = [state] if self.mesh is None else shard_state(state, self.mesh)
 
+    def _host_blocks(self) -> list[SimState]:
+        """The blocks a host read takes (refused on a mesh across
+        processes, as the reference refuses to fetch such a state)."""
+        if self.mesh is not None:
+            refuse_across_processes(self.mesh)
+        return self._blocks
+
     def _owners(self, k: int) -> torch.Tensor:
         """The global owner ids of block ``k``'s columns."""
         blk = self._blocks[k]
@@ -214,14 +227,15 @@ class Simulator:
         """``observer``'s watermark on ``owner``, read from the block that
         holds the owner (no gathered copy; one small sync)."""
         k = max(i for i, off in enumerate(self._offsets) if off <= owner)
-        row = watermarks_i32(self._blocks[k], self._owners(k), rows=slice(observer, observer + 1))
+        row = watermarks_i32(self._host_blocks()[k], self._owners(k),
+                             rows=slice(observer, observer + 1))
         return int(row[0, owner - self._offsets[k]])
 
     def column_minima(self) -> np.ndarray:
         """(N,) int64: each owner's smallest watermark over every observer
         (its own diagonal included), read block by block."""
         parts = []
-        for k, blk in enumerate(self._blocks):
+        for k, blk in enumerate(self._host_blocks()):
             owners = self._owners(k)
             lo = torch.full(owners.shape, torch.iinfo(torch.int32).max, dtype=torch.int32,
                             device=owners.device)
@@ -234,7 +248,8 @@ class Simulator:
         """(N,) bool: ``observer``'s live view of every owner, unpacked
         block by block."""
         return torch.cat([
-            live_view_bool(b, rows=slice(observer, observer + 1))[0].cpu() for b in self._blocks
+            live_view_bool(b, rows=slice(observer, observer + 1))[0].cpu()
+            for b in self._host_blocks()
         ]).numpy()
 
     # -- stepping -------------------------------------------------------------
@@ -278,11 +293,12 @@ class Simulator:
         """Queue ``m`` rounds (``gossip.run_rounds``); returns the
         device scalar holding the first converged tick among them (0 if
         none; always 0 untracked)."""
-        self._blocks, first = run_rounds(
-            self._blocks, self._key, self.cfg, offsets=self._offsets, m=m,
-            tick=self._host_tick, tracked=tracked, run_salt=self._run_salt,
-            device_key=self._device_key, adjacency=self._adj, degrees=self._deg,
-        )
+        with collectives(self.mesh):
+            self._blocks, first = run_rounds(
+                self._blocks, self._key, self.cfg, offsets=self._offsets, m=m,
+                tick=self._host_tick, tracked=tracked, run_salt=self._run_salt,
+                device_key=self._device_key, adjacency=self._adj, degrees=self._deg,
+            )
         self._host_tick += m
         self._maybe_sample()
         if self._trace_enabled:
@@ -319,7 +335,8 @@ class Simulator:
         """The metrics bundle as device tensors (no sync): the
         convergence metrics, the version spread and the staleness
         percentiles, reduced over the blocks on a mesh."""
-        return metrics_sample_blocks(self._blocks, self._offsets)
+        with collectives(self.mesh):
+            return metrics_sample_blocks(self._blocks, self._offsets)
 
     def _maybe_sample(self) -> None:
         if self._obs is not None and self._obs.due(self._host_tick):
@@ -362,7 +379,7 @@ class Simulator:
         """Checkpoint the state (with a mesh, copied to the host one
         column block at a time), plus the seed and the topology flag
         needed to continue the trajectory."""
-        save_state(path, self._blocks, self.cfg, seed=self.seed,
+        save_state(path, self._host_blocks(), self.cfg, seed=self.seed,
                    has_topology=self._adj is not None)
 
     @classmethod

@@ -139,13 +139,15 @@ def expected_dtypes(cfg: SimConfig) -> dict[str, str]:
 
 def init_lanes(
     cfg: SimConfig, lanes: int, initial_versions=None, *,
-    device: str | torch.device = "cuda",
+    device: str | torch.device = "cuda", owner_offset: int = 0, n_local: int | None = None,
 ) -> SimState:
     """S = ``lanes`` copies of ``init_state`` in one state whose fields
     carry a leading lane axis: the broadcast is materialised, as the
     reference's sweep does, because every lane's matrices are updated in
-    place."""
-    base = init_state(cfg, initial_versions, device=device)
+    place. ``owner_offset`` / ``n_local`` make one column block of it, as
+    ``init_state``'s."""
+    base = init_state(cfg, initial_versions, device=device, owner_offset=owner_offset,
+                      n_local=n_local)
     return SimState(**{
         f: getattr(base, f)[None].expand(lanes, *getattr(base, f).shape).clone()
         for f in STATE_FIELDS
@@ -161,8 +163,8 @@ def lane(states: SimState, s: int) -> SimState:
 def check_lanes(states: SimState, cfg: SimConfig, lanes: int, device) -> None:
     """A provided lane-batched state must hold ``lanes`` lanes of this
     config's rung, field for field, on ``device`` (nothing is moved or
-    cast silently)."""
-    device = torch.device(device)
+    cast silently; ``device`` None: a mesh copies it into its blocks)."""
+    device = None if device is None else torch.device(device)
     if states.w.dim() < 1 or states.w.shape[0] != lanes:
         raise ValueError(
             f"provided states carry {states.w.shape[0] if states.w.dim() else 0} "
@@ -179,7 +181,7 @@ def check_lanes(states: SimState, cfg: SimConfig, lanes: int, device) -> None:
         t = getattr(states, f)
         if t.dtype != DTYPES[want[f]]:
             raise ValueError(f"states.{f} is {t.dtype}, config expects {want[f]}")
-        if t.device.type != device.type:
+        if device is not None and t.device.type != device.type:
             raise ValueError(f"states.{f} is on {t.device}, expected {device}")
         shape = shapes[f]
         if tuple(t.shape) != (lanes, *shape):

@@ -23,14 +23,21 @@ round plain, as the reference serves it with XLA
 (``counters.fallbacks["fault_plan"]``); cadence classes keep the lane
 launches.
 
+``mesh=`` (``parallel.make_mesh``, or ``parallel.multihost.global_mesh``
+across processes) holds the lanes as column blocks of the owners, (S, N,
+n_local) each (parallel/mesh.py): the lane launches run at each block's
+owner offset and every collective reduces per lane over the blocks
+(``ops.gossip.sweep_blocks``); each lane equals the unsharded sweep's.
+
 ``metrics=`` (an ``obs.MetricsRegistry``) exports each lane's converged
 round and version spread (``obs.SweepMetrics``) when the host reads
 them; ``save`` / ``resume`` write and read the reference's sweep
-checkpoint (sim/checkpoint.py). Not ported yet, refused by name:
-``mesh=`` (ROADMAP.md A15b).
+checkpoint (sim/checkpoint.py; a mesh's blocks are copied to the host
+one at a time).
 """
 
 from __future__ import annotations
+
 
 import numpy as np
 import torch
@@ -38,16 +45,24 @@ from torch.profiler import record_function
 
 from ..obs.registry import MetricsRegistry
 from ..obs.sim import SweepMetrics
-from ..ops import counters, prng
+from ..ops import prng
 from ..ops.gossip import (
     lane_fanouts,
     lane_salt_table,
     metrics_sample,
     pull_phase_engaged,
     resolve_variant_env,
-    sweep_step,
+    run_sweep_rounds,
 )
-from .checkpoint import load_sweep, save_sweep
+from ..parallel.mesh import (
+    Mesh,
+    collectives,
+    gather_state,
+    init_sweep_blocks,
+    shard_sweep_state,
+    sharded_sweep_metrics_fn,
+)
+from .checkpoint import load_sweep, refuse_across_processes, save_sweep
 from .config import SimConfig
 from .state import (
     HEARTBEAT_LIMITS,
@@ -131,11 +146,15 @@ class SweepResult:
 
 class SweepSimulator:
     """Runs S simulated scenarios together on ``device`` ("cuda" unless
-    the caller asks otherwise). ``seeds`` declares the lanes; ``fanout``
-    (each <= cfg.fanout), ``phi_threshold`` and ``writes_per_round`` give
-    per-lane values, each of length S when given. Lane s equals
-    ``Simulator(replace(cfg, <lane values>), seed=seeds[s])`` round for
-    round."""
+    the caller asks otherwise), or with ``mesh=`` over the mesh's
+    devices, the lanes held as column blocks of the owners. ``seeds``
+    declares the lanes; ``fanout`` (each <= cfg.fanout),
+    ``phi_threshold`` and ``writes_per_round`` give per-lane values, each
+    of length S when given. Lane s equals ``Simulator(replace(cfg, <lane
+    values>), seed=seeds[s])`` round for round, sharded or not.
+
+    ``states`` is the whole lane-batched state (with a mesh, gathered:
+    a copy); ``blocks`` the column blocks as held."""
 
     def __init__(
         self,
@@ -147,12 +166,12 @@ class SweepSimulator:
         writes_per_round=None,
         fault_seeds=None,
         byz_frac=None,
-        mesh=None,
+        mesh: Mesh | None = None,
         chunk: int = 8,
         initial_versions=None,
         states: SimState | None = None,
         metrics: MetricsRegistry | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
     ) -> None:
         self.cfg = cfg = resolve_variant_env(cfg)
         self.chunk = chunk
@@ -200,15 +219,20 @@ class SweepSimulator:
                 "byz_frac sweep requires a cfg.fault_plan with byzantine "
                 "entries (the lane value overrides their attacker windows)"
             )
-        if mesh is not None:
-            counters.refuse(
-                "sweeps over a mesh are not ported yet: ROADMAP.md A15b (the lane "
-                "launches at an owner offset)"
-            )
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
-        self.device = torch.device(device)
-        pull_phase_engaged(cfg, self.device)  # refuse before allocating
+        self.mesh = mesh
+        if mesh is None:
+            self.device = torch.device("cuda" if device is None else device)
+            self._offsets: tuple[int, ...] = (0,)
+            n_local = None
+        else:
+            if device is not None:
+                raise ValueError("a mesh places its blocks: list its devices, not device=")
+            self.device = mesh.devices[0]
+            self._offsets = mesh.offsets(cfg)
+            n_local = mesh.n_local(cfg)
+        pull_phase_engaged(cfg, self.device, n_local)  # refuse before allocating
 
         self.params: dict[str, list] = {}
         for name, values in (
@@ -250,11 +274,16 @@ class SweepSimulator:
             self._active = (
                 torch.arange(cfg.fanout, device=dev)[:, None] < self._lane_fanout[None, :]
             )
-        if states is None:
-            states = init_lanes(cfg, lanes, initial_versions, device=dev)
+        if states is not None:
+            check_lanes(states, cfg, lanes, None if mesh else dev)
+            blocks = [states] if mesh is None else shard_sweep_state(states, mesh)
+        elif mesh is None:
+            blocks = [init_lanes(cfg, lanes, initial_versions, device=dev)]
         else:
-            check_lanes(states, cfg, lanes, dev)
-        self.states: SimState = states
+            blocks = init_sweep_blocks(cfg, mesh, lanes, initial_versions)
+        self._blocks: list[SimState] = blocks
+        self._sharded_metrics = None if mesh is None else sharded_sweep_metrics_fn(mesh)
+        states = blocks[0]
         ticks = states.tick.tolist()
         if len(set(ticks)) != 1:
             raise ValueError(f"provided states' lanes are at different ticks: {ticks}")
@@ -267,6 +296,21 @@ class SweepSimulator:
     @property
     def lanes(self) -> int:
         return len(self.seeds)
+
+    @property
+    def blocks(self) -> list[SimState]:
+        """The lanes as held: a mesh's column blocks, in mesh order, or
+        the one whole lane-batched state."""
+        return self._blocks
+
+    @property
+    def states(self) -> SimState:
+        """The whole lane-batched state (with a mesh, gathered onto the
+        first device: a copy)."""
+        if self.mesh is None:
+            return self._blocks[0]
+        refuse_across_processes(self.mesh)
+        return gather_state(self._blocks)
 
     # -- stepping -------------------------------------------------------------
 
@@ -300,26 +344,20 @@ class SweepSimulator:
         cfg, first_tick = self.cfg, self._host_tick + 1
         with record_function("aiocluster_torch.draws"):
             draws = prng.chunk_draws(
-                self._device_keys, first_tick, m, cfg, alive=self.states.alive
+                self._device_keys, first_tick, m, cfg, alive=self._blocks[0].alive
             )
             salts = lane_salt_table(
                 first_tick, m, cfg.fanout, self._lane_fanout, self._device_run_salts
             )
-        for r in range(m):
-            with record_function("aiocluster_torch.sweep_step"):
-                out = sweep_step(
-                    self.states, self._keys, cfg, self._sweep, tick=self._host_tick,
-                    draws=draws.round(r), salts=salts[r], run_salts=self._run_salts,
-                    active=self._active, return_converged=tracked,
-                )
-            self._host_tick += 1
-            if tracked:
-                self.states, conv = out
-                self._first = torch.where(
-                    (self._first == 0) & conv, self._host_tick, self._first
-                )
-            else:
-                self.states = out
+        with collectives(self.mesh):
+            self._blocks, first = run_sweep_rounds(
+                self._blocks, self._keys, cfg, self._sweep, offsets=self._offsets, m=m,
+                tick=self._host_tick, draws=draws, salts=salts, run_salts=self._run_salts,
+                active=self._active, first=self._first if tracked else None,
+            )
+        self._host_tick += m
+        if tracked:
+            self._first = first
 
     def run(self, rounds: int) -> None:
         """Advance every lane by a fixed number of gossip rounds."""
@@ -355,8 +393,12 @@ class SweepSimulator:
 
     def metrics(self) -> dict[str, np.ndarray]:
         """Per-lane convergence metrics, version spread and staleness
-        percentiles: a dict of (S,) host arrays."""
-        samples = [metrics_sample(lane(self.states, s)) for s in range(self.lanes)]
+        percentiles: a dict of (S,) host arrays. On a mesh, the
+        reference's sharded bundle: each lane's convergence metrics and
+        version spread, reduced over the blocks."""
+        if self._sharded_metrics is not None:
+            return {k: v.cpu().numpy() for k, v in self._sharded_metrics(self._blocks).items()}
+        samples = [metrics_sample(lane(self._blocks[0], s)) for s in range(self.lanes)]
         return {
             k: torch.stack([m[k] for m in samples]).cpu().numpy() for k in samples[0]
         }
@@ -380,9 +422,12 @@ class SweepSimulator:
     # -- checkpoint / resume --------------------------------------------------
 
     def save(self, path) -> None:
-        """Checkpoint all lanes (copied to the host), plus the seeds, the
-        sweep values and the convergence accumulator."""
-        save_sweep(path, self.states, self.cfg, seeds=self.seeds, params=self.params,
+        """Checkpoint all lanes (copied to the host; a mesh's blocks one at
+        a time), plus the seeds, the sweep values and the convergence
+        accumulator."""
+        if self.mesh is not None:
+            refuse_across_processes(self.mesh)
+        save_sweep(path, self._blocks, self.cfg, seeds=self.seeds, params=self.params,
                    first=self._first, host_tick=self._host_tick)
 
     @classmethod
@@ -390,22 +435,27 @@ class SweepSimulator:
         cls,
         path,
         *,
-        mesh=None,
+        mesh: Mesh | None = None,
         chunk: int = 8,
         metrics: MetricsRegistry | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
     ) -> "SweepSimulator":
-        """Continue a checkpointed sweep (either package's file) on
-        ``device``: lane randomness is keyed by (seed, tick), like the
+        """Continue a checkpointed sweep (either package's file) on any
+        layout: ``device`` (the card unless asked), or a mesh's column
+        blocks; lane randomness is keyed by (seed, tick), like the
         single-scenario resume."""
-        states, cfg, meta = load_sweep(path, device=device)
+        if mesh is not None and device is not None:
+            raise ValueError("a mesh places its blocks: list its devices, not device=")
+        where = mesh.devices[0] if mesh is not None else ("cuda" if device is None else device)
+        states, cfg, meta = load_sweep(path, device=where)
         params = meta["params"]
         sim = cls(
             cfg, meta["seeds"], fanout=params.get("fanout"),
             phi_threshold=params.get("phi_threshold"),
             writes_per_round=params.get("writes_per_round"),
             fault_seeds=params.get("fault_seeds"), byz_frac=params.get("byz_frac"),
-            mesh=mesh, chunk=chunk, states=states, metrics=metrics, device=device,
+            mesh=mesh, chunk=chunk, states=states, metrics=metrics,
+            device=None if mesh is not None else where,
         )
         sim._first = torch.as_tensor(meta["first"], dtype=torch.int32).to(sim.device)
         sim._host_tick = int(meta["host_tick"])

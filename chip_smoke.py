@@ -165,6 +165,25 @@ view and revived, ms a step); and BASELINE config 1's 3-node cluster
 (which phases ran plain). Each resumed and SimCluster run's next round
 through the kernels equals the plain round from the same state.
 
+Then sweeps over a mesh, a mesh across processes, the CLI, the memory
+planner and profiling (phase 17), at 10,240 nodes: phase 11's phi ladder (8
+lanes, phi 7.0 + 0.25 i) on the 8-block mesh of this card, its lane
+launches at an owner offset (the lane totals diag and sum, the pulls
+first, middle and check+FD with the lanes' phi) held against their
+plain versions on its own state 8 rounds in and timed on block 1, then
+run to convergence from counters at 0 (each lane at the unsharded
+sweep's round, lane 0 at 24, its w sha256 equal to the unsharded
+sweep's run in the phase), both timed in lane-rounds/s;
+``chip_smoke.py --multihost`` in a subprocess, a world of one rank over
+NCCL holding 8 blocks (the headline converges at 24 with the unsharded
+run's w); ``python -m aiocluster_torch sim --nodes 10240 --keys 16
+--fanout 3`` and again with ``--lean --metrics-port 0`` (``/metrics``
+read during the run), each record equal to an in-process ``Simulator``
+of the CLI's config, and ``--shards 2`` refused with the reference's
+message; the planner's bytes beside each run's peak (and C2's run peak,
+read in phase 12 before its check); ``obs.device_trace`` of two headline
+rounds naming the pairs kernels.
+
 Every phase prints one line; any failure raises. The last three lines
 are the card, the kernel table (JSON) and the device record (JSON). It
 exits non-zero without a CUDA device.
@@ -172,6 +191,7 @@ exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import concurrent.futures
 import contextlib
@@ -180,11 +200,13 @@ import functools
 import hashlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import time
 import unittest.mock
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -206,6 +228,7 @@ from aiocluster_torch.faults import (
 from aiocluster_torch.faults import sim as fsim
 from aiocluster_torch.models import Heterogeneity
 from aiocluster_torch.parallel import make_mesh
+from aiocluster_torch.sim import memory
 from aiocluster_torch.sim.packed import is_packed_w, pack_bits, unpack_bits, unpack_u4
 from aiocluster_torch.sim.state import STATE_FIELDS, lane
 
@@ -3599,6 +3622,7 @@ def full_past_staged(dev, card_line, errs):
     sim.run_until_converged(max_rounds=C2_ROUNDS)  # tracked rounds: the check rides the last
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    run_peak_gb = torch.cuda.max_memory_allocated() / 1e9  # before the check's copies
     launches = dict(counters.launches)
     check(counters.kernel_launches("pairs_pull") == 3 * C2_ROUNDS
           and counters.kernel_launches("pairs_totals") == 0
@@ -3624,12 +3648,14 @@ def full_past_staged(dev, card_line, errs):
         + ", ".join(f"{kk} max_abs_err={e}" for kk, e in found)
         + f"; {round_ms:.3f} ms a round (two-pass form {two_pass_round_ms:.3f} ms on the "
         f"later state; the kernels' bound a round {staged_bound:.3f} ms staged, "
-        f"{two_pass_bound:.3f} two-pass); peak {peak_gb:.2f} GB; mean fraction "
+        f"{two_pass_bound:.3f} two-pass); peak {peak_gb:.2f} GB ({run_peak_gb:.2f} GB before "
+        f"the sampled check); mean fraction "
         f"{float(m['mean_fraction']):.4f}; {card_line}")
     del sim
     torch.cuda.empty_cache()
     return {"n": C2_N, "form": form, "cluster": k, "round_ms": round_ms,
             "two_pass_round_ms": two_pass_round_ms, "peak_memory_gb": peak_gb,
+            "run_peak_memory_gb": run_peak_gb,
             "bound_ms_per_round": staged_bound, "two_pass_bound_ms_per_round": two_pass_bound,
             "max_abs_err": dict(round_errs), "sample_leaders": C2_LEADERS, "run_s": run_s}, (
         launches, C2_ROUNDS)
@@ -5797,6 +5823,430 @@ def c4_run(dev, card_line):
             "round_ms": run_s / rounds * 1e3, "peak_memory_gb": peak}
 
 
+# -- sweeps over a mesh, a mesh across processes, the CLI, the planner and
+# -- profiling (phase 17) -----------------------------------------------------------
+
+MESH_SWEEP_CHECK_ROUND = 8  # the mesh sweep's lane-block modes held on its state here
+RATE_ROUNDS = 16  # untracked rounds a timed turn of each sweep
+PROFILE_DIR = TRACE_PATH.with_name("chip_smoke_profiling")
+MULTIHOST_TIMEOUT_S = 240
+CLI_TIMEOUT_S = 240
+
+
+def lane_block_modes(dev, sweep, phis):
+    """Phase 17a: the lane launches at an owner offset on a mesh sweep's
+    own inputs (``sweep`` held as column blocks, ``MESH_SWEEP_CHECK_ROUND``
+    rounds in): the next round's draws, salts, heartbeats and writes, its
+    sub-exchanges chained as ``gossip.sweep_blocks`` chains them on
+    copies of every block (each block's lane totals, diag on the first;
+    summed over the blocks in block order; each block's lane pull fed the
+    sums at its offset, the first refreshing the diagonal, the last the
+    check and the FD epilogue with each lane's phi), kernels against the
+    plain versions. Then block 1's launch of each mode timed by CUDA
+    events beside its plain version. Returns (errs, times): mode ->
+    max_abs_err, mode -> (ms, plain_ms, (bound_ms, bound_by))."""
+    cfg, blocks = sweep.cfg, sweep.blocks
+    lanes, n, width = sweep.lanes, cfg.n_nodes, pairs_pull.owner_columns(blocks[0].w)
+    offsets = [k * width for k in range(len(blocks))]
+    tick = sweep.tick + 1
+    keys = prng.keys(sweep.seeds).to(dev)
+    run_salts = prng.run_salts(prng.keys(sweep.seeds)).to(dev)
+    fanouts = torch.full((lanes,), cfg.fanout, dtype=torch.int64, device=dev)
+    head = blocks[0]
+    draws = prng.chunk_draws(keys, tick, 1, cfg, alive=head.alive).round(0)
+    salts = gossip.lane_salt_table(tick, 1, cfg.fanout, fanouts, run_salts)[0]
+    alive = head.alive
+    heartbeat = head.heartbeat + alive.to(torch.int32)
+    mv = head.max_version + cfg.writes_per_round * alive.to(torch.int32)
+    params, phi = FdParams.from_config(cfg), torch.tensor(phis, device=dev)
+    fields = ("w", "hb_known", "last_change", "imean", "icount", "live_view")
+    kern = [{f: getattr(b, f).clone() for f in fields} for b in blocks]
+    plain = [{f: getattr(b, f).clone() for f in fields} for b in blocks]
+    for copies in (kern, plain):
+        for c in copies:
+            c["hb0"] = c["hb_known"].clone()
+    errs, times = {}, {}
+    for c in range(cfg.fanout):
+        first, last = c == 0, c == cfg.fanout - 1
+        mode = "first" if first else ("last" if last else "middle")
+        valid = alive & torch.gather(alive, 1, draws.p[c].long())
+        gm, cc = draws.gm[c], draws.c[c]
+
+        def totals_of(fn, ops, k):
+            sl = slice(offsets[k], offsets[k] + width)
+            return fn(ops["w"], gm, cc, valid, mv=mv[:, sl].contiguous() if first else None,
+                      owner_offset=offsets[k])
+
+        parts_k = [totals_of(pairs_totals.pairs_totals_lanes, kern[k], k) for k in range(len(kern))]
+        parts_p = [totals_of(pairs_totals.pairs_totals_lanes_plain, plain[k], k)
+                   for k in range(len(plain))]
+        torch.cuda.synchronize()
+        t_key = f"totals {'diag' if first else 'sum'}"
+        errs[t_key] = max(errs.get(t_key, 0.0), max_abs_err(parts_k, parts_p))
+        tot_k, tot_p = functools.reduce(torch.add, parts_k), functools.reduce(torch.add, parts_p)
+
+        def pull(fn, ops, k, totals):
+            sl = slice(offsets[k], offsets[k] + width)
+            mv_k, hbv_k = mv[:, sl].contiguous(), heartbeat[:, sl].contiguous()
+            kw = {}
+            if first:
+                kw.update(mv=mv_k, hbv=hbv_k)
+            if last:
+                kw.update(check=(mv_k, alive, alive[:, sl].contiguous()), hbv=hbv_k,
+                          fd=pairs_pull.FdOperands(tick, ops["last_change"], ops["imean"],
+                                                   ops["icount"], ops["live_view"], ops["hb0"],
+                                                   params, phi=phi))
+            return fn(ops["w"], ops["hb_known"], gm, cc, valid, salts[c], cfg.budget,
+                      totals=totals, owner_offset=offsets[k], **kw)
+
+        timed = {f: t.clone() for f, t in kern[1].items()}
+        flags_k = [pull(pairs_pull.pairs_pull_lanes, kern[k], k, tot_k) for k in range(len(kern))]
+        flags_p = [pull(pairs_pull.pairs_pull_lanes_plain, plain[k], k, tot_p)
+                   for k in range(len(plain))]
+        torch.cuda.synchronize()
+        err = max(max_abs_err(list(a.values()), list(b.values())) for a, b in zip(kern, plain))
+        if last:
+            err = max(err, max_abs_err(flags_k, flags_p))
+        errs[mode] = err
+        m = LADDER_MODES["last_fd" if last else mode]
+        ms = cuda_ms(lambda: pull(pairs_pull.pairs_pull_lanes, timed, 1, tot_k), 20)
+        plain_ms = cuda_ms(lambda: pull(pairs_pull.pairs_pull_lanes_plain, timed, 1, tot_k), 2, 1)
+        # A lane launch moves and computes each lane's share: S times one
+        # lane's bound, by the same term.
+        b_ms, b_by = block_pull_bound(n, width, "int16", m)
+        times[mode] = (ms, plain_ms, (lanes * b_ms, b_by))
+        t_ms = cuda_ms(lambda: totals_of(pairs_totals.pairs_totals_lanes, timed, 1), 20)
+        t_plain = cuda_ms(lambda: totals_of(pairs_totals.pairs_totals_lanes_plain, timed, 1), 2, 1)
+        tb_ms, tb_by = block_totals_bound(n, width, "int16", first)
+        times[t_key] = (t_ms, t_plain, (lanes * tb_ms, tb_by))
+        del timed
+        log("mesh_sweep", f"{mode} sub-exchange at tick {tick}: lane totals ({t_key}) and pulls "
+            f"on {len(blocks)} blocks of {width} x {lanes} lanes: max_abs_err totals "
+            f"{errs[t_key]}, pull {err}; block 1: pull {ms:.4f} ms (bound "
+            f"{times[mode][2][0]:.4f}, plain {plain_ms:.3f}), totals {t_ms:.4f} ms (bound "
+            f"{lanes * tb_ms:.4f}, plain {t_plain:.3f})")
+    check(all(e == 0.0 for e in errs.values()), f"a lane-block mode disagrees: {errs}")
+    del kern, plain
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def lane_w_digests(states) -> list[str]:
+    """The sha256 of each lane's w (row-major, the whole width)."""
+    return [hashlib.sha256(states.w[s].cpu().numpy().tobytes()).hexdigest()
+            for s in range(states.w.shape[0])]
+
+
+def planned_against_peak(what, cfg, peak_bytes, shards=1, lanes=1, hosts=1):
+    """Phase 17e: the planner's bytes for a run of this phase beside its
+    measured peak; the phase fails if the plan falls under it."""
+    plan = memory.plan(cfg, shards, lanes, hosts)
+    ratio = plan.planned_bytes / peak_bytes
+    log("planner", f"{what}: planned {plan.planned_bytes / 1e9:.3f} GB (state "
+        f"{plan.state_bytes / 1e9:.3f}, transients {plan.transient_bytes / 1e9:.3f}; "
+        f"{memory.engaged_variant(cfg, shards, lanes)}) against a measured peak of "
+        f"{peak_bytes / 1e9:.3f} GB: {ratio:.3f}x")
+    check(plan.planned_bytes >= peak_bytes, f"the plan of {what} falls under its peak")
+    return {"planned_gb": plan.planned_bytes / 1e9, "peak_gb": peak_bytes / 1e9, "ratio": ratio}
+
+
+def mesh_sweep(dev, card_line, plans):
+    """Phase 17a-b: phase 11's phi ladder (8 lanes, phi 7.0 + 0.25 i) on the
+    8-block mesh of this card: its lane-block modes on its own state
+    (``lane_block_modes``), then from counters at 0 to convergence, each
+    lane's converged round and w sha256 equal to the unsharded sweep's
+    run in this phase; the lane-rounds/s of both (untracked, turns
+    unsharded, mesh, mesh, unsharded) and their peaks."""
+    cfg = headline_config()
+    probe = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, mesh=mesh_of(dev))
+    probe.run(MESH_SWEEP_CHECK_ROUND)
+    errs, times = lane_block_modes(dev, probe, SWEEP_PHIS)
+    del probe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flat = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, device=dev)
+    flat_rounds = flat.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    flat_peak = torch.cuda.max_memory_allocated()
+    flat_digests, flat_tick = lane_w_digests(flat.states), flat.tick
+    del flat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    sweep = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, mesh=mesh_of(dev))
+    rounds = sweep.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, ticks = dict(counters.launches), sweep.tick
+    mesh_peak = torch.cuda.max_memory_allocated()
+    blocks = MESH_BLOCKS
+    check(not counters.plain_calls and not counters.fallbacks and not counters.refusals
+          and all(k.startswith(("pairs_pull[lanes+totals", "pairs_totals[lanes+"))
+                  for k in launches)
+          and counters.kernel_launches("pairs_pull") == 3 * blocks * ticks
+          and counters.kernel_launches("pairs_totals") == 3 * blocks * ticks,
+          f"the mesh sweep did not take a lane totals and a lane pull launch a block a "
+          f"sub-exchange ({launches})")
+    digests = lane_w_digests(sweep.states)
+    log("mesh_sweep", f"phi ladder, 8 lanes on {blocks} blocks of {N // blocks}: converged at "
+        f"{rounds} (unsharded {flat_rounds}) after {ticks} rounds in {run_s:.2f} s with init; "
+        f"w sha256 of every lane {'equal' if digests == flat_digests else 'DIFFERENT'} to the "
+        f"unsharded sweep's; launches {launches}")
+    check(rounds == flat_rounds and ticks == flat_tick, "a mesh lane converged at another round")
+    check(rounds[0] == CONVERGED_ROUND, f"lane 0 converged at {rounds[0]}, expected 24")
+    check(digests == flat_digests, "a mesh lane's w differs from the unsharded sweep's")
+    plans["mesh_sweep"] = planned_against_peak(
+        "the phi ladder on 8 blocks", cfg, mesh_peak, shards=blocks, lanes=8)
+    plans["sweep"] = planned_against_peak("the phi ladder unsharded", cfg, flat_peak, lanes=8)
+    rate_flat = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, device=dev, chunk=16)
+    flat_a = round_rate(rate_flat, RATE_ROUNDS, warmup=8)
+    mesh_a, mesh_b = round_rate(sweep, RATE_ROUNDS, warmup=8), round_rate(sweep, RATE_ROUNDS)
+    flat_b = round_rate(rate_flat, RATE_ROUNDS)
+    del rate_flat, sweep
+    torch.cuda.empty_cache()
+    lanes = len(SWEEP_SEEDS)
+    mesh_ms, flat_ms = (mesh_a + mesh_b) / 2, (flat_a + flat_b) / 2
+    log("mesh_sweep", f"untracked: {lanes * 1e3 / mesh_ms:.2f} lane-rounds/s on the mesh "
+        f"({mesh_a:.3f}, {mesh_b:.3f} ms a round) against {lanes * 1e3 / flat_ms:.2f} "
+        f"unsharded ({flat_a:.3f}, {flat_b:.3f}); peaks {mesh_peak / 1e9:.2f} / "
+        f"{flat_peak / 1e9:.2f} GB; {card_line}")
+    out = {"rounds_to_convergence": rounds, "rounds_run": ticks, "blocks": blocks,
+           "w_sha256_equal": True, "mesh_lane_rounds_per_s": lanes * 1e3 / mesh_ms,
+           "unsharded_lane_rounds_per_s": lanes * 1e3 / flat_ms,
+           "mesh_round_ms_each": [mesh_a, mesh_b], "unsharded_round_ms_each": [flat_a, flat_b],
+           "peak_memory_gb": mesh_peak / 1e9, "unsharded_peak_memory_gb": flat_peak / 1e9,
+           "run_s": run_s}
+    return out, (launches, ticks), errs, times
+
+
+def lane_block_entries(errs, times, run):
+    """The kernels-line entries of the lane-block modes: launches of the
+    mesh sweep's run, times and errors of ``lane_block_modes``."""
+    launches, rounds = run
+    keys = {"first": pairs_pull.counter_key(True, False, False, True, lanes=True),
+            "middle": pairs_pull.counter_key(False, False, False, True, lanes=True),
+            "last": pairs_pull.counter_key(False, True, True, True, lanes=True),
+            "totals diag": pairs_totals.counter_key(True, lanes=True),
+            "totals sum": pairs_totals.counter_key(False, lanes=True)}
+    entries = []
+    for mode, key in keys.items():
+        ms, plain_ms, (b_ms, b_by) = times[mode]
+        is_totals = mode.startswith("totals")
+        name = key[:-1] + f" block]" if is_totals else f"pairs_pull[lanes+block {mode}]"
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"aiocluster_torch/ops/csrc/{'pairs_totals' if is_totals else 'pairs_pull'}.cu",
+            replaces=("aiocluster_tpu/ops/pallas_pull.py:1959" if is_totals
+                      else "aiocluster_tpu/ops/pallas_pull.py:1803"),
+            launches=launches.get(key, 0), launches_per_round=launches.get(key, 0) / rounds,
+            max_abs_err=errs[mode], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, path="mesh_sweep", lanes=len(SWEEP_SEEDS), block=1,
+            n_local=N // MESH_BLOCKS,
+        ))
+    return entries
+
+
+def multihost_child(address: str) -> int:
+    """``chip_smoke.py --multihost HOST:PORT``: a world of one rank over
+    NCCL on cuda:0 holding 8 blocks of the headline; prints one JSON line
+    (its converged round, w sha256, peak bytes)."""
+    from aiocluster_torch.parallel import multihost
+
+    multihost.initialize(address, 1, 0)
+    mesh = multihost.global_mesh(["cuda:0"] * MESH_BLOCKS)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    sim = Simulator(headline_config(), seed=0, mesh=mesh)
+    converged = sim.run_until_converged(max_rounds=200)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()  # the run's, before w is gathered
+    w = torch.cat([b.w for b in sim.blocks], dim=1)
+    print(json.dumps({
+        "converged_round": converged, "w_sha256": hashlib.sha256(
+            w.cpu().numpy().tobytes()).hexdigest(),
+        "peak_bytes": peak, "processes": mesh.processes,
+        "blocks": len(mesh.devices), "launches": dict(counters.launches),
+        "backend": torch.distributed.get_backend(),
+    }), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_child(argv, what, timeout_s, on_stderr_line=None):
+    """Run ``argv`` from the repository root with a hard time limit (the
+    child is killed on it); returns (rc, stdout, stderr), each stderr
+    line also handed to ``on_stderr_line`` as it comes."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    out_lines, err_lines = [], []
+
+    def pump(stream, lines, hook):
+        for line in stream:
+            lines.append(line)
+            if hook is not None:
+                hook(line)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        pumps = [pool.submit(pump, proc.stdout, out_lines, None),
+                 pool.submit(pump, proc.stderr, err_lines, on_stderr_line)]
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise RuntimeError(f"{what} did not finish in {timeout_s} s")
+        finally:
+            for f in pumps:
+                f.result(timeout=30)
+    return proc.returncode, "".join(out_lines), "".join(err_lines)
+
+
+def multihost_headline(dev, card_line, plans, head_digest):
+    """Phase 17c: ``chip_smoke.py --multihost`` in a subprocess, a world
+    of one over NCCL on cuda:0 holding 8 blocks (every collective an
+    NCCL all_gather): the headline converges at 24 with the unsharded
+    run's w."""
+    t0 = time.perf_counter()
+    rc, out, err = run_child([sys.executable, __file__, "--multihost",
+                              f"127.0.0.1:{free_port()}"], "the multihost child",
+                             MULTIHOST_TIMEOUT_S)
+    check(rc == 0, f"the multihost child failed (rc {rc}): {err[-2000:]}")
+    res = json.loads(out.splitlines()[-1])
+    wall = time.perf_counter() - t0
+    log("multihost", f"world of {res['processes']} over {res['backend']}, {res['blocks']} blocks "
+        f"on cuda:0: converged at {res['converged_round']}; w sha256 "
+        f"{'equal' if res['w_sha256'] == head_digest else 'DIFFERENT'} to the unsharded run's; "
+        f"launches {res['launches']}; {wall:.1f} s with the child's start")
+    check(res["converged_round"] == CONVERGED_ROUND and res["backend"] == "nccl",
+          f"the multihost headline converged at {res['converged_round']}")
+    check(res["w_sha256"] == head_digest, "the multihost headline's w differs")
+    plans["multihost"] = planned_against_peak("the headline on 8 blocks of a world of one",
+                                              headline_config(), res["peak_bytes"], shards=8)
+    return {"converged_round": res["converged_round"], "backend": res["backend"],
+            "w_sha256_equal": True, "wall_s": wall, "launches": res["launches"]}
+
+
+def cli_runs(dev, card_line, plans):
+    """Phase 17d: ``python -m aiocluster_torch sim --nodes 10240 --keys 16
+    --fanout 3`` as a subprocess, then with ``--lean --metrics-port 0``
+    (``/metrics`` read once while that run goes on); each JSON record's
+    rounds, tick and metrics equal a ``Simulator`` run of ``_sim_config``'s
+    config in this process (whose peak the planner is held to); then
+    ``--shards 2`` on one card exits 2 with the reference's message."""
+    from aiocluster_torch.__main__ import _sim_config
+
+    out = {}
+    for name, extra in (("full", []), ("lean", ["--lean", "--metrics-port", "0"])):
+        scraped = []
+
+        def scrape(line, scraped=scraped):
+            if "/metrics on " in line and not scraped:
+                url = "http://" + line.strip().split(" on ")[1] + "/metrics"
+                try:
+                    with urllib.request.urlopen(url, timeout=10) as resp:
+                        scraped.append((resp.status, resp.read().decode()))
+                except OSError as exc:  # the run ended first: the check below fails
+                    scraped.append((repr(exc), ""))
+
+        argv = ["--nodes", str(N), "--keys", "16", "--fanout", "3", *extra]
+        t0 = time.perf_counter()
+        rc, stdout, err = run_child([sys.executable, "-m", "aiocluster_torch", "sim", *argv],
+                                    f"the CLI's {name} run", CLI_TIMEOUT_S, scrape)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"the CLI's {name} run failed (rc {rc}): {err[-2000:]}")
+        record = json.loads(stdout.splitlines()[-1])
+        args = argparse.Namespace(nodes=N, keys=16, fanout=3, mtu=None, churn=0.0, grace=40,
+                                  lean=name == "lean", host_native=False)
+        cfg = _sim_config(args)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        sim = Simulator(cfg, seed=0, chunk=8, device=dev)
+        converged = sim.run_until_converged(max_rounds=10_000)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(counters.launches)
+        metrics = {k: v.tolist() for k, v in sim.metrics().items()}
+        same = (record["rounds_to_convergence"] == converged and record["tick"] == sim.tick
+                and record["metrics"] == metrics)
+        log("cli", f"sim {' '.join(argv)}: rc 0, converged at {record['rounds_to_convergence']} "
+            f"(tick {record['tick']}) in {wall:.1f} s with the process's start; record "
+            f"{'equal' if same else 'DIFFERENT'} to the in-process Simulator's (launches "
+            f"{launches})"
+            + (f"; /metrics read during the run: HTTP {scraped[0][0]}, "
+               f"{len(scraped[0][1].splitlines())} lines" if scraped else ""))
+        check(same, f"the CLI's {name} record differs from the in-process run")
+        if name == "lean":
+            check(bool(scraped) and scraped[0][0] == 200, "/metrics was not read during the run")
+        plans[f"cli_{name}"] = planned_against_peak(f"the CLI's {name} config", cfg, peak)
+        out[name] = {"converged_round": converged, "wall_s": wall,
+                     "record": {k: record[k] for k in ("rounds_to_convergence", "tick")},
+                     "metrics_scraped": bool(scraped), "launches": launches}
+        del sim
+    rc, _, err = run_child([sys.executable, "-m", "aiocluster_torch", "sim", "--nodes", str(N),
+                            "--shards", "2"], "the CLI's --shards 2", CLI_TIMEOUT_S)
+    want = f"--shards 2 > {torch.cuda.device_count()} visible device(s)"
+    log("cli", f"--shards 2 on {torch.cuda.device_count()} card(s): rc {rc}, "
+        f"{err.strip().splitlines()[-1] if err.strip() else ''!r}")
+    check(rc == 2 and err.strip().splitlines()[-1] == want,
+          "--shards 2 on one card did not exit 2 with the reference's message")
+    out["shards_refused"] = want
+    return out
+
+
+def profiled_rounds(dev):
+    """Phase 17f: ``obs.device_trace`` around two headline rounds writes a
+    Chrome trace naming the pairs kernels."""
+    from aiocluster_torch.obs import device_trace
+
+    sim = Simulator(headline_config(), seed=0, device=dev)
+    sim.run(2)
+    torch.cuda.synchronize()
+    before = set(PROFILE_DIR.glob("trace_*.json"))
+    with device_trace(str(PROFILE_DIR)):
+        sim.run(2)
+    new = sorted(set(PROFILE_DIR.glob("trace_*.json")) - before)
+    check(len(new) == 1, "device_trace wrote no trace")
+    events = json.loads(new[0].read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    pairs = sorted(k for k in kernels if "pairs_kernel" in k)
+    log("profiling", f"device_trace of 2 headline rounds: {len(events)} events, {len(kernels)} "
+        f"kernel names, the pairs kernels {[k[:60] for k in pairs]} ({new[0].name})")
+    check(bool(pairs), "the device trace names no pairs kernel")
+    return {"trace": str(new[0].relative_to(Path(__file__).resolve().parent)),
+            "pairs_kernels": len(pairs)}
+
+
+def across_processes(dev, card_line):
+    """Phase 17: sweeps over a mesh (A15b), a mesh across processes, the
+    CLI, the memory planner and profiling (A17a), at the headline's
+    width. Returns (out, kernel entries)."""
+    t0 = time.perf_counter()
+    plans = {}
+    sweep, run, errs, times = mesh_sweep(dev, card_line, plans)
+    head = Simulator(headline_config(), seed=0, device=dev)
+    check(head.run_until_converged(max_rounds=200) == CONVERGED_ROUND,
+          "the unsharded headline did not converge at 24")
+    head_digest = hashlib.sha256(head.state.w.cpu().numpy().tobytes()).hexdigest()
+    del head
+    multi = multihost_headline(dev, card_line, plans, head_digest)
+    cli = cli_runs(dev, card_line, plans)
+    prof = profiled_rounds(dev)
+    seconds = time.perf_counter() - t0
+    log("phase17", f"{seconds:.1f} s in all")
+    out = {"mesh_sweep": sweep, "multihost": multi, "cli": cli, "planner": plans,
+           "profiling": prof, "seconds": seconds}
+    return out, lane_block_entries(errs, times, run)
+
+
 def device_record() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5821,6 +6271,9 @@ def main() -> int:
         print(json.dumps({"c4": c4}))
         print(device_record())
         return 0
+    if sys.argv[1:2] == ["--multihost"] and len(sys.argv) == 3:
+        # Phase 17's child: a world of one rank over NCCL (not a default run).
+        return multihost_child(sys.argv[2])
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only --c4)", file=sys.stderr)
         return 2
@@ -6155,6 +6608,19 @@ def main() -> int:
                                             saving)
     ckpt_dir.cleanup()
     kernels += surface_entries
+
+    # Phase 17: the phi ladder on 8 blocks (the lane launches at an owner
+    # offset, held on the run's own state), a world of one over NCCL, the
+    # CLI, the planner against each run's peak, and a device trace.
+    phase17, phase17_entries = across_processes(dev, card_line)
+    c2_plan = memory.plan(full_config(C2_N, budget=2618)).planned_bytes / 1e9
+    log("planner", f"full_config({C2_N}) (phase 12): planned {c2_plan:.3f} GB against the "
+        f"run's peak {c2['run_peak_memory_gb']:.3f} GB (the phase's peak with its sampled "
+        f"check {c2['peak_memory_gb']:.3f} GB)")
+    check(c2_plan * 1e9 >= c2["run_peak_memory_gb"] * 1e9, "the C2 plan falls under its run's peak")
+    phase17["planner"]["c2"] = {"planned_gb": c2_plan, "peak_gb": c2["run_peak_memory_gb"],
+                                "ratio": c2_plan / c2["run_peak_memory_gb"]}
+    kernels += phase17_entries
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -6180,7 +6646,12 @@ def main() -> int:
         f"{surface['telemetry']['converged_round']} / north star "
         f"{surface['telemetry_north_star']['converged_round']}, m8 override "
         f"{surface['variant_override']['converged_round']}, SimCluster "
-        f"{surface['simcluster']['converged_round']}")
+        f"{surface['simcluster']['converged_round']}; mesh sweep "
+        f"{phase17['mesh_sweep']['rounds_to_convergence'][0]} at "
+        f"{phase17['mesh_sweep']['mesh_lane_rounds_per_s']:.2f} lane-rounds/s, multihost "
+        f"{phase17['multihost']['converged_round']}, CLI "
+        f"{phase17['cli']['full']['converged_round']} / lean "
+        f"{phase17['cli']['lean']['converged_round']}")
 
     print(card_line)
     print(json.dumps({
@@ -6213,6 +6684,7 @@ def main() -> int:
         "remaining_semantics": remaining,
         "fault_plans": fault_out,
         "user_surface": surface,
+        "across_processes": phase17,
     }))
     print(device_record())
     return 0

@@ -839,6 +839,124 @@ def test_two_block_mesh_round_equals_unsharded(dev, profile, variant):
         cfg, seed=5, device=dev).run_until_converged(100)
 
 
+LANE_BLOCK_CASES = [("int16", "first"), ("int16", "middle"), ("int16", "check_fd"),
+                    ("int8_lean", "last"), ("u4r", "last"), ("u4r", "first")]
+
+
+def _lane_block(ops, kw, k):
+    """Block k (owners k * BLOCK_COLS ..) of whole-width lane operands:
+    ``_column_block`` with the lane axis leading."""
+    packed = ops["w"].dtype == torch.uint8
+    cols = slice(k * BLOCK_COLS, (k + 1) * BLOCK_COLS)
+
+    def cut(t, owners_a_column=1):
+        step = BLOCK_COLS // owners_a_column
+        return t[..., k * step : (k + 1) * step].contiguous()
+
+    bops = dict(ops, w=cut(ops["w"], 2 if packed else 1),
+                hb=None if ops["hb"] is None else cut(ops["hb"]))
+    bkw = dict(kw, owner_offset=k * BLOCK_COLS)
+    for name in ("mv", "hbv"):
+        if name in kw:
+            bkw[name] = kw[name][:, cols].contiguous()
+    if "check" in kw:
+        need, alive, alive_owner = kw["check"]
+        bkw["check"] = (need[:, cols].contiguous(), alive, alive_owner[:, cols].contiguous())
+    if "fd" in kw:
+        f = kw["fd"]
+        bkw["fd"] = dataclasses.replace(
+            f, lc=cut(f.lc), im=cut(f.im), ic=cut(f.ic),
+            live=cut(f.live, 8 if f.live.dtype == torch.uint8 else 1),
+            hb0=None if f.hb0 is None else cut(f.hb0),
+        )
+    return bops, bkw
+
+
+@pytest.mark.parametrize("rung, mode", LANE_BLOCK_CASES,
+                         ids=[f"{r}-{m}" for r, m in LANE_BLOCK_CASES])
+def test_pairs_lanes_column_blocks_equal_plain(dev, rung, mode):
+    """The lane launches at an owner offset (S = 3 lanes, blocks of 256 of
+    512, lane 1 voided): each block's lane totals equal their plain
+    version and sum to the whole width's; each block's lane pull fed the
+    sums equals its plain version and the whole-width lane launch on its
+    columns, the flags too."""
+    base = dict(LANE_CASES[rung if rung != "int16" else mode])
+    base.update(LADDER_MODES["last" if mode == "check_fd" else mode])
+    if rung != "int16":
+        base.update(fd=False, hb0=False)
+    if mode == "check_fd":
+        base.update(fd=True, hb0=True)
+    ops, kw, salt = _lane_operands(BLOCK_N, 41, dev, **base)
+    whole = _with_totals(pairs_totals.pairs_totals_lanes, *_clone(ops, kw))
+    tot = whole[1]["totals"]
+    whole_out = _run_lanes(pairs_pull.pairs_pull_lanes, *whole, salt)
+    summed = torch.zeros_like(tot)
+    flags = []
+    for k in range(BLOCK_N // BLOCK_COLS):
+        bops, bkw = _lane_block(*_clone(ops, kw), k)
+        args = (bops["w"], bops["gm"], bops["c"], bops["valid"])
+        share = pairs_totals.pairs_totals_lanes(*args, mv=bkw.get("mv"),
+                                                owner_offset=k * BLOCK_COLS)
+        share_plain = pairs_totals.pairs_totals_lanes_plain(*args, mv=bkw.get("mv"),
+                                                            owner_offset=k * BLOCK_COLS)
+        assert torch.equal(share, share_plain)
+        summed += share
+        kern, plain = _clone(bops, dict(bkw, totals=tot)), _clone(bops, dict(bkw, totals=tot))
+        got = _run_lanes(pairs_pull.pairs_pull_lanes, *kern, salt)
+        want = _run_lanes(pairs_pull.pairs_pull_lanes_plain, *plain, salt)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+        for a, b in zip(_outs(*kern), _outs(*_lane_block(*whole, k)), strict=True):
+            assert torch.equal(a, b)
+        if "check" in bkw:
+            flags.append(got[-1])
+    assert torch.equal(summed, tot)
+    if flags:
+        assert torch.equal(torch.minimum(*flags), whole_out[-1])
+
+
+def test_mesh_sweep_and_a_world_of_one_on_the_card(dev):
+    """A sweep on a 2-block mesh of the card (a lane totals and a lane pull
+    launch a block a sub-exchange) equals the unsharded sweep; a world of
+    one rank over NCCL holding 2 blocks equals the single-process mesh."""
+    import subprocess
+    import sys
+
+    from aiocluster_torch import SweepSimulator
+    from aiocluster_torch.parallel import make_mesh
+
+    cfg = SimConfig(n_nodes=BLOCK_N, keys_per_node=4, fanout=3, budget=64, **NARROW)
+    values = dict(phi_threshold=[7.0, 8.0, 9.5], writes_per_round=[1, 0, 2])
+    counters.reset()
+    sharded = SweepSimulator(cfg, [1, 2, 3], mesh=make_mesh([dev] * 2), **values)
+    sharded.run(6)
+    torch.cuda.synchronize()
+    assert counters.kernel_launches("pairs_pull") == 2 * 18 and not counters.plain_calls
+    assert counters.kernel_launches("pairs_totals") == 2 * 18
+    flat = SweepSimulator(cfg, [1, 2, 3], device=dev, **values)
+    flat.run(6)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(sharded.states, f), getattr(flat.states, f)), f
+    code = (
+        "import socket, sys, torch; sys.path.insert(0, '.')\n"
+        "from aiocluster_torch import SimConfig, Simulator\n"
+        "from aiocluster_torch.parallel import multihost\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]; s.close()\n"
+        "multihost.initialize(f'127.0.0.1:{port}', 1, 0)\n"
+        f"cfg = SimConfig(n_nodes={BLOCK_N}, keys_per_node=4, fanout=3, budget=64, "
+        "version_dtype='int16', heartbeat_dtype='int16', fd_dtype='bfloat16')\n"
+        "sim = Simulator(cfg, seed=5, mesh=multihost.global_mesh(['cuda:0'] * 2))\n"
+        "print(sim.run_until_converged(100), int(sim.state.w.to(torch.int64).sum()))\n"
+    )
+    root = __import__("pathlib").Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, check=True, cwd=root).stdout.split()
+    one = Simulator(cfg, seed=5, mesh=make_mesh([dev] * 2))
+    assert int(out[0]) == one.run_until_converged(100)
+    assert int(out[1]) == int(one.state.w.to(torch.int64).sum())
+
+
 def test_mesh_over_distinct_cards_equals_one_card(dev):
     """With two or more cards, a mesh over distinct devices (the
     collectives copy each block's partials to the first card and back)

@@ -59,3 +59,13 @@ def test_source_imports_no_jax_or_reference(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_every_slice_module_is_covered():
+    """The modules each slice added are among those imported above, the
+    CLI and the planner included."""
+    mods = set(_port_modules())
+    for m in ("aiocluster_torch.__main__", "aiocluster_torch.parallel.multihost",
+              "aiocluster_torch.sim.memory", "aiocluster_torch.sim.bytes",
+              "aiocluster_torch.obs.expo", "aiocluster_torch.obs.profiling"):
+        assert m in mods, m

@@ -254,8 +254,10 @@ def test_mesh_widths_are_refused_by_name():
 
 
 def test_unported_mesh_routes_refuse_by_roadmap_id():
-    """Sweeps over a mesh (A15b) stay refused; a topology over a mesh
-    (A7, once refused here) runs, equal to the unsharded run."""
+    """No mesh route is refused by roadmap ID any more: a topology over a
+    mesh (A7, once refused here) runs, equal to the unsharded run, and so
+    does a sweep over a mesh (A15b, once refused here), lane for lane
+    (tests/test_torch_sweep_mesh.py holds it against the reference)."""
     counters.reset()
     cfg = SimConfig(n_nodes=128, **NARROW)
     meshed = Simulator(cfg, seed=2, mesh=make_mesh(["cpu"] * 2), topology=ring(128, 2))
@@ -263,9 +265,14 @@ def test_unported_mesh_routes_refuse_by_roadmap_id():
     meshed.run(3)
     whole.run(3)
     assert all(torch.equal(getattr(meshed.state, f), getattr(whole.state, f)) for f in STATE_FIELDS)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        SweepSimulator(cfg, [0, 1], mesh=make_mesh(["cpu"]), device="cpu")
-    assert sum(counters.refusals.values()) == 1
+    lanes = SweepSimulator(cfg, [0, 1], mesh=make_mesh(["cpu"] * 2))
+    flat = SweepSimulator(cfg, [0, 1], device="cpu")
+    lanes.run(3)
+    flat.run(3)
+    assert all(
+        torch.equal(getattr(lanes.states, f), getattr(flat.states, f)) for f in STATE_FIELDS
+    )
+    assert sum(counters.refusals.values()) == 0
 
 
 def test_topology_mesh_takes_blocks_off_the_kernels_domain():

@@ -25,6 +25,7 @@ from aiocluster_tpu.sim.state import SimState as RefState
 from aiocluster_tpu.sim.sweep import SweepSimulator as RefSweep
 from aiocluster_torch import MetricsRegistry, Simulator, SimConfig, SweepSimulator, lean_config
 from aiocluster_torch.ops import counters, gossip, pairs_pull, prng
+from aiocluster_torch.parallel import make_mesh
 from aiocluster_torch.sim.carry import state_from_numpy, state_to_numpy
 from aiocluster_torch.sim.state import STATE_FIELDS, init_lanes, lane
 from test_torch_sim import NARROW, _assert_states_equal
@@ -327,14 +328,17 @@ def test_provided_states_and_horizon():
 
 
 def test_refusals_and_validation(tmp_path):
-    """mesh= (A15b) is refused by name and counted; metrics= and
-    save/resume, once refused, work (tests/test_torch_obs.py and
-    tests/test_torch_checkpoint.py hold them against the reference); the
-    reference's validation errors, word for word."""
+    """mesh= (A15b, once refused; tests/test_torch_sweep_mesh.py holds it
+    against the reference) places its blocks itself, so device= beside
+    it is refused as Simulator refuses it, and nothing is refused by
+    roadmap ID; metrics= and save/resume, once refused, work
+    (tests/test_torch_obs.py and tests/test_torch_checkpoint.py hold them
+    against the reference); the reference's validation errors, word for
+    word."""
     cfg = dataclasses.replace(CFG, n_nodes=128)
     counters.reset()
-    with pytest.raises(NotImplementedError, match="A15b"):
-        SweepSimulator(cfg, [0], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="list its devices, not device="):
+        SweepSimulator(cfg, [0], mesh=make_mesh(["cpu"] * 2), device="cpu")
     reg = MetricsRegistry()
     sweep = SweepSimulator(cfg, [0], metrics=reg, device="cpu")
     sweep.run(2)
@@ -342,7 +346,7 @@ def test_refusals_and_validation(tmp_path):
     again = SweepSimulator.resume(tmp_path / "s.npz", metrics=reg, device="cpu")
     assert again.tick == 2 and again.result().rows() == sweep.result().rows()
     assert reg.snapshot()["aiocluster_sim_sweep_lanes{engine=torch}"] == 1
-    assert sum(counters.refusals.values()) == 1
+    assert sum(counters.refusals.values()) == 0
     rcfg = _ref_cfg(cfg)
     cases = [
         (dict(seeds=[]), {}),
