@@ -1,5 +1,5 @@
-"""Command-line entry point: ``python -m aiocluster_torch sim ...`` (the
-port of the reference's ``python -m aiocluster_tpu sim``).
+"""Command-line entry point: ``python -m aiocluster_torch {sim,twin}`` (the
+port of the reference's ``python -m aiocluster_tpu sim`` and ``twin``).
 
 ``sim`` runs a convergence study and prints one JSON line of results
 (rounds to convergence, the tick, the metrics), with the reference's
@@ -9,10 +9,16 @@ takes its plain version). With no card and no ``--cpu`` it raises: it
 never goes on on the CPU. ``--shards k`` holds the state as k column
 blocks of the owners (``parallel.make_mesh``): on the first k visible
 cards, or under ``--cpu`` on ``["cpu"] * k``, the port's CPU mesh.
+``--host-native`` runs the native host simulator (sim/hostsim.py) on the
+CPU instead, on its support domain.
 
-Not ported: ``--host-native`` (the native host simulator, ROADMAP.md
-A19) and the ``twin`` subcommand (ROADMAP.md A17b) exit 2 naming their
-items; ``node`` and ``fleet`` belong to the reference's asyncio runtime.
+``twin`` replays a recorded runtime trace into the simulator, fits and
+optionally writes a calibration record, and with ``--deadline`` and
+candidate lists autotunes against an SLO; ``--check-drift`` verdicts a
+fresh trace against a stored record (docs/twin.md). It runs on the card
+unless ``--cpu`` is given, and raises without one. ``node`` and
+``fleet`` belong to the reference's asyncio runtime, which the port
+does not carry.
 """
 
 from __future__ import annotations
@@ -21,9 +27,7 @@ import argparse
 import json
 import sys
 
-# The reference's max_payload_size (its core.DEFAULT_MAX_PAYLOAD_SIZE):
-# the wire MTU the default budget is converted from.
-DEFAULT_MAX_PAYLOAD_SIZE = 65_507
+from .core.config import DEFAULT_MAX_PAYLOAD_SIZE
 
 
 def _sim_config(args: argparse.Namespace):
@@ -90,22 +94,104 @@ def _make_telemetry(args: argparse.Namespace):
     return registry, trace, server, kwargs
 
 
+def _device(args: argparse.Namespace) -> str:
+    """The CUDA card, or the CPU with ``--cpu``; without a card and
+    without ``--cpu`` the command raises (it never goes on on the CPU)."""
+    import torch
+
+    if args.cpu:
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{args.command}: no CUDA device (pass --cpu to run on the CPU)")
+    return "cuda"
+
+
+def host_native_record(host, converged: int | None) -> dict:
+    """The record ``sim --host-native`` prints for a host run that
+    ``converged`` at that round (or None), without its telemetry count."""
+    import numpy as np
+
+    # Reductions only, never an (N, N) float temporary: on this domain
+    # w <= keys_per_node always (no writes), so the device path's clip is
+    # a no-op and min/mean commute with the divide.
+    cfg = host.cfg
+    k = cfg.keys_per_node
+    col_min = host.w.min(axis=0)
+    metrics = {
+        "converged_owners": int((col_min >= k).sum()),
+        "all_converged": bool((col_min >= k).all()),
+        "min_fraction": float(host.w.min()) / k,
+        "mean_fraction": float(host.w.mean(dtype=np.float64)) / k,
+        "alive_count": cfg.n_nodes,
+    }
+    return {
+        "nodes": cfg.n_nodes,
+        "shards": 1,
+        "engine": "host-native",
+        "rounds_to_convergence": converged,
+        "tick": host.tick,
+        "metrics": metrics,
+    }
+
+
+def _run_host_native(args: argparse.Namespace, cfg) -> int:
+    """The native host simulator (sim/hostsim.py): the Simulator's
+    trajectory on its domain, on the CPU."""
+    from .sim import hostsim
+    from .utils.cbuild import NativeBuildError
+
+    if args.shards:
+        print("--host-native runs unsharded (single host)", file=sys.stderr)
+        return 2
+    if not hostsim.supported(cfg):
+        print(
+            "--host-native needs the matching domain (lean or full "
+            "profile): no --churn, --nodes a multiple of 128, "
+            "--keys <= 127 and --keys * --nodes < 2^24 "
+            "(sim.hostsim.supported)",
+            file=sys.stderr,
+        )
+        return 2
+    if cfg.track_heartbeats and args.max_rounds > 32_766:
+        # The full profile's int16 heartbeat matrices cap the horizon;
+        # clamp up front rather than fail mid-run.
+        print(
+            "--host-native full profile: clamping --max-rounds to "
+            "32766 (int16 heartbeat horizon)",
+            file=sys.stderr,
+        )
+        args.max_rounds = 32_766
+    try:
+        hostsim.load()
+    except NativeBuildError as exc:
+        print(f"native hostsim build failed: {exc}", file=sys.stderr)
+        return 2
+    _registry, trace, server, obs_kwargs = _make_telemetry(args)
+    try:
+        host = hostsim.HostSimulator(cfg, seed=args.seed, **obs_kwargs)
+        converged = host.run_until_converged(max_rounds=args.max_rounds)
+        telemetry_samples = host.flush_metrics()
+    finally:
+        if server is not None:
+            server.stop_thread()
+        if trace is not None:
+            trace.close()
+    record = host_native_record(host, converged)
+    if telemetry_samples:
+        record["telemetry_samples"] = len(telemetry_samples)
+    print(json.dumps(record), flush=True)
+    return 0 if converged is not None else 1
+
+
 def _run_sim(args: argparse.Namespace, cfg) -> int:
     if args.host_native:
-        print("--host-native: the native host simulator is not ported yet "
-              "(ROADMAP.md A19)", file=sys.stderr)
-        return 2
+        return _run_host_native(args, cfg)
     import torch
 
     from .parallel.mesh import make_mesh
     from .sim import Simulator
 
-    if args.cpu:
-        device = "cpu"
-    elif not torch.cuda.is_available():
-        raise RuntimeError("sim: no CUDA device (pass --cpu to run on the CPU)")
-    else:
-        device = "cuda"
+    device = _device(args)
     mesh = None
     if args.shards:
         devices = (["cpu"] * args.shards if args.cpu
@@ -146,6 +232,127 @@ def _run_sim(args: argparse.Namespace, cfg) -> int:
     return 0 if converged is not None else 1
 
 
+def _run_twin(args: argparse.Namespace) -> int:
+    """Replay, calibrate (and autotune) from the CLI (docs/twin.md): the
+    one-command form of the twin loop. Prints a JSON summary; exits 1
+    when the held-out validation misses its stated tolerance, no
+    candidate lane meets the SLO or the drift check finds drift."""
+    from . import twin
+
+    def csv_list(text, cast):
+        return None if text is None else [cast(x) for x in text.split(",")]
+
+    # Flag combinations are checked before any work: candidate lists or
+    # an FD budget without a deadline would be dropped silently, and a
+    # deadline without candidates has no grid to sweep.
+    tuning_flags = [
+        name for name, val in (
+            ("--fanout", args.fanout),
+            ("--phi", args.phi),
+            ("--writes", args.writes),
+            ("--fd-budget", args.fd_budget),
+        ) if val is not None
+    ]
+    if args.deadline is None and tuning_flags:
+        print(
+            f"twin: {', '.join(tuning_flags)} require --deadline "
+            "(the SLO the candidates are tuned against)",
+            file=sys.stderr, flush=True,
+        )
+        return 2
+    if args.deadline is not None and not (
+        args.fanout or args.phi or args.writes
+    ):
+        print(
+            "twin: --deadline needs at least one candidate list "
+            "(--fanout/--phi/--writes) spanning two or more lanes",
+            file=sys.stderr, flush=True,
+        )
+        return 2
+    device = _device(args)
+
+    if args.check_drift is not None:
+        # Drift-monitor mode: verdict a FRESH trace against a STORED
+        # calibration; exits 1 on drift so a scheduled check alerts.
+        cal = twin.load_calibration(args.check_drift)
+        verdict = twin.check_drift(
+            cal,
+            args.trace,
+            window=args.drift_window,
+            tolerance=args.tolerance,
+            seed=args.seed,
+            device=device,
+        )
+        print(
+            json.dumps(
+                {
+                    "trace": args.trace,
+                    "calibration": args.check_drift,
+                    "drift": verdict.to_dict(),
+                }
+            ),
+            flush=True,
+        )
+        return 0 if verdict.ok else 1
+
+    trace = twin.load_runtime_trace(args.trace)
+    report = twin.replay(trace, seed=args.seed, device=device)
+    cal = twin.fit_calibration(
+        report,
+        tolerance=0.35 if args.tolerance is None else args.tolerance,
+    )
+    if args.calibration_out:
+        twin.save_calibration(args.calibration_out, cal)
+    out = {
+        "trace": trace.path,
+        "n_nodes": trace.n_nodes,
+        "trace_rounds": len(trace.rounds),
+        "skipped_lines": trace.skipped,
+        "sim_converged_round": report.sim_converged_round,
+        "calibration": cal.to_dict(),
+    }
+    ok = cal.holdout_ok
+    if args.deadline is not None:
+        from .core.config import Config
+        from .core.identity import NodeId
+
+        slo = twin.SLO(
+            convergence_deadline_s=args.deadline,
+            fd_false_positive_budget=args.fd_budget,
+        )
+        # The CLI has no deployment Config to tune against; recommend
+        # over a placeholder identity: the tunables are what matter.
+        base = Config(
+            node_id=NodeId(
+                name="operator", gossip_advertise_addr=("127.0.0.1", 0)
+            )
+        )
+        try:
+            rec = twin.autotune(
+                slo,
+                cal,
+                base,
+                twin.lift_sim_config(trace),
+                fanout=csv_list(args.fanout, int),
+                phi_threshold=csv_list(args.phi, float),
+                writes_per_round=csv_list(args.writes, int),
+                seed=args.seed,
+                device=device,
+            )
+            out["recommendation"] = rec.to_dict()
+        except twin.AutotuneInfeasible as exc:
+            out["autotune_infeasible"] = str(exc)
+            out["lanes"] = exc.lanes
+            ok = False
+        except ValueError as exc:
+            # e.g. a single-value candidate list (one lane is not a
+            # sweep): still reported through the JSON record.
+            out["autotune_error"] = str(exc)
+            ok = False
+    print(json.dumps(out), flush=True)
+    return 0 if ok else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="python -m aiocluster_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -182,19 +389,51 @@ def main(argv: list[str] | None = None) -> int:
                      "are buffered un-synced and flushed at the end; "
                      "default 64)")
     sim.add_argument("--host-native", action="store_true",
-                     help="the native host simulator: not ported yet "
-                     "(ROADMAP.md A19), exits 2")
+                     help="run the native host simulator on the CPU (the "
+                     "Simulator's trajectory on the matching domain: lean, "
+                     "or the full FD profile at int16/bf16 dtypes; no "
+                     "churn/shards)")
 
-    sub.add_parser("twin", help="the digital twin: not ported yet (ROADMAP.md A17b), "
-                   "exits 2")
+    twin = sub.add_parser(
+        "twin",
+        help="replay a recorded runtime trace, fit a calibration, "
+        "optionally autotune against an SLO (docs/twin.md)",
+    )
+    twin.add_argument("--trace", required=True, metavar="PATH",
+                      help="twin-grade JSONL trace (Cluster.trace_rounds)")
+    twin.add_argument("--calibration-out", default=None, metavar="PATH",
+                      help="write the fitted CalibrationRecord JSON here")
+    twin.add_argument("--seed", type=int, default=0)
+    twin.add_argument("--tolerance", type=float, default=None,
+                      help="held-out validation tolerance recorded in "
+                      "(and gated by) the calibration (default 0.35)")
+    twin.add_argument("--deadline", type=float, default=None,
+                      metavar="SECONDS",
+                      help="SLO convergence deadline; with candidate "
+                      "lists below, runs the autotuner")
+    twin.add_argument("--fd-budget", type=float, default=None,
+                      help="SLO failure-detector false-positive budget")
+    twin.add_argument("--fanout", default=None,
+                      help="comma-separated fanout candidates")
+    twin.add_argument("--phi", default=None,
+                      help="comma-separated phi-threshold candidates")
+    twin.add_argument("--writes", default=None,
+                      help="comma-separated writes-per-round candidates")
+    twin.add_argument("--check-drift", default=None, metavar="CALIBRATION",
+                      help="drift-monitor mode: verdict --trace against "
+                      "this stored CalibrationRecord (twin/drift.py); "
+                      "exits 1 on drift")
+    twin.add_argument("--drift-window", type=int, default=None,
+                      metavar="ROUNDS",
+                      help="rolling window for --check-drift (default: "
+                      "the stored record's fit window)")
+    twin.add_argument("--cpu", action="store_true",
+                      help="run on the CPU (the default is the CUDA card; "
+                      "without one the run raises)")
 
-    args, extra = parser.parse_known_args(argv)
+    args = parser.parse_args(argv)
     if args.command == "twin":
-        print("twin: the digital twin (replay, calibrate, drift, autotune) is not "
-              "ported yet (ROADMAP.md A17b)", file=sys.stderr)
-        return 2
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+        return _run_twin(args)
     try:
         cfg = _sim_config(args)
     except ValueError as exc:  # bad --mtu/--nodes/--grace combinations

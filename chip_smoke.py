@@ -184,9 +184,38 @@ message; the planner's bytes beside each run's peak (and C2's run peak,
 read in phase 12 before its check); ``obs.device_trace`` of two headline
 rounds naming the pairs kernels.
 
-Every phase prints one line; any failure raises. The last three lines
-are the card, the kernel table (JSON) and the device record (JSON). It
-exits non-zero without a CUDA device.
+Then the digital twin (phase 18): a seeded twin-grade trace of 10,240
+nodes x 40 rounds (tools/twin_trace.py; its bytes and load seconds),
+replayed on the card from counters at 0 (its converged round and w sha256
+equal to a Simulator of the lifted config, the replay's next round
+through the kernels equal to the plain round on its own state, each pull
+mode held and timed there), the calibration fitted, saved and loaded, the
+drift check ok on the trace and drifted on rounds_per_sec on a copy twice
+as slow; ``autotune`` over fanout [1, 2, 3, 4] x phi [8, 4] (8 lanes of
+one SweepSimulator, one lane launch a sub-exchange; its lane modes held
+against their plain versions on its own state; each lane equal to a
+sequential run of its config; its peak beside the planner's); a
+fault-conditioned autotune at 2,048 (split brain, 4 lanes, plain as the
+reference serves plans; the recommended lane's run through fd.cu); the
+1,024-node twin loop against the reference's digests; and ``python -m
+aiocluster_torch twin`` in subprocesses (with a deadline and candidates,
+then ``--check-drift``), records equal to the in-process loop's.
+
+Then the host fast path (phase 19) on a host thread of its own, started
+before phase 14 and joined after phase 18 (it counts nothing in
+``ops.counters``): ``sim/_hostsim.cpp`` built by g++; the headline (full
+profile) to convergence at 24 with every matrix equal to the card run's
+(phase 5), saved at tick 12 and resumed to the same end; the lean
+headline and the lean choice pairing a round at a time, each round's w
+equal to the card's; the north star's w at ticks 1 and 2 against the
+record's digests; ``sim --host-native`` in a subprocess, its record equal
+to the lean run's. The host CPU's model, cores, flags and g++ are
+printed, and seconds a round of every host run.
+
+Every phase prints one line, stamped with the seconds since the start;
+any failure raises. The last three lines are the card, the kernel table
+(JSON) and the device record (JSON). It exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -216,6 +245,8 @@ from aiocluster_torch import (
     HEADLINE_BUDGET, MetricsRegistry, SimCluster, SimConfig, Simulator, SweepSimulator,
     TraceWriter, full_config, headline_config, lean_config,
 )
+from aiocluster_torch import twin
+from aiocluster_torch.core import Config, NodeId
 from aiocluster_torch.obs import read_trace
 from aiocluster_torch.ops import (
     _build, counters, gossip, m8_pull, m8_totals, pairs_pull, pairs_totals, prng,
@@ -228,9 +259,15 @@ from aiocluster_torch.faults import (
 from aiocluster_torch.faults import sim as fsim
 from aiocluster_torch.models import Heterogeneity
 from aiocluster_torch.parallel import make_mesh
-from aiocluster_torch.sim import memory
+from aiocluster_torch.sim import hostsim, memory
+from aiocluster_torch.sim import simulator as simulator_mod
+from aiocluster_torch.sim import sweep as sweep_mod
 from aiocluster_torch.sim.packed import is_packed_w, pack_bits, unpack_bits, unpack_u4
 from aiocluster_torch.sim.state import STATE_FIELDS, lane
+from tools.twin_trace import (
+    TWIN_LOOP, run_twin_loop, stretch_loaded_trace, stretch_trace, twin_digests,
+    write_twin_trace,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
@@ -286,8 +323,13 @@ OPS_PAIR = 3 + 13 + 7 + 2 * 3
 OPS_PAIR_LEAN = OPS_PAIR - 2 * 3
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the run's log, stamped with the seconds since the
+    script started (phase 19's host thread logs beside the card's)."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s {phase}] {msg}", flush=True)
 
 
 @contextlib.contextmanager
@@ -381,23 +423,25 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def pull_case(n, wdt, hdt, imdt, seed, *, diag, check, fd, hb0, dev, lean=False):
-    """Random sub-exchange operands (numpy seed) in the ranges a run sees
-    (``lean``: no heartbeat matrix). Returns a factory of fresh copies, so
-    kernel and plain start equal."""
-    rng = np.random.default_rng(seed)
+    """Random sub-exchange operands (drawn by a seeded generator on
+    ``dev``: the host's would take seconds at this width; kept on the
+    host, so a factory held for later phases holds no card memory) in the
+    ranges a run sees (``lean``: no heartbeat matrix). Returns a factory
+    of fresh copies on ``dev``, so kernel and plain start equal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     tick = 40
-    w = rng.integers(0, 17, (n, n), dtype=np.int32)
-    hb = rng.integers(0, tick, (n, n), dtype=np.int32)
-    lc = rng.integers(0, tick, (n, n), dtype=np.int32)
-    im = (rng.random((n, n), dtype=np.float32) * 6).astype(np.float32)
-    ic = rng.integers(0, 12, (n, n), dtype=np.int32)
-    h0 = rng.integers(0, tick, (n, n), dtype=np.int32)
-    alive = rng.random(n) < 0.9
-    mv = rng.integers(16, 20, n)
-    hbv = rng.integers(tick - 2, tick + 1, n)
+    rint = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+    w, hb, lc = rint(0, 17, (n, n)), rint(0, tick, (n, n)), rint(0, tick, (n, n))
+    im = torch.rand((n, n), generator=gen, device=dev) * 6
+    ic, h0 = rint(0, 12, (n, n)), rint(0, tick, (n, n))
+    alive = torch.rand(n, generator=gen, device=dev) < 0.9
+    mv, hbv = rint(16, 20, (n,)), rint(tick - 2, tick + 1, (n,))
     gm, c, p = prng.grouped_matching(prng.key(seed), n)
-    valid = torch.from_numpy(alive) & torch.from_numpy(alive)[p]
-    to = lambda a, dt: torch.from_numpy(a).to(dev, dt, copy=True)  # noqa: E731
+    valid = alive & alive[p.to(dev)]
+    w, hb, lc, im, ic, h0, alive, mv, hbv = (
+        t.cpu() for t in (w, hb, lc, im, ic, h0, alive, mv, hbv))
+    to = lambda a, dt: a.to(dev, dt, copy=True)  # noqa: E731
     shared = dict(
         gm=gm.to(dev, torch.int32), c=c.to(dev, torch.int32),
         valid=valid.to(dev), salt=2 * seed + 1, run_salt=0x9E3779B9,
@@ -718,16 +762,20 @@ def check_two_pass_full_width(dev, errs):
 
 
 def check_fd_kernel(dev):
-    """Phase 4: the standalone FD kernel against its plain version."""
-    rng = np.random.default_rng(7)
+    """Phase 4: the standalone FD kernel against its plain version (random
+    operands drawn by a seeded generator on ``dev``, kept on the host: the
+    returned factory is held until phase 13)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
     tick = 40
-    to = lambda a, dt: torch.from_numpy(a).to(dev, dt, copy=True)  # noqa: E731
-    hb = rng.integers(0, tick, (N, N), dtype=np.int32)
-    h0 = rng.integers(0, tick, (N, N), dtype=np.int32)
-    hbv = rng.integers(tick - 2, tick + 1, N)
-    lc = rng.integers(0, tick, (N, N), dtype=np.int32)
-    im = (rng.random((N, N), dtype=np.float32) * 6).astype(np.float32)
-    ic = rng.integers(0, 12, (N, N), dtype=np.int32)
+    to = lambda a, dt: a.to(dev, dt, copy=True)  # noqa: E731
+    rint = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+    hb, h0 = rint(0, tick, (N, N)), rint(0, tick, (N, N))
+    hbv = rint(tick - 2, tick + 1, (N,))
+    lc = rint(0, tick, (N, N))
+    im = torch.rand((N, N), generator=gen, device=dev) * 6
+    ic = rint(0, 12, (N, N))
+    hb, h0, hbv, lc, im, ic = (t.cpu() for t in (hb, h0, hbv, lc, im, ic))
     params = FdParams.from_config(headline_config())
 
     def fresh():
@@ -4616,6 +4664,14 @@ REF_DIGESTS: dict = {
             "live_view": "a1c2854c6a0a96d8", "dead_since": "e3b0c44298fc1c14",
         },
     }, "converged_round": 24, "script_converged_round": 34},
+    # Phase 18's 1,024-node twin loop (tools/twin_trace.py TWIN_LOOP): the
+    # sha256 of the replay's rows, the calibration record and the
+    # recommendation, the trace path replaced by one name (twin_digests).
+    "twin_1024": {"digests": {
+        "replay": "659291bcc61a0f4c2a648c8fb22b4a78dda96b96967d33da207743c44b1f1efb",
+        "calibration": "2ff152468c0fc11570783f7c14de4451d272cac647c6ca4c6f239dd10e8f36cc",
+        "recommendation": "4208cbc49711ceb9c42b475dee8990ea20ea8d33f4568419fab028928817ead6",
+    }, "converged_round": 88, "lane": 6},
 }
 CONFIG4_N = 10_000
 CONFIG4_ROUND = REF_DIGESTS["config4"]["converged_round"]  # the reference's, the same script
@@ -4675,7 +4731,7 @@ def digest_prefix(case, cfg, dev, seed, topology=None, ticks=(1, 2, 3)):
     return sim
 
 
-def round_entries(dev, sim, launches, tag, check_last=False):
+def round_entries(dev, sim, launches, tag, check_last=False, sizes=(2, 2, 2), path=None):
     """The pairs pull launches of a run on its own state (``sim`` after its
     rounds): the next round's draws (its churn flips and matchings), its
     post-churn alive mask, cadence gate, heartbeats and writes, and its
@@ -4686,7 +4742,9 @@ def round_entries(dev, sim, launches, tag, check_last=False):
     the same inputs, then both timed by CUDA events on a copy of that
     mode's inputs. Returns one kernels-line entry a mode, named
     ``pairs_pull[<tag> <mode>]``, its launches the run's count of that
-    mode (``launches``)."""
+    mode (``launches``); ``sizes`` are the bytes of an element of w, of
+    the heartbeat matrices and of the interval means (the bound's
+    bytes), ``path`` the entries' run (``<tag>_headline`` by default)."""
     st, cfg, n = sim.state, sim.cfg, sim.cfg.n_nodes
     form, k = gossip.kernel_pull_form(cfg)
     check(form in ("pairs", "pairs_cluster"), f"the {tag} run's form is {form}")
@@ -4737,7 +4795,8 @@ def round_entries(dev, sim, launches, tag, check_last=False):
         ms = cuda_ms(lambda: call(pairs_pull.pairs_pull, inputs), 20)
         plain_ms = cuda_ms(lambda: call(pairs_pull.pairs_pull_plain, inputs), 3, 1)
         del inputs
-        b_ms, b_by = bound(pull_bytes(n, 2, 2, **mode, hb0=mode["fd"]),
+        wsize, hsize, imsize = sizes
+        b_ms, b_by = bound(pull_bytes(n, wsize, hsize, **mode, hb0=mode["fd"], imsize=imsize),
                            (OPS_PAIR + (OPS_FD * 2 if mode["fd"] else 0)) * n * n / 2)
         name = key[len("pairs_pull["):-1]
         entries.append(dict(
@@ -4746,7 +4805,7 @@ def round_entries(dev, sim, launches, tag, check_last=False):
             replaces="aiocluster_tpu/ops/pallas_pull.py:490",
             launches=launches.get(key, 0), launches_per_round=launches.get(key, 0) / sim.tick,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, path=f"{tag}_headline", tick=tick,
+            library_ms=None, path=path or f"{tag}_headline", tick=tick,
         ))
         log(tag, f"{key} at tick {tick} (sub-exchange {c}, {int(valid.sum())} valid rows): "
             f"max_abs_err={err}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
@@ -6079,13 +6138,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+CHILDREN: set = set()  # the children running now (killed if the script fails)
+
+
+def kill_children() -> None:
+    for proc in list(CHILDREN):
+        proc.kill()
+
+
 def run_child(argv, what, timeout_s, on_stderr_line=None):
     """Run ``argv`` from the repository root with a hard time limit (the
-    child is killed on it); returns (rc, stdout, stderr), each stderr
-    line also handed to ``on_stderr_line`` as it comes."""
+    child is killed on it, or when the script fails); returns (rc,
+    stdout, stderr), each stderr line also handed to ``on_stderr_line``
+    as it comes."""
     root = Path(__file__).resolve().parent
     proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+    CHILDREN.add(proc)
     out_lines, err_lines = [], []
 
     def pump(stream, lines, hook):
@@ -6104,6 +6173,7 @@ def run_child(argv, what, timeout_s, on_stderr_line=None):
             proc.wait()
             raise RuntimeError(f"{what} did not finish in {timeout_s} s")
         finally:
+            CHILDREN.discard(proc)
             for f in pumps:
                 f.result(timeout=30)
     return proc.returncode, "".join(out_lines), "".join(err_lines)
@@ -6247,6 +6317,673 @@ def across_processes(dev, card_line):
     return out, lane_block_entries(errs, times, run)
 
 
+# -- the digital twin (phase 18) -------------------------------------------------------
+
+TWIN_N, TWIN_ROUNDS = 10_240, 40  # the fleet of the twin's trace, its rounds a node
+TWIN_SLO = (3600.0, 0.5)  # the autotune's deadline (seconds) and FD false-positive budget
+TWIN_GRID = dict(fanout=[1, 2, 3, 4], phi_threshold=[8.0, 4.0])
+TWIN_FAULT_N = 2_048  # the fault-conditioned autotune's width: under a minute
+TWIN_FAULT_GRID = dict(fanout=[2, 3], phi_threshold=[8.0, 4.0])
+TWIN_CLI_TIMEOUT_S = 240
+# Phase 19's host thread and phase 18's child processes (the trace's writer,
+# the twin CLI) run here, beside the card's work.
+BACKGROUND = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+
+
+@contextlib.contextmanager
+def capture(module, name):
+    """Every instance the code under the block builds of ``module.name``
+    (a class the twin imports at call time), in a list."""
+    made, real = [], getattr(module, name)
+
+    class Captured(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    with unittest.mock.patch.object(module, name, Captured):
+        yield made
+
+
+def operator_config() -> Config:
+    return Config(node_id=NodeId(name="operator", generation_id=1,
+                                 gossip_advertise_addr=("127.0.0.1", 0)))
+
+
+def sweep_lane_modes(dev, sweep, tag):
+    """The lane launches of an unsharded sweep on its own state: the next
+    round's draws, lane salts, heartbeats and voided sub-exchanges (each
+    lane's own fanout), its sub-exchanges chained as ``gossip.sweep_blocks``
+    chains them on copies of the lanes (the first refreshing the
+    diagonal, the last the check and the FD epilogue with each lane's
+    phi), kernels against their plain versions; then each mode's launch
+    timed by CUDA events beside its plain version, on the kernels' output
+    (the sweep's state moves on: read its result first; one copy of the
+    lanes is held beside them). Returns (errs, times): mode ->
+    max_abs_err, mode -> (ms, plain_ms, (bound_ms, bound_by))."""
+    cfg, st = sweep.cfg, sweep.blocks[0]
+    lanes, n = sweep.lanes, cfg.n_nodes
+    form, _ = gossip.kernel_pull_form(cfg)
+    check(form == "pairs", f"{tag}: the sweep's form is {form}")
+    tick = sweep.tick + 1
+    keys = prng.keys(sweep.seeds).to(dev)
+    run_salts = prng.run_salts(prng.keys(sweep.seeds)).to(dev)
+    fanouts = gossip.lane_fanouts(cfg, sweep._sweep, lanes, dev)
+    draws = prng.chunk_draws(keys, tick, 1, cfg, alive=st.alive).round(0)
+    salts = gossip.lane_salt_table(tick, 1, cfg.fanout, fanouts, run_salts)[0]
+    alive = st.alive
+    heartbeat = st.heartbeat + alive.to(torch.int32)
+    mv = st.max_version + cfg.writes_per_round * alive.to(torch.int32)
+    params = FdParams.from_config(cfg)
+    phi = sweep._sweep.phi_threshold
+    fields = ("w", "hb_known", "last_change", "imean", "icount", "live_view")
+    kern = {f: getattr(st, f) for f in fields}
+    plain = {f: getattr(st, f).clone() for f in fields}
+    kern["hb0"], plain["hb0"] = kern["hb_known"].clone(), plain["hb_known"].clone()
+    sizes = (st.w.element_size(), st.hb_known.element_size(), st.imean.element_size())
+    errs, times, calls = {}, {}, {}
+    for c in range(cfg.fanout):
+        first, last = c == 0, c == cfg.fanout - 1
+        mode = "first" if first else ("last" if last else "middle")
+        valid = alive & torch.gather(alive, 1, draws.p[c].long())
+        valid &= (c < fanouts)[:, None]  # a lane's sub-exchanges past its fanout are void
+
+        def pull(fn, ops, c=c, first=first, last=last, valid=valid):
+            kw = {}
+            if first:
+                kw.update(mv=mv, hbv=heartbeat)
+            if last:
+                kw.update(check=(mv, alive, alive), hbv=heartbeat,
+                          fd=pairs_pull.FdOperands(tick, ops["last_change"], ops["imean"],
+                                                   ops["icount"], ops["live_view"], ops["hb0"],
+                                                   params, phi=phi))
+            return fn(ops["w"], ops["hb_known"], draws.gm[c], draws.c[c], valid, salts[c],
+                      cfg.budget, **kw)
+
+        flags = [pull(pairs_pull.pairs_pull_lanes, kern), pull(pairs_pull.pairs_pull_lanes_plain,
+                                                               plain)]
+        torch.cuda.synchronize()
+        err = max_abs_err(list(kern.values()), list(plain.values()))
+        if last:
+            err = max(err, max_abs_err([flags[0]], [flags[1]]))
+        errs[mode] = max(errs.get(mode, 0.0), err)
+        calls.setdefault(mode, (pull, first, last))
+    check(all(e == 0.0 for e in errs.values()), f"{tag}: a lane mode disagrees: {errs}")
+    # Each mode's launch timed on the round's output (the held round first:
+    # a timed launch moves the state on).
+    wsize, hsize, imsize = sizes
+    for mode, (pull, first, last) in calls.items():
+        ms = cuda_ms(lambda: pull(pairs_pull.pairs_pull_lanes, kern), 10)
+        plain_ms = cuda_ms(lambda: pull(pairs_pull.pairs_pull_lanes_plain, kern), 2, 1)
+        m = dict(diag=first, check=last, fd=last)
+        b_ms, b_by = bound(pull_bytes(n, wsize, hsize, **m, hb0=last, imsize=imsize),
+                           (OPS_PAIR + (OPS_FD * 2 if last else 0)) * n * n / 2)
+        times[mode] = (ms, plain_ms, (lanes * b_ms, b_by))
+        log(tag, f"{mode} sub-exchange at tick {tick}, {lanes} lanes (fanouts "
+            f"{fanouts.tolist()}): max_abs_err {errs[mode]}; {ms:.4f} ms (bound "
+            f"{lanes * b_ms:.4f} by {b_by}; plain {plain_ms:.3f} ms)")
+    del kern, plain, st
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def lane_mode_entries(errs, times, launches, rounds, path):
+    """The kernels-line entries of ``sweep_lane_modes``' modes, with the
+    sweep's launches of each."""
+    keys = {"first": pairs_pull.counter_key(True, False, False, lanes=True),
+            "middle": pairs_pull.counter_key(False, False, False, lanes=True),
+            "last": pairs_pull.counter_key(False, True, True, lanes=True)}
+    entries = []
+    for mode, key in keys.items():
+        ms, plain_ms, (b_ms, b_by) = times[mode]
+        entries.append(dict(
+            name=f"pairs_pull[{path} lanes {mode}]", route="cuda",
+            source="aiocluster_torch/ops/csrc/pairs_pull.cu",
+            replaces="aiocluster_tpu/ops/pallas_pull.py:1803",
+            launches=launches.get(key, 0), launches_per_round=launches.get(key, 0) / rounds,
+            max_abs_err=errs[mode], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, path=path,
+        ))
+    return entries
+
+
+def start_twin_trace():
+    """Phase 18's 10,240-node trace, written by a child process on
+    ``BACKGROUND`` while the card works on earlier phases (the writer is
+    pure Python: in this process it would hold the interpreter lock the
+    card's launches need). Returns (its directory, the future of the
+    write's (path, seconds))."""
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "twin_10240.jsonl"
+    code = ("import sys; from tools.twin_trace import write_twin_trace; "
+            f"write_twin_trace(sys.argv[1], n_nodes={TWIN_N}, rounds={TWIN_ROUNDS}, seed=0)")
+
+    def write():
+        t0 = time.perf_counter()
+        rc, _, err = run_child([sys.executable, "-c", code, str(path)], "the twin trace's writer",
+                               TWIN_CLI_TIMEOUT_S)
+        check(rc == 0, f"the twin trace's writer failed (rc {rc}): {err[-2000:]}")
+        return path, time.perf_counter() - t0
+
+    return tmp, BACKGROUND.submit(write)
+
+
+def twin_replay_full(dev, card_line, tmp, written):
+    """Phase 18a-c: a seeded twin-grade trace of 10,240 nodes (its bytes,
+    the seconds to write and load it), replayed on the card from counters
+    at 0: its converged round and w sha256 equal to a Simulator run of the
+    lifted config (chunk=8, no metrics); the replay's next round through
+    the kernels equal to the plain round on its own state, and each pull
+    mode it launches held and timed there. Then the calibration's fit,
+    save and load, and the drift check: ok on the trace, drifted on
+    rounds_per_sec on a copy twice as slow (``stretch_loaded_trace``)."""
+    path, write_s = written.result()
+    t0 = time.perf_counter()
+    trace = twin.load_runtime_trace(path)
+    load_s = time.perf_counter() - t0
+    cfg = twin.lift_sim_config(trace)
+    log("twin", f"trace of {trace.n_nodes} nodes x {TWIN_ROUNDS} rounds: "
+        f"{path.stat().st_size} bytes, written in {write_s:.2f} s (a child process, beside "
+        f"phases 14-17), loaded in {load_s:.2f} s "
+        f"({len(trace.rounds)} aligned rounds, {trace.skipped} skipped lines); lifted config "
+        f"{cfg.version_dtype}/{cfg.heartbeat_dtype}/{cfg.fd_dtype}, budget {cfg.budget}, "
+        f"fanout {cfg.fanout}")
+    counters.reset()
+    t0 = time.perf_counter()
+    with capture(simulator_mod, "Simulator") as made:
+        report = twin.replay(trace, seed=0, device=dev)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches, plain = dict(counters.launches), dict(counters.plain_calls)
+    check(len(made) == 1, f"replay built {len(made)} simulators")
+    rsim = made[0]
+    ticks = rsim.tick
+    log("twin", f"replay: converged at {report.sim_converged_round} after {ticks} rounds "
+        f"(chunk 1, a metrics sample every round) in {replay_s:.2f} s; launches {launches}; "
+        f"plain calls {plain}")
+    check(not plain and counters.kernel_launches("pairs_pull") == cfg.fanout * ticks,
+          "the replay did not run every sub-exchange through the pairs kernel")
+    check(len(report.rows) == TWIN_ROUNDS
+          and [x["tick"] for x in report.sim_series] == list(range(1, ticks + 1)),
+          "the replay's rows or series have the wrong length")
+    check(all(np.isfinite(r["sim_mean_fraction"]) for r in report.rows),
+          "the replay's rows are not finite")
+    t0 = time.perf_counter()
+    ref = Simulator(cfg, seed=0, chunk=8, device=dev)
+    ref_round = ref.run_until_converged(max_rounds=4096)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    # A replay runs on past convergence to the trace's end; a chunk-8 run
+    # may end its last chunk past the converged round (w no longer moves).
+    ref.run(max(0, ticks - ref.tick))
+    w_sha = sha(rsim.state.w.cpu().numpy())
+    same_w = w_sha == sha(ref.state.w.cpu().numpy())
+    log("twin", f"a Simulator of the lifted config (chunk 8, no metrics): converged at "
+        f"{ref_round} in {ref_s:.2f} s; the replay's w sha256 {w_sha[:16]} "
+        f"{'equal' if same_w else 'DIFFERENT'}")
+    check(report.sim_converged_round == ref_round and ticks == max(ref_round, TWIN_ROUNDS),
+          "the replay's converged round differs")
+    check(same_w, "the replay's w differs from the Simulator's")
+    del ref
+    torch.cuda.empty_cache()
+    round_launches = plain_round_equal(rsim, "twin replay")
+    check(sum(v for k, v in round_launches.items() if k.startswith("pairs_pull[")) == cfg.fanout,
+          f"the held round did not launch a pull a sub-exchange ({round_launches})")
+    entries = round_entries(dev, rsim, launches, "twin", check_last=True,
+                            sizes=(4, 4, 4), path="twin_replay")
+    del rsim, made
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cal = twin.fit_calibration(report)
+    fit_s = time.perf_counter() - t0
+    cal_path = tmp / "calibration.json"
+    twin.save_calibration(cal_path, cal)
+    check(twin.load_calibration(cal_path) == cal, "the calibration does not round-trip")
+    verdict = twin.check_drift(cal, trace, device=dev)
+    drifted = twin.check_drift(cal, stretch_loaded_trace(trace, 2.0), device=dev)
+    log("twin", f"calibration fitted in {fit_s:.3f} s: {cal.rounds_per_sec:.4f} rounds/s "
+        f"(std {cal.rounds_per_sec_std:.4f}), kv_scale {cal.kv_scale}, holdout ok "
+        f"{cal.holdout_ok}; drift on the trace ok={verdict.ok} (skipped "
+        f"{list(verdict.skipped_axes)}), on a copy twice as slow ok={drifted.ok}, drifted "
+        f"{[a.axis for a in drifted.drifted_axes]}")
+    check(verdict.ok and not drifted.ok
+          and [a.axis for a in drifted.drifted_axes] == ["rounds_per_sec"],
+          "the drift check did not pass the trace and flag its slowed copy")
+    out = {"n": TWIN_N, "trace_bytes": path.stat().st_size, "trace_write_s": write_s,
+           "trace_load_s": load_s, "replay_s": replay_s, "converged_round": ticks,
+           "replay_round_ms": replay_s / ticks * 1e3, "fit_s": fit_s,
+           "rounds_per_sec": cal.rounds_per_sec, "held_round_launches": round_launches,
+           "drift_ok": verdict.ok, "drifted_axes": [a.axis for a in drifted.drifted_axes]}
+    return out, entries, trace, cal
+
+
+def twin_autotune_full(dev, card_line, trace, cal, plans):
+    """Phase 18d: ``autotune`` over fanout [1, 2, 3, 4] x phi [8, 4] at
+    10,240 (8 lanes of the lifted config) from counters at 0: one
+    SweepSimulator, one lane launch a sub-exchange; its lane launches
+    held against their plain versions on the sweep's own state; each
+    lane's converged round and FD false-positive fraction equal to a
+    sequential Simulator of that lane's config run to the sweep's tick;
+    the peak beside the planner's bytes for 8 lanes."""
+    cfg = twin.lift_sim_config(trace)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    with capture(sweep_mod, "SweepSimulator") as made:
+        rec = twin.autotune(twin.SLO(*TWIN_SLO), cal, operator_config(), cfg, device=dev,
+                            **TWIN_GRID)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(counters.launches)
+    check(len(made) == 1, f"autotune built {len(made)} sweeps")
+    sweep = made[0]
+    ticks, lanes = sweep.tick, sweep.lanes
+    log("twin_autotune", f"8 lanes at {TWIN_N}: {ticks} rounds in {tune_s:.2f} s "
+        f"({lanes * ticks / tune_s:.2f} lane-rounds/s with the set-up); recommended lane "
+        f"{rec.lane} (fanout {rec.sim_config.fanout}, phi {rec.sim_config.phi_threshold}), "
+        f"predicted {rec.predicted['seconds']:.1f} s; launches {launches}; plain calls "
+        f"{dict(counters.plain_calls)}; peak {peak / 1e9:.2f} GB")
+    check(lanes == 8 and not counters.plain_calls and not counters.fallbacks
+          and counters.kernel_launches("pairs_pull") == max(TWIN_GRID["fanout"]) * ticks
+          and all(k.startswith("pairs_pull[lanes") for k in launches),
+          "the autotune sweep did not take one lane launch a sub-exchange")
+    result = sweep.result()
+    errs, times = sweep_lane_modes(dev, sweep, "twin_autotune")
+    lane_rows = rec.evidence["lanes"]
+    del sweep, made
+    torch.cuda.empty_cache()
+    # The lanes' sequential runs, each one tracked chunk of the sweep's
+    # rounds, queued one after another (each simulator's host work runs
+    # beside the card's backlog of the one before), then read.
+    t0 = time.perf_counter()
+    sims = [Simulator(dataclasses.replace(cfg, fanout=row["fanout"],
+                                          phi_threshold=row["phi_threshold"]),
+                      seed=0, chunk=ticks, device=dev) for row in lane_rows]
+    firsts = [sim._run_chunk(ticks, tracked=True) for sim in sims]
+    seq = [(int(f) or None, float(sim.metrics()["fd_false_positive_fraction"]))
+           for f, sim in zip(firsts, sims)]
+    seq_s = time.perf_counter() - t0
+    del sims, firsts
+    torch.cuda.empty_cache()
+    for s, (row, (r, fp)) in enumerate(zip(lane_rows, seq)):
+        check(r == result.rounds_to_convergence[s] == row["rounds_to_convergence"]
+              and fp == result.fd_false_positive_fraction[s] == row["fd_false_positive_fraction"],
+              f"autotune lane {s} differs from its sequential run: {r}, {fp} against "
+              f"{row['rounds_to_convergence']}, {row['fd_false_positive_fraction']}")
+    log("twin_autotune", f"every lane equal to its sequential run (to tick {ticks}) in "
+        f"{seq_s:.2f} s: rounds {[r for r, _ in seq]}, FD false-positive fractions "
+        f"{[fp for _, fp in seq]}")
+    plans["twin_autotune"] = planned_against_peak("the twin's 8-lane autotune", cfg, peak,
+                                                  lanes=lanes)
+    out = {"lanes": lanes, "rounds_run": ticks, "tune_s": tune_s, "sequential_s": seq_s,
+           "lane_rounds_per_s": lanes * ticks / tune_s, "recommended_lane": rec.lane,
+           "rounds_to_convergence": result.rounds_to_convergence,
+           "predicted_s": rec.predicted["seconds"], "peak_memory_gb": peak / 1e9}
+    return out, lane_mode_entries(errs, times, launches, ticks, "twin_autotune")
+
+
+def twin_fault_autotune(dev, card_line, trace, cal):
+    """Phase 18e: ``autotune`` under ``SLO(fault_plan=split_brain(2, heal
+    6))`` at 2,048 nodes, 4 lanes: every lane's round plain, as the
+    reference serves plans with XLA ("fault_plan"); the recommended
+    lane's converged round equal to a sequential Simulator's, whose FD
+    phase runs through fd.cu every round, held against its plain version
+    on that run's state."""
+    cfg = twin.lift_sim_config(trace, n_nodes=TWIN_FAULT_N)
+    slo = twin.SLO(*TWIN_SLO, fault_plan=split_brain(2, start=0.0, heal=6.0))
+    counters.reset()
+    t0 = time.perf_counter()
+    with capture(sweep_mod, "SweepSimulator") as made:
+        rec = twin.autotune(slo, cal, operator_config(), cfg, device=dev, **TWIN_FAULT_GRID)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches, ticks = dict(counters.launches), made[0].tick
+    lanes = made[0].lanes
+    del made
+    log("twin_fault", f"split brain healed at tick 6, {lanes} lanes at {TWIN_FAULT_N} nodes: "
+        f"{ticks} rounds in {tune_s:.2f} s; recommended lane {rec.lane} (fanout "
+        f"{rec.sim_config.fanout}, phi {rec.sim_config.phi_threshold}); launches {launches}; "
+        f"fallbacks {dict(counters.fallbacks)}")
+    check(counters.kernel_launches("pairs_pull") == 0
+          and dict(counters.fallbacks) == {"fault_plan": ticks},
+          "the fault-conditioned sweep did not run its lanes plain ('fault_plan')")
+    win = rec.evidence["lanes"][rec.lane]
+    counters.reset()
+    sim = Simulator(rec.sim_config, seed=0, chunk=8, device=dev)
+    r = sim.run_until_converged(max_rounds=1024)
+    seq_launches, seq_rounds = dict(counters.launches), sim.tick
+    check(r == win["rounds_to_convergence"], f"the fault lane converged at {r} sequentially, "
+          f"{win['rounds_to_convergence']} in the sweep")
+    check(seq_launches == {"fd": seq_rounds}, "the fault lane's FD phase did not run fd.cu")
+    err, fd_ms, fd_plain_ms, b_ms, b_by, _ = fd_on_state(sim, "the fault lane")
+    del sim
+    torch.cuda.empty_cache()
+    entry = dict(
+        name="fd[twin_fault]", route="cuda", source="aiocluster_torch/ops/csrc/fd.cu",
+        replaces="aiocluster_tpu/ops/pallas_fd.py:51", launches=seq_launches.get("fd", 0),
+        launches_per_round=seq_launches.get("fd", 0) / seq_rounds, max_abs_err=err, ms=fd_ms,
+        plain_ms=fd_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        path="twin_fault_lane", n=TWIN_FAULT_N, sweep_launches=launches,
+    )
+    log("twin_fault", f"the recommended lane sequentially: converged at {r} ({seq_launches} in "
+        f"{seq_rounds} rounds); fd.cu {fd_ms:.4f} ms (bound {b_ms:.4f} by {b_by}; plain "
+        f"{fd_plain_ms:.3f}) on its state, max_abs_err {err}")
+    out = {"n": TWIN_FAULT_N, "lanes": lanes, "rounds_run": ticks, "tune_s": tune_s,
+           "recommended_lane": rec.lane, "converged_round": r}
+    return out, entry
+
+
+def twin_cli_children(tmp, trace_path, slow_path):
+    """Phase 18g (in ``BACKGROUND``, beside the card work): ``python -m
+    aiocluster_torch twin`` on the 1,024-node trace with a calibration
+    out, a deadline and candidate lists; then ``--check-drift`` of that
+    calibration on the trace's slowed copy. Returns both (rc, stdout,
+    stderr, seconds)."""
+    out = []
+    cal = tmp / "cli_calibration.json"
+    for argv in (
+        ["--trace", str(trace_path), "--calibration-out", str(cal),
+         "--deadline", str(TWIN_LOOP["deadline_s"]),
+         "--fanout", ",".join(map(str, TWIN_LOOP["fanout"])),
+         "--phi", ",".join(map(str, TWIN_LOOP["phi_threshold"])),
+         "--fd-budget", str(TWIN_LOOP["fd_budget"])],
+        ["--trace", str(slow_path), "--check-drift", str(cal)],
+    ):
+        t0 = time.perf_counter()
+        res = run_child([sys.executable, "-m", "aiocluster_torch", "twin", *argv],
+                        "the twin CLI", TWIN_CLI_TIMEOUT_S)
+        out.append((*res, time.perf_counter() - t0))
+    return out, cal
+
+
+def twin_1024_and_cli(dev, card_line, tmp, children, trace_path, slow_path):
+    """Phase 18f-g: the twin loop at 1,024 (tools/twin_trace.py
+    ``TWIN_LOOP``) on the card, its digests equal to the reference's;
+    then the CLI children's records and exit codes equal to this run's."""
+    counters.reset()
+    t0 = time.perf_counter()
+    report, cal, rec = run_twin_loop(twin, Config, NodeId, trace_path, device=dev)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    digests = twin_digests(report.to_dict(), cal.to_dict(), rec.to_dict())
+    log("twin_1024", f"replay, fit and 8-lane autotune at {TWIN_LOOP['n_nodes']} in "
+        f"{loop_s:.2f} s: converged at {report.sim_converged_round}, lane {rec.lane}; digests "
+        f"{'equal' if digests == REF_DIGESTS['twin_1024']['digests'] else 'DIFFERENT'} to the reference's "
+        f"({digests}); launches {dict(counters.launches)}")
+    check(digests == REF_DIGESTS["twin_1024"]["digests"]
+          and report.sim_converged_round == REF_DIGESTS["twin_1024"]["converged_round"]
+          and rec.lane == REF_DIGESTS["twin_1024"]["lane"], "the 1,024-node twin differs from the reference's")
+    (runs, cli_cal) = children.result()
+    (rc, stdout, err, wall), (drc, dout, derr, dwall) = runs
+    want = {"trace": str(trace_path), "n_nodes": TWIN_LOOP["n_nodes"],
+            "trace_rounds": len(report.rows), "skipped_lines": report.trace.skipped,
+            "sim_converged_round": report.sim_converged_round, "calibration": cal.to_dict(),
+            "recommendation": rec.to_dict()}
+    got = json.loads(stdout.splitlines()[-1]) if stdout.strip() else None
+    verdict = twin.check_drift(cal, slow_path, device=dev)
+    dgot = json.loads(dout.splitlines()[-1]) if dout.strip() else None
+    dwant = {"trace": str(slow_path), "calibration": str(cli_cal), "drift": verdict.to_dict()}
+    log("twin_cli", f"twin --deadline ... : rc {rc} in {wall:.1f} s with the process's start, "
+        f"record {'equal' if got == want else 'DIFFERENT'} to the in-process loop's; "
+        f"--check-drift on the slowed copy: rc {drc} in {dwall:.1f} s, verdict "
+        f"{'equal' if dgot == dwant else 'DIFFERENT'}")
+    check(rc == 0 and got == want, f"the twin CLI's record differs (rc {rc}): {err[-2000:]}")
+    check(cli_cal.read_text() == json.dumps(cal.to_dict(), indent=2) + "\n",
+          "the CLI's calibration file differs")
+    check(drc == 1 and dgot == dwant and not verdict.ok,
+          f"the drift CLI differs (rc {drc}): {derr[-2000:]}")
+    return {"n": TWIN_LOOP["n_nodes"], "loop_s": loop_s, "digests_equal": True,
+            "converged_round": report.sim_converged_round, "lane": rec.lane,
+            "cli_s": wall, "drift_cli_s": dwall}
+
+
+def digital_twin(dev, card_line, plans, trace_job):
+    """Phase 18: the twin at 10,240 (trace, replay, calibration, drift, the
+    8-lane autotune), the fault-conditioned autotune, the 1,024-node loop
+    against the reference's digests and the ``twin`` CLI. ``trace_job``
+    is ``start_twin_trace``'s."""
+    t0 = time.perf_counter()
+    tmp_dir, written = trace_job
+    tmp = Path(tmp_dir.name)
+    small = write_twin_trace(tmp / "twin_1024.jsonl", n_nodes=TWIN_LOOP["n_nodes"],
+                             rounds=TWIN_LOOP["rounds"], seed=TWIN_LOOP["seed"])
+    small_slow = stretch_trace(small, tmp / "twin_1024_slow.jsonl", 2.0)
+    children = BACKGROUND.submit(twin_cli_children, tmp, small, small_slow)
+    replay_out, entries, trace, cal = twin_replay_full(dev, card_line, tmp, written)
+    tune_out, lane_entries_ = twin_autotune_full(dev, card_line, trace, cal, plans)
+    fault_out, fd_entry = twin_fault_autotune(dev, card_line, trace, cal)
+    del trace
+    loop_out = twin_1024_and_cli(dev, card_line, tmp, children, small, small_slow)
+    tmp_dir.cleanup()
+    secs = time.perf_counter() - t0
+    log("phase18", f"{secs:.1f} s")
+    out = {"replay": replay_out, "autotune": tune_out, "fault_autotune": fault_out,
+           "twin_1024": loop_out, "seconds": secs}
+    return out, entries + lane_entries_ + [fd_entry]
+
+
+# -- the host fast path (phase 19) -----------------------------------------------------
+
+HOST_SAVE_TICK = 12  # the host headline's save, resumed to convergence
+HOST_FIELDS = (("w", "w"), ("hb_known", "hb"), ("last_change", "last_change"),
+               ("imean", "imean"), ("icount", "icount"), ("live_view", "live_view"))
+
+
+def sha(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).view(np.uint8)).hexdigest()
+
+
+def card_matrix_digests(state) -> dict:
+    """sha256 of each (N, N) matrix of a card state, as the host simulator
+    holds it: w as int8 values, bfloat16 as its 16-bit words."""
+    out = {}
+    for f, _ in HOST_FIELDS:
+        t = getattr(state, f)
+        if not t.numel():
+            continue
+        if f == "w":
+            check(int(t.max()) <= 127, "w does not fit int8")
+            t = t.to(torch.int8)
+        elif t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[f] = sha(t.contiguous().cpu().numpy())
+    return out
+
+
+def host_matrix_digests(host) -> dict:
+    return {f: sha(getattr(host, h)) for f, h in HOST_FIELDS if f == "w" or hasattr(host, h)}
+
+
+def host_cli_config(lean: bool):
+    """The config ``sim --host-native`` builds for the headline's width."""
+    from aiocluster_torch.__main__ import _sim_config
+
+    return _sim_config(argparse.Namespace(nodes=N, keys=16, fanout=3, mtu=None, churn=0.0,
+                                          grace=40, lean=lean, host_native=True))
+
+
+def card_round_digests(cfg, dev):
+    """A card run of ``cfg`` at seed 0, a round at a time to convergence:
+    w's digest (int8 values) after each round, and the converged round."""
+    counters.reset()
+    sim = Simulator(cfg, seed=0, chunk=1, device=dev)
+    digests = []
+    for _ in range(400):
+        sim.run(1)
+        digests.append(sha(sim.state.w.to(torch.int8).cpu().numpy()))
+        if bool(sim.metrics()["all_converged"]):
+            break
+    rounds = sim.tick
+    del sim
+    torch.cuda.empty_cache()
+    return digests, rounds
+
+
+def cpu_model() -> dict:
+    """The host CPU as /proc/cpuinfo names it (its first processor): model
+    name, vendor, family and model numbers, the vector flags the host
+    simulator's build can use; the cores and g++'s version."""
+    info = {"cores": os.cpu_count()}
+    fields = {"model name": "model", "vendor_id": "vendor", "cpu family": "family",
+              "model": "model_number"}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if key in fields and fields[key] not in info:
+                info[fields[key]] = value.strip()
+            if key == "flags" and "flags" not in info:
+                flags = set(value.split())
+                info["flags"] = [x for x in ("avx2", "fma", "avx512f", "avx512bw") if x in flags]
+    info["gxx"] = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                                 check=True, timeout=60).stdout.splitlines()[0]
+    return info
+
+
+def host_lockstep(name, cfg, card):
+    """A host run of ``cfg`` at seed 0 a round at a time, w's digest after
+    each round equal to the card run's (``card``: digests, converged
+    round), converged (every row at every owner's count) exactly at the
+    card's round. Returns (the host simulator, its seconds a round)."""
+    digests, rounds = card
+    host = hostsim.HostSimulator(cfg, seed=0)
+    k = host.max_version
+    t0 = time.perf_counter()
+    for r, want in enumerate(digests, start=1):
+        host.run(1)
+        done = bool((host.w.min(axis=1) >= k).all())
+        check(sha(host.w) == want, f"host {name}: w differs from the card's at round {r}")
+        check(done == (r == rounds), f"host {name}: converged flag {done} at round {r}")
+    per_round = (time.perf_counter() - t0) / rounds
+    log("host", f"{name}: {rounds} rounds, every round's w equal to the card's, converged at "
+        f"{rounds}; {per_round:.3f} s a round")
+    return host, per_round
+
+
+def host_fast_path(card):
+    """Phase 19, on a host thread of its own (the card phases go on meanwhile;
+    nothing here counts in ``ops.counters``): the native host simulator's
+    build; the headline (full profile) to convergence at 24 with every
+    matrix equal to the card run's, saved at tick 12 and resumed to the
+    same end; the lean headline and the lean choice pairing round by round
+    equal to the card's; the north star's w at ticks 1 and 2 against the
+    record's digests; ``sim --host-native`` in a subprocess, its record
+    equal to the lean run's. ``card``: the card runs' digests."""
+    from aiocluster_torch.__main__ import host_native_record
+
+    t_all = time.perf_counter()
+    cpu = cpu_model()
+    t0 = time.perf_counter()
+    hostsim.load()
+    build_s = time.perf_counter() - t0
+    log("host", f"CPU model name {cpu.get('model')!r} ({cpu.get('vendor')} family "
+        f"{cpu.get('family')} model {cpu.get('model_number')}), {cpu['cores']} cores, "
+        f"{cpu.get('flags')}; {cpu['gxx']}; "
+        f"_hostsim.cpp built in {build_s:.2f} s ({' '.join(hostsim.FLAGS)})")
+    out = {"cpu": cpu, "build_s": build_s}
+
+    cfg = headline_config()
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = str(Path(tmp.name) / "host_headline")
+    saved = {}
+
+    def save(tick):
+        if tick == HOST_SAVE_TICK:
+            t = time.perf_counter()
+            host.save(ckpt)
+            saved["s"] = time.perf_counter() - t
+
+    head_digests, head_tick = card["headline"]
+    host = hostsim.HostSimulator(cfg, seed=0)
+    t0 = time.perf_counter()
+    converged = host.run_until_converged(max_rounds=200, on_round=save)
+    head_s = time.perf_counter() - t0
+    host.run(head_tick - host.tick)  # the card's run ends its last chunk
+    got = host_matrix_digests(host)
+    log("host", f"headline (full, int16/int16/bfloat16) converged at {converged}: "
+        f"{(head_s - saved.get('s', 0.0)) / converged:.3f} s a round (the save at tick "
+        f"{HOST_SAVE_TICK} {saved.get('s', 0.0):.2f} s); matrices "
+        f"{'equal' if got == head_digests else 'DIFFERENT'} to the card run's at tick "
+        f"{head_tick}")
+    check(converged == CONVERGED_ROUND, f"the host headline converged at {converged}")
+    check(got == head_digests, "the host headline's state differs from the card's")
+    del host
+    t0 = time.perf_counter()
+    resumed = hostsim.HostSimulator.resume(ckpt, cfg)
+    load_s = time.perf_counter() - t0
+    r2 = resumed.run_until_converged(max_rounds=200)
+    resumed.run(head_tick - resumed.tick)
+    check(r2 == converged and host_matrix_digests(resumed) == head_digests,
+          "the resumed host headline does not continue identically")
+    log("host", f"resumed from tick {HOST_SAVE_TICK} (loaded in {load_s:.2f} s): converged at "
+        f"{r2}, every matrix equal")
+    del resumed
+    tmp.cleanup()
+    out["headline"] = {"converged_round": converged, "s_per_round": head_s / converged,
+                       "save_s": saved["s"], "resume_load_s": load_s}
+
+    lean, lean_s = host_lockstep("lean headline", host_cli_config(True), card["lean"])
+    out["lean"] = {"converged_round": lean.tick, "s_per_round": lean_s}
+    lean_record = host_native_record(lean, lean.tick)
+    del lean
+    choice_cfg = dataclasses.replace(host_cli_config(True), pairing="choice")
+    choice, choice_s = host_lockstep("lean choice", choice_cfg, card["choice"])
+    out["choice"] = {"converged_round": choice.tick, "s_per_round": choice_s}
+    del choice
+
+    ns_cfg = lean_config(NORTH_STAR_N, budget=2618)
+    t0 = time.perf_counter()
+    ns = hostsim.HostSimulator(ns_cfg, seed=NORTH_STAR_SEED)
+    init_s = time.perf_counter() - t0
+    ticks, held = {}, {}
+    for tick in sorted(NORTH_STAR_DIGESTS):
+        t = time.perf_counter()
+        ns.run(1)
+        ticks[tick] = time.perf_counter() - t
+        t = time.perf_counter()
+        held[tick] = sha(ns.w)
+        log("host", f"north star tick {tick}: {ticks[tick]:.2f} s; w sha256 "
+            f"{'equal' if held[tick] == NORTH_STAR_DIGESTS[tick] else 'DIFFERENT'} to the "
+            f"record's ({time.perf_counter() - t:.2f} s to hash)")
+        check(held[tick] == NORTH_STAR_DIGESTS[tick], f"the host north star differs at {tick}")
+    del ns
+    out["north_star"] = {"n": NORTH_STAR_N, "init_s": init_s, "tick_s": ticks,
+                         "ticks_held": sorted(held)}
+
+    t0 = time.perf_counter()
+    rc, stdout, err = run_child([sys.executable, "-m", "aiocluster_torch", "sim", "--host-native",
+                                 "--lean", "--nodes", str(N), "--keys", "16", "--fanout", "3"],
+                                "sim --host-native", CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    record = json.loads(stdout.splitlines()[-1]) if stdout.strip() else None
+    log("host", f"sim --host-native --lean --nodes {N}: rc {rc} in {wall:.1f} s with the "
+        f"process's start; record {'equal' if record == lean_record else 'DIFFERENT'} to the "
+        f"in-process lean run's")
+    check(rc == 0 and record == lean_record, f"sim --host-native differs (rc {rc}): {err[-2000:]}")
+    out["cli"] = {"wall_s": wall, "record_equal": True}
+    out["seconds"] = time.perf_counter() - t_all
+    log("phase19", f"{out['seconds']:.1f} s on the host thread")
+    return out
+
+
+def start_host_fast_path(dev, head_digests):
+    """Phase 19's card side, then its host thread: the lean headline and
+    the lean choice pairing on the card a round at a time (their w
+    digests, the host runs' reference), then ``host_fast_path`` on
+    ``BACKGROUND``. Returns its future."""
+    t0 = time.perf_counter()
+    card = {"headline": head_digests,
+            "lean": card_round_digests(host_cli_config(True), dev),
+            "choice": card_round_digests(dataclasses.replace(host_cli_config(True),
+                                                             pairing="choice"), dev)}
+    log("host", f"card runs for the host's lockstep: lean headline {card['lean'][1]} rounds, "
+        f"lean choice {card['choice'][1]} rounds, in {time.perf_counter() - t0:.1f} s")
+    return BACKGROUND.submit(host_fast_path, card)
+
+
 def device_record() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6340,6 +7077,8 @@ def main() -> int:
           "metrics disagree with the converged flag")
     check(int(m["fd_false_positives"]) >= 0 and np.isfinite(float(m["mean_fraction"])),
           "metrics are not finite")
+    # Phase 19's reference: the converged state's matrices, as the host holds them.
+    head_digests = (card_matrix_digests(sim.state), sim.tick)
     del sim
 
     counters.reset()
@@ -6590,6 +7329,10 @@ def main() -> int:
     # two minutes) beside phases 14 and 15 on the card.
     ckpt_dir = tempfile.TemporaryDirectory()
     saving = start_headline_save(dev, Path(ckpt_dir.name))
+    # Phase 19, the host fast path: its card runs here, then its host
+    # thread beside phases 14 to 18 (it counts nothing in ops.counters).
+    host_future = start_host_fast_path(dev, head_digests)
+    twin_trace = start_twin_trace()  # phase 18's trace, written beside phases 14-17
     remaining, churn_entries, fd_entry = remaining_semantics(dev, card_line)
     kernels += churn_entries + [fd_entry]
 
@@ -6621,6 +7364,16 @@ def main() -> int:
     phase17["planner"]["c2"] = {"planned_gb": c2_plan, "peak_gb": c2["run_peak_memory_gb"],
                                 "ratio": c2_plan / c2["run_peak_memory_gb"]}
     kernels += phase17_entries
+
+    # Phase 18: the digital twin on the card (its trace, replay,
+    # calibration, drift check and autotunes; the 1,024-node loop against
+    # the reference's digests; the twin CLI).
+    twin_out, twin_entries = digital_twin(dev, card_line, phase17["planner"], twin_trace)
+    kernels += twin_entries
+    # Phase 19's host thread, joined (a failed check there raises here).
+    t0 = time.perf_counter()
+    host_out = host_future.result()
+    log("host", f"phase 19 joined after {time.perf_counter() - t0:.1f} s of waiting")
     log("done", f"{time.perf_counter() - t_all:.1f} s in all; converged at "
         f"round {converged}; {rounds_per_s:.2f} rounds/s; the north star converged "
         f"at round {ns['converged_round']}, {ns['rounds_per_s']:.3f} rounds/s; m8: "
@@ -6651,7 +7404,11 @@ def main() -> int:
         f"{phase17['mesh_sweep']['mesh_lane_rounds_per_s']:.2f} lane-rounds/s, multihost "
         f"{phase17['multihost']['converged_round']}, CLI "
         f"{phase17['cli']['full']['converged_round']} / lean "
-        f"{phase17['cli']['lean']['converged_round']}")
+        f"{phase17['cli']['lean']['converged_round']}; twin: replay "
+        f"{twin_out['replay']['converged_round']}, 8-lane autotune lane "
+        f"{twin_out['autotune']['recommended_lane']}, 1,024 loop equal; host: headline "
+        f"{host_out['headline']['converged_round']} at {host_out['headline']['s_per_round']:.3f} "
+        f"s a round, north star ticks {host_out['north_star']['ticks_held']}")
 
     print(card_line)
     print(json.dumps({
@@ -6685,10 +7442,15 @@ def main() -> int:
         "fault_plans": fault_out,
         "user_surface": surface,
         "across_processes": phase17,
+        "digital_twin": twin_out,
+        "host_fast_path": host_out,
     }))
     print(device_record())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        kill_children()

@@ -1419,3 +1419,51 @@ def test_checkpoint_telemetry_and_simcluster_on_the_card(dev, tmp_path):
     assert script(card) == script(cpu)
     for f in STATE_FIELDS:
         assert torch.equal(getattr(card.sim.state, f).cpu(), getattr(cpu.sim.state, f)), f
+
+
+def test_twin_replay_and_autotune_on_the_card_equal_the_cpu(dev, tmp_path):
+    """The twin on the card: a 1,024-node replay (through the pairs
+    kernels) and an autotune (the lane launches) equal the CPU runs."""
+    from aiocluster_torch import twin
+    from aiocluster_torch.core import Config, NodeId
+    from tools.twin_trace import write_twin_trace
+
+    path = write_twin_trace(tmp_path / "t.jsonl", n_nodes=1024, rounds=40, seed=4)
+    trace = twin.load_runtime_trace(path)
+    counters.reset()
+    card = twin.replay(trace, seed=1, device=dev)
+    assert counters.kernel_launches("pairs_pull") > 0 and not counters.plain_calls
+    cpu = twin.replay(trace, seed=1, device="cpu")
+    assert card.to_dict() == cpu.to_dict()
+    strip = lambda series: [{k: v for k, v in s.items() if k != "step_seconds"} for s in series]  # noqa: E731
+    assert strip(card.sim_series) == strip(cpu.sim_series)
+    cal = twin.fit_calibration(cpu)
+    base = Config(node_id=NodeId(name="op", generation_id=1))
+    cfg = twin.lift_sim_config(trace, n_nodes=512)
+    grid = dict(fanout=[2, 3], phi_threshold=[8.0, 4.0])
+    counters.reset()
+    on_card = twin.autotune(twin.SLO(3600.0, 0.5), cal, base, cfg, device=dev, **grid)
+    assert counters.kernel_launches("pairs_pull") > 0 and not counters.plain_calls
+    on_cpu = twin.autotune(twin.SLO(3600.0, 0.5), cal, base, cfg, device="cpu", **grid)
+    assert on_card.to_dict() == on_cpu.to_dict()
+
+
+def test_host_simulator_equals_a_card_run(dev):
+    """The native host simulator against the card's kernel path, round by
+    round (w by value), and a card state handed to the host and back."""
+    from aiocluster_torch.sim import hostsim
+
+    cfg = full_config(512, budget=24)
+    card = Simulator(cfg, seed=3, chunk=1, device=dev)
+    host = hostsim.HostSimulator(cfg, seed=3)
+    for r in range(1, 9):
+        card.run(1)
+        host.run(1)
+        got = host.state()
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(card.state, f).cpu()), (r, f)
+    back = Simulator(cfg, seed=3, chunk=1, device=dev, state=host.state(dev))
+    back.run(2)
+    card.run(2)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(back.state, f), getattr(card.state, f)), f

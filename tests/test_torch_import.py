@@ -1,6 +1,8 @@
 """aiocluster_torch stands alone: importing it (and every submodule) loads
 neither JAX, flax nor any module of the reference package, and no source
-file of the port names them in an import."""
+file of the port names them in an import (nor ``ml_dtypes``, in the
+twin, the host simulator and their copies of the reference's modules:
+bfloat16 travels there as its 16-bit words)."""
 
 import ast
 import json
@@ -14,6 +16,11 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "aiocluster_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "aiocluster_tpu")
+BITS_ONLY = ["aiocluster_torch/twin/__init__.py", "aiocluster_torch/twin/replay.py",
+             "aiocluster_torch/twin/calibrate.py", "aiocluster_torch/twin/drift.py",
+             "aiocluster_torch/twin/autotune.py", "aiocluster_torch/sim/hostsim.py",
+             "aiocluster_torch/utils/cbuild.py", "aiocluster_torch/core/config.py",
+             "aiocluster_torch/core/identity.py"]
 
 
 def _port_modules() -> list[str]:
@@ -43,6 +50,22 @@ def test_import_loads_no_jax_or_reference():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def _imported(path: str) -> list[str]:
+    tree = ast.parse((ROOT / path).read_text())
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append(node.module or "")
+    return out
+
+
+@pytest.mark.parametrize("path", BITS_ONLY)
+def test_twin_and_host_modules_import_no_ml_dtypes(path):
+    assert not [m for m in _imported(path) if m.split(".")[0] == "ml_dtypes"], path
+
+
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
@@ -63,9 +86,14 @@ def test_source_imports_no_jax_or_reference(path):
 
 def test_every_slice_module_is_covered():
     """The modules each slice added are among those imported above, the
-    CLI and the planner included."""
+    CLI, the planner, the twin and the host simulator included."""
     mods = set(_port_modules())
     for m in ("aiocluster_torch.__main__", "aiocluster_torch.parallel.multihost",
               "aiocluster_torch.sim.memory", "aiocluster_torch.sim.bytes",
-              "aiocluster_torch.obs.expo", "aiocluster_torch.obs.profiling"):
+              "aiocluster_torch.obs.expo", "aiocluster_torch.obs.profiling",
+              "aiocluster_torch.twin", "aiocluster_torch.twin.replay",
+              "aiocluster_torch.twin.calibrate", "aiocluster_torch.twin.drift",
+              "aiocluster_torch.twin.autotune", "aiocluster_torch.core.config",
+              "aiocluster_torch.core.identity", "aiocluster_torch.utils.cbuild",
+              "aiocluster_torch.sim.hostsim"):
         assert m in mods, m

@@ -15,8 +15,11 @@ CASE is one of the names in ``CASES`` (each a few minutes on 8 CPU cores
 and a few GB of host memory at 10,240 nodes; ``config4`` and the cases
 marked so run on to their converged round), or one of ``SCRIPTS``:
 ``resume_headline`` (the headline saved at tick 8 and resumed from the
-file) and ``simcluster_headline`` (``SimCluster``'s write script,
-``SIMCLUSTER_SCRIPT``).
+file), ``simcluster_headline`` (``SimCluster``'s write script,
+``SIMCLUSTER_SCRIPT``) and ``twin_1024`` (the twin loop of
+``tools.twin_trace.TWIN_LOOP`` on its seeded trace: the sha256 of the
+replay's rows, the calibration record and the recommendation, about a
+minute).
 """
 
 from __future__ import annotations
@@ -239,7 +242,30 @@ def run_simcluster_headline() -> dict:
     return out
 
 
-SCRIPTS = {"resume_headline": run_resume_headline, "simcluster_headline": run_simcluster_headline}
+def run_twin_1024() -> dict:
+    """The twin loop (tools/twin_trace.py ``TWIN_LOOP``) through the
+    reference's twin, on the seeded trace chip_smoke.py writes."""
+    import tempfile
+    from pathlib import Path
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from aiocluster_tpu import twin
+    from aiocluster_tpu.core.config import Config
+    from aiocluster_tpu.core.identity import NodeId
+    from tools.twin_trace import TWIN_LOOP, run_twin_loop, twin_digests, write_twin_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_twin_trace(Path(tmp) / "twin_1024.jsonl", n_nodes=TWIN_LOOP["n_nodes"],
+                                rounds=TWIN_LOOP["rounds"], seed=TWIN_LOOP["seed"])
+        report, cal, rec = run_twin_loop(twin, Config, NodeId, path)
+    return {"digests": twin_digests(report.to_dict(), cal.to_dict(), rec.to_dict()),
+            "converged_round": report.sim_converged_round, "lane": rec.lane}
+
+
+SCRIPTS = {"resume_headline": run_resume_headline, "simcluster_headline": run_simcluster_headline,
+           "twin_1024": run_twin_1024}
 
 
 def main(argv: list[str]) -> None:
