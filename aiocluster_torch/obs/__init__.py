@@ -11,12 +11,13 @@ package, its simulator-facing part):
 - ``expo``: the Prometheus text rendering of a registry and the
   ``/metrics`` endpoint (``python -m aiocluster_torch sim
   --metrics-port``);
-- ``profiling``: ``device_trace`` (a ``torch.profiler`` Chrome trace)
-  and ``SectionTimer``.
+- ``profiling``: ``span`` (the program's ``torch.profiler`` ranges, free
+  while no profiler records) and ``device_trace`` (a ``torch.profiler``
+  Chrome trace).
 """
 
 from .expo import MetricsHTTPServer, render_prometheus
-from .profiling import SectionTimer, device_trace
+from .profiling import device_trace
 from .registry import (
     Counter,
     Gauge,
@@ -34,7 +35,6 @@ __all__ = (
     "Histogram",
     "MetricsHTTPServer",
     "MetricsRegistry",
-    "SectionTimer",
     "SimMetrics",
     "SweepMetrics",
     "TRACE_SCHEMA",

@@ -34,6 +34,7 @@ import time
 import torch
 
 from ..ops import counters
+from .profiling import span
 from .registry import MetricsRegistry
 from .trace import TraceWriter
 
@@ -204,7 +205,9 @@ class SimMetrics:
         if not vals:
             return [[] for _ in self._pending]
         dev = vals[0].device
-        flat = torch.stack([v.to(dev, torch.float64).reshape(()) for v in vals]).cpu().tolist()
+        stacked = torch.stack([v.to(dev, torch.float64).reshape(()) for v in vals])
+        with span("aiocluster_torch.sync"):
+            flat = stacked.cpu().tolist()
         out, i = [], 0
         for _, _, raw in self._pending:
             out.append(flat[i : i + len(raw)])

@@ -94,9 +94,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
-
 from ..faults import sim as fsim
+from ..obs.profiling import span
 from ..obs.sim import STALENESS_PCTS
 from ..sim.config import SimConfig
 from ..sim.packed import (
@@ -929,20 +928,23 @@ def run_rounds(
     given). Returns the new blocks and a device scalar holding the first
     converged tick among the rounds (0 if none; always 0 unless
     ``tracked``). The draws and each round are ``torch.profiler`` ranges
-    (``aiocluster_torch.draws`` / ``aiocluster_torch.sim_step``)."""
+    (``aiocluster_torch.draws`` / ``aiocluster_torch.sim_step``), opened
+    through ``obs.profiling.span`` as every range of the port is (also
+    ``.sweep_step``, ``.init_state``, ``.metrics_sample`` and ``.sync``,
+    none of which opens inside these): free while no profiler records."""
     dev = blocks[0].w.device
     if run_salt is None:
         run_salt = prng.run_salt(key)
     if device_key is None:
         device_key = key.to(dev)
-    with record_function("aiocluster_torch.draws"):
+    with span("aiocluster_torch.draws"):
         draws = prng.chunk_draws(
             device_key, tick + 1, m, cfg, alive=blocks[0].alive, adjacency=adjacency,
             degrees=degrees,
         )
     first = torch.zeros((), dtype=torch.int32, device=dev)
     for r in range(m):
-        with record_function("aiocluster_torch.sim_step"):
+        with span("aiocluster_torch.sim_step"):
             out = step_blocks(
                 blocks, key, cfg, offsets=offsets, return_converged=tracked,
                 tick=tick + r, draws=draws.round(r), run_salt=run_salt,
@@ -969,7 +971,7 @@ def run_sweep_rounds(
     tick of each lane, 0: not yet) the rounds are tracked and the updated
     ``first`` is returned beside the blocks."""
     for r in range(m):
-        with record_function("aiocluster_torch.sweep_step"):
+        with span("aiocluster_torch.sweep_step"):
             out = sweep_blocks(
                 blocks, keys, cfg, sweep, offsets=offsets, tick=tick + r, draws=draws.round(r),
                 salts=salts[r], run_salts=run_salts, active=active,
@@ -2022,9 +2024,11 @@ def metrics_sample_blocks(
     blocks: Sequence[SimState], offsets: Sequence[int]
 ) -> dict[str, torch.Tensor]:
     """``metrics_sample`` of a state held as column blocks (the
-    reference's ``sharded_metrics_fn``)."""
-    out = convergence_metrics_blocks(blocks, offsets)
-    per_node = staleness_tensor_blocks(blocks, offsets)
-    out["version_spread"] = per_node.max()
-    out.update(staleness_percentiles(blocks[0], per_node))
+    reference's ``sharded_metrics_fn``), inside one
+    ``aiocluster_torch.metrics_sample`` range."""
+    with span("aiocluster_torch.metrics_sample"):
+        out = convergence_metrics_blocks(blocks, offsets)
+        per_node = staleness_tensor_blocks(blocks, offsets)
+        out["version_spread"] = per_node.max()
+        out.update(staleness_percentiles(blocks[0], per_node))
     return out

@@ -36,6 +36,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from ..obs.profiling import span
 from ..ops import gossip
 from ..sim.config import SimConfig
 from ..sim.state import STATE_FIELDS, SimState, init_lanes, init_state, lane, state_n_local
@@ -305,18 +306,20 @@ def sharded_sweep_metrics_fn(mesh: Mesh):
     """blocks -> the reference's per-lane sharded metrics: each lane's
     ``convergence_metrics`` and version spread (no staleness
     percentiles, as the reference's sharded sweep bundle), as (S,)
-    device tensors, each reduced over the blocks."""
+    device tensors, each reduced over the blocks, inside one
+    ``aiocluster_torch.metrics_sample`` range."""
 
     def metrics(blocks):
         lanes = blocks[0].w.shape[0]
         offsets = block_offsets(blocks, mesh)
         per_lane = []
-        with collectives(mesh):
-            for s in range(lanes):
-                views = [lane(b, s) for b in blocks]
-                out = gossip.convergence_metrics_blocks(views, offsets)
-                out["version_spread"] = gossip.staleness_tensor_blocks(views, offsets).max()
-                per_lane.append(out)
-        return {k: torch.stack([m[k] for m in per_lane]) for k in per_lane[0]}
+        with span("aiocluster_torch.metrics_sample"):
+            with collectives(mesh):
+                for s in range(lanes):
+                    views = [lane(b, s) for b in blocks]
+                    out = gossip.convergence_metrics_blocks(views, offsets)
+                    out["version_spread"] = gossip.staleness_tensor_blocks(views, offsets).max()
+                    per_lane.append(out)
+            return {k: torch.stack([m[k] for m in per_lane]) for k in per_lane[0]}
 
     return metrics

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.profiling import span
 from ..obs.registry import MetricsRegistry
 from ..obs.sim import SimMetrics
 from ..obs.trace import TraceWriter
@@ -170,8 +171,9 @@ class Simulator:
         # _version_base_tick stays at the tick read here, so the bound
         # charges writes only for ticks run since (a resumed state's
         # max_version already holds its past writes).
-        self._known_max_version = int(head.max_version.max())
-        self._host_tick = int(head.tick)
+        with span("aiocluster_torch.sync"):
+            self._known_max_version = int(head.max_version.max())
+            self._host_tick = int(head.tick)
         self._version_base_tick = self._host_tick
         self._trace_enabled = trace
         self.trace: list[dict[str, float]] = []
@@ -324,7 +326,9 @@ class Simulator:
         while self._host_tick < max_rounds:
             m = min(self.chunk, max_rounds - self._host_tick)
             self._check_horizon(m)
-            first = int(self._run_chunk(m, tracked=True))
+            first = self._run_chunk(m, tracked=True)
+            with span("aiocluster_torch.sync"):
+                first = int(first)
             if first:
                 return first
         return None
@@ -367,11 +371,14 @@ class Simulator:
         """The metrics bundle on the host: ``convergence_metrics``, the
         version spread and the staleness percentiles (the reference's
         ``_metrics_sample``), reduced over the blocks on a mesh."""
-        return {k: v.cpu().numpy() for k, v in self._sample().items()}
+        sample = self._sample()
+        with span("aiocluster_torch.sync"):
+            return {k: v.cpu().numpy() for k, v in sample.items()}
 
     @property
     def tick(self) -> int:
-        return int(self._blocks[0].tick)
+        with span("aiocluster_torch.sync"):
+            return int(self._blocks[0].tick)
 
     # -- checkpoint / resume ---------------------------------------------------
 

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..obs.profiling import span
 from .config import SimConfig
 from .packed import is_packed_w, pack_u4
 
@@ -145,13 +146,14 @@ def init_lanes(
     carry a leading lane axis: the broadcast is materialised, as the
     reference's sweep does, because every lane's matrices are updated in
     place. ``owner_offset`` / ``n_local`` make one column block of it, as
-    ``init_state``'s."""
-    base = init_state(cfg, initial_versions, device=device, owner_offset=owner_offset,
-                      n_local=n_local)
-    return SimState(**{
-        f: getattr(base, f)[None].expand(lanes, *getattr(base, f).shape).clone()
-        for f in STATE_FIELDS
-    })
+    ``init_state``'s. One ``aiocluster_torch.init_state`` range."""
+    with span("aiocluster_torch.init_state"):
+        base = _init_state(cfg, initial_versions, device=device, owner_offset=owner_offset,
+                           n_local=n_local)
+        return SimState(**{
+            f: getattr(base, f)[None].expand(lanes, *getattr(base, f).shape).clone()
+            for f in STATE_FIELDS
+        })
 
 
 def lane(states: SimState, s: int) -> SimState:
@@ -205,7 +207,13 @@ def init_state(
     owner_offset + n_local - 1`` (the packed rungs' stored widths scale
     with it), the (N,) vectors and the tick stay whole. The blocks of a
     mesh (parallel/mesh.py) are made this way, so the whole state never
-    exists at once."""
+    exists at once. One ``aiocluster_torch.init_state`` range."""
+    with span("aiocluster_torch.init_state"):
+        return _init_state(cfg, initial_versions, device=device, owner_offset=owner_offset,
+                           n_local=n_local)
+
+
+def _init_state(cfg, initial_versions, *, device, owner_offset, n_local) -> SimState:
     device = torch.device(device)
     n = cfg.n_nodes
     n_local = n if n_local is None else n_local

@@ -41,8 +41,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..obs.profiling import span
 from ..obs.registry import MetricsRegistry
 from ..obs.sim import SweepMetrics
 from ..ops import prng
@@ -284,12 +284,13 @@ class SweepSimulator:
         self._blocks: list[SimState] = blocks
         self._sharded_metrics = None if mesh is None else sharded_sweep_metrics_fn(mesh)
         states = blocks[0]
-        ticks = states.tick.tolist()
+        with span("aiocluster_torch.sync"):
+            ticks = states.tick.tolist()
+            self._known_max_version = int(states.max_version.max())
         if len(set(ticks)) != 1:
             raise ValueError(f"provided states' lanes are at different ticks: {ticks}")
         self._host_tick = ticks[0]
         self._version_base_tick = self._host_tick
-        self._known_max_version = int(states.max_version.max())
         self._first = torch.zeros(lanes, dtype=torch.int32, device=dev)
         self._obs = SweepMetrics(metrics) if metrics is not None else None
 
@@ -342,7 +343,7 @@ class SweepSimulator:
         tracked, the lanes' first converged ticks accumulate on the
         device."""
         cfg, first_tick = self.cfg, self._host_tick + 1
-        with record_function("aiocluster_torch.draws"):
+        with span("aiocluster_torch.draws"):
             draws = prng.chunk_draws(
                 self._device_keys, first_tick, m, cfg, alive=self._blocks[0].alive
             )
@@ -374,17 +375,22 @@ class SweepSimulator:
         round (None: never converged). One host sync a chunk."""
         conv0 = self.metrics()["all_converged"]
         if conv0.any():
-            first = self._first.cpu().numpy().copy()
+            with span("aiocluster_torch.sync"):
+                first = self._first.cpu().numpy().copy()
             mask = (first == 0) & conv0
             first[mask] = self._host_tick
             self._first = torch.from_numpy(first).to(self.device)
         while self._host_tick < max_rounds:
-            if bool((self._first != 0).all()):
+            with span("aiocluster_torch.sync"):
+                done = bool((self._first != 0).all())
+            if done:
                 break
             m = min(self.chunk, max_rounds - self._host_tick)
             self._check_horizon(m)
             self._run_chunk(m, tracked=True)
-        out = [int(f) if f else None for f in self._first.tolist()]
+        with span("aiocluster_torch.sync"):
+            first = self._first.tolist()
+        out = [int(f) if f else None for f in first]
         if self._obs is not None:
             self._obs.update(out)
         return out
@@ -397,16 +403,19 @@ class SweepSimulator:
         reference's sharded bundle: each lane's convergence metrics and
         version spread, reduced over the blocks."""
         if self._sharded_metrics is not None:
-            return {k: v.cpu().numpy() for k, v in self._sharded_metrics(self._blocks).items()}
-        samples = [metrics_sample(lane(self._blocks[0], s)) for s in range(self.lanes)]
-        return {
-            k: torch.stack([m[k] for m in samples]).cpu().numpy() for k in samples[0]
-        }
+            sample = self._sharded_metrics(self._blocks)
+        else:
+            lanes = [metrics_sample(lane(self._blocks[0], s)) for s in range(self.lanes)]
+            sample = {k: torch.stack([m[k] for m in lanes]) for k in lanes[0]}
+        with span("aiocluster_torch.sync"):
+            return {k: v.cpu().numpy() for k, v in sample.items()}
 
     def result(self) -> SweepResult:
         """The per-lane results table at the current state
         (rounds-to-convergence as ``run_until_converged`` has seen it)."""
-        rounds = [int(f) if f else None for f in self._first.tolist()]
+        with span("aiocluster_torch.sync"):
+            first = self._first.tolist()
+        rounds = [int(f) if f else None for f in first]
         metrics = self.metrics()
         if self._obs is not None:
             self._obs.update(rounds, metrics["version_spread"])

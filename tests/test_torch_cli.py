@@ -28,7 +28,7 @@ from aiocluster_tpu.__main__ import main as ref_main
 from aiocluster_tpu.obs.expo import render_prometheus as ref_render
 from aiocluster_tpu.obs.registry import MetricsRegistry as RefRegistry
 from aiocluster_torch.__main__ import main
-from aiocluster_torch.obs import MetricsRegistry, SectionTimer, device_trace, render_prometheus
+from aiocluster_torch.obs import MetricsRegistry, device_trace, render_prometheus
 from aiocluster_torch.sim import hostsim
 from aiocluster_torch.utils import cbuild
 from tools.twin_trace import stretch_trace, write_twin_trace
@@ -238,12 +238,13 @@ def test_prometheus_text_equals_the_reference_rendering():
 def test_device_trace_names_the_simulators_ranges(tmp_path):
     from aiocluster_torch import SimConfig, Simulator
 
-    sim = Simulator(SimConfig(n_nodes=128, keys_per_node=4), device="cpu")
-    timer = SectionTimer()
-    with device_trace(str(tmp_path)), timer.section("rounds"):
+    with device_trace(str(tmp_path)):
+        sim = Simulator(SimConfig(n_nodes=128, keys_per_node=4), device="cpu")
         sim.run(2)
+        sim.metrics()
     traces = list(tmp_path.glob("trace_*.json"))
     assert len(traces) == 1
     text = traces[0].read_text()
     assert "aiocluster_torch.sim_step" in text and "aiocluster_torch.draws" in text
-    assert timer.summary()["rounds"]["calls"] == 1
+    for name in ("init_state", "metrics_sample", "sync"):
+        assert f'"aiocluster_torch.{name}"' in text, name
