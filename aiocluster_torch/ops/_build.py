@@ -61,6 +61,15 @@ SIGNATURES = {
         "aiocluster_fd",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F, _I, _I, _P],
     ),
+    "draws": (
+        "aiocluster_draws",
+        [_P, _I, _U, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+}
+
+# Further entry points of a library, each returning a cudaError_t.
+QUERIES = {
+    "draws": ("aiocluster_draws_scratch", [_I, ctypes.POINTER(ctypes.c_longlong)]),
 }
 
 # Libraries of staged kernels, which export aiocluster_<name>_static_smem.
@@ -150,6 +159,11 @@ def load(name: str) -> ctypes.CDLL:
     if name in STATIC_SMEM_QUERIES:
         query = getattr(lib, f"aiocluster_{name}_static_smem")
         query.argtypes = [ctypes.POINTER(_I)]
+        query.restype = ctypes.c_int
+    if name in QUERIES:
+        qname, qargs = QUERIES[name]
+        query = getattr(lib, qname)
+        query.argtypes = qargs
         query.restype = ctypes.c_int
     lib.aiocluster_error_string.argtypes = [ctypes.c_int]
     lib.aiocluster_error_string.restype = ctypes.c_char_p

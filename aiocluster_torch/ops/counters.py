@@ -5,12 +5,15 @@ counterpart of the reference's ``pallas_fallbacks`` ledger.
   flags set, e.g. ``diag``, ``pull``, ``check+fd``, ``totals+diag``; a
   sweep's lane launches lead with ``lanes``, e.g. ``lanes+diag``),
   ``"pairs_totals[diag]"`` / ``"pairs_totals[sum]"`` (``[lanes+sum]``
-  ...) or ``"fd"``. Each wrapper adds one where it launches its kernel,
-  and nowhere else: a lane launch counts once for all its lanes.
+  ...), ``"fd"`` or ``"draws[grouped]"`` (a chunk's grouped matchings,
+  ``prng.grouped_draws``). Each wrapper adds one where it launches its
+  kernel, and nowhere else: a lane launch counts once for all its lanes.
 - ``plain_calls``: phases served by plain PyTorch ops, keyed by phase:
   ``"pull"`` counts sub-exchanges, ``"totals"`` their totals passes,
-  ``"fd"`` standalone FD phases (a wrapper given CPU tensors counts here
-  too; a sweep's plain round counts each lane's).
+  ``"fd"`` standalone FD phases, ``"draws"`` chunks whose draws ran as
+  plain ops (``prng.chunk_draws``: CPU keys, and every pairing but the
+  grouped matching; a wrapper given CPU tensors counts here too; a
+  sweep's plain round counts each lane's).
 - ``fallbacks``: rounds whose phase a config asked the kernels for but
   plain PyTorch ops served, because the reference serves that route with
   XLA for want of a kernel too; keyed by the reference's reason name

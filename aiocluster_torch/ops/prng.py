@@ -15,16 +15,21 @@ so a whole chunk of rounds draws in one pass. Every word is held in
 int64 and masked to 32 bits after each operation, because PyTorch's CPU
 kernels have no uint32 shift, add or compare. The draws run on the
 device of the keys: integer ops give the same bits on the CPU and on a
-GPU, so a simulator draws on its state's device.
+GPU, so a simulator draws on its state's device. On a CUDA device the
+grouped matchings of a whole chunk are one launch of csrc/draws.cu
+(``grouped_draws``), the same bits as the plain ops.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import _build, counters
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -184,13 +189,18 @@ def inverse_permutation(p: torch.Tensor) -> torch.Tensor:
     return inv.scatter_(-1, p, ids.expand_as(p).contiguous())
 
 
+def permutation_rounds(n: int) -> int:
+    """The rounds of 32-bit sort keys JAX's shuffle takes for ``n``
+    elements: 1 up to ~1.6k, 2 up to ~2.6M."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)``: rounds of fresh 32-bit sort
     keys, each a stable sort (lax.sort_key_val); (..., 2) -> (..., n)."""
     x = torch.arange(n, dtype=torch.int64, device=keys.device)
     x = x.expand(*keys.shape[:-1], n)
-    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
-    for _ in range(rounds):
+    for _ in range(permutation_rounds(n)):
         ks = split(keys)
         keys, sub = ks[..., 0, :], ks[..., 1, :]
         order = torch.sort(bits(sub, (n,)), dim=-1, stable=True).indices
@@ -342,6 +352,46 @@ class RoundDraws(NamedTuple):
         })
 
 
+def grouped_draws(
+    run_key: torch.Tensor, first_tick: int, rounds: int, fanout: int, n: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grouped matchings (gm, c, p) of rounds ``first_tick ..
+    first_tick + rounds - 1`` in one launch of csrc/draws.cu on the CUDA
+    device of ``run_key`` ((*lead, 2) words), with no host sync: int32
+    (rounds, fanout, *lead, n/8) / (..., n/8) / (..., n), the bits of
+    ``grouped_matching(_sub_keys(...))`` (the plain path of
+    ``chunk_draws``). ``n`` is a multiple of 128 up to 2**30: a sort
+    past one block's shared memory takes a scratch of 8 bytes a slot a
+    CTA, which the kernel's library sizes for the device."""
+    dev, lead = run_key.device, run_key.shape[:-1]
+    if run_key.dtype != torch.int64 or dev.type != "cuda":
+        raise ValueError(f"run keys must be int64 on a CUDA device, got {run_key.dtype} on {dev}")
+    if n % 128:
+        raise ValueError(f"{n} nodes: the grouped matching needs a multiple of 128")
+    keys = run_key.reshape(-1, 2).contiguous()
+    g = n // 8
+    gm = torch.empty((rounds, fanout, *lead, g), dtype=torch.int32, device=dev)
+    c = torch.empty_like(gm)
+    p = torch.empty((rounds, fanout, *lead, n), dtype=torch.int32, device=dev)
+    if gm.numel():
+        lib = _build.load("draws")
+        with torch.cuda.device(dev):
+            slots = ctypes.c_longlong(0)
+            _build.check(lib, lib.aiocluster_draws_scratch(g, ctypes.byref(slots)),
+                         "draws scratch query")
+            scratch = (torch.empty(gm.numel() // g * slots.value, dtype=torch.int64, device=dev)
+                       if slots.value else None)
+            rc = lib.aiocluster_draws(
+                keys.data_ptr(), keys.shape[0], first_tick & M32, rounds, fanout, g,
+                permutation_rounds(g), gm.data_ptr(), c.data_ptr(), p.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "draws kernel launch")
+        counters.launches["draws[grouped]"] += 1
+    return gm, c, p
+
+
 def churn_flips(churn_keys: torch.Tensor, n: int, death_rate: float, revival_rate: float):
     """The churn of a round (the reference's ``dk, rk =
     split(churn_key)``; ``dies = bernoulli(dk, death_rate, (n,))``,
@@ -371,13 +421,31 @@ def chunk_draws(
     fault plan's crashed and quarantined ones at the round's tick, then
     the zone bias (``zone_biased``); or a uniform slot of the
     ``adjacency`` row below its ``degrees``. ``run_key`` may be a batch
-    of keys (a sweep's lanes, ``alive`` then batched alike)."""
+    of keys (a sweep's lanes, ``alive`` then batched alike).
+
+    On a CUDA device the grouped matchings are one launch of
+    csrc/draws.cu (``grouped_draws``, counted in
+    ``counters.launches["draws[grouped]"]``), the churn flips beside it
+    plain. Every chunk drawn by plain ops counts
+    ``counters.plain_calls["draws"]``."""
     dev = run_key.device
     n, fanout = cfg.n_nodes, cfg.fanout
     lead = run_key.shape[:-1]
-    churn_keys, peer_keys = _round_keys(run_key, first_tick, rounds)
     out = {}
     churn = cfg.death_rate > 0 or cfg.revival_rate > 0
+    grouped = (
+        adjacency is None and n % 128 == 0 and cfg.pairing != "permutation"
+        and not (cfg.pairing == "choice" and cfg.peer_mode == "alive")
+    )
+    if grouped and dev.type == "cuda":
+        out["gm"], out["c"], out["p"] = grouped_draws(run_key, first_tick, rounds, fanout, n)
+        if churn:
+            churn_keys, _ = _round_keys(run_key, first_tick, rounds)
+            out["dies"], out["revives"] = churn_flips(churn_keys, n, cfg.death_rate,
+                                                      cfg.revival_rate)
+        return RoundDraws(**out)
+    counters.plain_calls["draws"] += 1
+    churn_keys, peer_keys = _round_keys(run_key, first_tick, rounds)
     if churn:
         out["dies"], out["revives"] = churn_flips(churn_keys, n, cfg.death_rate, cfg.revival_rate)
     if adjacency is not None:

@@ -10,7 +10,14 @@ use_pallas_fd=True seam through the standalone FD kernel, times the
 kernels with CUDA events and the round rate on the host clock, and takes
 one ``torch.profiler`` trace of a chunk of rounds (written to
 ``build/chip_smoke_trace.json``) for the device's busy share and the
-split of a round's host and device time.
+split of a round's host and device time. The draws kernel
+(``csrc/draws.cu``) serves every chunk every run of this script draws on
+the card with a grouped matching (one launch a chunk, held by ``drawn``
+at each run's counters; the plain-pairing runs draw every chunk plain),
+and is held bit-equal to the plain draws and timed at the benchmark
+cells' chunks (``DRAWS_SHAPES``, the headline's and the north star's
+widths, each with the run that draws at that shape) beside the plain
+draws on the card.
 
 Then the two-pass path: the deficit-totals kernel and the pull's totals
 mode are held bit-equal to their plain versions and to the staged pull
@@ -181,8 +188,10 @@ run's w); ``python -m aiocluster_torch sim --nodes 10240 --keys 16
 read during the run), each record equal to an in-process ``Simulator``
 of the CLI's config, and ``--shards 2`` refused with the reference's
 message; the planner's bytes beside each run's peak (and C2's run peak,
-read in phase 12 before its check); ``obs.device_trace`` of two headline
-rounds naming the pairs kernels.
+read in phase 12 before its check); ``obs.device_trace`` of 16 headline
+rounds naming the pairs kernels, and of 2 naming them in a fresh process
+and, in this one, naming them or warning that the session lost device
+events.
 
 Then the digital twin (phase 18): a seeded twin-grade trace of 10,240
 nodes x 40 rounds (tools/twin_trace.py; its bytes and load seconds),
@@ -233,9 +242,11 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import unittest.mock
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -411,6 +422,71 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+DRAWS_KEY = "draws[grouped]"
+# The chunks this process's main thread drew on the card since
+# reset_counts(): "kernel" (one draws launch each) or "plain" (plain ops).
+DRAWN: collections.Counter = collections.Counter()
+
+
+def count_drawn_chunks() -> None:
+    """Wrap ``prng.chunk_draws`` so that each chunk the main thread draws
+    on the card counts in ``DRAWN``: "kernel" where the call took a draws
+    launch, else "plain". Phase 19's host thread draws on CPU keys and
+    counts nothing here; a chunk with nothing to draw (fanout 0, no
+    churn) counts nothing either."""
+    draw = prng.chunk_draws
+
+    @functools.wraps(draw)
+    def counted(run_key, *args, **kwargs):
+        before = counters.launches[DRAWS_KEY]
+        out = draw(run_key, *args, **kwargs)
+        if (run_key.device.type == "cuda" and threading.current_thread() is threading.main_thread()
+                and any(t.numel() for t in out if t is not None)):
+            DRAWN["kernel" if counters.launches[DRAWS_KEY] > before else "plain"] += 1
+        return out
+
+    prng.chunk_draws = counted
+
+
+def reset_counts() -> None:
+    """Zero ``ops.counters`` and ``DRAWN``: a run's counts start here."""
+    counters.reset()
+    DRAWN.clear()
+
+
+def drawn(plain: bool = False) -> int:
+    """The chunks the run since ``reset_counts()`` drew on the card, held:
+    every one took exactly one draws launch and none drew by plain ops;
+    or, with ``plain`` (a pairing the kernel does not draw: the choice
+    pairing's alive peers, the permutation, an adjacency, a width off
+    128), every one drew by plain ops and none launched."""
+    kernel, by_plain = DRAWN["kernel"], DRAWN["plain"]
+    check(counters.launches[DRAWS_KEY] == kernel,
+          f"{counters.launches[DRAWS_KEY]} draws launches for {kernel} chunks on the kernel")
+    if plain:
+        check(kernel == 0 and by_plain > 0, f"a plain-pairing run drew {kernel} of its "
+              f"{kernel + by_plain} chunks on the draws kernel")
+    else:
+        check(by_plain == 0, f"{by_plain} of the run's {kernel + by_plain} chunks on the "
+              "card drew by plain ops, not by the draws kernel")
+    return kernel + by_plain
+
+
+def launch_counts(plain_draws: bool = False) -> dict:
+    """``counters.launches`` less the draws kernel's, once ``drawn`` holds
+    the run's draws (``plain_draws``: a plain-pairing run)."""
+    drawn(plain_draws)
+    return {k: v for k, v in counters.launches.items() if k != DRAWS_KEY}
+
+
+def plain_counts(plain_draws: bool = False) -> dict:
+    """``counters.plain_calls`` less the chunks drawn by plain ops (on CPU
+    keys too, phase 19's host thread among them), once ``drawn`` holds
+    the run's draws on the card."""
+    drawn(plain_draws)
+    return {k: v for k, v in counters.plain_calls.items() if k != "draws"}
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -800,6 +876,115 @@ def matchings(run_key, tick, cfg):
     return draws.gm[0], draws.c[0], draws.p[0]
 
 
+# The draws kernel's shapes: the benchmark cells' chunks (fanout 3), each
+# with the run of this script that draws at that shape.
+DRAWS_SHAPES = (
+    ("headline chunk 1", N, None, 1, "headline_chunk1"),
+    ("headline chunk 8", N, None, 8, "main"),
+    ("headline 8 lanes chunk 8", N, 8, 8, "sweep_headline"),
+    ("north star chunk 8", NORTH_STAR_N, None, 8, "north_star"),
+)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 64 INT32 lanes an SM at 1.98 GHz
+THREEFRY_OPS = 80  # a Threefry-2x32 block: 20 x (add, rotate, xor) and 5 injections
+RADIX_OPS = 4 * 4  # a 32-bit radix sort: 4 passes of 8 bits, ~4 operations an element
+ROWS_OPS = 8 * 6  # p's 8 rows a group, ~6 operations each
+
+
+def draws_bound(n: int, ctas: int) -> tuple[float, str]:
+    """The least time of a chunk's draws (``ctas`` sub-exchanges at ``n``
+    nodes) on the whole card: what the function needs at the card's int32
+    rate (a Threefry block for each group's sort key a sort round and for
+    its rotation draw, a radix sort's passes over the groups a round, p's
+    8 rows a group), or its 40 output bytes a group at the HBM rate. The
+    kernel's own design (a bitonic sort's ~log2(S)^2 / 2 barrier-separated
+    steps in one CTA a sub-exchange) is not the bound: it is the gap."""
+    g = n // 8
+    rounds = prng.permutation_rounds(g)
+    ops = ctas * g * ((THREEFRY_OPS + RADIX_OPS) * rounds + THREEFRY_OPS + ROWS_OPS)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = 40 * g * ctas / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plain_grouped_draws(run_key, first_tick, rounds, cfg):
+    """A chunk's grouped matchings by the plain ops on the keys' device
+    (``chunk_draws``'s path for CPU keys): int32 (gm, c, p)."""
+    _, peer = prng._round_keys(run_key, first_tick, rounds)
+    subs = prng._sub_keys(peer, cfg.fanout, run_key.shape[:-1])
+    return tuple(t.to(torch.int32) for t in prng.grouped_matching(subs, cfg.n_nodes))
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
+    calls queued behind a device sleep, so the host's launch time is
+    hidden."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean wall time of ``fn`` to its answer in ms (a sync after each)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def draws_kernel_entries(dev, runs: dict) -> list[dict]:
+    """The draws kernel (csrc/draws.cu) at the cells' shapes: its chunk's
+    gm / c / p against the plain draws on CPU keys and on the card
+    (mismatches 0), its device time against its bound, the wall time of a
+    chunk's draws on the kernel and by the plain ops on the card. Each
+    entry's launches are those of the run at its shape (``runs``: path ->
+    (draws launches, rounds), each run's every chunk held by ``drawn``).
+    Returns the kernel line's entries."""
+    entries = []
+    for label, n, lanes, rounds, path in DRAWS_SHAPES:
+        cfg = SimConfig(n_nodes=n, fanout=3)
+        key = prng.key(11) if lanes is None else prng.keys(range(11, 11 + lanes))
+        dkey, tick = key.to(dev), 9
+        reset_counts()
+        got = prng.chunk_draws(dkey, tick, rounds, cfg)
+        check(drawn() == 1, f"the draws of {label} did not take one launch")
+        want = prng.chunk_draws(key, tick, rounds, cfg)
+        on_card = plain_grouped_draws(dkey, tick, rounds, cfg)
+        bad = sum(int((getattr(got, f).cpu() != getattr(want, f)).sum())
+                  + int((getattr(got, f) != t).sum()) for f, t in zip(("gm", "c", "p"), on_card))
+        check(bad == 0, f"the draws kernel differs from the plain draws at {label}")
+        kernel = lambda: prng.chunk_draws(dkey, tick, rounds, cfg)  # noqa: E731
+        ms = device_ms(kernel, 20)
+        wall = host_ms(kernel, 20)
+        plain_wall = host_ms(lambda: plain_grouped_draws(dkey, tick, rounds, cfg), 3)
+        ctas = rounds * cfg.fanout * (lanes or 1)
+        b_ms, b_by = draws_bound(n, ctas)
+        launches, run_rounds = runs[path]
+        entries.append(dict(
+            name=f"draws[grouped] {label}", route="cuda",
+            source="aiocluster_torch/ops/csrc/draws.cu",
+            replaces="jax.random's threefry, sort and matching (XLA; no Pallas kernel)",
+            launches=launches, launches_per_round=launches / run_rounds,
+            max_abs_err=float(bad), ms=ms, plain_ms=plain_wall, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, path=path, wall_ms=wall,
+        ))
+        log("draws", f"{label} (n={n}, {ctas} CTAs): kernel {ms:.4f} ms on the device (bound "
+            f"{b_ms:.6f} ms by {b_by}), {wall:.4f} ms to its answer; plain ops "
+            f"{plain_wall:.3f} ms; mismatches {bad}; {path}: {launches} launches in "
+            f"{run_rounds} rounds")
+    return entries
+
+
 def states_equal(s1, s2) -> bool:
     return all(
         torch.equal(getattr(s1, f), getattr(s2, f)) for f in STATE_FIELDS
@@ -893,7 +1078,7 @@ def north_star(dev, card_line):
         sim.run(tick - sim.tick)
         pending[tick] = w_digest([sim.state])
     copy_s = time.perf_counter() - t0
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     converged = sim.run_until_converged(max_rounds=400)
     torch.cuda.synchronize()
@@ -902,8 +1087,9 @@ def north_star(dev, card_line):
     log("north_star", f"w digests at ticks 1, 2: {digests} (host copies fed to sha256 "
         f"{copy_s:.1f} s); the record's: {NORTH_STAR_DIGESTS}")
     check(digests == NORTH_STAR_DIGESTS, "the north star's w digests differ from the record's")
-    launches = dict(counters.launches)
-    plain, refusals = dict(counters.plain_calls), dict(counters.refusals)
+    launches = launch_counts()
+    plain, refusals = plain_counts(), dict(counters.refusals)
+    draws = drawn()  # each chunk one draws launch
     rounds = sim.tick - len(NORTH_STAR_DIGESTS)  # the tracked rounds
     log("north_star", f"lean_config({n}, budget=2618) seed {NORTH_STAR_SEED}, {form} on "
         f"clusters of {k}: run_until_converged -> {converged} after {rounds} tracked rounds "
@@ -972,6 +1158,7 @@ def north_star(dev, card_line):
     record = {
         "n": n, "seed": NORTH_STAR_SEED, "form": form, "cluster": k,
         "converged_round": converged, "rounds_run": rounds, "run_s": run_s, "init_s": init_s,
+        "draws_launches": draws,
         "run_round_ms": run_s / rounds * 1e3, "digests": digests, "digest_copy_s": copy_s,
         "round_ms": round_ms, "rounds_per_s": 1e3 / round_ms,
         "kernel_ms_per_round": k_ms, "bound_ms_per_round": k_bound,
@@ -1213,13 +1400,13 @@ def headline_m8(dev, card_line):
     path's, the round rate."""
     cfg = dataclasses.replace(headline_config(), pallas_variant="m8")
     form, k = expect_form(cfg, dev, "headline_m8")
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=0, device=dev)
     converged = sim.run_until_converged(max_rounds=200)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches, plain = dict(counters.launches), dict(counters.plain_calls)
+    launches, plain = launch_counts(), plain_counts()
     rounds = sim.tick
     log("headline_m8", f"pallas_variant='m8', {form} on clusters of {k}: run_until_converged "
         f"-> {converged} after {rounds} rounds ({run_s:.2f} s incl. setup); launches "
@@ -1427,7 +1614,7 @@ def north_star_m8(dev, card_line, errs):
     form, k = expect_form(cfg, dev, "north_star_m8")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
     torch.cuda.synchronize()
@@ -1436,8 +1623,8 @@ def north_star_m8(dev, card_line, errs):
     sim.run(FULL_WIDTH_ROUNDS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = collections.Counter(counters.launches)
-    plain = collections.Counter(counters.plain_calls)
+    launches = collections.Counter(launch_counts())
+    plain = collections.Counter(plain_counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t1 = time.perf_counter()
     found = check_m8_forms_full_width(dev, sim, errs)
@@ -1447,13 +1634,13 @@ def north_star_m8(dev, card_line, errs):
     check_column_blocks(dev, sim, errs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     converged = sim.run_until_converged(max_rounds=400)
     torch.cuda.synchronize()
     run_s += time.perf_counter() - t0
-    launches.update(counters.launches)
-    plain.update(counters.plain_calls)
+    launches.update(launch_counts())
+    plain.update(plain_counts())
     launches, plain = dict(launches), dict(plain)
     peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
     rounds = sim.tick
@@ -1500,7 +1687,7 @@ def north_star_m8(dev, card_line, errs):
     with other_form(cfg) as (other, k_other):
         expect_form(cfg, dev, "north_star_m8_other")
         torch.cuda.reset_peak_memory_stats()
-        counters.reset()
+        reset_counts()
         sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1509,8 +1696,8 @@ def north_star_m8(dev, card_line, errs):
         torch.cuda.synchronize()
         run2_s = time.perf_counter() - t0
         rounds2 = sim.tick
-        other_launches = dict(counters.launches)
-        check(conv2 == NORTH_STAR_ROUND and not counters.plain_calls
+        other_launches = launch_counts()
+        check(conv2 == NORTH_STAR_ROUND and not plain_counts()
               and counters.kernel_launches("m8_totals") == 3 * rounds2
               and counters.kernel_launches("m8_pull") == 3 * rounds2
               and other_launches.get(form_key(other, k_other, diag=True)) == rounds2,
@@ -1989,7 +2176,7 @@ def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8, mesh=None, timed
     launches, seconds with the set-up, peak GB)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     place = {"device": dev} if mesh is None else {"mesh": mesh}
     sim = Simulator(cfg, seed=seed, chunk=chunk, **place)
@@ -2000,12 +2187,12 @@ def run_to(cfg, dev, seed, want, what, max_rounds=400, chunk=8, mesh=None, timed
     run_s = time.perf_counter() - t0
     if timed is not None:
         timed["round_ms"] = (time.perf_counter() - t1) / max(sim.tick, 1) * 1e3
-    launches = dict(counters.launches)
+    launches = launch_counts()
     log(what, f"converged at round {converged} after {sim.tick} rounds in {run_s:.2f} s "
-        f"(with init); launches {launches}; plain calls {dict(counters.plain_calls)}; "
+        f"(with init); launches {launches}; plain calls {plain_counts()}; "
         f"fallbacks {dict(counters.fallbacks)}; refusals {dict(counters.refusals)}")
     check(want is None or converged == want, f"{what} converged at {converged}, expected {want}")
-    check(converged is not None and not counters.plain_calls and not counters.fallbacks
+    check(converged is not None and not plain_counts() and not counters.fallbacks
           and not counters.refusals, f"{what} did not run through the kernels alone")
     m = sim.metrics()
     check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
@@ -2080,7 +2267,7 @@ def lean_int8_north_star(dev, card_line):
     shares = {}
     with other_form(cfg) as (other, k_other):
         expect_form(cfg, dev, "north_star_int8_other")
-        counters.reset()
+        reset_counts()
         sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
         torch.cuda.synchronize()
         shares[0] = zero_deficit_shares(sim, gen)
@@ -2095,7 +2282,7 @@ def lean_int8_north_star(dev, card_line):
         conv2 = sim.run_until_converged(max_rounds=LADDER_NS_ROUND + 20)
         torch.cuda.synchronize()
         steps_s += time.perf_counter() - t1
-        other_launches, other_rounds = dict(counters.launches), sim.tick
+        other_launches, other_rounds = launch_counts(), sim.tick
         check(conv2 == LADDER_NS_ROUND and counters.kernel_launches("pairs_pull") == 3 * sim.tick
               and other_launches.get(form_key(other, k_other, check=True), 0) > 0,
               f"the int8 north star in the other form converged at {conv2} or did not take "
@@ -2209,7 +2396,7 @@ def lean_u4r_north_star(dev, card_line):
     form, k = expect_form(cfg, dev, "north_star_u4r")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     u4 = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev, chunk=1)
     i16 = Simulator(ref_cfg, seed=NORTH_STAR_SEED, device=dev, chunk=1)
@@ -2232,11 +2419,11 @@ def lean_u4r_north_star(dev, card_line):
     errs.append(residual_errs(i16.state.w, i16.state.max_version, u4.state.w))
     log("north_star_u4r", f"u4r converged at round {conv_u4}, the int16 keys-15 run at "
         f"{conv_16}; residual max_abs_err at rounds 1, 2, {conv_u4}: {errs} ({run_s:.2f} s "
-        f"for both); u4r launches {u4_launches}; plain calls {dict(counters.plain_calls)}; "
+        f"for both); u4r launches {u4_launches}; plain calls {plain_counts()}; "
         f"fallbacks {dict(counters.fallbacks)}")
     check(conv_u4 == conv_16 and conv_u4 is not None, "u4r and int16 keys-15 rounds differ")
     check(max(errs) == 0.0, "the u4r residuals differ from the int16 run's")
-    check(not counters.plain_calls and not counters.fallbacks
+    check(not plain_counts() and not counters.fallbacks
           and sum(v for kk, v in u4_launches.items() if kk.startswith("pairs_pull"))
           == 3 * u4_rounds and u4_launches.get(form_key(form, k, check=True, packed=True)),
           "the u4r north star did not run 3 packed pulls a round in its form")
@@ -2298,7 +2485,7 @@ def widest_u4r(dev, card_line, errs):
     two_pass = form == "pairs_two_pass"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
     torch.cuda.synchronize()
@@ -2308,10 +2495,10 @@ def widest_u4r(dev, card_line, errs):
     torch.cuda.synchronize()
     round_ms = (time.perf_counter() - t0) / WIDEST_U4R_ROUNDS * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
-    launches = collections.Counter(counters.launches)
+    launches = collections.Counter(launch_counts())
     check(counters.kernel_launches("pairs_totals") == (3 * WIDEST_U4R_ROUNDS if two_pass else 0)
           and counters.kernel_launches("pairs_pull") == 3 * WIDEST_U4R_ROUNDS
-          and not counters.plain_calls and not counters.fallbacks,
+          and not plain_counts() and not counters.fallbacks,
           "the widest u4r run did not take its form's launches a sub-exchange")
     m = sim.metrics()
     frac = float(m["mean_fraction"])
@@ -2328,10 +2515,10 @@ def widest_u4r(dev, card_line, errs):
         "pairs a pull: " + ", ".join(f"{kk} max_abs_err={e}" for kk, e in found)
         + f" ({time.perf_counter() - t0:.1f} s)")
     check(all(e == 0.0 for _, e in found), "the widest u4r round disagrees")
-    counters.reset()
+    reset_counts()
     sim.run_until_converged(max_rounds=sim.tick + 2)  # two tracked rounds
     torch.cuda.synchronize()
-    launches.update(counters.launches)
+    launches.update(launch_counts())
     launches = dict(launches)
     check(launches.get(form_key(form, k, check=True, packed=True), 0) == 2,
           "the tracked widest u4r rounds did not carry the packed check")
@@ -2342,10 +2529,10 @@ def widest_u4r(dev, card_line, errs):
     times = {key: (n, *t) for key, t in times.items()}
     with other_form(cfg) as (other, k_other):
         expect_form(cfg, dev, "widest_u4r_other")
-        counters.reset()
+        reset_counts()
         sim.run_until_converged(max_rounds=sim.tick + 1)  # a tracked round: every mode
         other_round_ms = round_rate(sim, 4, 0)
-        other_launches = dict(counters.launches)
+        other_launches = launch_counts()
         check(counters.kernel_launches("pairs_pull") == 3 * 5
               and counters.kernel_launches("pairs_totals")
               == (15 if other == "pairs_two_pass" else 0),
@@ -2934,12 +3121,12 @@ def side_sweeps(dev, card_line):
                 form = gossip.resolve_phases(cfg, dev, sweep=True).pull
                 check(form == ("pairs_two_pass" if two_pass else "pairs"),
                       f"{name}: the lane kernels are not engaged ({form})")
-                counters.reset()
+                reset_counts()
                 sweep = SweepSimulator(cfg, [0, 1, 2], device=dev, **per_lane)
                 sweep.run_until_converged(max_rounds=SIDE_SWEEP_ROUNDS)  # tracked: the check
                 torch.cuda.synchronize()
-                launches = dict(counters.launches)
-                check(not counters.plain_calls and not counters.fallbacks
+                launches = launch_counts()
+                check(not plain_counts() and not counters.fallbacks
                       and all("[lanes+" in k for k in launches)
                       and counters.kernel_launches("pairs_pull") == cfg.fanout * sweep.tick,
                       f"{name}: not one lane launch a sub-exchange ({launches})")
@@ -2968,15 +3155,16 @@ def headline_sweep(dev, card_line):
     cfg = headline_config()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sweep = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, device=dev)
     rounds = sweep.run_until_converged(max_rounds=200)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     ticks = sweep.tick
-    launches = dict(counters.launches)
-    check(not counters.plain_calls and not counters.fallbacks and not counters.refusals
+    launches = launch_counts()
+    draws = drawn()  # each chunk of the 8 lanes one draws launch
+    check(not plain_counts() and not counters.fallbacks and not counters.refusals
           and all(k.startswith("pairs_pull[lanes+") for k in launches)
           and counters.kernel_launches("pairs_pull") == 3 * sweep.tick,
           f"the headline sweep did not take one lane launch a sub-exchange ({launches})")
@@ -3038,7 +3226,7 @@ def headline_sweep(dev, card_line):
     torch.cuda.empty_cache()
     return {
         "lanes": len(SWEEP_SEEDS), "seeds": SWEEP_SEEDS, "phi_threshold": SWEEP_PHIS,
-        "rounds_to_convergence": rounds, "rounds_run": ticks,
+        "rounds_to_convergence": rounds, "rounds_run": ticks, "draws_launches": draws,
         "sweep_wall_seconds": sweep_s, "sequential_wall_seconds": seq_s,
         "amortization_ratio": seq_s / sweep_s, "round_ms": sweep_ms,
         "sim_sweep_lane_rounds_per_sec": lane_rounds_per_s,
@@ -3056,16 +3244,16 @@ def fanout_sweep(dev, card_line):
     its sequential run (the fanout-0 lane's through C1: the plain pull
     and the standalone FD kernel)."""
     cfg = headline_config()
-    counters.reset()
+    reset_counts()
     sweep = SweepSimulator(cfg, [0, 1, 2, 3], device=dev, **FANOUT_SWEEP)
     sweep.run(FANOUT_SWEEP_ROUNDS)
     torch.cuda.synchronize()
-    launches = dict(counters.launches)
-    check(not counters.plain_calls and not counters.fallbacks
+    launches = launch_counts()
+    check(not plain_counts() and not counters.fallbacks
           and counters.kernel_launches("pairs_pull") == 3 * FANOUT_SWEEP_ROUNDS
           and all(k.startswith("pairs_pull[lanes+") for k in launches),
           f"the fanout sweep did not take one lane launch a sub-exchange ({launches})")
-    counters.reset()
+    reset_counts()
     lanes_equal_sequential(sweep, cfg, dev, FANOUT_SWEEP, "fanout sweep")
     check(counters.fallbacks.get("fanout") == FANOUT_SWEEP_ROUNDS
           and counters.launches.get("fd") == FANOUT_SWEEP_ROUNDS,
@@ -3202,7 +3390,7 @@ def north_star_pair(dev, card_line, errs):
     form, k = expect_form(cfg, dev, "north_star_pair")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sweep = SweepSimulator(cfg, NS_PAIR_SEEDS, device=dev)
     sweep.run(NS_PAIR_CHECK_ROUND)
@@ -3215,12 +3403,12 @@ def north_star_pair(dev, card_line, errs):
     seq_round = seq.run_until_converged(max_rounds=400)
     del seq
     torch.cuda.empty_cache()
-    counters.reset()
+    reset_counts()
     t1 = time.perf_counter()
     rounds = sweep.run_until_converged(max_rounds=400)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
-    launches = dict(counters.launches)
+    launches = launch_counts()
     total_s = time.perf_counter() - t0
     log("sweep", f"north-star pair, seeds {NS_PAIR_SEEDS}: lane 1's w equals the sequential "
         f"seed-2 run at round {NS_PAIR_CHECK_ROUND} ({both_gb:.2f} GB held); converged at "
@@ -3231,7 +3419,7 @@ def north_star_pair(dev, card_line, errs):
           f"the north-star pair converged at {rounds}, expected [209, {seq_round}]")
     ticks = sweep.tick
     subs = 3 * (ticks - NS_PAIR_CHECK_ROUND)
-    check(not counters.plain_calls and not counters.fallbacks
+    check(not plain_counts() and not counters.fallbacks
           and counters.kernel_launches("pairs_pull") == subs
           and counters.kernel_launches("pairs_totals") == 0
           and all("[lanes+" in kk for kk in launches),
@@ -3239,7 +3427,7 @@ def north_star_pair(dev, card_line, errs):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     round_ms = round_rate(sweep, 8)
     with two_pass_forced():
-        counters.reset()
+        reset_counts()
         two_pass_round_ms = round_rate(sweep, 8)
         check(counters.kernel_launches("pairs_totals") == 3 * 10,
               "the forced north-star pair did not take the totals lane launch")
@@ -3327,12 +3515,12 @@ def sweep_counters(dev, card_line):
     the pairs sweep; a fanout-0 headline round (C1) counts the fallback
     "fanout" and one fd.cu launch and equals the plain round."""
     cfg = headline_config()
-    counters.reset()
+    reset_counts()
     m8 = SweepSimulator(dataclasses.replace(cfg, pallas_variant="m8"), [0, 1], device=dev,
                         phi_threshold=[7.0, 9.0])
     m8.run(2)
     torch.cuda.synchronize()
-    m8_counts = (dict(counters.fallbacks), dict(counters.plain_calls), dict(counters.launches))
+    m8_counts = (dict(counters.fallbacks), plain_counts(), launch_counts())
     check(m8_counts == ({"sweep_needs_pairs": 2}, {"pull": 12, "fd": 4}, {}),
           f"the pinned-m8 sweep's counters: {m8_counts}")
     pairs = SweepSimulator(cfg, [0, 1], device=dev, phi_threshold=[7.0, 9.0])
@@ -3341,11 +3529,11 @@ def sweep_counters(dev, card_line):
     check(states_equal(m8.states, pairs.states), "the pinned-m8 sweep differs from the pairs sweep")
     del m8, pairs
     zero = dataclasses.replace(cfg, fanout=0)
-    counters.reset()
+    reset_counts()
     kern = Simulator(zero, seed=0, device=dev)
     kern.run(1)
     torch.cuda.synchronize()
-    zero_counts = (dict(counters.fallbacks), dict(counters.launches), dict(counters.plain_calls))
+    zero_counts = (dict(counters.fallbacks), launch_counts(), plain_counts())
     check(zero_counts == ({"fanout": 1}, {"fd": 1}, {}),
           f"a fanout-0 round's counters: {zero_counts}")
     plain = Simulator(dataclasses.replace(zero, use_pallas=False, use_pallas_fd=False), seed=0,
@@ -3664,18 +3852,18 @@ def full_past_staged(dev, card_line, errs):
           f"full_config({C2_N}) does not fuse the FD phase")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev)
     sim.run_until_converged(max_rounds=C2_ROUNDS)  # tracked rounds: the check rides the last
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     run_peak_gb = torch.cuda.max_memory_allocated() / 1e9  # before the check's copies
-    launches = dict(counters.launches)
+    launches = launch_counts()
     check(counters.kernel_launches("pairs_pull") == 3 * C2_ROUNDS
           and counters.kernel_launches("pairs_totals") == 0
           and launches.get(pairs_pull.counter_key(False, True, True, cluster=k > 1)) == C2_ROUNDS
-          and not counters.plain_calls and not counters.fallbacks,
+          and not plain_counts() and not counters.fallbacks,
           f"full_config({C2_N}) did not run one launch a sub-exchange ({launches})")
     round_errs = collections.defaultdict(float)
     found = sampled_round_check(dev, sim, round_errs)
@@ -4196,19 +4384,19 @@ def north_star_mesh(dev, card_line, errs):
         f"{NS_PAIR_LEADERS} row pairs a block's pull, the totals over every row "
         f"({check_s:.1f} s): " + ", ".join(f"{k} max_abs_err={e}" for k, e in found))
     torch.cuda.reset_peak_memory_stats()  # the mesh run's own peak from here
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     converged = sim.run_until_converged(max_rounds=400)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = dict(counters.launches)
+    launches = launch_counts()
     rounds = sim.tick - MESH_CHECK_ROUND
     log("north_star_mesh", f"run_until_converged -> {converged} ({rounds} tracked rounds in "
         f"{run_s:.2f} s, init {init_s:.2f} s); launches {launches}; plain calls "
-        f"{dict(counters.plain_calls)}; refusals {dict(counters.refusals)}")
+        f"{plain_counts()}; refusals {dict(counters.refusals)}")
     check(converged == NORTH_STAR_ROUND,
           f"the mesh north star converged at {converged}, expected {NORTH_STAR_ROUND}")
-    check(mesh_launches_ok(launches, rounds, rounds) and not counters.plain_calls
+    check(mesh_launches_ok(launches, rounds, rounds) and not plain_counts()
           and not counters.fallbacks, f"the mesh north star's launches are off ({launches})")
     m = sim.metrics()
     check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0
@@ -4288,13 +4476,13 @@ def side_meshes(dev, card_line):
     for run, cfg in (("int8_mesh", lean_config(N, "int8", budget=2618)),
                      ("u4r_mesh", lean_config(N, "u4r", budget=2618)),
                      ("shrunk_mesh", full_config(N, "shrunk", budget=2618))):
-        counters.reset()
+        reset_counts()
         sim = Simulator(cfg, seed=1, mesh=mesh)
         sim.run_until_converged(max_rounds=4)
         torch.cuda.synchronize()
-        launches = dict(counters.launches)
+        launches = launch_counts()
         check(mesh_launches_ok(launches, 4, 4, fd=cfg.track_failure_detector)
-              and not counters.plain_calls and not counters.fallbacks,
+              and not plain_counts() and not counters.fallbacks,
               f"{run} did not run 2 launches a block a sub-exchange ({launches})")
         ref = Simulator(cfg, seed=1, device=dev)
         ref.run(4)
@@ -4822,18 +5010,18 @@ def churn_headline(dev, card_line):
     cfg = dataclasses.replace(headline_config(), death_rate=0.05, revival_rate=0.2,
                               writes_per_round=1)
     plain_cfg = dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False)
-    counters.reset()
+    reset_counts()
     kern = Simulator(cfg, seed=0, device=dev, chunk=1)
     plain = Simulator(plain_cfg, seed=0, device=dev, chunk=1)
     launches = collections.Counter()
     alive_counts = []
     for tick in range(1, 17):
-        before = collections.Counter(counters.launches)
-        plain_before = dict(counters.plain_calls)
+        before = collections.Counter(launch_counts())
+        plain_before = plain_counts()
         kern.run(1)
-        check(dict(counters.plain_calls) == plain_before,
+        check(plain_counts() == plain_before,
               "the churned kernel round ran a plain phase")
-        launches.update(collections.Counter(counters.launches) - before)
+        launches.update(collections.Counter(launch_counts()) - before)
         plain.run(1)
         check(states_equal(kern.state, plain.state),
               f"churned headline: kernel round != plain round at tick {tick}")
@@ -4897,15 +5085,16 @@ def config4_run(dev, card_line):
     topo = scale_free(CONFIG4_N, attach=3, seed=0)
     cfg = config4()
     digest_prefix("config4", cfg, dev, 0, topo)
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=0, device=dev, chunk=8, topology=topo)
     converged = sim.run_until_converged(max_rounds=4 * CONFIG4_N)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches, rounds = dict(counters.launches), sim.tick
+    # The adjacency's peers are drawn by plain ops.
+    launches, rounds = launch_counts(plain_draws=True), sim.tick
     log("config4", f"converged at round {converged} after {rounds} rounds in {run_s:.2f} s; "
-        f"launches {launches}; plain calls {dict(counters.plain_calls)}; fallbacks "
+        f"launches {launches}; plain calls {plain_counts(plain_draws=True)}; fallbacks "
         f"{dict(counters.fallbacks)}")
     check(converged == CONFIG4_ROUND,
           f"config 4 converged at {converged}, the reference at {CONFIG4_ROUND}")
@@ -4944,7 +5133,7 @@ def config3_runs(dev, card_line):
     (the pull's reason "pairing", the lifecycle's FD), as in the
     reference. Round times, and the view draw's
     time at 10,240."""
-    counters.reset()
+    reset_counts()
     sim = digest_prefix("config3_1000", config3(1000), dev, 0)
     t0 = time.perf_counter()
     sim.run(CONFIG3_ROUNDS - 3)
@@ -4955,7 +5144,8 @@ def config3_runs(dev, card_line):
     alive = int(m["alive_count"])
     check(0 < alive < 1000 and np.isfinite(float(m["mean_fraction"])),
           "config 3's metrics are not finite")
-    check(not counters.launches and dict(counters.fallbacks) == {"pairing": CONFIG3_ROUNDS},
+    check(not launch_counts(plain_draws=True)
+          and dict(counters.fallbacks) == {"pairing": CONFIG3_ROUNDS},
           "config 3 did not run plain with the reason 'pairing'")
     del sim
     big = digest_prefix("config3_10240", config3(N), dev, 0)
@@ -4985,7 +5175,7 @@ def choice_north(dev, card_line):
     cfg = lean_config(CHOICE_N, budget=HEADLINE_BUDGET, pairing="choice")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=CHOICE_SEED, device=dev, chunk=8)
     converged = sim.run_until_converged(max_rounds=200)
@@ -4998,7 +5188,8 @@ def choice_north(dev, card_line):
         f"check), {peak:.1f} GB peak; fallbacks {dict(counters.fallbacks)} ({card_line})")
     check(converged == CHOICE_ROUND, f"the choice run converged at {converged}, "
           f"the reference's certified round is {CHOICE_ROUND}")
-    check(dict(counters.fallbacks) == {"pairing": rounds} and not counters.launches,
+    check(dict(counters.fallbacks) == {"pairing": rounds}
+          and not launch_counts(plain_draws=True),
           "the choice run did not take the plain pull with the reason 'pairing'")
     log("choice", f"peak {peak:.2f} GB against {CHOICE_PEAK_BEFORE_GB:.1f} GB before the "
         "choice branch applied its advances a block of rows at a time")
@@ -5035,11 +5226,12 @@ def headline_variants(dev, card_line):
                                ("greedy_headline", dict(budget_policy="greedy"),
                                 "budget_policy")):
         cfg = dataclasses.replace(headline_config(), **over)
-        counters.reset()
+        reset_counts()
         sim = digest_prefix(case, cfg, dev, 0)
-        check(dict(counters.launches) == {"fd": 3} and dict(counters.fallbacks) == {reason: 3},
+        permutation = cfg.pairing == "permutation"  # drawn by plain ops
+        check(launch_counts(permutation) == {"fd": 3} and dict(counters.fallbacks) == {reason: 3},
               f"{case} did not run the plain pull ({reason}) and fd.cu")
-        launches.update(counters.launches)
+        launches.update(launch_counts(permutation))
         round_ms = round_rate(sim, rounds=8, warmup=1)
         out[case] = {"round_ms": round_ms}
         log("variants", f"{case}: ticks 1-3 == the reference's digests; {round_ms:.3f} ms a "
@@ -5109,7 +5301,7 @@ def fault_bench_arm(dev, card_line):
     reference's round; every pull plain ("fault_plan"), no kernel."""
     case = "fault_bench_split"
     cfg, want = fault_config(case), REF_DIGESTS[case]["converged_round"]
-    counters.reset()
+    reset_counts()
     sim = digest_prefix(case, cfg, dev, 0)
     sim.chunk = 8
     torch.cuda.synchronize()
@@ -5125,9 +5317,9 @@ def fault_bench_arm(dev, card_line):
         f"reference's digests; unconverged at the heal (min fraction "
         f"{float(at_heal['min_fraction']):.4f}); converged at round {converged} (the "
         f"reference's {want}); {round_ms:.3f} ms a plain round; plain calls "
-        f"{dict(counters.plain_calls)}; fallbacks {dict(counters.fallbacks)} ({card_line})")
+        f"{plain_counts()}; fallbacks {dict(counters.fallbacks)} ({card_line})")
     check(converged == want, f"fault_bench's arm converged at {converged}, the reference at {want}")
-    check(not counters.launches and dict(counters.fallbacks) == {"fault_plan": rounds},
+    check(not launch_counts() and dict(counters.fallbacks) == {"fault_plan": rounds},
           "fault_bench's arm did not run plain with the reason 'fault_plan'")
     return {"converged_round": converged, "reconverge_rounds": converged - FAULT_HEAL_TICK,
             "min_fraction_at_heal": float(at_heal["min_fraction"]), "round_ms": round_ms}
@@ -5139,11 +5331,11 @@ def flaky_headline(dev, card_line):
     against its plain version on the run's state and timed there."""
     case = "flaky_headline"
     cfg, want = fault_config(case), REF_DIGESTS[case]["converged_round"]
-    counters.reset()
+    reset_counts()
     sim = digest_prefix(case, cfg, dev, 0)
     sim.chunk = 8
     converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
-    rounds, launches = sim.tick, dict(counters.launches)
+    rounds, launches = sim.tick, launch_counts()
     check(converged == want, f"the flaky headline converged at {converged}, the reference at {want}")
     check(launches == {"fd": rounds} and dict(counters.fallbacks) == {"fault_plan": rounds},
           "the flaky headline did not run its FD phase through fd.cu every round")
@@ -5228,30 +5420,30 @@ def cadence_headline(dev, card_line):
     round, its modes likewise."""
     case = "cadence_headline"
     cfg, want = fault_config(case), REF_DIGESTS[case]["converged_round"]
-    counters.reset()
+    reset_counts()
     sim = digest_prefix(case, cfg, dev, 0)
     sim.chunk = 8
     converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
-    rounds, launches = sim.tick, dict(counters.launches)
+    rounds, launches = sim.tick, launch_counts()
     log("cadence", f"converged at round {converged} (the reference's {want}) after {rounds} "
-        f"rounds; launches {launches}; plain calls {dict(counters.plain_calls)}; fallbacks "
+        f"rounds; launches {launches}; plain calls {plain_counts()}; fallbacks "
         f"{dict(counters.fallbacks)}")
     check(converged == want, f"the cadence headline converged at {converged}, the reference at {want}")
-    check(counters.kernel_launches("pairs_pull") == 3 * rounds and not counters.plain_calls
+    check(counters.kernel_launches("pairs_pull") == 3 * rounds and not plain_counts()
           and not counters.fallbacks, "the cadence headline left the pairs kernels")
     entries = round_entries(dev, sim, launches, "cadence", check_last=True)
     del sim
     round_ms = round_rate(Simulator(cfg, seed=0, device=dev, chunk=16))
     m8_cfg = dataclasses.replace(cfg, pallas_variant="m8")
-    counters.reset()
+    reset_counts()
     sim = Simulator(m8_cfg, seed=0, device=dev)
     m8_converged = sim.run_until_converged(max_rounds=FAULT_MAX_ROUNDS)
-    m8_rounds, m8_launches = sim.tick, dict(counters.launches)
+    m8_rounds, m8_launches = sim.tick, launch_counts()
     log("cadence", f"pinned to m8: converged at round {m8_converged} after {m8_rounds} rounds; "
-        f"launches {m8_launches}; plain calls {dict(counters.plain_calls)}")
+        f"launches {m8_launches}; plain calls {plain_counts()}")
     check(m8_converged == want, f"the cadence headline on m8 converged at {m8_converged}")
     check(counters.kernel_launches("m8_pull") == 3 * m8_rounds
-          and m8_launches.get("fd") == m8_rounds and not counters.plain_calls
+          and m8_launches.get("fd") == m8_rounds and not plain_counts()
           and not counters.fallbacks, "the cadence m8 run left the m8 kernel and fd.cu")
     entries += m8_round_entries(dev, sim, m8_launches, "cadence")
     del sim
@@ -5273,18 +5465,19 @@ def fault_digest_cases(dev, card_line):
                                      ("quarantine_choice", (1, 2, 3), False),
                                      ("zone_choice", (1, 2, 3), False)):
         cfg = fault_config(case)
-        counters.reset()
+        reset_counts()
         t0 = time.perf_counter()
         sim = digest_prefix(case, cfg, dev, 0, ticks=ticks)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        rounds, launches = ticks[-1], dict(counters.launches)
+        choice = cfg.pairing == "choice"  # the alive peers, drawn by plain ops
+        rounds, launches = ticks[-1], launch_counts(choice)
         check(launches == ({"fd": rounds} if fd_launches else {})
               and dict(counters.fallbacks) == {"fault_plan": rounds},
               f"{case} did not run plain ('fault_plan') with its FD phase where expected")
         out[case] = {"ticks": list(ticks), "seconds": secs, "launches": launches}
         log("faults", f"{case}: ticks {list(ticks)} == the reference's digests in {secs:.2f} s; "
-            f"launches {launches}; plain calls {dict(counters.plain_calls)} ({card_line})")
+            f"launches {launches}; plain calls {plain_counts(choice)} ({card_line})")
         if case == "amnesia_headline":
             err, ms, plain_ms, b_ms, b_by, _ = fd_on_state(sim, "the amnesia headline")
             entry = dict(
@@ -5314,15 +5507,15 @@ def fault_sweeps(dev, card_line):
          {"fault_plan": [fsim.with_byz_frac(storm.fault_plan, f) for f in (0.0, 0.25, 0.5)]}),
         ("cadence", fault_config("cadence_headline"), {}, {}),
     ):
-        counters.reset()
+        reset_counts()
         t0 = time.perf_counter()
         sweep = SweepSimulator(cfg, [0, 1, 2], device=dev, **lanes)
         sweep.run(4)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches, fallbacks = dict(counters.launches), dict(counters.fallbacks)
+        launches, fallbacks = launch_counts(), dict(counters.fallbacks)
         if what == "cadence":
-            check(counters.kernel_launches("pairs_pull") == 4 * 3 and not counters.plain_calls
+            check(counters.kernel_launches("pairs_pull") == 4 * 3 and not plain_counts()
                   and not fallbacks, "the cadence sweep left the lane launches")
         else:
             check(not launches and fallbacks == {"fault_plan": 4},
@@ -5343,15 +5536,15 @@ def fault_meshes(dev, card_line):
     out = {}
     for case, rounds in (("fault_bench_split", 8), ("cadence_headline", 4)):
         cfg = fault_config(case)
-        counters.reset()
+        reset_counts()
         mesh = Simulator(cfg, seed=0, mesh=mesh_of(dev))
         mesh.run(rounds)
         torch.cuda.synchronize()
-        launches = dict(counters.launches)
+        launches = launch_counts()
         if case == "cadence_headline":
             check(counters.kernel_launches("pairs_totals") == rounds * 3 * MESH_BLOCKS
                   and counters.kernel_launches("pairs_pull") == rounds * 3 * MESH_BLOCKS
-                  and not counters.plain_calls and not counters.fallbacks,
+                  and not plain_counts() and not counters.fallbacks,
                   "the cadence mesh left the column-block kernels")
         else:
             check(not launches and dict(counters.fallbacks) == {"fault_plan": rounds},
@@ -5425,12 +5618,12 @@ def plain_round_equal(sim, what) -> dict:
     place = {"mesh": sim.mesh} if sim.mesh is not None else {"device": sim.device}
     out = []
     for cfg in (sim.cfg, plain_cfg):
-        counters.reset()
+        reset_counts()
         copy = st.replace(**{f: getattr(st, f).clone() for f in STATE_FIELDS})
         one = Simulator(cfg, seed=sim.seed, state=copy, **place)
         one.run(1)
         torch.cuda.synchronize()
-        out.append((one.state, dict(counters.launches)))
+        out.append((one.state, launch_counts()))
     check(states_equal(out[0][0], out[1][0]),
           f"{what}: a round through the kernels differs from the plain round")
     check(not out[1][1], f"{what}: the plain round launched a kernel")
@@ -5454,7 +5647,7 @@ def start_headline_save(dev, tmp):
                      state=st.replace(**{f: getattr(st, f).cpu() for f in STATE_FIELDS}))
     del sim, st
     torch.cuda.empty_cache()
-    counters.reset()
+    reset_counts()
 
     def save():
         t0 = time.perf_counter()
@@ -5471,7 +5664,7 @@ def checkpoint_headline(dev, card_line, saving):
     resume) and the run converges at 24 with every field equal to the
     uninterrupted run's."""
     cfg, want = headline_config(), REF_DIGESTS["resume_headline"]["converged_round"]
-    counters.reset()
+    reset_counts()
     sim = Simulator(cfg, seed=0, device=dev)
     whole = sim.run_until_converged(max_rounds=200)
     check(whole == want, f"the uninterrupted headline converged at {whole}")
@@ -5482,23 +5675,23 @@ def checkpoint_headline(dev, card_line, saving):
     on_cpu = Simulator.resume(path, device="cpu")
     on_cpu.run(2)
     cpu_s = time.perf_counter() - t0
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     mesh = Simulator.resume(path, mesh=mesh_of(dev))
     torch.cuda.synchronize()
     mesh_load_s = time.perf_counter() - t0
     mesh_round = mesh.run_until_converged(max_rounds=200)
-    mesh_launches = dict(counters.launches)
+    mesh_launches = launch_counts()
     check(mesh_round == want, f"the headline resumed on {MESH_BLOCKS} blocks converged at "
           f"{mesh_round}, the reference at {want}")
     check(counters.kernel_launches("pairs_totals") == 3 * MESH_BLOCKS * (mesh.tick - RESUME_TICK)
-          and not counters.plain_calls and not counters.fallbacks,
+          and not plain_counts() and not counters.fallbacks,
           "the resumed mesh left the column-block kernels")
     check(mesh.tick == sim.tick and states_equal(mesh.state, sim.state),
           "the resumed mesh's gathered state != the uninterrupted run's")
     plain_round_equal(mesh, "the resumed mesh")
     del mesh
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     resumed = Simulator.resume(path, device=dev, chunk=1)
     torch.cuda.synchronize()
@@ -5514,11 +5707,11 @@ def checkpoint_headline(dev, card_line, saving):
     del on_cpu
     resumed.chunk = 8
     converged = resumed.run_until_converged(max_rounds=200)
-    launches = dict(counters.launches)
+    launches = launch_counts()
     check(converged == want, f"the resumed headline converged at {converged}, the reference "
           f"at {want}")
     check(counters.kernel_launches("pairs_pull") == 3 * (resumed.tick - RESUME_TICK)
-          and not counters.plain_calls and not counters.fallbacks,
+          and not plain_counts() and not counters.fallbacks,
           "the resumed headline left the pairs kernels")
     sim.run(resumed.tick - sim.tick)
     check(states_equal(resumed.state, sim.state),
@@ -5548,7 +5741,7 @@ def sweep_checkpoint(dev, card_line, tmp):
     cfg = dataclasses.replace(headline_config(SWEEP_CKPT_N), budget=SWEEP_CKPT_BUDGET)
     seeds = list(range(len(SWEEP_CKPT_PHIS)))
     path = tmp / "sweep.npz"
-    counters.reset()
+    reset_counts()
     whole = SweepSimulator(cfg, seeds, phi_threshold=SWEEP_CKPT_PHIS, device=dev)
     rounds = whole.run_until_converged(max_rounds=400)
     part = SweepSimulator(cfg, seeds, phi_threshold=SWEEP_CKPT_PHIS, device=dev)
@@ -5567,7 +5760,7 @@ def sweep_checkpoint(dev, card_line, tmp):
     for s in range(len(seeds)):
         check(states_equal(lane(resumed.states, s), lane(whole.states, s)),
               f"lane {s} of the resumed sweep != the uninterrupted sweep's")
-    check(counters.kernel_launches("pairs_pull") > 0 and not counters.plain_calls,
+    check(counters.kernel_launches("pairs_pull") > 0 and not plain_counts(),
           "the sweeps left the lane launches")
     rows, snap = resumed.result().rows(), reg.snapshot()
     gauge = "aiocluster_sim_{}{{engine=torch,lane={}}}"
@@ -5593,15 +5786,15 @@ def telemetry_headline(dev, card_line, tmp):
     the sampler at strides 4 and 64, interleaved."""
     cfg = headline_config()
     reg, trace_path = MetricsRegistry(), tmp / "telemetry.jsonl"
-    counters.reset()
+    reset_counts()
     with TraceWriter(trace_path) as tw:
         sim = Simulator(cfg, seed=0, device=dev, chunk=TELEMETRY_STRIDE, metrics=reg,
                         metrics_stride=TELEMETRY_STRIDE, trace_writer=tw)
         converged = sim.run_until_converged(max_rounds=200)
-        launches = dict(counters.launches)
+        launches = launch_counts()
         series = sim.flush_metrics()
     check(converged == CONVERGED_ROUND, f"the telemetry headline converged at {converged}")
-    check(counters.kernel_launches("pairs_pull") == 3 * sim.tick and not counters.plain_calls,
+    check(counters.kernel_launches("pairs_pull") == 3 * sim.tick and not plain_counts(),
           "the telemetry headline left the pairs kernels")
     ticks = [s["tick"] for s in series]
     check(ticks == list(range(TELEMETRY_STRIDE, CONVERGED_ROUND + 1, TELEMETRY_STRIDE)),
@@ -5644,7 +5837,7 @@ def telemetry_north_star(dev, card_line, untracked_peak_gb):
     cfg = lean_config(NORTH_STAR_N, budget=HEADLINE_BUDGET)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     reg = MetricsRegistry()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=NORTH_STAR_SEED, device=dev, metrics=reg,
@@ -5680,12 +5873,12 @@ def variant_override(dev, card_line):
         sim = Simulator(cfg, seed=0, device=dev)
     check(sim.cfg.pallas_variant == "m8" and cfg.pallas_variant == "auto",
           "the variant override did not reach sim.cfg")
-    counters.reset()
+    reset_counts()
     converged = sim.run_until_converged(max_rounds=200)
-    launches, rounds = dict(counters.launches), sim.tick
+    launches, rounds = launch_counts(), sim.tick
     check(converged == CONVERGED_ROUND, f"the m8 override converged at {converged}")
     check(counters.kernel_launches("m8_pull") > 0 and counters.kernel_launches("pairs_pull") == 0
-          and launches.get("fd") == rounds and not counters.plain_calls,
+          and launches.get("fd") == rounds and not plain_counts(),
           f"the m8 override ran {launches}")
     with unittest.mock.patch.dict(os.environ, {gossip.VARIANT_ENV: "m9"}):
         try:
@@ -5721,7 +5914,7 @@ def simcluster_headline(dev, card_line):
     revived; its next round through the kernels equals the plain round.
     Returns (numbers, the cluster) for ``simcluster_step_ms``."""
     cfg, ref = headline_config(), REF_DIGESTS["simcluster_headline"]
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sc = SimCluster(cfg, seed=0, device=dev)
     setup_s = time.perf_counter() - t0
@@ -5744,8 +5937,8 @@ def simcluster_headline(dev, card_line):
     check(script_round == ref["script_converged_round"],
           f"SimCluster's script converged at {script_round}, the reference at "
           f"{ref['script_converged_round']}")
-    rounds, launches = sc.tick, dict(counters.launches)
-    check(counters.kernel_launches("pairs_pull") == 3 * rounds and not counters.plain_calls
+    rounds, launches = sc.tick, launch_counts()
+    check(counters.kernel_launches("pairs_pull") == 3 * rounds and not plain_counts()
           and not counters.fallbacks, "SimCluster left the pairs kernels")
     gen = np.random.default_rng(16)
     observers = gen.integers(0, N, SC_PAIRS)
@@ -5815,7 +6008,7 @@ def baseline_config1(dev, card_line):
     counters say which phases ran plain."""
     names = ["simple1", "simple2", "simple3"]
     cfg = SimConfig(n_nodes=3, keys_per_node=1, fanout=3, budget=HEADLINE_BUDGET)
-    counters.reset()
+    reset_counts()
     sc = SimCluster(cfg, names=names, seed=0, device=dev,
                     initial_key_values={n: {"cluster": str(i + 1)} for i, n in enumerate(names)})
     converged = sc.run_until_converged(max_rounds=50)
@@ -5823,8 +6016,9 @@ def baseline_config1(dev, card_line):
     check(converged is not None and all(v == views[(b, b)] for (_, b), v in views.items()),
           "the 3-node SimCluster did not converge to equal views")
     check(all(sc.live_view(n) == names for n in names), "a live view misses a node")
-    out = {"converged_round": converged, "plain_calls": dict(counters.plain_calls),
-           "fallbacks": dict(counters.fallbacks), "launches": dict(counters.launches)}
+    # Off 128 nodes the matchings are drawn by plain ops.
+    out = {"converged_round": converged, "plain_calls": plain_counts(plain_draws=True),
+           "fallbacks": dict(counters.fallbacks), "launches": launch_counts(plain_draws=True)}
     log("config1", f"3 nodes x 1 key: converged at {converged}; every replica view equal; "
         f"plain calls {out['plain_calls']}, fallbacks {out['fallbacks']}, launches "
         f"{out['launches']} ({card_line})")
@@ -5866,7 +6060,7 @@ def c4_run(dev, card_line):
     cfg = lean_config(C4_N, budget=HEADLINE_BUDGET, pairing="choice")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=CHOICE_SEED, device=dev, chunk=8)
     converged = sim.run_until_converged(max_rounds=200)
@@ -6031,16 +6225,16 @@ def mesh_sweep(dev, card_line, plans):
     del flat
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sweep = SweepSimulator(cfg, SWEEP_SEEDS, phi_threshold=SWEEP_PHIS, mesh=mesh_of(dev))
     rounds = sweep.run_until_converged(max_rounds=200)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches, ticks = dict(counters.launches), sweep.tick
+    launches, ticks = launch_counts(), sweep.tick
     mesh_peak = torch.cuda.max_memory_allocated()
     blocks = MESH_BLOCKS
-    check(not counters.plain_calls and not counters.fallbacks and not counters.refusals
+    check(not plain_counts() and not counters.fallbacks and not counters.refusals
           and all(k.startswith(("pairs_pull[lanes+totals", "pairs_totals[lanes+"))
                   for k in launches)
           and counters.kernel_launches("pairs_pull") == 3 * blocks * ticks
@@ -6115,7 +6309,7 @@ def multihost_child(address: str) -> int:
     multihost.initialize(address, 1, 0)
     mesh = multihost.global_mesh(["cuda:0"] * MESH_BLOCKS)
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     sim = Simulator(headline_config(), seed=0, mesh=mesh)
     converged = sim.run_until_converged(max_rounds=200)
     torch.cuda.synchronize()
@@ -6125,7 +6319,7 @@ def multihost_child(address: str) -> int:
         "converged_round": converged, "w_sha256": hashlib.sha256(
             w.cpu().numpy().tobytes()).hexdigest(),
         "peak_bytes": peak, "processes": mesh.processes,
-        "blocks": len(mesh.devices), "launches": dict(counters.launches),
+        "blocks": len(mesh.devices), "launches": launch_counts(),
         "backend": torch.distributed.get_backend(),
     }), flush=True)
     torch.distributed.destroy_process_group()
@@ -6238,12 +6432,12 @@ def cli_runs(dev, card_line, plans):
         cfg = _sim_config(args)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        counters.reset()
+        reset_counts()
         sim = Simulator(cfg, seed=0, chunk=8, device=dev)
         converged = sim.run_until_converged(max_rounds=10_000)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        launches = dict(counters.launches)
+        launches = launch_counts()
         metrics = {k: v.tolist() for k, v in sim.metrics().items()}
         same = (record["rounds_to_convergence"] == converged and record["tick"] == sim.tick
                 and record["metrics"] == metrics)
@@ -6272,27 +6466,54 @@ def cli_runs(dev, card_line, plans):
     return out
 
 
-def profiled_rounds(dev):
-    """Phase 17f: ``obs.device_trace`` around two headline rounds writes a
-    Chrome trace naming the pairs kernels."""
+def trace_window(dev, rounds: int) -> dict:
+    """``obs.device_trace`` around ``rounds`` headline rounds (two run
+    untraced first): its Chrome trace's events, kernel names and pairs
+    kernels, and whether ``device_trace`` warned that it lost device
+    events."""
     from aiocluster_torch.obs import device_trace
 
     sim = Simulator(headline_config(), seed=0, device=dev)
     sim.run(2)
     torch.cuda.synchronize()
+    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
     before = set(PROFILE_DIR.glob("trace_*.json"))
-    with device_trace(str(PROFILE_DIR)):
-        sim.run(2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with device_trace(str(PROFILE_DIR)):
+            sim.run(rounds)
     new = sorted(set(PROFILE_DIR.glob("trace_*.json")) - before)
     check(len(new) == 1, "device_trace wrote no trace")
     events = json.loads(new[0].read_text())["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
-    pairs = sorted(k for k in kernels if "pairs_kernel" in k)
-    log("profiling", f"device_trace of 2 headline rounds: {len(events)} events, {len(kernels)} "
-        f"kernel names, the pairs kernels {[k[:60] for k in pairs]} ({new[0].name})")
-    check(bool(pairs), "the device trace names no pairs kernel")
-    return {"trace": str(new[0].relative_to(Path(__file__).resolve().parent)),
-            "pairs_kernels": len(pairs)}
+    return {"rounds": rounds, "events": len(events), "kernel_names": len(kernels),
+            "pairs_kernels": sum("pairs_kernel" in k for k in kernels),
+            "warned": any(str(w.message).startswith("device_trace:") for w in caught),
+            "trace": str(new[0].relative_to(Path(__file__).resolve().parent))}
+
+
+def profiled_rounds(dev):
+    """Phase 17f: ``obs.device_trace`` around 16 headline rounds (a ~30 ms
+    window) writes a Chrome trace naming the pairs kernels; around 2 (a
+    ~3 ms window) so does a fresh process's, while this long process's
+    either names them too or ``device_trace`` warns that the session lost
+    device events (PERF.md, Open questions)."""
+    long = trace_window(dev, 16)
+    short = trace_window(dev, 2)
+    code = ("import json, torch, chip_smoke; "
+            "print(json.dumps(chip_smoke.trace_window(torch.device('cuda'), 2)))")
+    rc, out, err = run_child([sys.executable, "-c", code], "the 2-round trace's process", 300)
+    check(rc == 0, f"the 2-round trace's process failed (rc {rc}): {err[-2000:]}")
+    fresh = json.loads(out.splitlines()[-1])
+    for what, t in (("16 rounds", long), ("2 rounds", short), ("2 rounds, fresh process", fresh)):
+        log("profiling", f"device_trace of {what}: {t['events']} events, {t['kernel_names']} "
+            f"kernel names, {t['pairs_kernels']} pairs kernels, warned {t['warned']} "
+            f"({Path(t['trace']).name})")
+    check(long["pairs_kernels"] > 0, "the 16-round device trace names no pairs kernel")
+    check(fresh["pairs_kernels"] > 0, "a fresh process's 2-round device trace names no pairs kernel")
+    check(short["pairs_kernels"] > 0 or short["warned"],
+          "the 2-round device trace lost the pairs kernels and device_trace did not warn")
+    return {"long": long, "short": short, "fresh_short": fresh}
 
 
 def across_processes(dev, card_line):
@@ -6488,13 +6709,13 @@ def twin_replay_full(dev, card_line, tmp, written):
         f"({len(trace.rounds)} aligned rounds, {trace.skipped} skipped lines); lifted config "
         f"{cfg.version_dtype}/{cfg.heartbeat_dtype}/{cfg.fd_dtype}, budget {cfg.budget}, "
         f"fanout {cfg.fanout}")
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     with capture(simulator_mod, "Simulator") as made:
         report = twin.replay(trace, seed=0, device=dev)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    launches, plain = dict(counters.launches), dict(counters.plain_calls)
+    launches, plain = launch_counts(), plain_counts()
     check(len(made) == 1, f"replay built {len(made)} simulators")
     rsim = made[0]
     ticks = rsim.tick
@@ -6569,7 +6790,7 @@ def twin_autotune_full(dev, card_line, trace, cal, plans):
     cfg = twin.lift_sim_config(trace)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     with capture(sweep_mod, "SweepSimulator") as made:
         rec = twin.autotune(twin.SLO(*TWIN_SLO), cal, operator_config(), cfg, device=dev,
@@ -6577,7 +6798,7 @@ def twin_autotune_full(dev, card_line, trace, cal, plans):
     torch.cuda.synchronize()
     tune_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(counters.launches)
+    launches = launch_counts()
     check(len(made) == 1, f"autotune built {len(made)} sweeps")
     sweep = made[0]
     ticks, lanes = sweep.tick, sweep.lanes
@@ -6585,8 +6806,8 @@ def twin_autotune_full(dev, card_line, trace, cal, plans):
         f"({lanes * ticks / tune_s:.2f} lane-rounds/s with the set-up); recommended lane "
         f"{rec.lane} (fanout {rec.sim_config.fanout}, phi {rec.sim_config.phi_threshold}), "
         f"predicted {rec.predicted['seconds']:.1f} s; launches {launches}; plain calls "
-        f"{dict(counters.plain_calls)}; peak {peak / 1e9:.2f} GB")
-    check(lanes == 8 and not counters.plain_calls and not counters.fallbacks
+        f"{plain_counts()}; peak {peak / 1e9:.2f} GB")
+    check(lanes == 8 and not plain_counts() and not counters.fallbacks
           and counters.kernel_launches("pairs_pull") == max(TWIN_GRID["fanout"]) * ticks
           and all(k.startswith("pairs_pull[lanes") for k in launches),
           "the autotune sweep did not take one lane launch a sub-exchange")
@@ -6634,13 +6855,13 @@ def twin_fault_autotune(dev, card_line, trace, cal):
     on that run's state."""
     cfg = twin.lift_sim_config(trace, n_nodes=TWIN_FAULT_N)
     slo = twin.SLO(*TWIN_SLO, fault_plan=split_brain(2, start=0.0, heal=6.0))
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     with capture(sweep_mod, "SweepSimulator") as made:
         rec = twin.autotune(slo, cal, operator_config(), cfg, device=dev, **TWIN_FAULT_GRID)
     torch.cuda.synchronize()
     tune_s = time.perf_counter() - t0
-    launches, ticks = dict(counters.launches), made[0].tick
+    launches, ticks = launch_counts(), made[0].tick
     lanes = made[0].lanes
     del made
     log("twin_fault", f"split brain healed at tick 6, {lanes} lanes at {TWIN_FAULT_N} nodes: "
@@ -6651,10 +6872,10 @@ def twin_fault_autotune(dev, card_line, trace, cal):
           and dict(counters.fallbacks) == {"fault_plan": ticks},
           "the fault-conditioned sweep did not run its lanes plain ('fault_plan')")
     win = rec.evidence["lanes"][rec.lane]
-    counters.reset()
+    reset_counts()
     sim = Simulator(rec.sim_config, seed=0, chunk=8, device=dev)
     r = sim.run_until_converged(max_rounds=1024)
-    seq_launches, seq_rounds = dict(counters.launches), sim.tick
+    seq_launches, seq_rounds = launch_counts(), sim.tick
     check(r == win["rounds_to_convergence"], f"the fault lane converged at {r} sequentially, "
           f"{win['rounds_to_convergence']} in the sweep")
     check(seq_launches == {"fd": seq_rounds}, "the fault lane's FD phase did not run fd.cu")
@@ -6703,7 +6924,7 @@ def twin_1024_and_cli(dev, card_line, tmp, children, trace_path, slow_path):
     """Phase 18f-g: the twin loop at 1,024 (tools/twin_trace.py
     ``TWIN_LOOP``) on the card, its digests equal to the reference's;
     then the CLI children's records and exit codes equal to this run's."""
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     report, cal, rec = run_twin_loop(twin, Config, NodeId, trace_path, device=dev)
     torch.cuda.synchronize()
@@ -6712,7 +6933,7 @@ def twin_1024_and_cli(dev, card_line, tmp, children, trace_path, slow_path):
     log("twin_1024", f"replay, fit and 8-lane autotune at {TWIN_LOOP['n_nodes']} in "
         f"{loop_s:.2f} s: converged at {report.sim_converged_round}, lane {rec.lane}; digests "
         f"{'equal' if digests == REF_DIGESTS['twin_1024']['digests'] else 'DIFFERENT'} to the reference's "
-        f"({digests}); launches {dict(counters.launches)}")
+        f"({digests}); launches {launch_counts()}")
     check(digests == REF_DIGESTS["twin_1024"]["digests"]
           and report.sim_converged_round == REF_DIGESTS["twin_1024"]["converged_round"]
           and rec.lane == REF_DIGESTS["twin_1024"]["lane"], "the 1,024-node twin differs from the reference's")
@@ -6808,7 +7029,7 @@ def host_cli_config(lean: bool):
 def card_round_digests(cfg, dev):
     """A card run of ``cfg`` at seed 0, a round at a time to convergence:
     w's digest (int8 values) after each round, and the converged round."""
-    counters.reset()
+    reset_counts()
     sim = Simulator(cfg, seed=0, chunk=1, device=dev)
     digests = []
     for _ in range(400):
@@ -6997,6 +7218,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     torch.cuda.set_device(0)
+    count_drawn_chunks()
     t_all = time.perf_counter()
     card_line = card()
     log("device", f"{card_line}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -7057,14 +7279,15 @@ def main() -> int:
     seam_cfg = dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=True)
 
     # Phase 5: the main path.
-    counters.reset()
+    reset_counts()
     t0 = time.perf_counter()
     sim = Simulator(cfg, seed=0, device=dev)
     converged = sim.run_until_converged(max_rounds=200)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    main_launches = dict(counters.launches)
-    main_plain = dict(counters.plain_calls)
+    main_launches = launch_counts()
+    main_plain = plain_counts()
+    main_draws = drawn()
     rounds_run = sim.tick
     log("main", f"run_until_converged -> {converged} after {rounds_run} rounds "
         f"({main_s:.2f} s incl. setup); launches {main_launches}; "
@@ -7072,6 +7295,9 @@ def main() -> int:
     check(converged == CONVERGED_ROUND, f"converged at {converged}, expected {CONVERGED_ROUND}")
     check(counters.kernel_launches("pairs_pull") == 3 * rounds_run and not main_plain,
           "the main path did not run every sub-exchange through the kernel")
+    main_chunks = -(-rounds_run // sim.chunk)
+    check(main_draws == main_chunks and not counters.plain_calls,
+          f"the main path's {main_chunks} chunks drew {main_draws} on the draws kernel")
     m = sim.metrics()
     check(bool(m["all_converged"]) and float(m["min_fraction"]) == 1.0,
           "metrics disagree with the converged flag")
@@ -7081,11 +7307,13 @@ def main() -> int:
     head_digests = (card_matrix_digests(sim.state), sim.tick)
     del sim
 
-    counters.reset()
-    kern = Simulator(cfg, seed=0, device=dev)
+    reset_counts()
+    kern = Simulator(cfg, seed=0, device=dev, chunk=1)
     kern.run(4)
-    check(counters.kernel_launches("pairs_pull") == 12 and not counters.plain_calls,
+    check(counters.kernel_launches("pairs_pull") == 12 and not plain_counts(),
           "4 kernel-path rounds did not launch 12 pulls")
+    chunk1_draws = drawn()
+    check(chunk1_draws == 4, f"4 chunks of one round drew {chunk1_draws} on the draws kernel")
     plain = Simulator(plain_cfg, seed=0, device=dev)
     plain.run(4)
     torch.cuda.synchronize()
@@ -7095,13 +7323,13 @@ def main() -> int:
     del plain
 
     # Phase 6: the A/B seam (plain pull, standalone FD kernel).
-    counters.reset()
+    reset_counts()
     seam = Simulator(seam_cfg, seed=0, device=dev)
     seam.run(4)
     torch.cuda.synchronize()
     seam_fd_launches = counters.launches["fd"]
     log("seam", f"use_pallas=False use_pallas_fd=True, 4 rounds: fd launches "
-        f"{seam_fd_launches}, plain calls {dict(counters.plain_calls)}")
+        f"{seam_fd_launches}, plain calls {plain_counts()}")
     check(seam_fd_launches == 4 and counters.kernel_launches("pairs_pull") == 0,
           "the seam path did not run its FD phase through the standalone kernel")
     check(states_equal(seam.state, kern.state), "seam path != kernel path")
@@ -7285,6 +7513,11 @@ def main() -> int:
     )
     sweep_counts = sweep_counters(dev, card_line)
     kernels += lane_entries(dev, lane_errs, sweep_runs, headline_lane_times(dev), ns_pair_times)
+    kernels += draws_kernel_entries(dev, {
+        "headline_chunk1": (chunk1_draws, 4), "main": (main_draws, rounds_run),
+        "sweep_headline": (head_sweep["draws_launches"], head_sweep["rounds_run"]),
+        "north_star": (ns["draws_launches"], ns["rounds_run"]),
+    })
 
     # Phase 12 (C2): the full profile past the staged width.
     c2, c2_run = full_past_staged(dev, card_line, ladder_errs)

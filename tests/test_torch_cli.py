@@ -248,3 +248,26 @@ def test_device_trace_names_the_simulators_ranges(tmp_path):
     assert "aiocluster_torch.sim_step" in text and "aiocluster_torch.draws" in text
     for name in ("init_state", "metrics_sample", "sync"):
         assert f'"aiocluster_torch.{name}"' in text, name
+
+
+def test_device_trace_counts_launches_without_kernel_events(tmp_path):
+    """``device_trace``'s loss check on a canned trace: a runtime kernel
+    launch whose correlation id no kernel event carries is lost; a copy's
+    runtime call is not a kernel launch."""
+    import json
+
+    from aiocluster_torch.obs import profiling
+
+    events = [
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "args": {"correlation": 1}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "args": {"correlation": 2}},
+        {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "args": {"correlation": 3}},
+        {"cat": "kernel", "name": "pairs_kernel", "args": {"correlation": 1}},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoD", "args": {"correlation": 3}},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert profiling._lost_kernel_events(str(path)) == (1, 2)
+    events.append({"cat": "kernel", "name": "draws_kernel", "args": {"correlation": 2}})
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert profiling._lost_kernel_events(str(path)) == (0, 2)

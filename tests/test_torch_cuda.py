@@ -385,6 +385,112 @@ def test_draws_on_the_device_equal_the_host(dev):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
 
 
+# -- the draws kernel (csrc/draws.cu) against the plain draws on CPU keys -----
+
+DRAWS_CASES = [  # (lanes, rounds, first_tick, seed): each value twice per width
+    (None, 1, 1, 0), (None, 8, 2**31 + 5, 2**32 - 1),
+    (8, 1, 2**31 + 5, 0), (8, 8, 1, 2**32 - 1),
+]
+
+
+def _draws_keys(lanes, seed):
+    if lanes is None:
+        return prng.key(seed)
+    return prng.keys([seed ^ s for s in range(lanes)])
+
+
+def _assert_kernel_draws(key, first_tick, rounds, cfg, dev):
+    counters.reset()
+    got = prng.chunk_draws(key.to(dev), first_tick, rounds, cfg)
+    assert counters.launches["draws[grouped]"] == 1 and not counters.plain_calls
+    want = prng.chunk_draws(key, first_tick, rounds, cfg)
+    for name in ("gm", "c", "p"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.device.type == "cuda" and a.dtype == torch.int32, name
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("n", [1024, 10_240, 100_352, 262_144])
+@pytest.mark.parametrize("lanes, rounds, first_tick, seed", DRAWS_CASES)
+def test_draws_kernel_equals_plain(dev, n, lanes, rounds, first_tick, seed):
+    """One launch draws a chunk's grouped matchings bit for bit as the
+    plain ops: one and two sort rounds (1,280 and 12,544 groups), the
+    sort in one shared-memory tile and in two (32,768 groups, past the
+    H100's tile of 16,384 slots), a key and 8 lanes, ticks past 2**31,
+    seeds at both ends."""
+    cfg = SimConfig(n_nodes=n, fanout=3)
+    _assert_kernel_draws(_draws_keys(lanes, seed), first_tick, rounds, cfg, dev)
+
+
+def _sort_key_ties(run_key, tick, fanout, n):
+    """Per sub-exchange of round ``tick``, the sort rounds of its group
+    permutation whose 32-bit sort keys collide."""
+    _, peer = prng._round_keys(run_key, tick, 1)
+    subs = prng._sub_keys(peer, fanout, run_key.shape[:-1])[0]
+    g, out = n // 8, []
+    for f in range(fanout):
+        keys, hit = prng.split(subs[f])[0], []
+        for r in range(prng.permutation_rounds(g)):
+            keys, sub = prng.split(keys).unbind(-2)
+            if torch.unique(prng.bits(sub, (g,))).numel() < g:
+                hit.append(r)
+        out.append(hit)
+    return out
+
+
+# Seed 13 at 262,144 nodes, tick 1: sub-exchange 2's sort keys collide in
+# both rounds; seed 14: sub-exchange 0's in round 0, 1's in round 1.
+TIE_N, TIE_SEEDS = 262_144, (13, 14)
+
+
+def test_draws_tie_case_has_ties():
+    """The premise of ``test_draws_kernel_sort_ties``, on the CPU."""
+    assert _sort_key_ties(prng.key(13), 1, 3, TIE_N) == [[], [], [0, 1]]
+    assert _sort_key_ties(prng.key(14), 1, 3, TIE_N) == [[0], [1], []]
+
+
+def test_draws_kernel_sort_ties(dev):
+    """Colliding sort keys keep their positions' order in the kernel's
+    sort, as the stable sort does (``test_permutation_multi_round_sort_ties``
+    holds the plain sort against JAX's)."""
+    cfg = SimConfig(n_nodes=TIE_N, fanout=3)
+    _assert_kernel_draws(prng.key(TIE_SEEDS[0]), 1, 1, cfg, dev)
+    _assert_kernel_draws(prng.keys(TIE_SEEDS), 1, 1, cfg, dev)
+
+
+def test_draws_kernel_tiled_sort(dev):
+    """Past one tile the sort runs tile by tile through a global scratch:
+    at 1,048,576 nodes (131,072 groups, 8 tiles of the H100's 16,384
+    slots, three merges past a tile) the kernel still draws the plain
+    ops' bits in one launch."""
+    _assert_kernel_draws(prng.key(2**32 - 1), 3, 1, SimConfig(n_nodes=1_048_576, fanout=2), dev)
+
+
+def test_draws_kernel_with_churn(dev):
+    """With churn the flips stay plain beside the kernel's matchings: one
+    launch and one plain chunk, both bit for bit the plain draws."""
+    key, cfg = prng.key(5), SimConfig(n_nodes=1024, fanout=2, death_rate=0.01,
+                                      revival_rate=0.02)
+    counters.reset()
+    got = prng.chunk_draws(key.to(dev), 4, 3, cfg)
+    want = prng.chunk_draws(key, 4, 3, cfg)
+    assert counters.launches["draws[grouped]"] == 1 and counters.plain_calls["draws"] == 1
+    assert not counters.fallbacks
+    for name in ("gm", "c", "p", "dies", "revives"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+def test_simulator_chunk_launches_one_draws_kernel(dev):
+    """A Simulator's chunk of 8 rounds on the card draws its matchings in
+    exactly one launch, and no chunk draws plain."""
+    counters.reset()
+    sim = Simulator(SimConfig(n_nodes=1024, fanout=3), seed=2, device=dev, chunk=8)
+    sim.run(8)
+    torch.cuda.synchronize()
+    assert counters.launches["draws[grouped]"] == 1
+    assert counters.plain_calls["draws"] == 0
+
+
 # -- the memory ladder's rungs (int8, packed u4r, shrunk FD bookkeeping) ------
 
 LADDER_N = 10_240  # the headline width
@@ -694,7 +800,8 @@ def test_sweep_kernel_path_equals_sequential_runs(dev, two_pass, monkeypatch):
     torch.cuda.synchronize()
     assert counters.kernel_launches("pairs_pull") == 18 and not counters.plain_calls
     assert counters.kernel_launches("pairs_totals") == (18 if two_pass else 0)
-    assert all("[lanes+" in k for k in counters.launches)
+    assert counters.launches["draws[grouped]"] == 1  # the one chunk of 6 rounds
+    assert all("[lanes+" in k for k in counters.launches if not k.startswith("draws["))
     for s in range(3):
         seq = Simulator(dataclasses.replace(cfg, **{k: v[s] for k, v in values.items()}),
                         seed=s + 1, device=dev)
@@ -1067,7 +1174,8 @@ def test_simulator_cluster_path_equals_plain_path(dev, rung, monkeypatch):
         sim.run(6)
         states = [sim.state]
     assert counters.kernel_launches("pairs_pull") == 18
-    assert all("cluster" in key for key in counters.launches)
+    assert counters.launches["draws[grouped]"] == 1  # the one chunk of 6 rounds
+    assert all("cluster" in key for key in counters.launches if not key.startswith("draws["))
     assert not counters.plain_calls and not counters.fallbacks
     for s, state in enumerate(states):
         plain_cfg = dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=False)

@@ -210,7 +210,7 @@ def test_cadence_sweep_equals_reference(use_pallas):
                             over=dict(use_pallas=use_pallas), phi_threshold=[7.0, 8.0, 9.0])
     assert not counters.fallbacks
     if use_pallas:
-        assert counters.plain_calls == {"pull": 4 * 3}
+        assert counters.plain_calls == {"pull": 4 * 3, "draws": 2}  # two chunks
 
 
 def test_wan_fault_seed_sweep_equals_reference():

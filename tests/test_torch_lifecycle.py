@@ -87,7 +87,7 @@ def test_greedy_rounds_equal_reference(case):
     run_against_reference(kw, rounds=5, over=over)
     if case == "kernels_wanted":
         assert counters.fallbacks == {"budget_policy": 5}
-        assert counters.plain_calls == {"pull": 15, "fd": 5}
+        assert counters.plain_calls == {"pull": 15, "fd": 5, "draws": 5}
 
 
 def test_greedy_mesh_and_sweep_equal_reference():

@@ -216,7 +216,9 @@ def test_two_pass_simulator_equals_reference(profile, monkeypatch):
             break
     assert want_round is not None
     f = profile.fanout
-    assert counters.plain_calls == {"totals": f * want_round, "pull": f * want_round}
+    assert counters.plain_calls == {
+        "totals": f * want_round, "pull": f * want_round, "draws": want_round,  # chunk 1
+    }
     assert not counters.launches and not counters.refusals
     again = Simulator(profile, seed=4, chunk=4, device="cpu")
     assert again.run_until_converged(200) == want_round

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 from jax import random
 
 from aiocluster_tpu.ops.gossip import _grouped_matching, _random_matching
-from aiocluster_torch.ops import prng
+from aiocluster_torch.ops import counters, prng
 from aiocluster_torch.sim.config import SimConfig
 import torch
 
@@ -101,3 +101,30 @@ def test_round_key_schedule():
             assert np.array_equal(c[r, s].numpy(), np.asarray(rc))
             assert np.array_equal(p[r, s].numpy(), np.asarray(rp))
     assert prng.run_salt(prng.key(seed)) == int(random.bits(key, dtype=jnp.uint32))
+
+
+def test_chunk_draws_on_cpu_keys_take_the_plain_ops():
+    """CPU keys draw a chunk with plain ops (csrc/draws.cu serves CUDA
+    keys only), one ``plain_calls["draws"]`` a chunk on every pairing."""
+    counters.reset()
+    prng.chunk_draws(prng.key(3), 1, 2, SimConfig(n_nodes=1024, fanout=3))
+    prng.chunk_draws(prng.key(3), 1, 2, SimConfig(n_nodes=1000, fanout=3))
+    prng.chunk_draws(prng.key(3), 1, 2, SimConfig(n_nodes=1024, pairing="permutation"))
+    assert counters.plain_calls["draws"] == 3
+    assert not counters.launches and not counters.fallbacks
+    with pytest.raises(ValueError, match="CUDA"):
+        prng.grouped_draws(prng.key(3), 1, 2, 3, 1024)
+
+
+@pytest.mark.parametrize("n, rounds", [
+    (1, 0), (1_280, 1), (1_625, 1), (1_626, 2), (12_544, 2),
+])
+def test_permutation_rounds(n, rounds):
+    """The sort rounds of JAX's shuffle (``jax.random.permutation``), which
+    the draws kernel takes from ``permutation_rounds`` too: one up to
+    1,625 elements, two beyond (the headline's 1,280 groups, the north
+    star's 12,544); the permutation equals JAX's on either side of the
+    edge."""
+    assert prng.permutation_rounds(n) == rounds
+    got = prng.permutation(prng.key(n), n)
+    assert np.array_equal(got.numpy(), np.asarray(random.permutation(random.key(n), n)))

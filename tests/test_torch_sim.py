@@ -292,7 +292,8 @@ def test_fanout_zero_round_equals_reference():
         _assert_states_equal(rs, ps, f"round {r}")
         assert bool(rflag) == bool(pflag) is False
     assert counters.fallbacks == {"fanout": 6}
-    assert counters.plain_calls == {"fd": 6} and not counters.launches
+    # sim_step draws its one round by the plain ops: a chunk a round.
+    assert counters.plain_calls == {"fd": 6, "draws": 6} and not counters.launches
 
 
 # -- the pinned m8 path ---------------------------------------------------------
@@ -353,6 +354,7 @@ def test_m8_simulator_equals_reference_and_pairs_path(profile, form, monkeypatch
         per_round.update(m8_totals=cfg.fanout, totals=cfg.fanout)
     if cfg.track_failure_detector:
         per_round["fd"] = 1
+    per_round["draws"] = 2  # each simulator's chunk of one round, drawn plain
     assert dict(counters.plain_calls) == {k: v * M8_ROUNDS for k, v in per_round.items()}
     assert not counters.launches and not counters.refusals
     again = Simulator(cfg, seed=4, chunk=4, device="cpu")
@@ -387,14 +389,16 @@ def test_counters_on_the_cpu_path():
     cfg = SimConfig(n_nodes=128, fanout=2, use_pallas=True, **NARROW)
     sim = Simulator(cfg, seed=1, device="cpu")
     sim.run(3)
-    # The pairs wrappers' plain versions (FD fused into the last call).
-    assert counters.plain_calls == {"pull": 6} and not counters.launches
+    # The pairs wrappers' plain versions (FD fused into the last call);
+    # each run is one chunk, drawn by the plain ops.
+    assert counters.plain_calls == {"pull": 6, "draws": 1} and not counters.launches
     counters.reset()
     Simulator(dataclasses.replace(cfg, use_pallas=False), seed=1, device="cpu").run(2)
-    assert counters.plain_calls == {"pull": 4, "fd": 2}
+    assert counters.plain_calls == {"pull": 4, "fd": 2, "draws": 1}
     counters.reset()
     Simulator(dataclasses.replace(cfg, use_pallas=False, use_pallas_fd=True), seed=1, device="cpu").run(2)
-    assert counters.plain_calls == {"pull": 4, "fd": 2} and counters.kernel_launches("pairs_pull") == 0
+    assert counters.plain_calls == {"pull": 4, "fd": 2, "draws": 1}
+    assert counters.kernel_launches("pairs_pull") == 0
     counters.reset()
     assert not counters.plain_calls and not counters.launches and not counters.refusals
 

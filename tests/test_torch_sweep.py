@@ -95,12 +95,13 @@ def test_sweep_equals_reference_lane_by_lane(n, route, monkeypatch):
     sweep.run(ROUNDS)
     for s in range(len(SEEDS)):
         _assert_states_equal(_lane_state(want_states, s), lane(sweep.states, s), f"lane {s}")
+    chunks = -(-ROUNDS // 4)  # each drawn by the plain ops, for every lane
     if route == "plain":
         # Each lane's own fanout of plain sub-exchanges, one FD phase each.
-        assert counters.plain_calls == {"pull": ROUNDS * 6, "fd": ROUNDS * 3}
+        assert counters.plain_calls == {"pull": ROUNDS * 6, "fd": ROUNDS * 3, "draws": chunks}
     else:
         # One lane call a sub-exchange for all lanes (two in two-pass).
-        want = {"pull": ROUNDS * 3}
+        want = {"pull": ROUNDS * 3, "draws": chunks}
         if route == "lanes_two_pass":
             want["totals"] = ROUNDS * 3
         assert counters.plain_calls == want
@@ -171,7 +172,7 @@ def test_fanout_zero_lane_equals_its_sequential_run():
     sweep = SweepSimulator(cfg, [7, 7, 8], fanout=[0, 2, 0], writes_per_round=[1, 0, 2],
                            device="cpu")
     sweep.run(5)
-    assert counters.plain_calls == {"pull": 10}
+    assert counters.plain_calls == {"pull": 10, "draws": 1}
     for s, (f, wpr, seed) in enumerate(((0, 1, 7), (2, 0, 7), (0, 2, 8))):
         seq = Simulator(dataclasses.replace(cfg, fanout=f, writes_per_round=wpr), seed=seed,
                         device="cpu")
@@ -217,7 +218,7 @@ def test_pinned_m8_sweep_runs_plain_and_counts():
     sweep = SweepSimulator(cfg, [0, 1], phi_threshold=[7.0, 9.0], device="cpu")
     sweep.run(3)
     assert counters.fallbacks == {"sweep_needs_pairs": 3}
-    assert counters.plain_calls == {"pull": 18, "fd": 6}
+    assert counters.plain_calls == {"pull": 18, "fd": 6, "draws": 1}
     for s, (seed, phi) in enumerate(((0, 7.0), (1, 9.0))):
         seq = Simulator(dataclasses.replace(CFG, phi_threshold=phi), seed=seed, device="cpu")
         seq.run(3)

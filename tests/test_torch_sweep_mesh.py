@@ -79,7 +79,7 @@ def test_mesh_sweep_equals_reference_sharded_sweep(route):
     if route == "lanes":
         # A totals and a pull lane call a block for each sub-exchange.
         calls = HORIZON * 3 * 2
-        assert counters.plain_calls == {"pull": calls, "totals": calls}
+        assert counters.plain_calls == {"pull": calls, "totals": calls, "draws": HORIZON // 4}
     assert not counters.launches and not counters.refusals
     whole = sweep.states
     for s in range(len(SEEDS)):
