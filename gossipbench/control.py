@@ -1,9 +1,9 @@
-"""The control of the benchmark's comparison: the plain reference with the
-budget's share computed in bfloat16, the nearest precision below the
-float32 the configuration's round states, put in the program's place
-through the program's own interface, so it goes through the same window
-of studies and the same check. A cell's comparison has to find it not
-correct on every seed:
+"""The control of the benchmark's comparison: the configuration's plain
+reference with the budget's share computed in bfloat16, the nearest
+precision below the float32 the configuration's round states, put in the
+program's place through the program's own interface, so it goes through
+the same window of studies and the same check. A cell's comparison has
+to find it not correct on every seed:
 
     python3 gossipbench/control.py --workload <name> --seeds 1 2 3
 
@@ -22,19 +22,20 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from gossipbench import harness  # noqa: E402
-from gossipbench.reference import sim as ref  # noqa: E402
 
 PRECISION = "bfloat16"
 
 
 class ControlSim:
     """One study of the control with the interface of the simulators the
-    harness drives: every lane a run of the reference in ``PRECISION``,
-    stepped a chunk at a time, its convergence checked after every round
+    harness drives: every lane a run of the cell's reference in
+    ``PRECISION``, stepped a chunk at a time, its convergence checked
+    after every round (``run_until_converged``; ``run`` does not check)
     and, where the traffic samples, its metrics sampled after every
     round."""
 
     def __init__(self, program: harness.Program, seeds: list[int]) -> None:
+        self.ref = ref = program.cell.reference
         self.runs = [ref.Run(ref.Config.from_fields(program.lane_fields(s)), seed,
                              program.device, precision=PRECISION)
                      for s, seed in enumerate(seeds)]
@@ -47,22 +48,31 @@ class ControlSim:
         return self.runs[0].state.tick
 
     @property
-    def state(self) -> ref.State:
+    def state(self):
         return self.runs[0].state
 
     @property
     def states(self) -> types.SimpleNamespace:
-        """The lanes' matrices, field by field, indexed by lane."""
+        """The lanes' compared fields, field by field, indexed by lane."""
         return types.SimpleNamespace(**{f: [getattr(r.state, f) for r in self.runs]
-                                        for f in harness.STATE_FIELDS})
+                                        for f in self.ref.COMPARED})
 
-    def _round(self) -> None:
+    def _round(self, tracked: bool = True) -> None:
         for s, run in enumerate(self.runs):
             run.step()
-            if self.first[s] is None and ref.converged(run.state):
+            if tracked and self.first[s] is None and self.ref.converged(run.state):
                 self.first[s] = run.state.tick
         if self.samples is not None:
-            self.samples.append({"tick": self.tick, **ref.metrics_sample(self.state)})
+            self.samples.append({"tick": self.tick, **self.ref.metrics_sample(self.state)})
+
+    def run(self, rounds: int) -> None:
+        """``rounds`` more rounds, convergence unchecked."""
+        for _ in range(rounds):
+            self._round(tracked=False)
+
+    def metrics(self) -> dict[str, float]:
+        """The metrics bundle of the first lane's state."""
+        return self.ref.metrics_sample(self.state)
 
     def run_until_converged(self, max_rounds: int):
         """Whole chunks until every lane has converged or ``max_rounds``
@@ -77,7 +87,7 @@ class ControlSim:
     def flush_metrics(self) -> list[dict]:
         """The sampled series, closed at the current tick."""
         if not self.samples or self.samples[-1]["tick"] != self.tick:
-            self.samples.append({"tick": self.tick, **ref.metrics_sample(self.state)})
+            self.samples.append({"tick": self.tick, **self.ref.metrics_sample(self.state)})
         out, self.samples = self.samples, []
         return out
 

@@ -1,8 +1,9 @@
 """Faults planted in the timed path underneath a run, each of which the
 check has to find (``correct`` false): a round that returns its state
 unchanged, half of the rows (or of a sweep's lanes) left out of the
-round, and the round's answer altered where it is produced (convergence
-reported one round late).
+round, and the answer altered where it is produced: convergence reported
+one round late, or, in a study of a fixed number of rounds, one count of
+its final metrics bundle off by one.
 
     python3 gossipbench/faults.py --workload <name> --fault <fault> --seeds 1 2 3 [--seconds 5]
 
@@ -73,32 +74,54 @@ def answer_late(real):
     return step
 
 
+def bundle_altered(real):
+    def metrics(self):
+        out = real(self)
+        return {**out, "kv_known": out["kv_known"] + 1}
+    return metrics
+
+
 FAULTS = {
     "state_unchanged": state_unchanged,
     "half_the_rows": half_the_rows,
     "half_the_lanes": half_the_lanes,
     "answer_late": answer_late,
+    "bundle_altered": bundle_altered,
 }
 
 
 def applies(fault: str, cell: harness.Cell) -> bool:
-    """A sweep's lanes exist only in a sweep."""
-    return fault != "half_the_lanes" or cell.traffic["kind"] == "sweep"
+    """A sweep's lanes exist only in a sweep; a study's answer is its
+    converged round (``answer_late``), or, where its traffic fixes its
+    rounds, its final metrics bundle (``bundle_altered``)."""
+    fixed = cell.traffic.get("rounds") is not None
+    if fault == "half_the_lanes":
+        return cell.traffic["kind"] == "sweep"
+    if fault == "answer_late":
+        return not fixed
+    if fault == "bundle_altered":
+        return fixed
+    return True
 
 
 @contextlib.contextmanager
 def planted(fault: str, cell: harness.Cell):
-    """The round entry the cell's traffic drives (``step_blocks``, or a
-    sweep's ``sweep_blocks``) replaced by its faulty form."""
+    """The entry the fault breaks replaced by its faulty form: the round
+    the cell's traffic drives (``step_blocks``, or a sweep's
+    ``sweep_blocks``), or the simulator's ``metrics`` bundle."""
     import aiocluster_torch.ops.gossip as gossip
+    from aiocluster_torch.sim.simulator import Simulator
 
-    name = "sweep_blocks" if cell.traffic["kind"] == "sweep" else "step_blocks"
-    real = getattr(gossip, name)
-    setattr(gossip, name, FAULTS[fault](real))
+    if fault == "bundle_altered":
+        owner, name = Simulator, "metrics"
+    else:
+        owner, name = gossip, "sweep_blocks" if cell.traffic["kind"] == "sweep" else "step_blocks"
+    real = getattr(owner, name)
+    setattr(owner, name, FAULTS[fault](real))
     try:
         yield
     finally:
-        setattr(gossip, name, real)
+        setattr(owner, name, real)
 
 
 def main(argv=None) -> int:
@@ -110,6 +133,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cell = harness.load_cell(args.workload)
+    if not applies(args.fault, cell):
+        ap.error(f"{args.workload} cannot have the fault {args.fault}")
     passed = 0
     for seed in args.seeds:
         with planted(args.fault, cell):

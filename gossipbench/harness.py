@@ -1,16 +1,18 @@
 """The harness of the port's benchmark, driven by data: a cell of
 ``BENCHMARK.json`` names a configuration (``configs/<name>.json``: the
-simulator's fields, where it comes from, how its outputs are checked)
-and a traffic mix (``traffic/<name>.json``: how studies are driven, how
-long a study may run, the traced slice, how many studies are checked);
-its metrics are read by ``e2e/<name>.py`` and ``metrics/<name>.py``.
+simulator's fields, where it comes from, the plain reference that models
+it, how its outputs are checked) and a traffic mix
+(``traffic/<name>.json``: how studies are driven, how long a study runs
+or may run, the traced slice, how many studies are checked); its metrics
+are read by ``e2e/<name>.py`` and ``metrics/<name>.py``.
 
 A run is: set-up (imports, the kernels built or loaded, one short study
 that warms this cell's shapes), a measured window of whole studies in a
 closed loop, then the check of what the window produced against the
-plain reference (``reference/``), and one JSON line. With tracing on, a
-fixed slice of whole studies runs under ``torch.profiler`` in place of
-the window, and the per-layer metrics are read from its trace.
+configuration's plain reference (``reference/<module>.py``), and one
+JSON line. With tracing on, a fixed slice of whole studies runs under
+``torch.profiler`` in place of the window, and the per-layer metrics are
+read from its trace.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ import types
 from pathlib import Path
 
 import torch
-
-from .reference import sim as ref
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -59,6 +59,22 @@ def load_module(path: Path):
     return mod
 
 
+def load_reference(bench: Path, name: str):
+    """The reference module ``reference/<name>.py`` under ``bench``,
+    loaded from its file as a module of the package ``reference/`` there,
+    so that its relative imports resolve beside it; loaded once a
+    process."""
+    pkg_dir = bench / "reference"
+    pkg = "gossipbench_reference_" + hashlib.sha1(str(pkg_dir).encode()).hexdigest()[:12]
+    if pkg not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            pkg, pkg_dir / "__init__.py", submodule_search_locations=[str(pkg_dir)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[pkg] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{pkg}.{name}")
+
+
 @dataclasses.dataclass
 class Cell:
     """One workload of the manifest with its configuration and traffic."""
@@ -74,6 +90,11 @@ class Cell:
     @property
     def fields(self) -> dict:
         return self.config["sim_config"]
+
+    @property
+    def reference(self):
+        """The configuration's reference module (``sim`` unless named)."""
+        return load_reference(self.bench, self.config.get("reference", "sim"))
 
 
 def reports(metric: dict, cell: str, e2e_names: set[str]) -> bool:
@@ -98,6 +119,17 @@ def load_cell(workload: str, root: Path = ROOT, bench: Path = BENCH,
     config["sim_config"] = {**config["sim_config"], **(overrides or {})}
     traffic = json.loads((bench / "traffic" / f"{wl['traffic']}.json").read_text())
     traffic.update(traffic_overrides or {})
+    ref = config.get("reference", "sim")
+    if not (ref.isidentifier() and (bench / "reference" / f"{ref}.py").is_file()):
+        raise ValueError(f"configuration {wl['config']!r} names the reference {ref!r}, "
+                         f"which is no module of {bench / 'reference'}")
+    if traffic.get("rounds") is not None:
+        if traffic["kind"] == "sweep" or config["check"] == "stepwise":
+            raise ValueError(f"{workload}: a study of a fixed number of rounds (traffic "
+                             f"{wl['traffic']!r}) is checked only as a trajectory of one "
+                             f"simulator, not in a sweep or a stepwise configuration")
+        if int(traffic["rounds"]) < 1:
+            raise ValueError(f"{workload}: traffic {wl['traffic']!r} runs no round")
     e2e = [m for m in man["end_to_end"] if reports(m, workload, set())]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in man["per_layer"] if reports(m, workload, names)]
@@ -139,7 +171,8 @@ class Study:
     round (None: not within the cap), the rounds simulated, its wall time
     from the simulator's construction to its answer, and the time of the
     construction alone; the flushed metric series of a sampling study,
-    the error of one that raised, and the final state where kept."""
+    the final metrics bundle of a study of a fixed number of rounds, the
+    error of one that raised, and the final state where kept."""
 
     index: int
     seeds: list[int]
@@ -148,12 +181,17 @@ class Study:
     wall_s: float = 0.0
     init_s: float = 0.0
     series: list[dict] | None = None
+    answer: dict | None = None
     error: str | None = None
     state: object = None
 
     @property
     def failed(self) -> bool:
-        return self.error is not None or not self.first or any(f is None for f in self.first)
+        """Raised, or (a convergence study) did not converge within the
+        cap; a study of a fixed number of rounds fails only by raising."""
+        if self.error is not None:
+            return True
+        return self.answer is None and (not self.first or any(f is None for f in self.first))
 
     @property
     def lanes(self) -> int:
@@ -163,10 +201,11 @@ class Study:
 class Program:
     """``aiocluster_torch``'s entry points as a traffic mix drives them:
     kind ``simulator`` builds ``Simulator(cfg, seed, chunk, [metrics,
-    metrics_stride])`` a study and runs ``run_until_converged`` (then
-    ``flush_metrics`` when the mix samples); kind ``sweep`` builds
-    ``SweepSimulator(cfg, seeds, <lane values>, chunk)`` and runs it until
-    every lane has converged."""
+    metrics_stride])`` a study and runs ``run_until_converged``, or with
+    ``rounds`` in the mix ``run(rounds)`` and then ``metrics()``, the
+    study's answer (then ``flush_metrics`` when the mix samples); kind
+    ``sweep`` builds ``SweepSimulator(cfg, seeds, <lane values>, chunk)``
+    and runs it until every lane has converged."""
 
     def __init__(self, cell: Cell, device) -> None:
         import aiocluster_torch as port
@@ -175,9 +214,12 @@ class Program:
         self.cell, self.device = cell, torch.device(device)
         self.cfg = port.SimConfig(**cell.fields)
         t = cell.traffic
-        self.kind, self.chunk, self.cap = t["kind"], int(t["chunk"]), int(t["cap"])
+        self.kind, self.chunk = t["kind"], int(t["chunk"])
         self.lanes = int(t.get("lanes", 1))
         self.stride = t.get("metrics_stride")
+        # A study runs a fixed number of rounds, or to convergence within the cap.
+        self.rounds = None if t.get("rounds") is None else int(t["rounds"])
+        self.cap = int(t["cap"]) if self.rounds is None else None
         self.lane_values = {
             name: [spec["start"] + spec["step"] * i for i in range(self.lanes)]
             for name, spec in t.get("lane_values", {}).items()
@@ -203,7 +245,8 @@ class Program:
 
     def study(self, index: int, seeds: list[int], *, traced: bool = False,
               keep: bool = False, max_rounds: int | None = None) -> Study:
-        """Run one study; ``keep`` holds its final state in the result."""
+        """Run one study (``max_rounds`` in place of the cap, or of a
+        fixed length); ``keep`` holds its final state in the result."""
         out = Study(index, seeds)
         t0 = time.perf_counter()
         try:
@@ -212,13 +255,18 @@ class Program:
                 if traced:
                     sync(self.device)
             out.init_s = time.perf_counter() - t0
-            with span("gossipbench.run_until_converged", traced):
-                first = sim.run_until_converged(max_rounds=max_rounds or self.cap)
+            if self.rounds is None:
+                with span("gossipbench.run_until_converged", traced):
+                    first = sim.run_until_converged(max_rounds=max_rounds or self.cap)
+                out.first = list(first) if isinstance(first, list) else [first]
+            else:
+                with span("gossipbench.run", traced):
+                    sim.run(max_rounds or self.rounds)
+                    out.answer = {k: float(v) for k, v in sim.metrics().items()}
             if self.stride is not None:
                 with span("gossipbench.flush_metrics", traced):
                     out.series = sim.flush_metrics()
             out.wall_s = time.perf_counter() - t0
-            out.first = list(first) if isinstance(first, list) else [first]
             out.ticks = int(sim.tick)
             if keep:
                 out.state = sim.states if self.kind == "sweep" else sim.state
@@ -287,8 +335,7 @@ def run_slice(program: Program, run_seed: int, path: Path) -> tuple[list[Study],
 
 # Every number compared is an exact count: the trajectory is
 # deterministic, so each limit is 0.
-LIMITS = {"rounds_off": 0, "state_diff": 0, "series_diff": 0}
-STATE_FIELDS = ("w", "hb_known", "last_change", "imean", "icount", "live_view")
+LIMITS = {"rounds_off": 0, "state_diff": 0, "series_diff": 0, "answer_diff": 0}
 
 
 def _rows(n: int) -> int:
@@ -307,16 +354,9 @@ def count_diff(a: torch.Tensor, b: torch.Tensor) -> int:
                for r in range(0, a.shape[0], step))
 
 
-def diff_state(got, want, nums: dict) -> None:
-    """Add the differing elements of the watermarks, the heartbeat
-    knowledge and the failure detector's matrices of ``got`` (the
-    program's state or a lane of it) against the reference's ``want``."""
-    nums["state_diff"] += sum(count_diff(getattr(got, f), getattr(want, f)) for f in STATE_FIELDS)
-
-
-def lane_of(states, s: int):
-    """Lane ``s`` of a lane-batched state, field by field."""
-    return types.SimpleNamespace(**{f: getattr(states, f)[s] for f in STATE_FIELDS})
+def lane_of(states, s: int, fields: tuple[str, ...]):
+    """Lane ``s`` of a lane-batched state, the state ``fields`` by field."""
+    return types.SimpleNamespace(**{f: getattr(states, f)[s] for f in fields})
 
 
 def off(a: int | None, b: int | None, cap: int) -> int:
@@ -337,6 +377,12 @@ def diff_series(got: list[dict] | None, want: list[dict]) -> int:
     return bad
 
 
+def diff_answer(got: dict | None, want: dict) -> int:
+    """Values that differ between a study's final metrics bundle and the
+    reference's sample of its final state."""
+    return diff_series(None if got is None else [got], [want])
+
+
 class Checker:
     """Compares what a candidate produced with the reference: the program,
     or the control (``control.Control``) in its place through the same
@@ -345,46 +391,69 @@ class Checker:
     def __init__(self, program: Program) -> None:
         self.program, self.device = program, program.device
         self.mode = program.cell.config["check"]
+        self.ref = program.cell.reference
         self.nums = {k: 0 for k in limits(program.cell)}
 
     def ref_cfg(self, s: int = 0):
-        return ref.Config.from_fields(self.program.lane_fields(s))
+        return self.ref.Config.from_fields(self.program.lane_fields(s))
+
+    def diff_state(self, got, want) -> None:
+        """Add the differing elements of the reference's ``COMPARED``
+        fields of ``got`` (the candidate's state or a lane of it) against
+        the reference's ``want``."""
+        self.nums["state_diff"] += sum(count_diff(getattr(got, f), getattr(want, f))
+                                       for f in self.ref.COMPARED)
 
     def trajectory(self, study: Study) -> None:
         """Rerun the study through the candidate's own entry a chunk at a
-        time (``run_until_converged`` up to each chunk's end) beside the
-        reference's run of every lane from its own initial state, and
-        compare every lane's state at each chunk's end, the first
-        converged rounds (the window's and the rerun's) and the sampled
-        series (the window's and the rerun's)."""
-        p, nums = self.program, self.nums
-        sampled = p.stride is not None
+        time (``run_until_converged`` up to each chunk's end; a study of
+        a fixed number of rounds: ``run`` a chunk) beside the reference's
+        run of every lane from its own initial state, and compare every
+        lane's state at each chunk's end, the sampled series (the
+        window's and the rerun's) and either the first converged rounds
+        or the final metrics bundle (each: the window's and the
+        rerun's)."""
+        p, ref, nums = self.program, self.ref, self.nums
+        sampled, fixed = p.stride is not None, p.rounds is not None
+        end = p.rounds if fixed else p.cap
         lanes = range(len(study.seeds))
         refs = [ref.Run(self.ref_cfg(s), seed, self.device) for s, seed in zip(lanes, study.seeds)]
         ref_first, ref_series = [None for _ in lanes], []
         sim = p.build(study.seeds)
         t = 0
-        while t < p.cap:
-            t = min(t + p.chunk, p.cap)
-            res = sim.run_until_converged(max_rounds=t)
-            got_first = res if isinstance(res, list) else [res]
+        while t < end:
+            rounds = min(p.chunk, end - t)
+            t += rounds
+            if fixed:
+                sim.run(rounds)
+            else:
+                res = sim.run_until_converged(max_rounds=t)
+                got_first = res if isinstance(res, list) else [res]
             while refs[0].state.tick < t:
                 for s, run in zip(lanes, refs):
                     run.step()
-                    if ref_first[s] is None and ref.converged(run.state):
+                    if not fixed and ref_first[s] is None and ref.converged(run.state):
                         ref_first[s] = run.state.tick
                 if sampled:
                     ref_series.append({"tick": refs[0].state.tick, **ref.metrics_sample(refs[0].state)})
-            states = [lane_of(sim.states, s) for s in lanes] if p.kind == "sweep" else [sim.state]
+            states = ([lane_of(sim.states, s, ref.COMPARED) for s in lanes] if p.kind == "sweep"
+                      else [sim.state])
             for s in lanes:
-                diff_state(states[s], refs[s].state, nums)
+                self.diff_state(states[s], refs[s].state)
+            if fixed:
+                continue
             ref_done = all(f is not None for f in ref_first)
             if all(f is not None for f in got_first) or (ref_done and t >= max(ref_first) + p.chunk):
                 break
-        for s in lanes:
-            w_first = study.first[s] if s < len(study.first) else None
-            nums["rounds_off"] = max(nums["rounds_off"], off(w_first, ref_first[s], p.cap),
-                                     off(got_first[s], ref_first[s], p.cap))
+        if fixed:
+            want = ref.metrics_sample(refs[0].state)
+            rerun = {k: float(v) for k, v in sim.metrics().items()}
+            nums["answer_diff"] += diff_answer(study.answer, want) + diff_answer(rerun, want)
+        else:
+            for s in lanes:
+                w_first = study.first[s] if s < len(study.first) else None
+                nums["rounds_off"] = max(nums["rounds_off"], off(w_first, ref_first[s], p.cap),
+                                         off(got_first[s], ref_first[s], p.cap))
         if sampled:
             nums["series_diff"] += (diff_series(study.series, ref_series)
                                     + diff_series(sim.flush_metrics(), ref_series))
@@ -398,7 +467,7 @@ class Checker:
         reference: the initial state and the first chunk against the
         reference's own, one round drawn from the seed and the converging
         round from the candidate's own state there."""
-        p, nums = self.program, self.nums
+        p, ref, nums = self.program, self.ref, self.nums
         seed, t_w = study.seeds[0], study.first[0]
         if t_w is None or t_w < 2:
             nums["rounds_off"] += p.cap + 1
@@ -411,21 +480,16 @@ class Checker:
             if early is not None:
                 nums["rounds_off"] = max(nums["rounds_off"], t_w - early)
 
-        def from_candidate() -> ref.Run:
-            st = sim.state
-            return ref.Run(cfg, seed, self.device, state=ref.State(
-                tick=int(st.tick), max_version=st.max_version.clone(),
-                heartbeat=st.heartbeat.clone(), w=st.w.clone(), hb_known=st.hb_known.clone(),
-                last_change=st.last_change.clone(), imean=st.imean.clone(),
-                icount=st.icount.clone(), live_view=st.live_view.clone()))
+        def from_candidate():
+            return ref.Run(cfg, seed, self.device, state=ref.state_of(sim.state))
 
         # The start: the initial state, then the first chunk.
         run = ref.Run(cfg, seed, self.device)
-        diff_state(sim.state, run.state, nums)
+        self.diff_state(sim.state, run.state)
         a = min(p.chunk, t_w - 1)
         stop(a)
         run.run_to(a)
-        diff_state(sim.state, run.state, nums)
+        self.diff_state(sim.state, run.state)
         del run
         gc.collect()
         # One round drawn from the seed, from the candidate's state.
@@ -435,7 +499,7 @@ class Checker:
             run = from_candidate()
             run.step()
             stop(r + 1)
-            diff_state(sim.state, run.state, nums)
+            self.diff_state(sim.state, run.state)
             del run
             gc.collect()
         # The converging round, from the candidate's state just before it.
@@ -448,7 +512,7 @@ class Checker:
         first_ref = t_w - 1 if before else (t_w if ref.converged(run.state) else None)
         nums["rounds_off"] = max(nums["rounds_off"], off(t_w, got_first, p.cap),
                                  off(got_first, first_ref, p.cap), off(t_w, first_ref, p.cap))
-        diff_state(sim.state, run.state, nums)
+        self.diff_state(sim.state, run.state)
         del run, sim
         gc.collect()
 
@@ -524,9 +588,11 @@ def trace_info(program: Program, studies: list[Study]) -> dict:
 
 def limits(cell: Cell) -> dict:
     """The numbers a cell compares, each with its limit: the sampled
-    series only where the traffic samples."""
-    sampled = cell.traffic.get("metrics_stride") is not None
-    return {k: v for k, v in LIMITS.items() if sampled or k != "series_diff"}
+    series only where the traffic samples, the final bundle only where
+    its studies run a fixed number of rounds."""
+    listed = {"series_diff": cell.traffic.get("metrics_stride") is not None,
+              "answer_diff": cell.traffic.get("rounds") is not None}
+    return {k: v for k, v in LIMITS.items() if listed.get(k, True)}
 
 
 def judge(cell: Cell, studies: list[Study], nums: dict) -> bool:

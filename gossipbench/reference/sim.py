@@ -121,6 +121,17 @@ class State:
 
 
 MATRICES = ("w", "hb_known", "last_change", "imean", "icount", "live_view")
+# The fields the check compares: every matrix this round changes.
+COMPARED = MATRICES
+
+
+def state_of(program_state) -> State:
+    """The program's state copied into this module's ``State``."""
+    st = program_state
+    return State(
+        tick=int(st.tick), max_version=st.max_version.clone(), heartbeat=st.heartbeat.clone(),
+        w=st.w.clone(), hb_known=st.hb_known.clone(), last_change=st.last_change.clone(),
+        imean=st.imean.clone(), icount=st.icount.clone(), live_view=st.live_view.clone())
 
 
 def init_state(cfg: Config, device) -> State:

@@ -50,12 +50,14 @@ def test_traced_run_reads_its_metrics(workload, tmp_path):
     assert out["device"]["window_s"] > 0 and "breakdown" in out
 
 
-@pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+# Each cell with each fault it can have.
+PLANTED = [(w, f) for w in CELLS for f in sorted(faults.FAULTS)
+           if faults.applies(f, harness.load_cell(w))]
+
+
+@pytest.mark.parametrize(("workload", "fault"), PLANTED)
 def test_broken_timed_path_is_not_correct(workload, fault):
     cell = small_cell(workload)
-    if not faults.applies(fault, cell):
-        pytest.skip("a lane batch exists only in a sweep")
     with faults.planted(fault, cell):
         out = harness.run_cell(cell, 2**33 + 17, 0.3, False, "cpu")
     assert out["correct"] is False, out["checks"]
@@ -125,6 +127,117 @@ def test_new_config_traffic_and_metric_as_files(tmp_path):
     assert out["correct"] and out["metrics"]["sim_step_host_ms"]["value"] > 0
     after = {p: p.read_bytes() for p in before}
     assert after == before
+
+
+SIX = ("w", "hb_known", "last_change", "imean", "icount", "live_view")
+STAND_IN = (
+    '"""A stand-in reference: the plain round of ``sim``, whose check also\n'
+    'compares the owners\' version and heartbeat counters."""\n'
+    "from .sim import COMPARED as SIM_COMPARED\n"
+    "from .sim import Config, Run, State, converged, metrics_sample, state_of  # noqa: F401\n"
+    "\n"
+    'COMPARED = SIM_COMPARED + ("max_version", "heartbeat")\n')
+
+
+def fixed_round_tree(tmp_path) -> tuple[Path, dict]:
+    """A copy of the benchmark with, as new files and new manifest entries
+    only, a reference module, a configuration naming it and a traffic mix
+    of 12-round studies at chunk 4; returns the copy and the bytes of
+    every file of the benchmark's folder before."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    bench = tmp_path / "gossipbench"
+    shutil.copytree(ROOT / "gossipbench", bench,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    (bench / "reference" / "sim_counters.py").write_text(STAND_IN)
+    cfg = json.loads((bench / "configs" / "headline10k.json").read_text())
+    cfg.update(name="tiny_counters", reference="sim_counters",
+               sim_config={**cfg["sim_config"], **SMALL})
+    (bench / "configs" / "tiny_counters.json").write_text(json.dumps(cfg))
+    (bench / "traffic" / "fixed12.json").write_text(json.dumps({
+        "about": "12-round studies", "kind": "simulator", "chunk": 4, "rounds": 12,
+        "warmup_rounds": 4, "trace_rounds": 24, "check_sample": 1}))
+    man = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    man["configs"].append({"name": "tiny_counters", "source": "test",
+                           "file": "gossipbench/configs/tiny_counters.json",
+                           "reduced": ["n_nodes", "budget"], "why": "test"})
+    man["workloads"].append({"name": "tiny.fixed12", "config": "tiny_counters",
+                             "traffic": "fixed12", "chips": 1, "why": "test"})
+    for m in man["end_to_end"] + man["per_layer"]:
+        if m["name"] in ("round_ms", "draws_host_ms"):
+            m["workloads"].append("tiny.fixed12")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+    return tmp_path, before
+
+
+def fixed_round_cell(tmp_path) -> harness.Cell:
+    root, _ = fixed_round_tree(tmp_path)
+    return harness.load_cell("tiny.fixed12", root=root, bench=root / "gossipbench")
+
+
+def test_new_reference_and_fixed_round_traffic_as_files(tmp_path):
+    """A later change adds a configuration that names its own reference
+    module and a traffic mix of studies of a fixed number of rounds, as
+    new files and new manifest entries: the harness checks those studies
+    against that module, with no edit to a file that exists."""
+    root, before = fixed_round_tree(tmp_path)
+    cell = harness.load_cell("tiny.fixed12", root=root, bench=root / "gossipbench")
+    assert cell.reference.COMPARED == SIX + ("max_version", "heartbeat")
+    out = harness.run_cell(cell, 2**33 + 19, 0.3, False, "cpu")
+    assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 2, out["checks"]
+    assert out["checks"] == {k: {"value": 0, "limit": 0}
+                             for k in ("rounds_off", "state_diff", "answer_diff")}
+    assert out["metrics"]["round_ms"]["value"] > 0
+    out = harness.run_cell(cell, 2**33 + 19, 0.3, True, "cpu", trace_path=tmp_path / "t.json")
+    assert out["correct"] and out["metrics"]["draws_host_ms"]["value"] > 0
+    assert {p: p.read_bytes() for p in before} == before
+
+
+def test_fixed_round_studies_answer_their_bundle(tmp_path):
+    cell = fixed_round_cell(tmp_path)
+    program = harness.Program(cell, "cpu")
+    st = program.study(0, program.seeds(7, 0))
+    ref = cell.reference
+    run = ref.Run(ref.Config.from_fields(cell.fields), st.seeds[0], "cpu")
+    run.run_to(12)
+    assert not st.failed and st.first == [] and st.ticks == 12
+    assert st.answer == ref.metrics_sample(run.state)
+
+
+def test_control_is_not_correct_in_a_fixed_round_cell(tmp_path):
+    out = control.control_run(fixed_round_cell(tmp_path), 5_000_000_011, "cpu")
+    assert out["correct"] is False and out["failed"] == 0, out
+
+
+def test_faults_of_a_fixed_round_cell(tmp_path):
+    """No sweep lanes and no convergence flag in a fixed-round simulator
+    study: its faults break the state, the rows and the final bundle."""
+    cell = fixed_round_cell(tmp_path)
+    assert [f for f in sorted(faults.FAULTS) if faults.applies(f, cell)] == [
+        "bundle_altered", "half_the_rows", "state_unchanged"]
+
+
+@pytest.mark.parametrize("fault", ["bundle_altered", "half_the_rows", "state_unchanged"])
+def test_broken_timed_path_is_not_correct_in_a_fixed_round_cell(fault, tmp_path):
+    cell = fixed_round_cell(tmp_path)
+    with faults.planted(fault, cell):
+        out = harness.run_cell(cell, 2**33 + 19, 0.3, False, "cpu")
+    assert out["correct"] is False, out["checks"]
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_cells_keep_the_sim_reference_and_their_checks(workload):
+    cell = harness.load_cell(workload)
+    assert Path(cell.reference.__file__) == ROOT / "gossipbench" / "reference" / "sim.py"
+    assert cell.reference.COMPARED == SIX
+    want = ["rounds_off", "state_diff"] + (["series_diff"] if workload == "headline.sampled" else [])
+    assert list(harness.limits(cell).items()) == [(k, 0) for k in want]
+
+
+@pytest.mark.parametrize("workload", ["northstar.converge", "headline.phi_sweep"])
+def test_fixed_rounds_refused_in_a_sweep_or_stepwise_cell(workload):
+    with pytest.raises(ValueError, match="fixed number of rounds"):
+        harness.load_cell(workload, traffic_overrides={"rounds": 12})
 
 
 def canned_trace() -> Trace:

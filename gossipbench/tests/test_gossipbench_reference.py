@@ -82,7 +82,7 @@ def test_phi_sweep_lanes_round_by_round(seed):
         sweep.run(1)
         for s, run in enumerate(runs):
             run.step()
-            assert_same(harness.lane_of(sweep.states, s), run.state, (t, s))
+            assert_same(harness.lane_of(sweep.states, s, R.COMPARED), run.state, (t, s))
 
 
 def test_dither_int32_equals_int64_words():
